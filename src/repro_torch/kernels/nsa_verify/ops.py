@@ -1,0 +1,252 @@
+"""Wrappers around the fused NSA verification kernel (``csrc/nsa_verify.cu``)
+— the counterparts of ``repro.kernels.nsa_verify.ops``.
+
+``nsa_verify_fused`` takes model-level tensors plus the grouping strategy,
+builds the merged-schedule (exact) or shared-index (approx) layouts and
+ownership masks in PyTorch, and calls ``verify_groups``: CUDA tensors
+launch the kernel (or raise), CPU tensors run the plain version in
+``ref.py``. ``nsa_verify_kernel_layer`` is one NSA layer's verify through
+the kernels: refresh layers run the routing kernel, Top-n selection and the
+partially fused kernel; reuse layers run the fully fused kernel on
+inherited indices. Only the dense KV store and the gated combine
+(``combine=True``) are ported.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import numpy as np
+import torch
+
+from repro_torch.config import NSAConfig
+from repro_torch.core import kvstore, overlap
+from repro_torch.kernels import LaunchCounter, build
+from repro_torch.kernels.nsa_verify import ref
+from repro_torch.kernels.routing import ops as routing_ops
+from repro_torch.kernels.routing.ops import per_row
+
+FULL_LAUNCHES = LaunchCounter("nsa_verify_full")
+PARTIAL_LAUNCHES = LaunchCounter("nsa_verify_partial")
+HEAD_DIM = 64
+MAX_ROWS = 16
+
+
+@functools.lru_cache(maxsize=256)
+def _qmap_i32(T: int, C: int, device: str):
+    qmap, _ = overlap.group_queries(T, C)
+    return torch.as_tensor(np.array(qmap), dtype=torch.int32, device=device)
+
+
+def group_layouts(sel_idx, sel_valid, positions, C: int, mode: str):
+    """-> (merged (B,G,Hkv,M) int32 with -1 for none, mvalid int32,
+    own (B,G,Hkv,C,M) int32, qmap (G,C) int32)."""
+    B, T, Hkv, n = sel_idx.shape
+    qmap = _qmap_i32(T, C, str(sel_idx.device))
+    if mode == "approx":
+        idx2, val2 = overlap.shared_index(sel_idx, sel_valid, positions, C)
+        first = qmap[:, 0].long()
+        mvalid = val2[:, first]                                      # (B,G,Hkv,n)
+        merged = torch.where(mvalid, idx2[:, first].to(torch.int32),
+                             torch.full((), -1, dtype=torch.int32, device=sel_idx.device))
+        own = torch.ones((B, qmap.shape[0], Hkv, C, n), dtype=torch.int32,
+                         device=sel_idx.device)
+        return merged, mvalid.to(torch.int32), own, qmap
+    merged, own, mvalid = overlap.merged_schedule(sel_idx, sel_valid, C)
+    merged = torch.where(mvalid, merged, torch.full_like(merged, -1))
+    return merged, mvalid.to(torch.int32), own.to(torch.int32), qmap
+
+
+def prepare_groups(q, gates, sel_idx, sel_valid, positions, C: int, mode: str):
+    """The JAX ``prepare_groups`` layout: (q_grp (B,G,Hkv,R,Dh), gates_grp
+    (B,G,Hkv,R,3), merged, mvalid, own, pos_grp (B,G,C), qmap). The kernel
+    reads q and gates through ``qmap`` directly; this form is for callers
+    that want the grouped tensors."""
+    B, T, Hq, Dh = q.shape
+    Hkv = sel_idx.shape[2]
+    Gq = Hq // Hkv
+    merged, mvalid, own, qmap = group_layouts(sel_idx, sel_valid, positions, C, mode)
+    gi = qmap.long()
+    G = gi.shape[0]
+    q_grp = q.reshape(B, T, Hkv, Gq, Dh)[:, gi].permute(0, 1, 3, 2, 4, 5) \
+        .reshape(B, G, Hkv, C * Gq, Dh)
+    g_grp = gates.permute(0, 1, 3, 2).reshape(B, T, Hkv, Gq, 3)[:, gi] \
+        .permute(0, 1, 3, 2, 4, 5).reshape(B, G, Hkv, C * Gq, 3)
+    return q_grp, g_grp, merged, mvalid, own, positions[:, gi], qmap
+
+
+def _lib():
+    fn = build.library("nsa_verify").nsa_verify_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def verify_groups(q, k_cache, v_cache, k_cmp, v_cmp, k_draft, v_draft, merged,
+                  mvalid, own, qmap, positions, prefix_len, ncb_valid,
+                  win_start, dmask, gates, o_cmp_in, *, nsa: NSAConfig,
+                  include_cmp: bool):
+    """The kernel boundary. Shapes as in ``ref.verify_groups_plain``;
+    prefix_len / ncb_valid / win_start are (B,) int32 device tensors.
+    Returns (B,T,Hq,Dh) f32."""
+    geo = dict(sel_block=nsa.sel_block, cmp_block=nsa.cmp_block,
+               cmp_stride=nsa.cmp_stride, window=nsa.window)
+    if q.device.type == "cpu":
+        return ref.verify_groups_plain(
+            q, k_cache, v_cache, k_cmp, v_cmp, k_draft, v_draft, merged,
+            mvalid, own, qmap, positions, prefix_len, ncb_valid, win_start,
+            dmask, gates, o_cmp_in, include_cmp=include_cmp, **geo)
+    if q.device.type != "cuda":
+        raise ValueError(f"verify_groups: unsupported device {q.device}")
+    return launch(q, k_cache, v_cache, k_cmp, v_cmp, k_draft, v_draft, merged,
+                  mvalid, own, qmap, positions, prefix_len, ncb_valid,
+                  win_start, dmask, gates, o_cmp_in, nsa=nsa,
+                  include_cmp=include_cmp)
+
+
+def launch(q, k_cache, v_cache, k_cmp, v_cmp, k_draft, v_draft, merged, mvalid,
+           own, qmap, positions, prefix_len, ncb_valid, win_start, dmask,
+           gates, o_cmp_in, *, nsa: NSAConfig, include_cmp: bool):
+    """Launch the CUDA kernel (CUDA tensors only); checks every input."""
+    B, T, Hq, Dh = q.shape
+    S, Hkv = k_cache.shape[1], k_cache.shape[2]
+    G, C = qmap.shape
+    M = merged.shape[-1]
+    NCB = k_cmp.shape[1]
+    dev = q.device
+    if Dh != HEAD_DIM:
+        raise ValueError(f"nsa_verify kernel is built for head_dim {HEAD_DIM}, got {Dh}")
+    if Hq % Hkv or not 1 <= C * (Hq // Hkv) <= MAX_ROWS:
+        raise ValueError(f"nsa_verify kernel takes C*Gq <= {MAX_ROWS} rows per CTA")
+    if q.dtype != torch.float32:
+        raise TypeError(f"q must be float32 (pre-scaled), got {q.dtype}")
+    kv_t = k_cache.dtype
+    if kv_t not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"K/V must be float32 or bfloat16, got {kv_t}")
+    shapes = {"k_cache": (k_cache, (B, S, Hkv, Dh), kv_t),
+              "v_cache": (v_cache, (B, S, Hkv, Dh), kv_t),
+              "k_cmp": (k_cmp, (B, NCB, Hkv, Dh), kv_t),
+              "v_cmp": (v_cmp, (B, NCB, Hkv, Dh), kv_t),
+              "k_draft": (k_draft, (B, T, Hkv, Dh), kv_t),
+              "v_draft": (v_draft, (B, T, Hkv, Dh), kv_t),
+              "merged": (merged, (B, G, Hkv, M), torch.int32),
+              "mvalid": (mvalid, (B, G, Hkv, M), torch.int32),
+              "own": (own, (B, G, Hkv, C, M), torch.int32),
+              "qmap": (qmap, (G, C), torch.int32),
+              "positions": (positions, (B, T), torch.int32),
+              "prefix_len": (prefix_len, (B,), torch.int32),
+              "ncb_valid": (ncb_valid, (B,), torch.int32),
+              "win_start": (win_start, (B,), torch.int32),
+              "dmask": (dmask, (B, T, T), torch.int32),
+              "gates": (gates, (B, T, 3, Hq), torch.float32)}
+    if not include_cmp:
+        if o_cmp_in is None:
+            raise ValueError("partial fusion (include_cmp=False) needs o_cmp_in")
+        shapes["o_cmp_in"] = (o_cmp_in, (B, T, Hq, Dh), torch.float32)
+    for name, (t, shape, dt) in shapes.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+        if t.dtype != dt:
+            raise TypeError(f"{name} has dtype {t.dtype}, expected {dt}")
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, q on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if not q.is_contiguous():
+        raise ValueError("q must be contiguous")
+    out = torch.empty((B, T, Hq, Dh), dtype=torch.float32, device=dev)
+    tensors = [q, k_cache, v_cache, k_cmp, v_cmp, k_draft, v_draft, merged,
+               mvalid, own, qmap, positions, prefix_len, ncb_valid, win_start,
+               dmask, gates]
+    ptrs = [t.data_ptr() for t in tensors]
+    ptrs += [o_cmp_in.data_ptr() if not include_cmp else None, out.data_ptr()]
+    ints = [B, T, S, Hkv, Hq // Hkv, C, G, M, NCB, min(nsa.window, S),
+            nsa.sel_block, nsa.cmp_block, nsa.cmp_stride, nsa.window,
+            int(include_cmp)]
+    err = _lib()((ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_int * len(ints))(*ints),
+                 0 if kv_t == torch.float32 else 1,
+                 torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"nsa_verify kernel launch failed: cudaError {err}")
+    (FULL_LAUNCHES if include_cmp else PARTIAL_LAUNCHES).add()
+    return out
+
+
+def nsa_verify_fused(q, k_cache, v_cache, k_cmp, v_cmp, k_draft, v_draft,
+                     sel_idx, sel_valid, positions, prefix_len, ncb_valid,
+                     tree_mask, gates, nsa: NSAConfig, C: int = 2,
+                     mode: str = "exact", include_cmp: bool = True,
+                     o_cmp_in=None):
+    """Fused grouped-query NSA verification on the dense store.
+
+    q (B,T,Hq,Dh) ALREADY rope'd and scaled by 1/sqrt(Dh); prefix_len and
+    ncb_valid are ints or device tensors (0-d or (B,)). Returns (B,T,Hq,Dh)
+    f32."""
+    B, T, Hq, Dh = q.shape
+    S = k_cache.shape[1]
+    dev = q.device
+    merged, mvalid, own, qmap = group_layouts(sel_idx, sel_valid, positions, C, mode)
+    W = min(nsa.window, S)
+    plen = per_row(prefix_len, B, dev)
+    win_start = (plen - W).clamp(0, max(S - W, 0)).to(torch.int32)
+    dist = positions[:, :, None] - positions[:, None, :]
+    dmask = tree_mask & (dist < nsa.window) & (dist >= 0)
+    if dev.type == "cuda":
+        dmask = dmask.to(torch.int32)
+        positions = positions.to(torch.int32).contiguous()
+        gates = gates.float().contiguous()
+        q = q.float().contiguous()
+        if o_cmp_in is not None:
+            o_cmp_in = o_cmp_in.float().contiguous()
+    return verify_groups(q, k_cache, v_cache, k_cmp, v_cmp, k_draft.contiguous(),
+                         v_draft.contiguous(), merged.contiguous(),
+                         mvalid.contiguous(), own.contiguous(), qmap, positions,
+                         plen, per_row(ncb_valid, B, dev), win_start, dmask,
+                         gates, o_cmp_in, nsa=nsa, include_cmp=include_cmp)
+
+
+def nsa_verify_kernel_layer(params, cfg, x, cache, cmp_cache, prefix_len,
+                            positions, tree_mask, sel_idx=None, sel_valid=None,
+                            C: int = 2, mode: str = "exact", reuse: bool = False):
+    """One NSA layer's tree verification through the kernels.
+
+    reuse=False (refresh layer): routing kernel on the pre-scaled q ->
+      Top-n -> (approx, C > 1: shared index, so the carried indices are the
+      ones the JAX model path carries) -> partially fused verify kernel.
+    reuse=True: inherited ``sel_idx`` -> fully fused verify kernel.
+    Returns (out (B,T,D), (k_new, v_new), (sel_idx, sel_valid)).
+    """
+    from repro_torch.models import attention as attn_lib
+    from repro_torch.models import nsa as nsa_lib
+
+    kv = kvstore.as_view(cache)
+    nsa = cfg.nsa
+    B, T, _ = x.shape
+    Hq, Dh = cfg.num_heads, cfg.head_dim
+    q, k_new, v_new = attn_lib.qkv(params, cfg, x, positions)
+    q_s = (q / math.sqrt(Dh)).float().contiguous()
+    g_all = nsa_lib.gates(params, x, Hq)
+    plen = torch.as_tensor(prefix_len, device=x.device)
+    ncb_valid = nsa_lib.dyn_num_cmp_blocks(plen, nsa)
+    k_cmp, v_cmp = cmp_cache["k_cmp"], cmp_cache["v_cmp"]
+    if reuse:
+        if sel_idx is None:
+            raise ValueError("reuse layers inherit indices: pass sel_idx")
+        out = nsa_verify_fused(q_s, kv.k, kv.v, k_cmp, v_cmp, k_new, v_new,
+                               sel_idx, sel_valid, positions, plen, ncb_valid,
+                               tree_mask, g_all, nsa, C=C, mode=mode,
+                               include_cmp=True)
+    else:
+        o_cmp, p_slc = routing_ops.routing_fused(q_s, k_cmp, v_cmp, positions,
+                                                 ncb_valid, nsa, kv_len=kv.max_len)
+        sel_idx, sel_valid = nsa_lib.select_topn(p_slc, positions, plen, nsa)
+        if mode == "approx" and C > 1:
+            sel_idx, sel_valid = overlap.shared_index(sel_idx, sel_valid, positions, C)
+        out = nsa_verify_fused(q_s, kv.k, kv.v, k_cmp, v_cmp, k_new, v_new,
+                               sel_idx, sel_valid, positions, plen, ncb_valid,
+                               tree_mask, g_all, nsa, C=C, mode=mode,
+                               include_cmp=False, o_cmp_in=o_cmp)
+    out = out.to(x.dtype).reshape(B, T, Hq * Dh) @ params["wo"]
+    return out, (k_new, v_new), (sel_idx, sel_valid)

@@ -1,0 +1,104 @@
+"""Serving CLI of the PyTorch port: single-stream SSV speculative
+serving of an architecture, optionally against the autoregressive baseline.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch ssv-nsa-1b \
+      --prompts 1 --tokens 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
+      --precision-class Approx+Reuse --baseline
+
+The flags are the JAX CLI's (``repro.launch.serve``) plus ``--device``
+(default ``cuda``). Weights are drawn from ``--seed`` with the JAX
+``model.init`` distributions. ``--batch > 1``, ``--continuous``,
+``--bucketed`` and ``--kv-backend paged`` belong to slices that are not
+ported yet and raise.
+"""
+from __future__ import annotations
+
+import argparse
+
+import torch
+
+from repro_torch import configs as cfglib
+from repro_torch.bridge import init_params
+from repro_torch.config import ServeConfig, SSVConfig
+from repro_torch.core import draft as draft_lib
+from repro_torch.core import engine as engine_lib
+from repro_torch.core import planner as planner_lib
+from repro_torch.data.synthetic import SyntheticConfig, SyntheticCorpus
+from repro_torch.device import resolve_device
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="ssv-nsa-1b")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--tokens", type=int, default=64)
+    ap.add_argument("--prompts", type=int, default=2)
+    ap.add_argument("--batch", type=int, default=1)
+    ap.add_argument("--continuous", action="store_true")
+    ap.add_argument("--arrival-rate", type=float, default=0.0)
+    ap.add_argument("--prompt-len", type=int, default=48)
+    ap.add_argument("--kv-backend", default="dense", choices=("dense", "paged"))
+    ap.add_argument("--kv-page-size", type=int, default=0)
+    ap.add_argument("--kv-num-pages", type=int, default=0)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--precision-class", default="Strict",
+                    choices=list(planner_lib.PRECISION_CLASSES))
+    ap.add_argument("--tree-depth", type=int, default=4)
+    ap.add_argument("--tree-width", type=int, default=2)
+    ap.add_argument("--bucketed", action="store_true")
+    ap.add_argument("--warmup", action="store_true")
+    ap.add_argument("--profile-json", default=None)
+    ap.add_argument("--baseline", action="store_true",
+                    help="also run the autoregressive decode baseline")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu (the plain PyTorch path)")
+    return ap
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    unported = [flag for flag, on in (
+        ("--batch > 1", args.batch > 1), ("--continuous", args.continuous),
+        ("--bucketed", args.bucketed), ("--warmup", args.warmup),
+        ("--kv-backend paged", args.kv_backend == "paged")) if on]
+    if unported:
+        raise NotImplementedError(f"{', '.join(unported)}: not ported yet "
+                                  "(single-stream serving only)")
+    dev = resolve_device(args.device)
+    cfg = cfglib.reduced(args.arch) if args.reduced else cfglib.get_config(args.arch)
+    dcfg = draft_lib.draft_config(cfg)
+    gen = torch.Generator(dev)
+    gen.manual_seed(args.seed)
+    tp = init_params(cfg, gen, dev)
+    dp = init_params(dcfg, gen, dev)
+
+    mode, reuse = planner_lib.class_constraints(args.precision_class)
+    sched = planner_lib.default_schedule(cfg.num_layers) if reuse else ()
+    ssv = SSVConfig(tree_depth=args.tree_depth, tree_width=args.tree_width,
+                    group_size=4 if mode == "approx" else 2, group_mode=mode,
+                    refresh_schedule=sched, precision_class=args.precision_class)
+    serve_cfg = ServeConfig(max_new_tokens=args.tokens, temperature=args.temperature,
+                            max_context=min(cfg.max_seq_len, 2048), ssv=ssv,
+                            use_planner=False)
+    corpus = SyntheticCorpus(SyntheticConfig(vocab_size=cfg.vocab_size))
+    prompts = [corpus.batch(i, 1, args.prompt_len)[0] for i in range(args.prompts)]
+
+    eng = engine_lib.SSVEngine(tp, cfg, dp, dcfg, serve_cfg, rng_seed=args.seed,
+                               device=dev)
+    for i, prompt in enumerate(prompts):
+        res = eng.generate(prompt, max_new_tokens=args.tokens)
+        print(f"prompt {i}: {len(res.tokens)} tokens, "
+              f"mean accepted/step {res.mean_accepted:.2f}, "
+              f"throughput {res.accepted_token_throughput:.1f} tok/s")
+        if args.baseline:
+            bl = engine_lib.autoregressive_decode(
+                tp, cfg, prompt, len(res.tokens), serve_cfg.max_context,
+                temperature=args.temperature, seed=args.seed, device=dev)
+            print(f"  AR baseline: {bl.accepted_token_throughput:.1f} tok/s "
+                  f"-> speedup {res.accepted_token_throughput / max(bl.accepted_token_throughput, 1e-9):.2f}x")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,137 @@
+"""Dense GQA attention: train/prefill (chunked causal) and the tree-masked
+speculative verification the dense draft runs — the PyTorch counterparts of
+``repro.models.attention``.
+
+Shapes convention:
+  x:        (B, S, D)
+  q:        (B, S, Hq, Dh)
+  k, v:     (B, S, Hkv, Dh)
+  caches:   {"k": (B, S_max, Hkv, Dh), "v": ...}   (positions < length valid)
+
+GQA is computed by reshaping q to (B, S, Hkv, G, Dh) where G = Hq // Hkv.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.config import ModelConfig
+from repro_torch.core import kvstore
+from repro_torch.models import layers
+
+NEG_INF = -1e30
+
+
+def qkv(params, cfg: ModelConfig, x, positions):
+    B, S, _ = x.shape
+    q = (x @ params["wq"]).reshape(B, S, cfg.num_heads, cfg.head_dim)
+    k = (x @ params["wk"]).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    v = (x @ params["wv"]).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = layers.rmsnorm(params["q_norm"], q, cfg.norm_eps)
+        k = layers.rmsnorm(params["k_norm"], k, cfg.norm_eps)
+    q = layers.apply_rope(q, positions, cfg.rope_theta)
+    k = layers.apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _sdpa(q, k, v, mask, scale):
+    """q: (B, Sq, Hkv, G, Dh); k/v: (B, Skv, Hkv, Dh); mask (B|1, Sq, Skv).
+    Returns (B, Sq, Hkv, G, Dh) in q's dtype."""
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", q.float(), k.float()) * scale
+    logits = torch.where(mask[:, None, None], logits,
+                         torch.full((), NEG_INF, device=q.device))
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.float())
+    return out.to(q.dtype)
+
+
+def causal_mask(sq: int, skv: int, device, q_offset: int = 0, window: int = 0):
+    qpos = torch.arange(sq, device=device)[:, None] + q_offset
+    kpos = torch.arange(skv, device=device)[None, :]
+    m = kpos <= qpos
+    if window > 0:
+        m &= kpos > qpos - window
+    return m[None]                                          # (1, Sq, Skv)
+
+
+def attend_train(params, cfg: ModelConfig, x, positions, window: int = 0,
+                 chunk: int = 0):
+    """Full-sequence causal attention (optionally sliding-window), chunked
+    over queries when ``chunk`` divides S so the score working set stays
+    bounded. Returns (out (B,S,D), (k, v))."""
+    B, S, _ = x.shape
+    G = cfg.q_per_kv
+    q, k, v = qkv(params, cfg, x, positions)
+    qg = q.reshape(B, S, cfg.num_kv_heads, G, cfg.head_dim)
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    if chunk and S % chunk == 0 and S > chunk:
+        outs = []
+        for i in range(S // chunk):
+            m = causal_mask(chunk, S, x.device, q_offset=i * chunk, window=window)
+            outs.append(_sdpa(qg[:, i * chunk:(i + 1) * chunk], k, v, m, scale))
+        out = torch.cat(outs, dim=1)
+    else:
+        out = _sdpa(qg, k, v, causal_mask(S, S, x.device, window=window), scale)
+    out = out.reshape(B, S, cfg.num_heads * cfg.head_dim)
+    return out @ params["wo"], (k, v)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device):
+    shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def write_cache(cache, k_new, v_new, start):
+    """Insert (B, T, Hkv, Dh) at ``start`` (an int or a 0-d device tensor),
+    in place, through the dense ``KVView``. Unlike
+    ``jax.lax.dynamic_update_slice`` nothing is clamped: the caller keeps
+    ``start + T <= S`` (the engine's headroom), and an int start that breaks
+    it raises."""
+    kvstore.as_view(cache).write(k_new, v_new, start)
+    return cache
+
+
+def attend_verify(params, cfg: ModelConfig, x, cache, prefix_len, positions,
+                  tree_mask, window: int = 0):
+    """Tree-masked verification over T draft tokens (the dense draft's
+    verify; plain PyTorch — no TPU kernel sits on this path).
+
+    x: (B, T, D); positions (B, T) absolute; tree_mask (B, T, T) bool;
+    prefix_len an int or 0-d/(B,) device tensor. ``cache`` is a raw
+    ``{"k", "v"}`` dict or a ``kvstore.KVView``. The draft K/V are appended
+    only for this pass; the cache is unchanged on return.
+    """
+    cache_k, cache_v = kvstore.as_view(cache).full()
+    B, T, _ = x.shape
+    q, k_new, v_new = qkv(params, cfg, x, positions)
+    G = cfg.q_per_kv
+    qg = q.reshape(B, T, cfg.num_kv_heads, G, cfg.head_dim).float()
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    neg = torch.full((), NEG_INF, device=x.device)
+
+    S_max = cache_k.shape[1]
+    kpos = torch.arange(S_max, device=x.device)[None, None, :]
+    plen = torch.as_tensor(prefix_len, device=x.device)
+    plen = plen.reshape(-1, 1, 1) if plen.ndim else plen
+    prefix_mask = (kpos < plen).expand(B, T, S_max)
+    if window > 0:
+        prefix_mask = prefix_mask & (kpos > positions[..., None] - window)
+
+    logits_p = torch.einsum("bqhgd,bkhd->bhgqk", qg, cache_k.float()) * scale
+    logits_p = torch.where(prefix_mask[:, None, None], logits_p, neg)
+    logits_d = torch.einsum("bqhgd,bkhd->bhgqk", qg, k_new.float()) * scale
+    dmask = tree_mask
+    if window > 0:
+        dist = positions[:, :, None] - positions[:, None, :]
+        dmask = dmask & (dist < window)
+    logits_d = torch.where(dmask[:, None, None], logits_d, neg)
+
+    probs = torch.softmax(torch.cat([logits_p, logits_d], dim=-1), dim=-1)
+    pp, pd = probs[..., :S_max], probs[..., S_max:]
+    out = torch.einsum("bhgqk,bkhd->bqhgd", pp, cache_v.float()) \
+        + torch.einsum("bhgqk,bkhd->bqhgd", pd, v_new.float())
+    out = out.to(x.dtype).reshape(B, T, cfg.num_heads * cfg.head_dim) @ params["wo"]
+    return out, (k_new, v_new)

@@ -1,0 +1,53 @@
+"""Core layer primitives: RMSNorm, rotary embeddings, the SwiGLU FFN,
+embedding and LM head — the PyTorch counterparts of ``repro.models.layers``.
+
+Parameters are plain dicts of tensors with the JAX package's names and
+layouts (``x @ w`` with ``w`` of shape (d_in, d_out)), so weights bridge
+one to one (``repro_torch.bridge``).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def rmsnorm(params, x, eps: float = 1e-6):
+    """Computed in float32, then cast back to the input dtype."""
+    orig = x.dtype
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    xf = xf * torch.rsqrt(var + eps)
+    return (xf * params["scale"].float()).to(orig)
+
+
+def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
+    half = head_dim // 2
+    exps = torch.arange(0, half, dtype=torch.float32, device=device) / half
+    return 1.0 / (torch.tensor(theta, dtype=torch.float32, device=device) ** exps)
+
+
+def apply_rope(x, positions, theta: float = 10000.0):
+    """x: (..., seq, heads, head_dim); positions broadcastable to (..., seq).
+    Split-halves rotation (not interleaved), as the JAX package does."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    angles = positions[..., None].float() * freqs          # (..., seq, half)
+    angles = angles[..., None, :]                          # (..., seq, 1, half)
+    sin, cos = torch.sin(angles), torch.cos(angles)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def ffn(params, x, activation: str):
+    if activation != "swiglu":
+        raise NotImplementedError(f"activation {activation!r} is not ported yet")
+    h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
+    return h @ params["w_down"]
+
+
+def embed(params, tokens):
+    return params["table"][tokens]
+
+
+def lm_head(params, x):
+    return x @ params["w"]

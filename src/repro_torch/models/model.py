@@ -1,0 +1,228 @@
+"""Decoder-only model, attention blocks only — the serving paths of
+``repro.models.model`` in PyTorch.
+
+Parameters are plain dicts of tensors with the JAX names, but unstacked:
+``params["layers"]`` is a list with one block dict per layer (the JAX
+package stacks each segment along a leading axis; ``repro_torch.bridge``
+unstacks). Caches are ``{"layers": [{"kv": {"k", "v"}, "cmp": {...}}, ...],
+"length": 0-d int32 device tensor}``.
+
+Paths:
+  * ``prefill``     — full prompt forward that builds the KV / compressed
+    caches;
+  * ``verify_step`` — T tree-masked draft tokens; NSA layers run the
+    refresh/reuse schedule and exact/approx grouping through the Hopper
+    kernels (``kernels.nsa_verify.ops.nsa_verify_kernel_layer``);
+  * ``commit``      — append the accepted path's K/V, update the compressed
+    cache, advance the length (all on the device);
+  * ``decode_step`` — one autoregressive token (verify with T=1 + commit).
+Recurrent and MoE blocks are not ported.
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.config import ModelConfig, SSVConfig
+from repro_torch.core import kvstore
+from repro_torch.device import dtype_of
+from repro_torch.kernels.nsa_verify import ops as nsa_ops
+from repro_torch.models import attention, layers, nsa as nsa_lib
+
+
+def segments(cfg: ModelConfig) -> List[Tuple[Tuple[str, ...], int]]:
+    """[(group kinds, n_groups)] — tiles block_pattern over num_layers (the
+    JAX stacked-parameter layout, which the bridge unstacks)."""
+    pat = tuple(cfg.block_pattern)
+    m = len(pat)
+    full = cfg.num_layers // m
+    segs: List[Tuple[Tuple[str, ...], int]] = []
+    if full > 0:
+        segs.append((pat, full))
+    rem = cfg.num_layers - full * m
+    if rem:
+        segs.append((tuple(cfg.layer_kinds()[full * m:]), 1))
+    return segs
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    kinds = set(cfg.layer_kinds())
+    if kinds != {"attn"} or cfg.moe is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: only attention blocks are ported (got {sorted(kinds)})")
+    if cfg.attention not in ("nsa", "dense"):
+        raise NotImplementedError(f"attention={cfg.attention!r} is not ported yet")
+    if cfg.tie_embeddings or cfg.modality != "text":
+        raise NotImplementedError("tied embeddings / modality frontends are not ported")
+
+
+def logits_fn(params, cfg: ModelConfig, hidden):
+    return layers.lm_head(params["lm_head"], hidden)
+
+
+def _ffn(bp, cfg: ModelConfig, x):
+    return layers.ffn(bp["ffn"], x, cfg.activation)
+
+
+# ------------------------------------------------------------------ caches
+def init_caches(cfg: ModelConfig, batch: int, max_len: int, device):
+    dtype = dtype_of(cfg.dtype)
+    out = []
+    for _ in range(cfg.num_layers):
+        c = {"kv": attention.init_cache(cfg, batch, max_len, dtype, device)}
+        if cfg.attention == "nsa":
+            c["cmp"] = nsa_lib.init_cmp_cache(cfg, batch, max_len, dtype, device)
+        out.append(c)
+    return {"layers": out, "length": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+# ------------------------------------------------------------------ prefill
+@torch.no_grad()
+def prefill(params, cfg: ModelConfig, tokens, max_len: int, attn_chunk: int = 512):
+    """Run the full prompt and build the caches. tokens (B, S) on the
+    model's device. Returns (hidden (B,S,d), caches)."""
+    check_supported(cfg)
+    dev = tokens.device
+    B, S = tokens.shape
+    if S > max_len:
+        raise ValueError(f"prompt of {S} tokens exceeds max_len={max_len}")
+    x = layers.embed(params["embed"], tokens)
+    positions = torch.arange(S, dtype=torch.int32, device=dev)[None].expand(B, S)
+    caches = init_caches(cfg, B, max_len, dev)
+    for bp, cache in zip(params["layers"], caches["layers"]):
+        hn = layers.rmsnorm(bp["norm1"], x, cfg.norm_eps)
+        if cfg.attention == "nsa":
+            mix, (k, v) = nsa_lib.attend_train_nsa(bp["mix"], cfg, hn, positions,
+                                                   chunk=attn_chunk)
+            k_cmp, v_cmp = nsa_lib.compress_kv(bp["mix"], k, v, cfg.nsa)
+            ncb = k_cmp.shape[1]
+            if ncb:
+                cache["cmp"]["k_cmp"][:, :ncb] = k_cmp.to(cache["cmp"]["k_cmp"].dtype)
+                cache["cmp"]["v_cmp"][:, :ncb] = v_cmp.to(cache["cmp"]["v_cmp"].dtype)
+        else:
+            mix, (k, v) = attention.attend_train(bp["mix"], cfg, hn, positions,
+                                                 chunk=attn_chunk)
+        attention.write_cache(cache["kv"], k, v, 0)
+        x = x + mix
+        x = x + _ffn(bp, cfg, layers.rmsnorm(bp["norm2"], x, cfg.norm_eps))
+    x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    caches["length"] = torch.full((), S, dtype=torch.int32, device=dev)
+    return x, caches
+
+
+# ------------------------------------------------------------------ verify
+def _reuse_layer_flags(cfg: ModelConfig, ssv: Optional[SSVConfig]) -> np.ndarray:
+    """Per-layer bool: True if the layer REUSES inherited indices. Layer 0
+    is a mandatory refresh (paper §5.2)."""
+    L = cfg.num_layers
+    flags = np.zeros((L,), bool)
+    if ssv is not None:
+        for i in ssv.refresh_schedule:
+            if 0 <= i < L:
+                flags[i] = True
+    flags[0] = False
+    return flags
+
+
+def _grouping(ssv: Optional[SSVConfig]) -> Tuple[int, str]:
+    """(C, mode) the verify kernel runs with. No strategy (decode, AR) and
+    group_mode "none" verify per query (C=1)."""
+    if ssv is None or ssv.group_mode == "none":
+        return 1, "exact"
+    return max(1, ssv.group_size), ssv.group_mode
+
+
+def _mix_verify(bp, cfg: ModelConfig, h, cache, prefix_len, positions,
+                tree_mask, carry_idx, reuse: bool, ssv: Optional[SSVConfig]):
+    """Sequence-mix one block in verify mode. Returns (mix_out,
+    {"k_new", "v_new"}, new_carry_idx)."""
+    kv = kvstore.as_view(cache["kv"])
+    if cfg.attention == "nsa":
+        C, mode = _grouping(ssv)
+        sel_idx, sel_valid = carry_idx if reuse else (None, None)
+        out, (k_new, v_new), carry_idx = nsa_ops.nsa_verify_kernel_layer(
+            bp["mix"], cfg, h, kv, cache["cmp"], prefix_len, positions,
+            tree_mask, sel_idx=sel_idx, sel_valid=sel_valid, C=C, mode=mode,
+            reuse=reuse)
+        return out, {"k_new": k_new, "v_new": v_new}, carry_idx
+    out, (k_new, v_new) = attention.attend_verify(bp["mix"], cfg, h, kv, prefix_len,
+                                                  positions, tree_mask)
+    return out, {"k_new": k_new, "v_new": v_new}, carry_idx
+
+
+@torch.no_grad()
+def verify_step(params, cfg: ModelConfig, caches, draft_tokens, positions,
+                tree_mask, parents=None, ssv: Optional[SSVConfig] = None):
+    """Verify T draft tokens against the committed caches.
+
+    draft_tokens (B, T); positions (B, T) absolute; tree_mask (B, T, T).
+    ``parents`` is accepted for signature parity (recurrent blocks use it;
+    none are ported). Returns (logits (B, T, V), per-layer updates)."""
+    del parents
+    prefix_len = caches["length"]
+    x = layers.embed(params["embed"], draft_tokens)
+    flags = _reuse_layer_flags(cfg, ssv)
+    carry = (None, None)
+    updates = []
+    for li, (bp, cache) in enumerate(zip(params["layers"], caches["layers"])):
+        hn = layers.rmsnorm(bp["norm1"], x, cfg.norm_eps)
+        mix, up, carry = _mix_verify(bp, cfg, hn, cache, prefix_len, positions,
+                                     tree_mask, carry, bool(flags[li]), ssv)
+        x = x + mix
+        x = x + _ffn(bp, cfg, layers.rmsnorm(bp["norm2"], x, cfg.norm_eps))
+        updates.append(up)
+    x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return logits_fn(params, cfg, x), updates
+
+
+# ------------------------------------------------------------------ commit
+def _gather_accepted(up, accepted):
+    """(B, T, Hkv, Dh) draft K/V -> the accepted path's (B, T_acc, Hkv, Dh)."""
+    idx = accepted.long()[:, :, None, None].expand(-1, -1, *up["k_new"].shape[2:])
+    return torch.gather(up["k_new"], 1, idx), torch.gather(up["v_new"], 1, idx)
+
+
+@torch.no_grad()
+def commit(params, cfg: ModelConfig, caches, updates, accepted, n_accepted):
+    """Commit the accepted path into the caches, on the device.
+
+    accepted (B, T_acc) node indices (root-to-leaf, padded with its last
+    entry); n_accepted (B,) how many are real. The K/V buffers are written in
+    place at the old length (the padded tail lands past the new length and
+    is masked by it); compressed blocks completed by the commit are added;
+    the length advances by n_accepted. The caller keeps
+    ``length + T_acc <= max_len`` (the engine asserts it from its host-side
+    length). Returns the caches dict with the new length."""
+    old_len = caches["length"]
+    B, T_acc = accepted.shape
+    new_len = (old_len + n_accepted[0]).to(torch.int32)
+    max_new_cmp = T_acc // cfg.nsa.cmp_stride + 2
+    for bp, cache, up in zip(params["layers"], caches["layers"], updates):
+        k_acc, v_acc = _gather_accepted(up, accepted)
+        view = kvstore.as_view(cache["kv"])
+        view.write(k_acc, v_acc, old_len)
+        if "cmp" in cache:
+            new_cmp = nsa_lib.update_cmp_cache_dyn(bp["mix"], view, cache["cmp"],
+                                                   old_len, new_len, max_new_cmp,
+                                                   cfg.nsa)
+            cache["cmp"]["k_cmp"].copy_(new_cmp["k_cmp"])
+            cache["cmp"]["v_cmp"].copy_(new_cmp["v_cmp"])
+    caches["length"] = new_len
+    return caches
+
+
+@torch.no_grad()
+def decode_step(params, cfg: ModelConfig, caches, tokens, ssv: Optional[SSVConfig] = None):
+    """One autoregressive step: tokens (B, 1). Returns (logits, caches)."""
+    B = tokens.shape[0]
+    dev = tokens.device
+    positions = caches["length"].reshape(1, 1).expand(B, 1).to(torch.int32)
+    tree_mask = torch.ones((B, 1, 1), dtype=torch.bool, device=dev)
+    logits, updates = verify_step(params, cfg, caches, tokens, positions, tree_mask,
+                                  None, ssv)
+    caches = commit(params, cfg, caches, updates,
+                    accepted=torch.zeros((B, 1), dtype=torch.long, device=dev),
+                    n_accepted=torch.ones((B,), dtype=torch.int32, device=dev))
+    return logits, caches

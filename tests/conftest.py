@@ -17,6 +17,9 @@ def pytest_configure(config):
         "markers", "slow: long-horizon / many-seed stress test, opt-in via "
                    "--runslow (a seeded small case of the same invariant "
                    "stays in tier-1)")
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device (the port's hand-written kernels "
+                   "have no CPU mode); skips in a fixture when none is present")
 
 
 def pytest_collection_modifyitems(config, items):

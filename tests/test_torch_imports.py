@@ -1,0 +1,63 @@
+"""The PyTorch port stands alone: nothing under ``src/repro_torch`` and
+nothing in ``chip_smoke.py`` imports JAX or the JAX package ``repro``
+(checked on the source, by AST). Also drives the port's serve CLI on the
+CPU and checks that unported serving modes refuse clearly."""
+import ast
+from pathlib import Path
+
+import pytest
+
+from repro_torch.configs import get_config
+from repro_torch.launch import serve
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom):
+            if node.level == 0 and node.module:
+                yield node.module
+        elif isinstance(node, ast.Call) and getattr(node.func, "attr", "") == "import_module":
+            if node.args and isinstance(node.args[0], ast.Constant):
+                yield str(node.args[0].value)
+
+
+def _port_files():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 20
+    return files
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_neither_jax_nor_repro(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in FORBIDDEN, f"{path.name} imports {mod}"
+
+
+def test_registry_string_imports_stay_in_port():
+    src = (ROOT / "src" / "repro_torch" / "configs" / "__init__.py").read_text()
+    assert '"repro_torch.configs."' in src
+    assert get_config("ssv-nsa-1b").num_heads == 32
+    with pytest.raises(KeyError, match="not ported"):
+        get_config("qwen3-8b")
+
+
+def test_serve_cli_on_cpu(capsys):
+    serve.main(["--reduced", "--device", "cpu", "--prompts", "1", "--tokens", "4",
+                "--prompt-len", "40", "--precision-class", "Approx+Reuse", "--baseline"])
+    out = capsys.readouterr().out
+    assert "prompt 0: 4 tokens" in out and "AR baseline" in out
+
+
+@pytest.mark.parametrize("flags", [["--batch", "2"], ["--continuous"],
+                                   ["--kv-backend", "paged"]])
+def test_serve_cli_unported_modes_raise(flags):
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        serve.main(["--reduced", "--device", "cpu", *flags])
