@@ -3,31 +3,46 @@
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero):
-  1. build both CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
-     source, in parallel) and print their ``-Xptxas -v`` lines; print the
-     card's name and power limit;
-  2. hold each kernel against its plain PyTorch version at the full-width
-     ``ssv-nsa-1b`` shapes (verify: exact C=2 and approx C=4, full and
-     partial fusion; routing: o_cmp and p_slc), in float32 and bfloat16;
-  3. serve full-width ``ssv-nsa-1b`` (bf16, random weights from a seed,
-     max_context 8192) through ``SSVEngine``: two 4097-token prompts, 16 new
-     tokens each, D4/k2 tree, under Strict and Approx+Reuse, with the
-     kernels' launch counters checked against layers x verify passes;
-  4. Strict SSV equals autoregressive decoding on the card (float32);
-  5. the serve CLI (``python -m repro_torch.launch.serve``);
-  6. kernel times (CUDA events / profiler device time) beside the plain
-     version's time and the bound;
-  7. the summary lines: a ``kernels`` JSON line, the card line, and the
-     ``{"ok": true, "device": ...}`` line last.
+Phases (every phase always runs; any failure exits non-zero):
+  1. build the three CUDA kernels from ``src/repro_torch/csrc`` (one nvcc
+     per source, in parallel) and print their ``-Xptxas -v`` lines per
+     template instance; print the card's name and power limit;
+  2. hold each kernel against its plain PyTorch version, in float32 and
+     bfloat16 K/V, at the full-width shapes: routing and nsa_verify (exact
+     C=2 / approx C=4, full / partial fusion, and the vanilla single-branch
+     launches) at ``ssv-nsa-1b`` (head dim 64) and ``ssv-nsa-8b`` (head dim
+     128); flash tree-verify at the 1B draft, the 8B draft and the dense
+     1B target; the vanilla NSA layer (the Fig. 6(a) baseline: routing
+     kernel, two single-branch launches, gated combine) as a counted path
+     at full width, against the plain NSA layer (float32);
+  3. serve full-width ``ssv-nsa-1b`` (two 4097-token prompts) and then
+     full-width ``ssv-nsa-8b`` (one 4097-token prompt), bf16, random
+     weights from a seed, max_context 8192, 16 new tokens, D4/k2 tree,
+     under Strict and Approx+Reuse, through ``SSVEngine``, with the launch
+     counters checked against layers x verify passes (flash: 2 draft
+     layers x 5 passes per step) and a per-step profile;
+  4. Strict SSV equals autoregressive decoding in float32 on ``ssv-nsa-1b``
+     and on ``ssv-nsa-8b`` cut to 4 layers;
+  5. the dense-verification baseline: the ``attention="dense"`` replacement
+     of ``ssv-nsa-1b`` as the target, every verify through flash;
+  6. the serve CLI (``python -m repro_torch.launch.serve``) for both archs;
+  7. kernel times (profiler device time and CUDA events) beside the plain
+     version's time, the bound and, for flash, the library yardstick
+     (``scaled_dot_product_attention``, timed only); vanilla layer against
+     the fused layer;
+  8. the summary lines: a ``kernels`` JSON line (every kernel x head dim),
+     the card line, and the ``{"ok": true, "device": ...}`` line last.
 
-Imports nothing of JAX and nothing of the JAX package. TF32 is disabled
-for float32 matmuls and convolutions so the float32 references are full
-float32.
+Each counted path sets every launch counter to 0 just before it runs and
+reads them just after; a kernel row's ``launches`` sums the paths at its
+head dim. Imports nothing of JAX and nothing of the JAX package. TF32 is
+disabled for float32 matmuls and convolutions so the float32 references
+are full float32.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -44,6 +59,7 @@ F32_FLOPS_PER_S = 67e12         # H100 SXM float32, CUDA cores (data sheet)
 # (rtol, atol). Both sides compute in float32 from the same values, so bf16
 # K/V are held to the float32 tolerance too.
 TOL = {"float32": (2e-4, 2e-5), "bfloat16": (2e-4, 2e-5)}
+FLASH_CASES = [("1B draft", 8, 8, 64), ("8B draft", 8, 8, 128), ("1B dense target", 32, 8, 64)]
 
 
 def log(*a):
@@ -64,17 +80,28 @@ def card_line() -> str:
         fail(f"nvidia-smi: {e}")
 
 
+def free():
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------- inputs
+def tree_inputs(prefix):
+    from repro_torch.core.tree import build_topology
+    topo = build_topology(4, 2, "bfs")
+    positions = (torch.as_tensor(topo.depths, device=DEV) + prefix)[None].to(torch.int32)
+    return topo, positions, torch.as_tensor(topo.mask, device=DEV)[None]
+
+
 def verify_inputs(cfg, kv_dtype, seed, prefix=4096, S=8192):
     """Full-width verify-kernel inputs: D4/k2 tree (T=31), cache S, real
     routing + Top-n selection on random compressed scores."""
-    from repro_torch.core.tree import build_topology
     from repro_torch.models import nsa as nsa_lib
 
     nsa = cfg.nsa
     g = torch.Generator(DEV)
     g.manual_seed(seed)
-    topo = build_topology(4, 2, "bfs")
+    topo, positions, tree_mask = tree_inputs(prefix)
     T = topo.num_nodes
     Hq, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
 
@@ -82,7 +109,6 @@ def verify_inputs(cfg, kv_dtype, seed, prefix=4096, S=8192):
         return torch.randn(shape, generator=g, device=DEV).to(dtype)
 
     NCB = nsa_lib.init_cmp_cache(cfg, 1, S, kv_dtype, DEV)["k_cmp"].shape[1]
-    positions = (torch.as_tensor(topo.depths, device=DEV) + prefix)[None].to(torch.int32)
     p_slc = torch.rand((1, T, Hkv, nsa_lib.num_sel_blocks(S, nsa)), generator=g, device=DEV)
     sel_idx, sel_valid = nsa_lib.select_topn(p_slc, positions, torch.tensor(prefix, device=DEV), nsa)
     return dict(
@@ -93,21 +119,31 @@ def verify_inputs(cfg, kv_dtype, seed, prefix=4096, S=8192):
         sel_idx=sel_idx, sel_valid=sel_valid, positions=positions,
         prefix_len=torch.tensor([prefix], dtype=torch.int32, device=DEV),
         ncb_valid=nsa_lib.dyn_num_cmp_blocks(torch.tensor([prefix], device=DEV), nsa),
-        tree_mask=torch.as_tensor(topo.mask, device=DEV)[None],
+        tree_mask=tree_mask,
         gates=torch.sigmoid(r(1, T, 3, Hq, dtype=torch.float32)),
         o_cmp_in=r(1, T, Hq, Dh, dtype=torch.float32))
 
 
-VERIFY_CASES = [("exact C=2 full", 2, "exact", True),
-                ("exact C=2 partial", 2, "exact", False),
-                ("approx C=4 full", 4, "approx", True),
-                ("approx C=4 partial", 4, "approx", False)]
+# (label, C, mode, include_cmp, branch): the fused cases, then the vanilla
+# single-branch launches (C=1)
+VERIFY_CASES = [("exact C=2 full", 2, "exact", True, "all"),
+                ("exact C=2 partial", 2, "exact", False, "all"),
+                ("approx C=4 full", 4, "approx", True, "all"),
+                ("approx C=4 partial", 4, "approx", False, "all"),
+                ("vanilla slc", 1, "exact", False, "slc"),
+                ("vanilla win", 1, "exact", False, "win")]
+
+
+def case_kernel(include_cmp, branch):
+    if branch != "all":
+        return "nsa_verify_vanilla"
+    return "nsa_verify_full" if include_cmp else "nsa_verify_partial"
 
 
 def verify_layouts(cfg, inp, C, mode):
     """The kernel-boundary arguments of ``nsa_verify_fused``."""
+    from repro_torch.kernels import per_row
     from repro_torch.kernels.nsa_verify import ops as vops
-    from repro_torch.kernels.routing.ops import per_row
     nsa = cfg.nsa
     S = inp["k_cache"].shape[1]
     merged, mvalid, own, qmap = vops.group_layouts(
@@ -127,15 +163,16 @@ def verify_layouts(cfg, inp, C, mode):
                 dmask=dmask.to(torch.int32), gates=inp["gates"])
 
 
-def run_verify(cfg, args, include_cmp, o_cmp_in, plain: bool):
+def run_verify(cfg, args, include_cmp, o_cmp_in, plain: bool, branch="all"):
     from repro_torch.kernels.nsa_verify import ops as vops, ref as vref
     nsa = cfg.nsa
     if plain:
         return vref.verify_groups_plain(
             **args, o_cmp_in=o_cmp_in, sel_block=nsa.sel_block,
             cmp_block=nsa.cmp_block, cmp_stride=nsa.cmp_stride,
-            window=nsa.window, include_cmp=include_cmp)
-    return vops.verify_groups(**args, o_cmp_in=o_cmp_in, nsa=nsa, include_cmp=include_cmp)
+            window=nsa.window, include_cmp=include_cmp, branch=branch)
+    return vops.verify_groups(**args, o_cmp_in=o_cmp_in, nsa=nsa,
+                              include_cmp=include_cmp, branch=branch)
 
 
 def run_routing(cfg, inp, plain: bool):
@@ -153,6 +190,69 @@ def run_routing(cfg, inp, plain: bool):
                               inp["ncb_valid"], nsa, kv_len=S)
 
 
+def flash_inputs(Hq, Hkv, Dh, kv_dtype, seed, prefix=4096, S=8192):
+    """Flash-kernel inputs at a consumer's shape: D4/k2 tree, cache S."""
+    g = torch.Generator(DEV)
+    g.manual_seed(seed)
+    topo, positions, tree_mask = tree_inputs(prefix)
+    T = topo.num_nodes
+
+    def r(*shape, dtype=kv_dtype):
+        return torch.randn(shape, generator=g, device=DEV).to(dtype)
+
+    return dict(q=r(1, T, Hq, Dh, dtype=torch.float32) / Dh ** 0.5,
+                k_cache=r(1, S, Hkv, Dh), v_cache=r(1, S, Hkv, Dh),
+                k_draft=r(1, T, Hkv, Dh), v_draft=r(1, T, Hkv, Dh),
+                positions=positions, prefix_len=torch.tensor([prefix], dtype=torch.int32, device=DEV),
+                tree_mask=tree_mask)
+
+
+def run_flash(inp, plain: bool):
+    from repro_torch.kernels.flash import ops as fops, ref as fref
+    return (fref.ref_flash_verify if plain else fops.flash_verify)(**inp)
+
+
+def sdpa_call(inp):
+    """The library yardstick for flash: one ``scaled_dot_product_attention``
+    on the concatenated [cache | draft] K/V (GQA heads expanded, q in the
+    K/V dtype) with the boolean [prefix | draft] mask. Timed only."""
+    import torch.nn.functional as F
+    q, kc = inp["q"], inp["k_cache"]
+    Gq = q.shape[2] // kc.shape[2]
+    S = kc.shape[1]
+    pos = inp["positions"][0].long()
+    kpos = torch.arange(S, device=DEV)
+    pmask = (kpos[None] < inp["prefix_len"][0]) & (kpos[None] <= pos[:, None])
+    dist = pos[:, None] - pos[None]
+    mask = torch.cat([pmask, inp["tree_mask"][0] & (dist >= 0)], dim=-1)[None, None]
+    qq = q.to(kc.dtype).permute(0, 2, 1, 3).contiguous()
+    k = torch.cat([kc, inp["k_draft"]], 1).repeat_interleave(Gq, dim=2).permute(0, 2, 1, 3).contiguous()
+    v = torch.cat([inp["v_cache"], inp["v_draft"]], 1).repeat_interleave(Gq, dim=2) \
+        .permute(0, 2, 1, 3).contiguous()
+    return lambda: F.scaled_dot_product_attention(qq, k, v, attn_mask=mask, scale=1.0)
+
+
+def layer_inputs(cfg, dtype_name, seed, prefix=4096, S=8192):
+    """One full-width NSA layer (random weights from a seed) with random
+    K/V and compressed caches of capacity S, prefix ``prefix``, D4/k2 tree."""
+    from repro_torch.bridge import init_params
+    from repro_torch.models import attention as attn_lib, nsa as nsa_lib
+    lcfg = dataclasses.replace(cfg, num_layers=1, vocab_size=256, dtype=dtype_name)
+    g = torch.Generator(DEV)
+    g.manual_seed(seed)
+    mix = init_params(lcfg, g, DEV)["layers"][0]["mix"]
+    dt = mix["wq"].dtype
+    kv = attn_lib.init_cache(lcfg, 1, S, dt, DEV)
+    cmp = nsa_lib.init_cmp_cache(lcfg, 1, S, dt, DEV)
+    for c in (kv, cmp):
+        for t in c.values():
+            t.normal_(generator=g)
+    topo, positions, tree_mask = tree_inputs(prefix)
+    x = torch.randn((1, topo.num_nodes, cfg.d_model), generator=g, device=DEV).to(dt)
+    return lcfg, mix, x, kv, cmp, torch.tensor(prefix, dtype=torch.int32, device=DEV), \
+        positions, tree_mask
+
+
 def check_close(name, got, want, dtype_name):
     rtol, atol = TOL[dtype_name]
     err = (got - want).abs()
@@ -166,10 +266,22 @@ def check_close(name, got, want, dtype_name):
 
 
 # ---------------------------------------------------------------- bounds
-def verify_bound(cfg, inp, args, include_cmp):
+def bound(nbytes, flops):
+    """(ms, "bytes" or "operations", bytes-alone ms). The flops count at the
+    float32 CUDA-core rate: q, the logits and the accumulators are float32
+    (the kernels' contract), and that keeps the bound comparable across
+    PRs. The bytes alone are the bound a bf16 tensor-core kernel would face
+    (its flops take less time than the bytes at every shape here)."""
+    t_bytes, t_flops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    return (max(t_bytes, t_flops) * 1e3, ("bytes" if t_bytes >= t_flops else "operations"),
+            t_bytes * 1e3)
+
+
+def verify_bound(cfg, inp, args, include_cmp, branch="all"):
     """Least time for one verify launch: bytes each input/output moves once
     (the union of selected blocks per head, the visible window, cmp and
-    draft K/V) vs the f32 flops the visible (row, key) pairs need."""
+    draft K/V of the branches it computes) vs the f32 flops the visible
+    (row, key) pairs need."""
     nsa = cfg.nsa
     es = inp["k_cache"].element_size()
     T, Hq, Dh = inp["q"].shape[1:]
@@ -177,35 +289,39 @@ def verify_bound(cfg, inp, args, include_cmp):
     Gq = Hq // Hkv
     prefix = int(inp["prefix_len"][0])
     pos = inp["positions"][0].long()
+    do_slc, do_win = branch in ("all", "slc"), branch in ("all", "win")
     merged, mvalid = args["merged"][0].long(), args["mvalid"][0]
     slc_blocks = 0                  # selected blocks summed over the kv heads
-    for h in range(Hkv):
+    for h in range(Hkv if do_slc else 0):
         blocks = merged[:, h][(mvalid[:, h] > 0) & (merged[:, h] >= 0)]
         blocks = blocks[blocks * nsa.sel_block < prefix]
         slc_blocks += int(torch.unique(blocks).numel())
     W = min(nsa.window, inp["k_cache"].shape[1])
-    win_keys = max(0, prefix - int(args["win_start"][0]))
+    win_keys = max(0, prefix - int(args["win_start"][0])) if do_win else 0
     ncbv = int(args["ncb_valid"][0])
     nvis = ((pos - nsa.cmp_block + 1).clamp_min(-1) // nsa.cmp_stride + 1).clamp(0, ncbv)
-    keys_per_head = win_keys + T + (int(nvis.max()) if include_cmp else 0)
+    keys_per_head = win_keys + (T if do_win else 0) + (int(nvis.max()) if include_cmp else 0)
     nbytes = (slc_blocks * nsa.sel_block + keys_per_head * Hkv) * Dh * 2 * es
-    nbytes += inp["q"].numel() * 4 * (2 if include_cmp else 3)    # q, out (+ o_cmp_in)
-    nbytes += inp["gates"].numel() * 4
+    nbytes += inp["q"].numel() * 4 * 2                               # q, out
+    if branch == "all":
+        nbytes += inp["gates"].numel() * 4
+        nbytes += 0 if include_cmp else inp["q"].numel() * 4          # o_cmp_in
     nbytes += sum(args[k].numel() * 4 for k in ("merged", "mvalid", "own", "dmask", "positions"))
     # visible (query row, key) pairs: slc keys per query = its own selected
     # tokens below prefix and at/below its position
-    tok = inp["sel_idx"][0].long()[..., None] * nsa.sel_block + \
-        torch.arange(nsa.sel_block, device=DEV)
-    slc = ((tok < prefix) & (tok <= pos[:, None, None, None]) &
-           inp["sel_valid"][0][..., None]).sum()
-    kp = torch.arange(W, device=DEV) + int(args["win_start"][0])
-    win = ((kp[None] < prefix) & (kp[None] > pos[:, None] - nsa.window) &
-           (kp[None] <= pos[:, None])).sum() * Hkv
-    draft = args["dmask"][0].sum() * Hkv
+    slc = win = draft = 0
+    if do_slc:
+        tok = inp["sel_idx"][0].long()[..., None] * nsa.sel_block + \
+            torch.arange(nsa.sel_block, device=DEV)
+        slc = ((tok < prefix) & (tok <= pos[:, None, None, None]) &
+               inp["sel_valid"][0][..., None]).sum()
+    if do_win:
+        kp = torch.arange(W, device=DEV) + int(args["win_start"][0])
+        win = ((kp[None] < prefix) & (kp[None] > pos[:, None] - nsa.window) &
+               (kp[None] <= pos[:, None])).sum() * Hkv
+        draft = args["dmask"][0].sum() * Hkv
     cmpk = nvis.sum() * Hkv if include_cmp else 0
-    flops = int(slc + win + draft + cmpk) * Gq * 4 * Dh
-    t_bytes, t_flops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
-    return max(t_bytes, t_flops) * 1e3, ("bytes" if t_bytes >= t_flops else "operations")
+    return bound(nbytes, int(slc + win + draft + cmpk) * Gq * 4 * Dh)
 
 
 def routing_bound(cfg, inp):
@@ -219,9 +335,24 @@ def routing_bound(cfg, inp):
     NSB = -(-inp["k_cache"].shape[1] // nsa.sel_block)
     nbytes = int(nvis.max()) * Hkv * Dh * 2 * es + inp["q"].numel() * 4 * 2 \
         + T * Hkv * NSB * 4 + T * 4
-    flops = int(nvis.sum()) * Hq * 4 * Dh
-    t_bytes, t_flops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
-    return max(t_bytes, t_flops) * 1e3, ("bytes" if t_bytes >= t_flops else "operations")
+    return bound(nbytes, int(nvis.sum()) * Hq * 4 * Dh)
+
+
+def flash_bound(inp):
+    """Bytes: the visible prefix keys and the draft K/V of each kv head
+    once, q, out, positions, the (T*Gq, T) mask; flops: 4*Dh per visible
+    (query row, key) pair."""
+    es = inp["k_cache"].element_size()
+    B, T, Hq, Dh = inp["q"].shape
+    Hkv = inp["k_cache"].shape[2]
+    prefix = int(inp["prefix_len"][0])
+    pos = inp["positions"][0].long()
+    prefix_keys = (torch.clamp(pos + 1, max=prefix)).clamp_min(0)      # per query
+    dist = pos[:, None] - pos[None]
+    draft_keys = (inp["tree_mask"][0] & (dist >= 0)).sum(-1)
+    nbytes = (min(prefix, int(pos.max()) + 1) + T) * Hkv * Dh * 2 * es \
+        + inp["q"].numel() * 4 * 2 + T * 4 + T * (Hq // Hkv) * T * 4 + 4
+    return bound(nbytes, int((prefix_keys + draft_keys).sum()) * Hq * 4 * Dh)
 
 
 # ---------------------------------------------------------------- timing
@@ -238,13 +369,14 @@ def time_events(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def time_kernel(fn, kernel_name: str, iters: int = 50):
+def time_kernel(fn, kernel_name: str, iters: int = 50, per_call: int = 1):
     """Time per launch: the kernel's device time from the profiler (CUDA
     events when the profiler shows none), and CUDA events around ``iters``
-    back-to-back calls of the wrapper, which include the host's enqueue
-    whenever that is slower than the kernel. Returns (ms, source, events_ms)."""
+    back-to-back calls of ``fn`` (each making ``per_call`` launches), which
+    include the host's enqueue whenever that is slower than the kernel.
+    Returns (ms, source, events_ms) per launch."""
     from torch.profiler import ProfilerActivity, profile
-    events_ms = time_events(fn, iters)
+    events_ms = time_events(fn, iters) / per_call
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
@@ -255,7 +387,7 @@ def time_kernel(fn, kernel_name: str, iters: int = 50):
             total_us += getattr(ev, "self_device_time_total", 0.0) or \
                 getattr(ev, "self_cuda_time_total", 0.0)
     if total_us > 0:
-        return total_us / iters / 1e3, "profiler", events_ms
+        return total_us / iters / per_call / 1e3, "profiler", events_ms
     return events_ms, "cuda-events", events_ms
 
 
@@ -275,6 +407,7 @@ def main(argv=None) -> int:
         from repro_torch import configs
         from repro_torch.data.synthetic import SyntheticConfig, SyntheticCorpus
         from repro_torch.kernels import build
+        from repro_torch.kernels.flash import ops as fops
         from repro_torch.kernels.nsa_verify import ops as vops
         from repro_torch.kernels.routing import ops as rops
     except ImportError as e:
@@ -299,52 +432,49 @@ def main(argv=None) -> int:
                 log(f"  {name}: {line.strip()}")
     log(f"[1 card] {card}")
 
-    cfg = configs.get_config("ssv-nsa-1b")
-    counters = [rops.LAUNCHES, vops.FULL_LAUNCHES, vops.PARTIAL_LAUNCHES]
+    cfgs = {64: configs.get_config("ssv-nsa-1b"), 128: configs.get_config("ssv-nsa-8b")}
+    counters = [rops.LAUNCHES, vops.FULL_LAUNCHES, vops.PARTIAL_LAUNCHES,
+                vops.VANILLA_LAUNCHES, fops.LAUNCHES]
+    ctx = dict(counters=counters, kind=kind, card=card,
+               corpus=SyntheticCorpus(SyntheticConfig(vocab_size=cfgs[128].vocab_size)),
+               launches={}, paths={})
 
     # ---- 2. kernels vs plain versions at full width
-    max_err = {"routing": 0.0, "nsa_verify_full": 0.0, "nsa_verify_partial": 0.0}
-    for dt_name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-        inp = verify_inputs(cfg, dt, seed=1)
-        o_k, p_k = run_routing(cfg, inp, plain=False)
-        o_r, p_r = run_routing(cfg, inp, plain=True)
-        torch.cuda.synchronize()
-        e1 = check_close("routing o_cmp", o_k, o_r, dt_name)
-        e2 = check_close("routing p_slc", p_k, p_r, dt_name)
-        max_err["routing"] = max(max_err["routing"], e1, e2)
-        for label, C, mode, full in VERIFY_CASES:
-            args = verify_layouts(cfg, inp, C, mode)
-            oc = None if full else inp["o_cmp_in"]
-            got = run_verify(cfg, args, full, oc, plain=False)
-            want = run_verify(cfg, args, full, oc, plain=True)
-            torch.cuda.synchronize()
-            e = check_close(f"nsa_verify {label}", got, want, dt_name)
-            key = "nsa_verify_full" if full else "nsa_verify_partial"
-            max_err[key] = max(max_err[key], e)
+    max_err = check_kernels(cfgs, ctx)
     log("[2 kernels] all cases agree with the plain versions")
 
     # ---- 3. end to end, full width bf16
-    gen = torch.Generator(DEV)
-    corpus = SyntheticCorpus(SyntheticConfig(vocab_size=cfg.vocab_size))
-    launches, e2e = serve_e2e(cfg, corpus, gen, counters, kind, card)
-    idle = [name for name, n in launches.items() if n == 0]
+    e2e = {}
+    for Dh, n_prompts in ((64, 2), (128, 1)):
+        e2e[cfgs[Dh].name] = serve_e2e(cfgs[Dh], Dh, n_prompts, ctx)
+        free()
+
+    # ---- 4. Strict == autoregressive in float32
+    strict_equals_ar(cfgs[64], None, 24, ctx)
+    free()
+    strict_equals_ar(cfgs[128], 4, 16, ctx)
+    free()
+
+    # ---- 5. the dense-verification baseline
+    e2e[cfgs[64].name + "-dense"] = dense_baseline(cfgs[64], ctx)
+    free()
+
+    # ---- 6. serve CLI
+    for cfg in cfgs.values():
+        serve_cli(cfg.name)
+
+    idle = [k for k, n in ctx["launches"].items() if n == 0]
     if idle:
-        fail(f"the main path never launched {idle}")
+        fail(f"the main paths never launched {idle}")
 
-    # ---- 4. Strict == autoregressive, float32
-    strict_equals_ar(cfg, corpus, gen)
-
-    # ---- 5. serve CLI
-    serve_cli()
-
-    # ---- 6. kernel times at the slice's shapes (bf16)
-    rows = kernel_times(cfg, launches, max_err, kind, card)
+    # ---- 7. kernel times at the slices' shapes (bf16)
+    rows, layer_times = kernel_times(cfgs, ctx["launches"], max_err, kind, card)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
-        {"card": card, "kind": kind, "e2e": e2e, "kernels": rows,
-         "seconds": time.time() - t_start}, indent=1))
+        {"card": card, "kind": kind, "e2e": e2e, "paths": ctx["paths"], "kernels": rows,
+         "layer_times": layer_times, "seconds": time.time() - t_start}, indent=1))
 
-    # ---- 7. summary
-    log(f"[7 done] {time.time() - t_start:.1f}s")
+    # ---- 8. summary
+    log(f"[8 done] {time.time() - t_start:.1f}s")
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -352,66 +482,142 @@ def main(argv=None) -> int:
     return 0
 
 
-def serve_e2e(cfg, corpus, gen, counters, kind, card):
-    """Phase 3: both precision classes through SSVEngine; returns the
-    launch counts of this main-path run and the end-to-end numbers."""
-    from repro_torch.bridge import init_params
-    from repro_torch.config import ServeConfig, SSVConfig
-    from repro_torch.core import draft as draft_lib, engine as engine_lib
+def check_kernels(cfgs, ctx):
+    """Phase 2. Returns {row name: max abs error over the cases}."""
+    from repro_torch.kernels.nsa_verify import ops as vops
+    from repro_torch.models import nsa as nsa_lib
+    max_err = {}
+
+    def note(key, e):
+        max_err[key] = max(max_err.get(key, 0.0), e)
+
+    for Dh, cfg in cfgs.items():
+        for dt_name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            inp = verify_inputs(cfg, dt, seed=1)
+            o_k, p_k = run_routing(cfg, inp, plain=False)
+            o_r, p_r = run_routing(cfg, inp, plain=True)
+            torch.cuda.synchronize()
+            note(f"routing_dh{Dh}", check_close(f"routing o_cmp Dh {Dh}", o_k, o_r, dt_name))
+            note(f"routing_dh{Dh}", check_close(f"routing p_slc Dh {Dh}", p_k, p_r, dt_name))
+            for label, C, mode, full, branch in VERIFY_CASES:
+                args = verify_layouts(cfg, inp, C, mode)
+                oc = inp["o_cmp_in"] if (not full and branch == "all") else None
+                got = run_verify(cfg, args, full, oc, plain=False, branch=branch)
+                want = run_verify(cfg, args, full, oc, plain=True, branch=branch)
+                torch.cuda.synchronize()
+                note(f"{case_kernel(full, branch)}_dh{Dh}",
+                     check_close(f"nsa_verify {label} Dh {Dh}", got, want, dt_name))
+            del inp
+        # the vanilla layer (routing kernel, two branch launches, combine),
+        # a counted path, against the plain NSA layer on the same weights
+        # and caches
+        lcfg, mix, x, kv, cmp, plen, pos, tm = layer_inputs(cfg, "float32", seed=3)
+        got, _, (si, _) = counted_path(
+            ctx, f"{cfg.name} vanilla NSA layer (f32)", Dh,
+            lambda: vops.nsa_verify_vanilla_layer(mix, lcfg, x, kv, cmp, plen, pos, tm),
+            lambda r: {"routing": 1, "nsa_verify_vanilla": 2})
+        want, _, (si_r, _) = nsa_lib.nsa_verify_ref(mix, lcfg, x, kv, cmp, plen, pos, tm)
+        torch.cuda.synchronize()
+        if not torch.equal(si, si_r):
+            fail(f"vanilla layer Dh {Dh}: selected indices differ from the plain layer")
+        note(f"nsa_verify_vanilla_dh{Dh}",
+             check_close(f"vanilla layer vs plain NSA layer Dh {Dh}", got, want, "float32"))
+        del lcfg, mix, x, kv, cmp
+    for label, Hq, Hkv, Dh in FLASH_CASES:
+        for dt_name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            inp = flash_inputs(Hq, Hkv, Dh, dt, seed=Hq + Dh)
+            got = run_flash(inp, plain=False)
+            want = run_flash(inp, plain=True)
+            torch.cuda.synchronize()
+            note(f"flash_verify_dh{Dh}", check_close(
+                f"flash {label} (R={inp['q'].shape[1] * Hq // Hkv}, Dh {Dh})", got, want, dt_name))
+    free()
+    return max_err
+
+
+def counted_path(ctx, name, Dh, fn, want_of):
+    """Run one main path with every counter at 0, read the counts after it
+    and check them against ``want_of(result)`` ({counter: count}, the rest
+    must stay 0). Adds the counts to the launches of head dim Dh."""
+    for c in ctx["counters"]:
+        c.reset()
+    res = fn()
+    torch.cuda.synchronize()
+    counts = {c.name: c.count for c in ctx["counters"]}
+    want = {c.name: 0 for c in ctx["counters"]}
+    want.update(want_of(res))
+    if counts != want:
+        fail(f"{name}: launch counts {counts}, expected {want}")
+    ctx["paths"][name] = counts
+    for k, v in counts.items():
+        key = f"{k}_dh{Dh}"
+        ctx["launches"][key] = ctx["launches"].get(key, 0) + v
+    log(f"  [{name}] launches {counts}")
+    return res
+
+
+def strategy(cfg, pc):
+    from repro_torch.config import SSVConfig
     from repro_torch.core import planner as planner_lib
+    mode, reuse = planner_lib.class_constraints(pc)
+    sched = planner_lib.default_schedule(cfg.num_layers) if reuse else ()
+    return SSVConfig(tree_depth=4, tree_width=2, group_size=4 if mode == "approx" else 2,
+                     group_mode=mode, refresh_schedule=sched, precision_class=pc)
+
+
+def generate_all(eng, prompts, cfg, label):
+    n_tok = n_steps = 0
+    step_s = 0.0
+    accepted = []
+    for prompt in prompts:
+        res = eng.generate(prompt, max_new_tokens=16)
+        if len(res.tokens) != 16 or not all(0 <= t < cfg.vocab_size for t in res.tokens):
+            fail(f"{label}: bad tokens {res.tokens}")
+        n_tok += len(res.tokens)
+        n_steps += len(res.steps)
+        step_s += sum(s.latency_s for s in res.steps)
+        accepted += [s.accepted for s in res.steps]
+    return dict(tokens=n_tok, steps=n_steps, tokens_per_s=n_tok / step_s,
+                mean_accepted=sum(accepted) / len(accepted))
+
+
+def serve_e2e(cfg, Dh, n_prompts, ctx):
+    """Phase 3: both precision classes through SSVEngine; returns the
+    end-to-end numbers and adds the launch counts."""
+    from repro_torch.bridge import init_params
+    from repro_torch.config import ServeConfig
+    from repro_torch.core import draft as draft_lib, engine as engine_lib
     dcfg = draft_lib.draft_config(cfg)
+    gen = torch.Generator(DEV)
     gen.manual_seed(0)
+    t0 = time.time()
     tp = init_params(cfg, gen, DEV)
     dp = init_params(dcfg, gen, DEV)
-    prompts = [corpus.batch(i, 1, 4097)[0] for i in range(2)]
-    launches = {c.name: 0 for c in counters}
+    log(f"[3 e2e {cfg.name}] random weights drawn in {time.time() - t0:.1f}s")
+    prompts = [ctx["corpus"].batch(i, 1, 4097)[0] % cfg.vocab_size for i in range(n_prompts)]
     e2e = {}
     for pc in ("Strict", "Approx+Reuse"):
-        mode, reuse = planner_lib.class_constraints(pc)
-        sched = planner_lib.default_schedule(cfg.num_layers) if reuse else ()
-        ssv = SSVConfig(tree_depth=4, tree_width=2, group_size=4 if mode == "approx" else 2,
-                        group_mode=mode, refresh_schedule=sched, precision_class=pc)
+        ssv = strategy(cfg, pc)
         serve_cfg = ServeConfig(max_new_tokens=16, temperature=0.0, max_context=8192,
                                 ssv=ssv, use_planner=False)
         eng = engine_lib.SSVEngine(tp, cfg, dp, dcfg, serve_cfg, device=DEV)
         torch.cuda.reset_peak_memory_stats()
-        for c in counters:
-            c.reset()
-        n_tok = n_steps = 0
-        step_s = 0.0
-        accepted = []
-        for prompt in prompts:
-            res = eng.generate(prompt, max_new_tokens=16)
-            if len(res.tokens) != 16 or not all(0 <= t < cfg.vocab_size for t in res.tokens):
-                fail(f"{pc}: bad tokens {res.tokens}")
-            n_tok += len(res.tokens)
-            n_steps += len(res.steps)
-            step_s += sum(s.latency_s for s in res.steps)
-            accepted += [s.accepted for s in res.steps]
-        torch.cuda.synchronize()
-        counts = {c.name: c.count for c in counters}
-        refresh = cfg.num_layers - len([i for i in sched if 0 < i < cfg.num_layers])
-        want = {"routing": refresh * n_steps,
-                "nsa_verify_partial": refresh * n_steps,
-                "nsa_verify_full": (cfg.num_layers - refresh) * n_steps}
-        if counts != want:
-            fail(f"{pc}: launch counts {counts}, expected {want} "
-                 f"({refresh} refresh layers x {n_steps} verify passes)")
-        for k, v in counts.items():
-            launches[k] += v
+        refresh = cfg.num_layers - len([i for i in ssv.refresh_schedule if 0 < i < cfg.num_layers])
+        passes = ssv.tree_depth + 1
+        res = counted_path(
+            ctx, f"{cfg.name} {pc}", Dh, lambda: generate_all(eng, prompts, cfg, pc),
+            lambda r: {"routing": refresh * r["steps"], "nsa_verify_partial": refresh * r["steps"],
+                       "nsa_verify_full": (cfg.num_layers - refresh) * r["steps"],
+                       "flash_verify": dcfg.num_layers * passes * r["steps"]})
         prof = profile_steps(eng, prompts[0])
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        e2e[pc] = dict(tokens_per_s=n_tok / step_s, mean_accepted=sum(accepted) / len(accepted),
-                       verify_passes=n_steps, peak_gib=peak, launches=counts,
+        e2e[pc] = dict(res, peak_gib=peak, launches=ctx["paths"][f"{cfg.name} {pc}"],
                        profile=prof)
-        log(f"[3 e2e {pc}] {kind} ({card}): {n_tok} tokens in {n_steps} steps, "
-            f"{n_tok / step_s:.2f} tok/s (decode steps only), mean accepted/step "
-            f"{sum(accepted) / len(accepted):.3f}, peak memory {peak:.2f} GiB, "
-            f"launches {counts}")
-    del tp, dp
-    torch.cuda.empty_cache()
-    return launches, e2e
-
+        log(f"[3 e2e {cfg.name} {pc}] {ctx['kind']} ({ctx['card']}): {res['tokens']} tokens "
+            f"in {res['steps']} steps, {res['tokens_per_s']:.2f} tok/s (decode steps only), "
+            f"mean accepted/step {res['mean_accepted']:.3f}, peak memory {peak:.2f} GiB")
+        del eng
+    return e2e
 
 
 def profile_steps(eng, prompt, n: int = 3):
@@ -436,83 +642,170 @@ def profile_steps(eng, prompt, n: int = 3):
             kern.append((us / n / 1e3, ev.count // n, ev.key))
     kern.sort(reverse=True)
     busy = sum(k[0] for k in kern)
-    top = [{"ms": ms, "launches": c, "name": name[:80]} for ms, c, name in kern[:8]]
+    top = [{"ms": ms, "launches": c, "name": name[:80]} for ms, c, name in kern[:10]]
     log(f"  profile: step {wall_ms:.2f} ms wall, device busy {busy:.2f} ms "
         f"(idle share {1 - busy / wall_ms:.3f}), {sum(k[1] for k in kern)} kernels/step")
-    for t in top[:5]:
+    for t in top[:6]:
         log(f"    {t['ms']:.3f} ms x{t['launches']} {t['name']}")
     return {"step_wall_ms": wall_ms, "device_busy_ms": busy,
             "kernels_per_step": sum(k[1] for k in kern), "top": top}
 
 
-def strict_equals_ar(cfg, corpus, gen):
+def strict_equals_ar(cfg, layers, n_tok, ctx):
+    """Phase 4 (float32, full width; ``layers`` cuts depth): Strict SSV
+    tokens equal autoregressive decoding."""
     from repro_torch.bridge import init_params
     from repro_torch.config import ServeConfig, SSVConfig
     from repro_torch.core import draft as draft_lib, engine as engine_lib
-    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    cfg32 = dataclasses.replace(cfg, dtype="float32", num_layers=layers or cfg.num_layers)
     dcfg32 = draft_lib.draft_config(cfg32)
+    gen = torch.Generator(DEV)
     gen.manual_seed(1)
     tp = init_params(cfg32, gen, DEV)
     dp = init_params(dcfg32, gen, DEV)
-    prompt = corpus.batch(7, 1, 2049)[0]
+    prompt = ctx["corpus"].batch(7, 1, 2049)[0] % cfg.vocab_size
     ssv = SSVConfig(tree_depth=4, tree_width=2, precision_class="Strict")
     eng = engine_lib.SSVEngine(tp, cfg32, dp, dcfg32, ServeConfig(
-        max_new_tokens=24, temperature=0.0, max_context=8192, ssv=ssv,
+        max_new_tokens=n_tok, temperature=0.0, max_context=8192, ssv=ssv,
         use_planner=False), device=DEV)
-    ssv_toks = eng.generate(prompt, max_new_tokens=24).tokens
-    ar_toks = engine_lib.autoregressive_decode(tp, cfg32, prompt, 24, 8192,
+    ssv_toks = eng.generate(prompt, max_new_tokens=n_tok).tokens
+    ar_toks = engine_lib.autoregressive_decode(tp, cfg32, prompt, n_tok, 8192,
                                                device=DEV).tokens
-    log(f"[4 strict==AR f32] ssv {ssv_toks.tolist()}")
-    log(f"[4 strict==AR f32] ar  {ar_toks.tolist()}")
-    if len(ssv_toks) != 24 or ssv_toks.tolist() != ar_toks.tolist():
-        fail("Strict SSV tokens differ from autoregressive decoding in float32")
+    tag = f"[4 strict==AR f32 {cfg.name}{f' {layers} layers' if layers else ''}]"
+    log(f"{tag} ssv {ssv_toks.tolist()}")
+    log(f"{tag} ar  {ar_toks.tolist()}")
+    if len(ssv_toks) != n_tok or ssv_toks.tolist() != ar_toks.tolist():
+        fail(f"{cfg.name}: Strict SSV tokens differ from autoregressive decoding in float32")
 
 
-def serve_cli():
+def dense_baseline(cfg, ctx):
+    """Phase 5: the dense-verification target (``attention="dense"``, the
+    paper's dense baseline, as benchmarks/verification.py builds it)."""
+    from repro_torch.bridge import init_params
+    from repro_torch.config import ServeConfig
+    from repro_torch.core import draft as draft_lib, engine as engine_lib
+    dense = dataclasses.replace(cfg, attention="dense")
+    dcfg = draft_lib.draft_config(cfg)
+    gen = torch.Generator(DEV)
+    gen.manual_seed(0)
+    tp = init_params(dense, gen, DEV)
+    dp = init_params(dcfg, gen, DEV)
+    prompts = [ctx["corpus"].batch(i, 1, 4097)[0] % cfg.vocab_size for i in range(2)]
+    ssv = strategy(cfg, "Strict")
+    eng = engine_lib.SSVEngine(tp, dense, dp, dcfg, ServeConfig(
+        max_new_tokens=16, temperature=0.0, max_context=8192, ssv=ssv,
+        use_planner=False), device=DEV)
+    torch.cuda.reset_peak_memory_stats()
+    passes = ssv.tree_depth + 1
+    res = counted_path(ctx, f"{cfg.name} dense-verification target", 64,
+                       lambda: generate_all(eng, prompts, dense, "dense"),
+                       lambda r: {"flash_verify": (dense.num_layers + dcfg.num_layers * passes)
+                                  * r["steps"]})
+    prof = profile_steps(eng, prompts[0])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[5 dense baseline {cfg.name}] {res['tokens']} tokens in {res['steps']} steps, "
+        f"{res['tokens_per_s']:.2f} tok/s, peak memory {peak:.2f} GiB")
+    return dict(res, peak_gib=peak, profile=prof)
+
+
+def serve_cli(arch):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.time()
     cli = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", "--arch",
-                          "ssv-nsa-1b", "--prompts", "1", "--tokens", "8"],
+                          arch, "--prompts", "1", "--tokens", "8"],
                          cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
     for line in (cli.stdout + cli.stderr).strip().splitlines()[-5:]:
-        log(f"[5 serve] {line}")
-    if cli.returncode != 0:
-        fail(f"serve CLI exited {cli.returncode}")
+        log(f"[6 serve {arch}] {line}")
+    if cli.returncode != 0 or "prompt 0: 8 tokens" not in cli.stdout:
+        fail(f"serve CLI --arch {arch} exited {cli.returncode}")
+    log(f"[6 serve {arch}] {time.time() - t0:.1f}s")
 
 
-def kernel_times(cfg, launches, max_err, kind, card):
-    inp = verify_inputs(cfg, torch.bfloat16, seed=2)
+def kernel_row(name, Dh, source, replaces, launches, max_err, ms, plain, bnd, library=None):
+    return dict(name=f"{name}_dh{Dh}", route="cuda", source=source, replaces=replaces,
+                launches=launches.get(f"{name}_dh{Dh}", 0),
+                max_abs_err=max_err[f"{name}_dh{Dh}"], ms=ms, plain_ms=plain,
+                bound_ms=bnd[0], bound_by=bnd[1], library_ms=library)
+
+
+def bound_text(bnd):
+    return f"bound {bnd[0]:.5f} ms ({bnd[1]}; bytes alone {bnd[2]:.5f} ms)"
+
+
+def kernel_times(cfgs, launches, max_err, kind, card):
+    from repro_torch.kernels.nsa_verify import ops as vops
     rows = []
-    r_ms, r_src, r_ev = time_kernel(lambda: run_routing(cfg, inp, False), "routing_kernel")
-    r_plain = time_events(lambda: run_routing(cfg, inp, True), 10)
-    r_bound, r_by = routing_bound(cfg, inp)
-    log(f"[6 time] routing: {r_ms:.4f} ms ({r_src}; {r_ev:.4f} ms by CUDA events), "
-        f"plain {r_plain:.4f} ms, "
-        f"bound {r_bound:.4f} ms ({r_by}), library call: none — {kind} ({card})")
-    rows.append(dict(name="routing", route="cuda", source="src/repro_torch/csrc/routing.cu",
-                     replaces="src/repro/kernels/routing/kernel.py:70",
-                     launches=launches["routing"], max_abs_err=max_err["routing"],
-                     ms=r_ms, plain_ms=r_plain, bound_ms=r_bound, bound_by=r_by,
-                     library_ms=None))
-    times = {}
-    for label, C, mode, full in VERIFY_CASES:
-        args = verify_layouts(cfg, inp, C, mode)
-        oc = None if full else inp["o_cmp_in"]
-        ms, src, ev = time_kernel(lambda: run_verify(cfg, args, full, oc, False),
-                                  "nsa_verify_kernel")
-        plain = time_events(lambda: run_verify(cfg, args, full, oc, True), 5)
-        bound, by = verify_bound(cfg, inp, args, full)
-        times[label] = (ms, plain, bound, by)
-        log(f"[6 time] nsa_verify {label}: {ms:.4f} ms ({src}; {ev:.4f} ms by CUDA "
-            f"events), plain {plain:.4f} ms, "
-            f"bound {bound:.4f} ms ({by}), library call: none — {kind} ({card})")
-    for key, label in (("nsa_verify_full", "exact C=2 full"),
-                       ("nsa_verify_partial", "exact C=2 partial")):
-        ms, plain, bound, by = times[label]
-        rows.append(dict(name=key, route="cuda", source="src/repro_torch/csrc/nsa_verify.cu",
-                         replaces="src/repro/kernels/nsa_verify/kernel.py:156",
-                         launches=launches[key], max_abs_err=max_err[key], ms=ms,
-                         plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=None))
-    return rows
+    bounds = {}
+    sig = f"— {kind} ({card})"
+    verify_src, verify_tpu = "src/repro_torch/csrc/nsa_verify.cu", "src/repro/kernels/nsa_verify/kernel.py:156"
+    for Dh, cfg in cfgs.items():
+        inp = verify_inputs(cfg, torch.bfloat16, seed=2)
+        r_ms, r_src, r_ev = time_kernel(lambda: run_routing(cfg, inp, False), "routing_kernel")
+        r_plain = time_events(lambda: run_routing(cfg, inp, True), 10)
+        r_bound = routing_bound(cfg, inp)
+        bounds[f"routing_dh{Dh}"] = r_bound
+        log(f"[7 time] routing Dh {Dh}: {r_ms:.4f} ms ({r_src}; {r_ev:.4f} ms by CUDA events), "
+            f"plain {r_plain:.4f} ms, {bound_text(r_bound)}, library call: none {sig}")
+        rows.append(kernel_row("routing", Dh, "src/repro_torch/csrc/routing.cu",
+                               "src/repro/kernels/routing/kernel.py:70", launches, max_err,
+                               r_ms, r_plain, r_bound))
+        times = {}
+        for label, C, mode, full, branch in VERIFY_CASES:
+            args = verify_layouts(cfg, inp, C, mode)
+            oc = inp["o_cmp_in"] if (not full and branch == "all") else None
+            ms, src, ev = time_kernel(lambda: run_verify(cfg, args, full, oc, False, branch),
+                                      "nsa_verify_kernel")
+            plain = time_events(lambda: run_verify(cfg, args, full, oc, True, branch), 5)
+            bnd = verify_bound(cfg, inp, args, full, branch)
+            times[label] = (ms, plain, bnd)
+            bounds[f"nsa_verify {label} dh{Dh}"] = bnd
+            log(f"[7 time] nsa_verify {label} Dh {Dh}: {ms:.4f} ms ({src}; {ev:.4f} ms by "
+                f"CUDA events), plain {plain:.4f} ms, {bound_text(bnd)}, library call: none {sig}")
+        for key, label in (("nsa_verify_full", "exact C=2 full"),
+                           ("nsa_verify_partial", "exact C=2 partial")):
+            ms, plain, bnd = times[label]
+            rows.append(kernel_row(key, Dh, verify_src, verify_tpu, launches, max_err,
+                                   ms, plain, bnd))
+        # vanilla: the mean of its two single-branch launches
+        (ms_s, pl_s, b_s), (ms_w, pl_w, b_w) = times["vanilla slc"], times["vanilla win"]
+        b_v = ((b_s[0] + b_w[0]) / 2, b_s[1] if b_s[0] >= b_w[0] else b_w[1])
+        rows.append(kernel_row("nsa_verify_vanilla", Dh, verify_src,
+                               "src/repro/kernels/nsa_verify/kernel.py:156 (combine=False)",
+                               launches, max_err, (ms_s + ms_w) / 2, (pl_s + pl_w) / 2, b_v))
+        del inp
+    layer_times = {}
+    for Dh, cfg in cfgs.items():
+        lcfg, mix, x, kv, cmp, plen, pos, tm = layer_inputs(cfg, "bfloat16", seed=4)
+        vanilla = time_events(lambda: vops.nsa_verify_vanilla_layer(
+            mix, lcfg, x, kv, cmp, plen, pos, tm), 20)
+        fused = time_events(lambda: vops.nsa_verify_kernel_layer(
+            mix, lcfg, x, kv, cmp, plen, pos, tm, C=1, mode="exact", reuse=False), 20)
+        vanilla2 = time_events(lambda: vops.nsa_verify_vanilla_layer(
+            mix, lcfg, x, kv, cmp, plen, pos, tm), 20)
+        layer_times[f"dh{Dh}"] = dict(vanilla_ms=[vanilla, vanilla2], fused_c1_ms=fused)
+        log(f"[7 time] NSA layer Dh {Dh} (bf16, prefix 4096, T=31, C=1, CUDA events per "
+            f"layer call): vanilla (routing + 2 branch launches + combine) {vanilla:.4f} / "
+            f"{vanilla2:.4f} ms, fused refresh layer (routing + partial fusion) {fused:.4f} ms {sig}")
+        del lcfg, mix, x, kv, cmp
+    for label, Hq, Hkv, Dh in FLASH_CASES:
+        inp = flash_inputs(Hq, Hkv, Dh, torch.bfloat16, seed=5)
+        ms, src, ev = time_kernel(lambda: run_flash(inp, False), "flash_verify_kernel")
+        plain = time_events(lambda: run_flash(inp, True), 10)
+        lib = time_events(sdpa_call(inp), 20)
+        bnd = flash_bound(inp)
+        bounds[f"flash {label} dh{Dh}"] = bnd
+        log(f"[7 time] flash {label} Dh {Dh}: {ms:.4f} ms ({src}; {ev:.4f} ms by CUDA "
+            f"events), plain {plain:.4f} ms, {bound_text(bnd)}, library "
+            f"(scaled_dot_product_attention) {lib:.4f} ms {sig}")
+        if label != "1B dense target":
+            rows.append(kernel_row("flash_verify", Dh, "src/repro_torch/csrc/flash_verify.cu",
+                                   "src/repro/kernels/flash/kernel.py:69", launches, max_err,
+                                   ms, plain, bnd, lib))
+        layer_times[f"flash {label}"] = dict(ms=ms, events_ms=ev, plain_ms=plain,
+                                             library_ms=lib, bound_ms=bnd[0], bound_by=bnd[1])
+    layer_times["bounds"] = {k: dict(bound_ms=b[0], bound_by=b[1], bytes_ms=b[2])
+                             for k, b in bounds.items()}
+    return rows, layer_times
 
 
 if __name__ == "__main__":

@@ -12,7 +12,7 @@ from typing import Optional
 
 from repro_torch.config import ModelConfig, MoEConfig, NSAConfig
 
-ARCH_IDS = ("ssv-nsa-1b",)
+ARCH_IDS = ("ssv-nsa-1b", "ssv-nsa-8b")
 
 
 def _module(arch_id: str):

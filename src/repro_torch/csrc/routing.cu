@@ -30,38 +30,35 @@
 // the visible compressed K/V of each head once, o_cmp and p_slc) take
 // about a third of that time at the full-width ssv-nsa-1b shapes. FMA on
 // CUDA cores with f32 accumulation; wgmma/TMA are left for a later change.
+// Head dim 64 and 128 are template instances (shared memory is sized at
+// launch: Gq*(NCB + DH) floats, opted in above 48 KB).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stddef.h>
 
+#include "online_softmax.cuh"
+
 namespace {
 
-constexpr int DH = 64;
-constexpr int NT = 128;
-constexpr int NW = NT / 32;
+using online_softmax::NT;
+using online_softmax::NW;
+using online_softmax::warp_max;
+using online_softmax::warp_sum;
+
 constexpr int GQ_MAX = 8;
 
 __device__ __forceinline__ float ld(const float* p) { return *p; }
 __device__ __forceinline__ float ld(const __nv_bfloat16* p) { return __bfloat162float(*p); }
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-template <typename KV>
+template <typename KV, int DH>
 __global__ void __launch_bounds__(NT) routing_kernel(
     const float* __restrict__ q, const KV* __restrict__ kc,
     const KV* __restrict__ vc, const int* __restrict__ pos,
     const int* __restrict__ ncb_valid, float* __restrict__ o,
     float* __restrict__ p_slc, int T, int Hkv, int Gq, int NCB, int NSB,
     int cmp_block, int cmp_stride, int sel_block) {
+  constexpr int E = DH / 32;        // head-dim elements per lane in pass 1
   extern __shared__ float smem[];
   float* sp = smem;                 // [Gq][NCB] logits, then probabilities
   float* sq = smem + (size_t)Gq * NCB;  // [Gq][DH]
@@ -82,10 +79,14 @@ __global__ void __launch_bounds__(NT) routing_kernel(
 
   // pass 1: logits, one warp per cmp block (lanes split the head dim)
   for (int n = warp; n < nvis; n += NW) {
-    const KV* kr = kc + (((size_t)b * NCB + n) * Hkv + h) * DH;
-    const float k0 = ld(kr + 2 * lane), k1 = ld(kr + 2 * lane + 1);
+    const KV* kr = kc + (((size_t)b * NCB + n) * Hkv + h) * DH + E * lane;
+    float kf[E];
+#pragma unroll
+    for (int e = 0; e < E; ++e) kf[e] = ld(kr + e);
     for (int g = 0; g < Gq; ++g) {
-      float s = sq[g * DH + 2 * lane] * k0 + sq[g * DH + 2 * lane + 1] * k1;
+      float s = 0.f;
+#pragma unroll
+      for (int e = 0; e < E; ++e) s += sq[g * DH + E * lane + e] * kf[e];
       s = warp_sum(s);
       if (lane == 0) sp[(size_t)g * NCB + n] = s;
     }
@@ -138,7 +139,7 @@ __global__ void __launch_bounds__(NT) routing_kernel(
   }
 }
 
-template <typename KV>
+template <typename KV, int DH>
 int launch(const void* q, const void* kc, const void* vc, const void* pos,
            const void* ncb_valid, void* o, void* p_slc, int B, int T, int Hkv,
            int Gq, int NCB, int NSB, int cmp_block, int cmp_stride,
@@ -146,11 +147,11 @@ int launch(const void* q, const void* kc, const void* vc, const void* pos,
   const size_t smem = (size_t)Gq * (NCB + DH) * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        routing_kernel<KV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        routing_kernel<KV, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   dim3 grid(T, Hkv, B);
-  routing_kernel<KV><<<grid, NT, smem, stream>>>(
+  routing_kernel<KV, DH><<<grid, NT, smem, stream>>>(
       (const float*)q, (const KV*)kc, (const KV*)vc, (const int*)pos,
       (const int*)ncb_valid, (float*)o, (float*)p_slc, T, Hkv, Gq, NCB, NSB,
       cmp_block, cmp_stride, sel_block);
@@ -159,20 +160,21 @@ int launch(const void* q, const void* kc, const void* vc, const void* pos,
 
 }  // namespace
 
-// kv_dtype: 0 = float32, 1 = bfloat16. Returns the cudaError_t of the launch.
+#define ROUTING_ARGS q, kc, vc, pos, ncb_valid, o, p_slc, B, T, Hkv, Gq, NCB, \
+    NSB, cmp_block, cmp_stride, sel_block, s
+
+// kv_dtype: 0 = float32, 1 = bfloat16. DH: 64 or 128. Returns the
+// cudaError_t of the launch.
 extern "C" int routing_launch(const void* q, const void* kc, const void* vc,
                               const void* pos, const void* ncb_valid, void* o,
                               void* p_slc, int B, int T, int Hkv, int Gq,
                               int NCB, int NSB, int cmp_block, int cmp_stride,
-                              int sel_block, int kv_dtype, void* stream) {
+                              int sel_block, int kv_dtype, int DH, void* stream) {
   if (Gq < 1 || Gq > GQ_MAX) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (kv_dtype == 0)
-    return launch<float>(q, kc, vc, pos, ncb_valid, o, p_slc, B, T, Hkv, Gq,
-                         NCB, NSB, cmp_block, cmp_stride, sel_block, s);
-  if (kv_dtype == 1)
-    return launch<__nv_bfloat16>(q, kc, vc, pos, ncb_valid, o, p_slc, B, T,
-                                 Hkv, Gq, NCB, NSB, cmp_block, cmp_stride,
-                                 sel_block, s);
+  if (kv_dtype == 0 && DH == 64) return launch<float, 64>(ROUTING_ARGS);
+  if (kv_dtype == 0 && DH == 128) return launch<float, 128>(ROUTING_ARGS);
+  if (kv_dtype == 1 && DH == 64) return launch<__nv_bfloat16, 64>(ROUTING_ARGS);
+  if (kv_dtype == 1 && DH == 128) return launch<__nv_bfloat16, 128>(ROUTING_ARGS);
   return (int)cudaErrorInvalidValue;
 }

@@ -3,8 +3,9 @@
 Each source in ``repro_torch/csrc`` is compiled by ``nvcc`` for ``sm_90a``
 into a shared library with a plain C interface and loaded with ``ctypes``
 (no PyTorch headers, so a build takes seconds). Libraries go to
-``<checkout>/build/kernels`` under a name that carries a hash of the source
-and the flags, so an edited source rebuilds and an unchanged one loads.
+``<checkout>/build/kernels`` under a name that carries a hash of the source,
+the shared headers (``csrc/*.cuh``) and the flags, so an edited source or
+header rebuilds and an unchanged one loads.
 Sources build in parallel: one ``nvcc`` per source, all started together.
 Nothing is built at import time; the first launch (or ``build_all``)
 builds.
@@ -21,7 +22,8 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = {"routing": "routing.cu", "nsa_verify": "nsa_verify.cu"}
+SOURCES = {"routing": "routing.cu", "nsa_verify": "nsa_verify.cu",
+           "flash_verify": "flash_verify.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
 
@@ -41,7 +43,8 @@ def nvcc_path() -> str:
 
 def _paths(name: str):
     src = CSRC / SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode())
     stem = f"lib{name}_{digest.hexdigest()[:12]}"
     return src, BUILD_DIR / f"{stem}.so", BUILD_DIR / f"{stem}.ptxas.txt"
 

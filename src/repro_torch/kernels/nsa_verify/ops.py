@@ -8,8 +8,11 @@ launch the kernel (or raise), CPU tensors run the plain version in
 ``ref.py``. ``nsa_verify_kernel_layer`` is one NSA layer's verify through
 the kernels: refresh layers run the routing kernel, Top-n selection and the
 partially fused kernel; reuse layers run the fully fused kernel on
-inherited indices. Only the dense KV store and the gated combine
-(``combine=True``) are ported.
+inherited indices. ``nsa_verify_vanilla_layer`` is the branch-wise vanilla
+baseline: the routing kernel, Top-n, then two launches of the same kernel
+that each write one ungated branch (slc, then win + draft), and the gated
+combine in PyTorch. Only the dense KV store is ported (the paged variant
+is not).
 """
 from __future__ import annotations
 
@@ -22,15 +25,16 @@ import torch
 
 from repro_torch.config import NSAConfig
 from repro_torch.core import kvstore, overlap
-from repro_torch.kernels import LaunchCounter, build
+from repro_torch.kernels import LaunchCounter, build, per_row
 from repro_torch.kernels.nsa_verify import ref
 from repro_torch.kernels.routing import ops as routing_ops
-from repro_torch.kernels.routing.ops import per_row
 
 FULL_LAUNCHES = LaunchCounter("nsa_verify_full")
 PARTIAL_LAUNCHES = LaunchCounter("nsa_verify_partial")
-HEAD_DIM = 64
+VANILLA_LAUNCHES = LaunchCounter("nsa_verify_vanilla")
+HEAD_DIMS = (64, 128)
 MAX_ROWS = 16
+BRANCHES = {"all": 0, "slc": 1, "win": 2}   # the kernel's ``branch`` flag
 
 
 @functools.lru_cache(maxsize=256)
@@ -87,28 +91,30 @@ def _lib():
 def verify_groups(q, k_cache, v_cache, k_cmp, v_cmp, k_draft, v_draft, merged,
                   mvalid, own, qmap, positions, prefix_len, ncb_valid,
                   win_start, dmask, gates, o_cmp_in, *, nsa: NSAConfig,
-                  include_cmp: bool):
+                  include_cmp: bool, branch: str = "all"):
     """The kernel boundary. Shapes as in ``ref.verify_groups_plain``;
     prefix_len / ncb_valid / win_start are (B,) int32 device tensors.
-    Returns (B,T,Hq,Dh) f32."""
+    ``branch`` "slc" / "win" writes that one branch ungated (vanilla; needs
+    include_cmp=False). Returns (B,T,Hq,Dh) f32."""
     geo = dict(sel_block=nsa.sel_block, cmp_block=nsa.cmp_block,
                cmp_stride=nsa.cmp_stride, window=nsa.window)
     if q.device.type == "cpu":
         return ref.verify_groups_plain(
             q, k_cache, v_cache, k_cmp, v_cmp, k_draft, v_draft, merged,
             mvalid, own, qmap, positions, prefix_len, ncb_valid, win_start,
-            dmask, gates, o_cmp_in, include_cmp=include_cmp, **geo)
+            dmask, gates, o_cmp_in, include_cmp=include_cmp, branch=branch, **geo)
     if q.device.type != "cuda":
         raise ValueError(f"verify_groups: unsupported device {q.device}")
     return launch(q, k_cache, v_cache, k_cmp, v_cmp, k_draft, v_draft, merged,
                   mvalid, own, qmap, positions, prefix_len, ncb_valid,
                   win_start, dmask, gates, o_cmp_in, nsa=nsa,
-                  include_cmp=include_cmp)
+                  include_cmp=include_cmp, branch=branch)
 
 
 def launch(q, k_cache, v_cache, k_cmp, v_cmp, k_draft, v_draft, merged, mvalid,
            own, qmap, positions, prefix_len, ncb_valid, win_start, dmask,
-           gates, o_cmp_in, *, nsa: NSAConfig, include_cmp: bool):
+           gates, o_cmp_in, *, nsa: NSAConfig, include_cmp: bool,
+           branch: str = "all"):
     """Launch the CUDA kernel (CUDA tensors only); checks every input."""
     B, T, Hq, Dh = q.shape
     S, Hkv = k_cache.shape[1], k_cache.shape[2]
@@ -116,8 +122,11 @@ def launch(q, k_cache, v_cache, k_cmp, v_cmp, k_draft, v_draft, merged, mvalid,
     M = merged.shape[-1]
     NCB = k_cmp.shape[1]
     dev = q.device
-    if Dh != HEAD_DIM:
-        raise ValueError(f"nsa_verify kernel is built for head_dim {HEAD_DIM}, got {Dh}")
+    if Dh not in HEAD_DIMS:
+        raise ValueError(f"nsa_verify kernel is built for head_dim in {HEAD_DIMS}, got {Dh}")
+    if branch not in BRANCHES or (branch != "all" and include_cmp):
+        raise ValueError(f"branch {branch!r}: one of {tuple(BRANCHES)}; a single "
+                         "branch runs without the cmp branch (include_cmp=False)")
     if Hq % Hkv or not 1 <= C * (Hq // Hkv) <= MAX_ROWS:
         raise ValueError(f"nsa_verify kernel takes C*Gq <= {MAX_ROWS} rows per CTA")
     if q.dtype != torch.float32:
@@ -141,7 +150,7 @@ def launch(q, k_cache, v_cache, k_cmp, v_cmp, k_draft, v_draft, merged, mvalid,
               "win_start": (win_start, (B,), torch.int32),
               "dmask": (dmask, (B, T, T), torch.int32),
               "gates": (gates, (B, T, 3, Hq), torch.float32)}
-    if not include_cmp:
+    if not include_cmp and branch == "all":
         if o_cmp_in is None:
             raise ValueError("partial fusion (include_cmp=False) needs o_cmp_in")
         shapes["o_cmp_in"] = (o_cmp_in, (B, T, Hq, Dh), torch.float32)
@@ -156,21 +165,28 @@ def launch(q, k_cache, v_cache, k_cmp, v_cmp, k_draft, v_draft, merged, mvalid,
             raise ValueError(f"{name} must be contiguous")
     if not q.is_contiguous():
         raise ValueError("q must be contiguous")
+    for name in ("k_cache", "v_cache", "k_cmp", "v_cmp", "k_draft", "v_draft"):
+        if shapes[name][0].data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (16-byte K/V loads)")
     out = torch.empty((B, T, Hq, Dh), dtype=torch.float32, device=dev)
     tensors = [q, k_cache, v_cache, k_cmp, v_cmp, k_draft, v_draft, merged,
                mvalid, own, qmap, positions, prefix_len, ncb_valid, win_start,
                dmask, gates]
     ptrs = [t.data_ptr() for t in tensors]
-    ptrs += [o_cmp_in.data_ptr() if not include_cmp else None, out.data_ptr()]
+    has_cmp_in = not include_cmp and branch == "all"
+    ptrs += [o_cmp_in.data_ptr() if has_cmp_in else None, out.data_ptr()]
     ints = [B, T, S, Hkv, Hq // Hkv, C, G, M, NCB, min(nsa.window, S),
             nsa.sel_block, nsa.cmp_block, nsa.cmp_stride, nsa.window,
-            int(include_cmp)]
+            int(include_cmp), BRANCHES[branch], Dh]
     err = _lib()((ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_int * len(ints))(*ints),
                  0 if kv_t == torch.float32 else 1,
                  torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"nsa_verify kernel launch failed: cudaError {err}")
-    (FULL_LAUNCHES if include_cmp else PARTIAL_LAUNCHES).add()
+    if branch != "all":
+        VANILLA_LAUNCHES.add()
+    else:
+        (FULL_LAUNCHES if include_cmp else PARTIAL_LAUNCHES).add()
     return out
 
 
@@ -178,12 +194,13 @@ def nsa_verify_fused(q, k_cache, v_cache, k_cmp, v_cmp, k_draft, v_draft,
                      sel_idx, sel_valid, positions, prefix_len, ncb_valid,
                      tree_mask, gates, nsa: NSAConfig, C: int = 2,
                      mode: str = "exact", include_cmp: bool = True,
-                     o_cmp_in=None):
+                     o_cmp_in=None, branch: str = "all"):
     """Fused grouped-query NSA verification on the dense store.
 
     q (B,T,Hq,Dh) ALREADY rope'd and scaled by 1/sqrt(Dh); prefix_len and
-    ncb_valid are ints or device tensors (0-d or (B,)). Returns (B,T,Hq,Dh)
-    f32."""
+    ncb_valid are ints or device tensors (0-d or (B,)). ``branch`` "slc" or
+    "win" computes that branch alone, ungated (the JAX ``combine=False``
+    with ``include_sel`` / ``include_win``). Returns (B,T,Hq,Dh) f32."""
     B, T, Hq, Dh = q.shape
     S = k_cache.shape[1]
     dev = q.device
@@ -204,7 +221,30 @@ def nsa_verify_fused(q, k_cache, v_cache, k_cmp, v_cmp, k_draft, v_draft,
                          v_draft.contiguous(), merged.contiguous(),
                          mvalid.contiguous(), own.contiguous(), qmap, positions,
                          plen, per_row(ncb_valid, B, dev), win_start, dmask,
-                         gates, o_cmp_in, nsa=nsa, include_cmp=include_cmp)
+                         gates, o_cmp_in, nsa=nsa, include_cmp=include_cmp,
+                         branch=branch)
+
+
+def _layer_inputs(params, cfg, x, prefix_len, positions):
+    """What every NSA verify layer starts from: qkv, the pre-scaled q
+    (1/sqrt(Dh)), the gates and the device lengths."""
+    from repro_torch.models import attention as attn_lib
+    from repro_torch.models import nsa as nsa_lib
+
+    q, k_new, v_new = attn_lib.qkv(params, cfg, x, positions)
+    q_s = (q / math.sqrt(cfg.head_dim)).float().contiguous()
+    g_all = nsa_lib.gates(params, x, cfg.num_heads)
+    plen = torch.as_tensor(prefix_len, device=x.device)
+    return q_s, k_new, v_new, g_all, plen, nsa_lib.dyn_num_cmp_blocks(plen, cfg.nsa)
+
+
+def _route(q_s, cmp_cache, positions, plen, ncb_valid, nsa, kv_len):
+    """Routing kernel -> (o_cmp, fresh Top-n sel_idx, sel_valid)."""
+    from repro_torch.models import nsa as nsa_lib
+
+    o_cmp, p_slc = routing_ops.routing_fused(q_s, cmp_cache["k_cmp"], cmp_cache["v_cmp"],
+                                             positions, ncb_valid, nsa, kv_len=kv_len)
+    return (o_cmp,) + tuple(nsa_lib.select_topn(p_slc, positions, plen, nsa))
 
 
 def nsa_verify_kernel_layer(params, cfg, x, cache, cmp_cache, prefix_len,
@@ -218,35 +258,52 @@ def nsa_verify_kernel_layer(params, cfg, x, cache, cmp_cache, prefix_len,
     reuse=True: inherited ``sel_idx`` -> fully fused verify kernel.
     Returns (out (B,T,D), (k_new, v_new), (sel_idx, sel_valid)).
     """
-    from repro_torch.models import attention as attn_lib
-    from repro_torch.models import nsa as nsa_lib
-
     kv = kvstore.as_view(cache)
     nsa = cfg.nsa
     B, T, _ = x.shape
-    Hq, Dh = cfg.num_heads, cfg.head_dim
-    q, k_new, v_new = attn_lib.qkv(params, cfg, x, positions)
-    q_s = (q / math.sqrt(Dh)).float().contiguous()
-    g_all = nsa_lib.gates(params, x, Hq)
-    plen = torch.as_tensor(prefix_len, device=x.device)
-    ncb_valid = nsa_lib.dyn_num_cmp_blocks(plen, nsa)
-    k_cmp, v_cmp = cmp_cache["k_cmp"], cmp_cache["v_cmp"]
+    q_s, k_new, v_new, g_all, plen, ncb_valid = _layer_inputs(params, cfg, x, prefix_len,
+                                                              positions)
+    common = (q_s, kv.k, kv.v, cmp_cache["k_cmp"], cmp_cache["v_cmp"], k_new, v_new)
     if reuse:
         if sel_idx is None:
             raise ValueError("reuse layers inherit indices: pass sel_idx")
-        out = nsa_verify_fused(q_s, kv.k, kv.v, k_cmp, v_cmp, k_new, v_new,
-                               sel_idx, sel_valid, positions, plen, ncb_valid,
-                               tree_mask, g_all, nsa, C=C, mode=mode,
-                               include_cmp=True)
+        out = nsa_verify_fused(*common, sel_idx, sel_valid, positions, plen, ncb_valid,
+                               tree_mask, g_all, nsa, C=C, mode=mode, include_cmp=True)
     else:
-        o_cmp, p_slc = routing_ops.routing_fused(q_s, k_cmp, v_cmp, positions,
-                                                 ncb_valid, nsa, kv_len=kv.max_len)
-        sel_idx, sel_valid = nsa_lib.select_topn(p_slc, positions, plen, nsa)
+        o_cmp, sel_idx, sel_valid = _route(q_s, cmp_cache, positions, plen, ncb_valid,
+                                           nsa, kv.max_len)
         if mode == "approx" and C > 1:
             sel_idx, sel_valid = overlap.shared_index(sel_idx, sel_valid, positions, C)
-        out = nsa_verify_fused(q_s, kv.k, kv.v, k_cmp, v_cmp, k_new, v_new,
-                               sel_idx, sel_valid, positions, plen, ncb_valid,
+        out = nsa_verify_fused(*common, sel_idx, sel_valid, positions, plen, ncb_valid,
                                tree_mask, g_all, nsa, C=C, mode=mode,
                                include_cmp=False, o_cmp_in=o_cmp)
-    out = out.to(x.dtype).reshape(B, T, Hq * Dh) @ params["wo"]
+    out = out.to(x.dtype).reshape(B, T, -1) @ params["wo"]
+    return out, (k_new, v_new), (sel_idx, sel_valid)
+
+
+def nsa_verify_vanilla_layer(params, cfg, x, cache, cmp_cache, prefix_len,
+                             positions, tree_mask):
+    """Vanilla-NSA baseline execution (paper Fig. 6(a)), the counterpart of
+    the JAX ``nsa_verify_vanilla_layer``: no grouping (C=1), fresh indices,
+    per-branch launches with the branch outputs materialized. The routing
+    kernel gives o_cmp and p_slc, Top-n selects, then two launches of the
+    verify kernel write the ungated slc and win + draft outputs, and the
+    gates combine the three in PyTorch before ``wo``.
+    Returns (out (B,T,D), (k_new, v_new), (sel_idx, sel_valid))."""
+    kv = kvstore.as_view(cache)
+    nsa = cfg.nsa
+    B, T, _ = x.shape
+    q_s, k_new, v_new, g_all, plen, ncb_valid = _layer_inputs(params, cfg, x, prefix_len,
+                                                              positions)
+    o_cmp, sel_idx, sel_valid = _route(q_s, cmp_cache, positions, plen, ncb_valid, nsa,
+                                       kv.max_len)
+    common = (q_s, kv.k, kv.v, cmp_cache["k_cmp"], cmp_cache["v_cmp"], k_new, v_new,
+              sel_idx, sel_valid, positions, plen, ncb_valid, tree_mask, g_all, nsa)
+    o_slc = nsa_verify_fused(*common, C=1, mode="exact", include_cmp=False,
+                             branch="slc")
+    o_win = nsa_verify_fused(*common, C=1, mode="exact", include_cmp=False,
+                             branch="win")
+    out = g_all[:, :, 0, :, None] * o_cmp + g_all[:, :, 1, :, None] * o_slc + \
+        g_all[:, :, 2, :, None] * o_win
+    out = out.to(x.dtype).reshape(B, T, -1) @ params["wo"]
     return out, (k_new, v_new), (sel_idx, sel_valid)

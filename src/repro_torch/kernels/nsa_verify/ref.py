@@ -13,8 +13,10 @@ gated sum:
   win — the trailing window [win_start, win_start + W) of the prefix plus
         the draft tokens under ``dmask`` (tree mask, window distance).
 
-Branches with no visible key contribute 0. The CPU path of
-``ops.verify_groups`` runs this; on the card the kernel is held against it.
+Branches with no visible key contribute 0. ``branch="slc"`` or ``"win"``
+(the vanilla baseline, JAX ``combine=False``) returns that one branch,
+ungated. The CPU path of ``ops.verify_groups`` runs this; on the card the
+kernel is held against it.
 """
 from __future__ import annotations
 
@@ -38,12 +40,14 @@ def verify_groups_plain(q, k_cache, v_cache, k_cmp, v_cmp, k_draft, v_draft,
                         merged, mvalid, own, qmap, positions, prefix_len,
                         ncb_valid, win_start, dmask, gates, o_cmp_in=None, *,
                         sel_block: int, cmp_block: int, cmp_stride: int,
-                        window: int, include_cmp: bool = True):
+                        window: int, include_cmp: bool = True,
+                        branch: str = "all"):
     """q (B,T,Hq,Dh) pre-scaled; k/v_cache (B,S,Hkv,Dh); k/v_cmp
     (B,NCB,Hkv,Dh); k/v_draft (B,T,Hkv,Dh); merged/mvalid (B,G,Hkv,M);
     own (B,G,Hkv,C,M); qmap (G,C); positions (B,T); prefix_len, ncb_valid,
     win_start (B,); dmask (B,T,T) bool or int; gates (B,T,3,Hq); o_cmp_in
-    (B,T,Hq,Dh) when include_cmp is False. Returns (B,T,Hq,Dh) f32."""
+    (B,T,Hq,Dh) when include_cmp is False and branch is "all". Returns
+    (B,T,Hq,Dh) f32."""
     B, T, Hq, Dh = q.shape
     S, Hkv = k_cache.shape[1], k_cache.shape[2]
     Gq = Hq // Hkv
@@ -67,8 +71,14 @@ def verify_groups_plain(q, k_cache, v_cache, k_cmp, v_cmp, k_draft, v_draft,
     pos_r = positions[:, qmap].repeat_interleave(Gq, dim=2)[:, :, None, :, None]
     plen = prefix_len.reshape(B, 1, 1, 1, 1)
 
+    def ungroup(o):
+        o = o.reshape(B, G, Hkv, C, Gq, Dh).permute(0, 1, 3, 2, 4, 5)
+        return o.reshape(B, G * C, Hq, Dh)[:, :T]
+
     # ---- cmp
-    if include_cmp:
+    if branch != "all":
+        o_cmp = None
+    elif include_cmp:
         NCB = k_cmp.shape[1]
         ids = torch.arange(NCB, device=dev)
         ends = ids * cmp_stride + cmp_block - 1
@@ -79,19 +89,22 @@ def verify_groups_plain(q, k_cache, v_cache, k_cmp, v_cmp, k_draft, v_draft,
         o_cmp = grp(o_cmp_in.float())
 
     # ---- slc over the merged blocks
-    M = merged.shape[-1]
-    tok = merged.clamp_min(0)[..., None].long() * sel_block + \
-        torch.arange(sel_block, device=dev)                      # (B,G,Hkv,M,lb)
-    tokc = tok.reshape(B, G, Hkv, M * sel_block).clamp(max=S - 1)
-    bidx = torch.arange(B, device=dev).reshape(B, 1, 1, 1)
-    hidx = torch.arange(Hkv, device=dev).reshape(1, 1, Hkv, 1)
-    k_sel = k_cache[bidx, tokc, hidx].float()                    # (B,G,Hkv,K,Dh)
-    v_sel = v_cache[bidx, tokc, hidx].float()
-    valid_tok = ((merged >= 0) & (mvalid > 0)).repeat_interleave(sel_block, dim=-1)
-    own_tok = (own > 0).repeat_interleave(Gq, dim=3).repeat_interleave(sel_block, dim=-1)
-    tk = tokc[:, :, :, None, :]
-    smask = (tk < plen) & (tk <= pos_r) & valid_tok[:, :, :, None, :] & own_tok
-    o_slc = _branch(qg @ k_sel.transpose(-1, -2), smask, v_sel)
+    if branch != "win":
+        M = merged.shape[-1]
+        tok = merged.clamp_min(0)[..., None].long() * sel_block + \
+            torch.arange(sel_block, device=dev)                      # (B,G,Hkv,M,lb)
+        tokc = tok.reshape(B, G, Hkv, M * sel_block).clamp(max=S - 1)
+        bidx = torch.arange(B, device=dev).reshape(B, 1, 1, 1)
+        hidx = torch.arange(Hkv, device=dev).reshape(1, 1, Hkv, 1)
+        k_sel = k_cache[bidx, tokc, hidx].float()                    # (B,G,Hkv,K,Dh)
+        v_sel = v_cache[bidx, tokc, hidx].float()
+        valid_tok = ((merged >= 0) & (mvalid > 0)).repeat_interleave(sel_block, dim=-1)
+        own_tok = (own > 0).repeat_interleave(Gq, dim=3).repeat_interleave(sel_block, dim=-1)
+        tk = tokc[:, :, :, None, :]
+        smask = (tk < plen) & (tk <= pos_r) & valid_tok[:, :, :, None, :] & own_tok
+        o_slc = _branch(qg @ k_sel.transpose(-1, -2), smask, v_sel)
+        if branch == "slc":
+            return ungroup(o_slc)
 
     # ---- win: trailing prefix slice + draft tokens
     W = min(window, S)
@@ -107,8 +120,8 @@ def verify_groups_plain(q, k_cache, v_cache, k_cmp, v_cmp, k_draft, v_draft,
     mask_w = torch.cat([wmask.expand(B, G, 1, R, W), drow], dim=-1)
     o_win = _branch(logits_w, mask_w,
                     torch.cat([heads(v_win), heads(v_draft)], dim=-2))
+    if branch == "win":
+        return ungroup(o_win)
 
     g = grp(gates.float().permute(0, 1, 3, 2))                    # (B,G,Hkv,R,3)
-    out = g[..., 0:1] * o_cmp + g[..., 1:2] * o_slc + g[..., 2:3] * o_win
-    out = out.reshape(B, G, Hkv, C, Gq, Dh).permute(0, 1, 3, 2, 4, 5)
-    return out.reshape(B, G * C, Hq, Dh)[:, :T]
+    return ungroup(g[..., 0:1] * o_cmp + g[..., 1:2] * o_slc + g[..., 2:3] * o_win)

@@ -12,27 +12,20 @@ import ctypes
 import torch
 
 from repro_torch.config import NSAConfig
-from repro_torch.kernels import LaunchCounter, build
+from repro_torch.kernels import LaunchCounter, build, per_row
 from repro_torch.kernels.routing import ref
 from repro_torch.models.nsa import num_sel_blocks, overlap_tensor
 
 LAUNCHES = LaunchCounter("routing")
-HEAD_DIM = 64
+HEAD_DIMS = (64, 128)
 MAX_GQ = 8
-
-
-def per_row(x, B: int, device) -> torch.Tensor:
-    """An int or a 0-d / (B,) tensor -> a contiguous (B,) int32 tensor.
-    A device tensor stays on the device (no host sync)."""
-    t = torch.as_tensor(x, device=device).to(torch.int32).reshape(-1)
-    return t.expand(B).contiguous()
 
 
 def _lib():
     lib = build.library("routing")
     fn = lib.routing_launch
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -60,8 +53,8 @@ def launch(q, k_cmp, v_cmp, positions, ncb_valid, nsa: NSAConfig, NSB: int):
     B, T, Hq, Dh = q.shape
     NCB, Hkv = k_cmp.shape[1], k_cmp.shape[2]
     dev = q.device
-    if Dh != HEAD_DIM:
-        raise ValueError(f"routing kernel is built for head_dim {HEAD_DIM}, got {Dh}")
+    if Dh not in HEAD_DIMS:
+        raise ValueError(f"routing kernel is built for head_dim in {HEAD_DIMS}, got {Dh}")
     if Hq % Hkv or not 1 <= Hq // Hkv <= MAX_GQ:
         raise ValueError(f"routing kernel takes 1..{MAX_GQ} query heads per kv head")
     if q.dtype != torch.float32:
@@ -84,7 +77,7 @@ def launch(q, k_cmp, v_cmp, positions, ncb_valid, nsa: NSAConfig, NSB: int):
     err = _lib()(q.data_ptr(), k_cmp.data_ptr(), v_cmp.data_ptr(),
                  pos.data_ptr(), nv.data_ptr(), o.data_ptr(), p_slc.data_ptr(),
                  B, T, Hkv, Hq // Hkv, NCB, NSB, nsa.cmp_block, nsa.cmp_stride,
-                 nsa.sel_block, 0 if k_cmp.dtype == torch.float32 else 1,
+                 nsa.sel_block, 0 if k_cmp.dtype == torch.float32 else 1, Dh,
                  torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"routing kernel launch failed: cudaError {err}")

@@ -3,6 +3,8 @@ serving of an architecture, optionally against the autoregressive baseline.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch ssv-nsa-1b \
       --prompts 1 --tokens 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch ssv-nsa-8b \
+      --prompts 1 --tokens 8
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
       --precision-class Approx+Reuse --baseline
 

@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.core import kvstore
+from repro_torch.kernels.flash import ops as flash_ops
 from repro_torch.models import layers
 
 NEG_INF = -1e30
@@ -97,41 +98,27 @@ def write_cache(cache, k_new, v_new, start):
 def attend_verify(params, cfg: ModelConfig, x, cache, prefix_len, positions,
                   tree_mask, window: int = 0):
     """Tree-masked verification over T draft tokens (the dense draft's
-    verify; plain PyTorch — no TPU kernel sits on this path).
+    verify passes and the dense-verification target): ``qkv``, then the
+    flash tree-verify kernel on ``q / sqrt(Dh)`` (``kernels.flash.ops``;
+    plain version for CPU tensors), then ``wo``.
 
     x: (B, T, D); positions (B, T) absolute; tree_mask (B, T, T) bool;
     prefix_len an int or 0-d/(B,) device tensor. ``cache`` is a raw
     ``{"k", "v"}`` dict or a ``kvstore.KVView``. The draft K/V are appended
     only for this pass; the cache is unchanged on return.
+
+    The flash masks add ``kpos <= position`` to the prefix mask and
+    ``pos_i >= pos_j`` to the draft mask, which the JAX ``attend_verify``
+    does not have. They agree on every tree the engine builds (positions =
+    prefix + depth, the mask holds ancestors), not on arbitrary inputs: a
+    position below ``prefix_len`` or a mask entry to a deeper node gives
+    another result here.
     """
     cache_k, cache_v = kvstore.as_view(cache).full()
     B, T, _ = x.shape
     q, k_new, v_new = qkv(params, cfg, x, positions)
-    G = cfg.q_per_kv
-    qg = q.reshape(B, T, cfg.num_kv_heads, G, cfg.head_dim).float()
-    scale = 1.0 / math.sqrt(cfg.head_dim)
-    neg = torch.full((), NEG_INF, device=x.device)
-
-    S_max = cache_k.shape[1]
-    kpos = torch.arange(S_max, device=x.device)[None, None, :]
-    plen = torch.as_tensor(prefix_len, device=x.device)
-    plen = plen.reshape(-1, 1, 1) if plen.ndim else plen
-    prefix_mask = (kpos < plen).expand(B, T, S_max)
-    if window > 0:
-        prefix_mask = prefix_mask & (kpos > positions[..., None] - window)
-
-    logits_p = torch.einsum("bqhgd,bkhd->bhgqk", qg, cache_k.float()) * scale
-    logits_p = torch.where(prefix_mask[:, None, None], logits_p, neg)
-    logits_d = torch.einsum("bqhgd,bkhd->bhgqk", qg, k_new.float()) * scale
-    dmask = tree_mask
-    if window > 0:
-        dist = positions[:, :, None] - positions[:, None, :]
-        dmask = dmask & (dist < window)
-    logits_d = torch.where(dmask[:, None, None], logits_d, neg)
-
-    probs = torch.softmax(torch.cat([logits_p, logits_d], dim=-1), dim=-1)
-    pp, pd = probs[..., :S_max], probs[..., S_max:]
-    out = torch.einsum("bhgqk,bkhd->bqhgd", pp, cache_v.float()) \
-        + torch.einsum("bhgqk,bkhd->bqhgd", pd, v_new.float())
+    q_s = (q.float() / math.sqrt(cfg.head_dim)).contiguous()
+    out = flash_ops.flash_verify(q_s, cache_k, cache_v, k_new, v_new, positions,
+                                 prefix_len, tree_mask, window)
     out = out.to(x.dtype).reshape(B, T, cfg.num_heads * cfg.head_dim) @ params["wo"]
     return out, (k_new, v_new)

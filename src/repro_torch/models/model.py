@@ -12,7 +12,8 @@ Paths:
     caches;
   * ``verify_step`` — T tree-masked draft tokens; NSA layers run the
     refresh/reuse schedule and exact/approx grouping through the Hopper
-    kernels (``kernels.nsa_verify.ops.nsa_verify_kernel_layer``);
+    kernels (``kernels.nsa_verify.ops.nsa_verify_kernel_layer``); dense
+    layers run the flash kernel (``attention.attend_verify``);
   * ``commit``      — append the accepted path's K/V, update the compressed
     cache, advance the length (all on the device);
   * ``decode_step`` — one autoregressive token (verify with T=1 + commit).

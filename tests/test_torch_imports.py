@@ -34,6 +34,13 @@ def _port_files():
     return files
 
 
+def test_scan_covers_the_slice_2_modules():
+    scanned = {str(p.relative_to(ROOT)) for p in _port_files()}
+    for rel in ("kernels/flash/ops.py", "kernels/flash/ref.py", "configs/ssv_nsa_8b.py",
+                "kernels/nsa_verify/ops.py", "models/attention.py"):
+        assert f"src/repro_torch/{rel}" in scanned
+
+
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_neither_jax_nor_repro(path):
     for mod in _imported_modules(path):
@@ -45,6 +52,7 @@ def test_registry_string_imports_stay_in_port():
     src = (ROOT / "src" / "repro_torch" / "configs" / "__init__.py").read_text()
     assert '"repro_torch.configs."' in src
     assert get_config("ssv-nsa-1b").num_heads == 32
+    assert get_config("ssv-nsa-8b").head_dim == 128
     with pytest.raises(KeyError, match="not ported"):
         get_config("qwen3-8b")
 
