@@ -11,26 +11,39 @@ Phases (every phase always runs; any failure exits non-zero):
      bfloat16 K/V, at the full-width shapes: routing and nsa_verify (exact
      C=2 / approx C=4, full / partial fusion, and the vanilla single-branch
      launches) at ``ssv-nsa-1b`` (head dim 64) and ``ssv-nsa-8b`` (head dim
-     128); flash tree-verify at the 1B draft, the 8B draft and the dense
-     1B target; the vanilla NSA layer (the Fig. 6(a) baseline: routing
-     kernel, two single-branch launches, gated combine) as a counted path
-     at full width, against the plain NSA layer (float32);
-  3. serve full-width ``ssv-nsa-1b`` (two 4097-token prompts) and then
+     128); the paged nsa_verify mode (the same cases on two rows of
+     different lengths re-homed into a shuffled page pool with holes inside
+     and outside the window, page size 1 and 2 x sel_block); flash
+     tree-verify at the 1B draft, the 8B draft and the dense 1B target; the
+     vanilla NSA layer (the Fig. 6(a) baseline: routing kernel, two
+     single-branch launches, gated combine) as a counted path at full
+     width, against the plain NSA layer (float32);
+  3. serve full-width ``ssv-nsa-1b`` (one 4097-token prompt) and then
      full-width ``ssv-nsa-8b`` (one 4097-token prompt), bf16, random
      weights from a seed, max_context 8192, 16 new tokens, D4/k2 tree,
      under Strict and Approx+Reuse, through ``SSVEngine``, with the launch
      counters checked against layers x verify passes (flash: 2 draft
      layers x 5 passes per step) and a per-step profile;
-  4. Strict SSV equals autoregressive decoding in float32 on ``ssv-nsa-1b``
-     and on ``ssv-nsa-8b`` cut to 4 layers;
-  5. the dense-verification baseline: the ``attention="dense"`` replacement
+  4. batched and continuous serving: full-width ``ssv-nsa-1b`` (bf16) to 4
+     slots through ``generate_batch`` (4 requests) and ``serve_continuous``
+     (6 requests, Poisson arrivals), Strict and Approx+Reuse, on the dense
+     and on the paged store (paged tokens must equal dense tokens), launch
+     counters checked (``nsa_verify_paged`` on paged runs), a profile at 1,
+     2 and 4 slots on each store (one device-to-host copy per step); then
+     full-width ``ssv-nsa-8b`` on the paged store at 2 slots;
+  5. float32 equalities on full-depth ``ssv-nsa-1b``: Strict SSV equals
+     autoregressive decoding; batched ``generate_batch`` (3 rows) equals
+     per-request ``SSVEngine.generate``; the paged single stream equals the
+     dense one; and Strict == AR on ``ssv-nsa-8b`` cut to 4 layers;
+  6. the dense-verification baseline: the ``attention="dense"`` replacement
      of ``ssv-nsa-1b`` as the target, every verify through flash;
-  6. the serve CLI (``python -m repro_torch.launch.serve``) for both archs;
-  7. kernel times (profiler device time and CUDA events) beside the plain
+  7. the serve CLI (``python -m repro_torch.launch.serve``) for both archs,
+     and batched-paged and continuous runs of ``ssv-nsa-1b``;
+  8. kernel times (profiler device time and CUDA events) beside the plain
      version's time, the bound and, for flash, the library yardstick
      (``scaled_dot_product_attention``, timed only); vanilla layer against
      the fused layer;
-  8. the summary lines: a ``kernels`` JSON line (every kernel x head dim),
+  9. the summary lines: a ``kernels`` JSON line (every kernel x head dim),
      the card line, and the ``{"ok": true, "device": ...}`` line last.
 
 Each counted path sets every launch counter to 0 just before it runs and
@@ -87,41 +100,71 @@ def free():
 
 # ---------------------------------------------------------------- inputs
 def tree_inputs(prefix):
+    """D4/k2 tree; ``prefix`` an int or a tuple of per-row prefix lengths."""
     from repro_torch.core.tree import build_topology
     topo = build_topology(4, 2, "bfs")
-    positions = (torch.as_tensor(topo.depths, device=DEV) + prefix)[None].to(torch.int32)
-    return topo, positions, torch.as_tensor(topo.mask, device=DEV)[None]
+    pre = torch.as_tensor(prefix, device=DEV).reshape(-1, 1)
+    positions = (torch.as_tensor(topo.depths, device=DEV)[None] + pre).to(torch.int32)
+    mask = torch.as_tensor(topo.mask, device=DEV)[None].expand(pre.shape[0], -1, -1)
+    return topo, positions, mask
 
 
 def verify_inputs(cfg, kv_dtype, seed, prefix=4096, S=8192):
     """Full-width verify-kernel inputs: D4/k2 tree (T=31), cache S, real
-    routing + Top-n selection on random compressed scores."""
+    routing + Top-n selection on random compressed scores; ``prefix`` an
+    int (one row) or a tuple (one row per prefix length)."""
     from repro_torch.models import nsa as nsa_lib
 
     nsa = cfg.nsa
     g = torch.Generator(DEV)
     g.manual_seed(seed)
     topo, positions, tree_mask = tree_inputs(prefix)
-    T = topo.num_nodes
+    B, T = positions.shape
     Hq, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    plen = torch.as_tensor(prefix, dtype=torch.int32, device=DEV).reshape(-1)
 
     def r(*shape, dtype=kv_dtype):
         return torch.randn(shape, generator=g, device=DEV).to(dtype)
 
     NCB = nsa_lib.init_cmp_cache(cfg, 1, S, kv_dtype, DEV)["k_cmp"].shape[1]
-    p_slc = torch.rand((1, T, Hkv, nsa_lib.num_sel_blocks(S, nsa)), generator=g, device=DEV)
-    sel_idx, sel_valid = nsa_lib.select_topn(p_slc, positions, torch.tensor(prefix, device=DEV), nsa)
+    p_slc = torch.rand((B, T, Hkv, nsa_lib.num_sel_blocks(S, nsa)), generator=g, device=DEV)
+    sel_idx, sel_valid = nsa_lib.select_topn(p_slc, positions, plen, nsa)
     return dict(
-        q=r(1, T, Hq, Dh, dtype=torch.float32) / Dh ** 0.5,
-        k_cache=r(1, S, Hkv, Dh), v_cache=r(1, S, Hkv, Dh),
-        k_cmp=r(1, NCB, Hkv, Dh), v_cmp=r(1, NCB, Hkv, Dh),
-        k_draft=r(1, T, Hkv, Dh), v_draft=r(1, T, Hkv, Dh),
+        q=r(B, T, Hq, Dh, dtype=torch.float32) / Dh ** 0.5,
+        k_cache=r(B, S, Hkv, Dh), v_cache=r(B, S, Hkv, Dh),
+        k_cmp=r(B, NCB, Hkv, Dh), v_cmp=r(B, NCB, Hkv, Dh),
+        k_draft=r(B, T, Hkv, Dh), v_draft=r(B, T, Hkv, Dh),
         sel_idx=sel_idx, sel_valid=sel_valid, positions=positions,
-        prefix_len=torch.tensor([prefix], dtype=torch.int32, device=DEV),
-        ncb_valid=nsa_lib.dyn_num_cmp_blocks(torch.tensor([prefix], device=DEV), nsa),
+        prefix_len=plen, ncb_valid=nsa_lib.dyn_num_cmp_blocks(plen, nsa),
         tree_mask=tree_mask,
-        gates=torch.sigmoid(r(1, T, 3, Hq, dtype=torch.float32)),
-        o_cmp_in=r(1, T, Hq, Dh, dtype=torch.float32))
+        gates=torch.sigmoid(r(B, T, 3, Hq, dtype=torch.float32)),
+        o_cmp_in=r(B, T, Hq, Dh, dtype=torch.float32))
+
+
+def paged_pool(cfg, inp, page_mult, holes, seed):
+    """Re-home ``inp``'s dense K/V into a shuffled page pool (page size
+    ``page_mult`` x sel_block, 3 spare pages of random bytes). ``holes``:
+    unmap one page inside row 0's window and one page of the last row
+    outside its window (in its prefix). Returns (pool_k, pool_v, page
+    table (B, max_pages) int32)."""
+    g = torch.Generator()
+    g.manual_seed(seed)
+    kc, vc = inp["k_cache"], inp["v_cache"]
+    B, S, Hkv, Dh = kc.shape
+    ps = cfg.nsa.sel_block * page_mult
+    mp = S // ps
+    P = B * mp + 3
+    pages = torch.randperm(P, generator=g)[: B * mp].reshape(B, mp).to(torch.int32).to(DEV)
+    pool_k = torch.randn((P, ps, Hkv, Dh), generator=g).to(kc.dtype).to(DEV)
+    pool_v = torch.randn((P, ps, Hkv, Dh), generator=g).to(kc.dtype).to(DEV)
+    for b in range(B):
+        pool_k[pages[b].long()] = kc[b].reshape(mp, ps, Hkv, Dh)
+        pool_v[pages[b].long()] = vc[b].reshape(mp, ps, Hkv, Dh)
+    if holes:
+        plen = inp["prefix_len"].tolist()
+        pages[0, (plen[0] - 100) // ps] = -1              # inside the 512-token window
+        pages[-1, (plen[-1] // 2) // ps] = -1              # in the prefix, outside it
+    return pool_k, pool_v, pages
 
 
 # (label, C, mode, include_cmp, branch): the fused cases, then the vanilla
@@ -140,27 +183,37 @@ def case_kernel(include_cmp, branch):
     return "nsa_verify_full" if include_cmp else "nsa_verify_partial"
 
 
-def verify_layouts(cfg, inp, C, mode):
-    """The kernel-boundary arguments of ``nsa_verify_fused``."""
+def verify_layouts(cfg, inp, C, mode, pool=None):
+    """The kernel-boundary arguments of ``nsa_verify_fused``; ``pool`` =
+    (pool_k, pool_v, page table) gives the paged ones (merged blocks on
+    unmapped pages masked, as ``nsa_verify_fused`` masks them)."""
     from repro_torch.kernels import per_row
     from repro_torch.kernels.nsa_verify import ops as vops
     nsa = cfg.nsa
     S = inp["k_cache"].shape[1]
     merged, mvalid, own, qmap = vops.group_layouts(
         inp["sel_idx"], inp["sel_valid"], inp["positions"], C, mode)
+    extra = {}
+    if pool is not None:
+        pool_k, pool_v, pages = pool
+        merged, mvalid = vops.mask_unmapped_blocks(merged, mvalid, pages, pool_k.shape[1],
+                                                   pool_k.shape[0], nsa.sel_block)
+        extra = dict(k_cache=pool_k, v_cache=pool_v, page_table=pages)
     W = min(nsa.window, S)
     plen = inp["prefix_len"]
     pos = inp["positions"]
     dist = pos[:, :, None] - pos[:, None, :]
     dmask = inp["tree_mask"] & (dist < nsa.window) & (dist >= 0)
-    return dict(q=inp["q"], k_cache=inp["k_cache"], v_cache=inp["v_cache"],
+    args = dict(q=inp["q"], k_cache=inp["k_cache"], v_cache=inp["v_cache"],
                 k_cmp=inp["k_cmp"], v_cmp=inp["v_cmp"], k_draft=inp["k_draft"],
                 v_draft=inp["v_draft"], merged=merged.contiguous(),
                 mvalid=mvalid.contiguous(), own=own.contiguous(), qmap=qmap,
                 positions=pos, prefix_len=plen,
-                ncb_valid=per_row(inp["ncb_valid"], 1, DEV),
+                ncb_valid=per_row(inp["ncb_valid"], pos.shape[0], DEV),
                 win_start=(plen - W).clamp(0, S - W).to(torch.int32),
                 dmask=dmask.to(torch.int32), gates=inp["gates"])
+    args.update(extra)
+    return args
 
 
 def run_verify(cfg, args, include_cmp, o_cmp_in, plain: bool, branch="all"):
@@ -280,8 +333,8 @@ def bound(nbytes, flops):
 def verify_bound(cfg, inp, args, include_cmp, branch="all"):
     """Least time for one verify launch: bytes each input/output moves once
     (the union of selected blocks per head, the visible window, cmp and
-    draft K/V of the branches it computes) vs the f32 flops the visible
-    (row, key) pairs need."""
+    draft K/V of the branches it computes; the page table when paged) vs
+    the f32 flops the visible (row, key) pairs need."""
     nsa = cfg.nsa
     es = inp["k_cache"].element_size()
     T, Hq, Dh = inp["q"].shape[1:]
@@ -307,6 +360,8 @@ def verify_bound(cfg, inp, args, include_cmp, branch="all"):
         nbytes += inp["gates"].numel() * 4
         nbytes += 0 if include_cmp else inp["q"].numel() * 4          # o_cmp_in
     nbytes += sum(args[k].numel() * 4 for k in ("merged", "mvalid", "own", "dmask", "positions"))
+    if "page_table" in args:
+        nbytes += args["page_table"].numel() * 4
     # visible (query row, key) pairs: slc keys per query = its own selected
     # tokens below prefix and at/below its position
     slc = win = draft = 0
@@ -434,7 +489,7 @@ def main(argv=None) -> int:
 
     cfgs = {64: configs.get_config("ssv-nsa-1b"), 128: configs.get_config("ssv-nsa-8b")}
     counters = [rops.LAUNCHES, vops.FULL_LAUNCHES, vops.PARTIAL_LAUNCHES,
-                vops.VANILLA_LAUNCHES, fops.LAUNCHES]
+                vops.VANILLA_LAUNCHES, vops.PAGED_LAUNCHES, fops.LAUNCHES]
     ctx = dict(counters=counters, kind=kind, card=card,
                corpus=SyntheticCorpus(SyntheticConfig(vocab_size=cfgs[128].vocab_size)),
                launches={}, paths={})
@@ -443,38 +498,48 @@ def main(argv=None) -> int:
     max_err = check_kernels(cfgs, ctx)
     log("[2 kernels] all cases agree with the plain versions")
 
-    # ---- 3. end to end, full width bf16
-    e2e = {}
-    for Dh, n_prompts in ((64, 2), (128, 1)):
-        e2e[cfgs[Dh].name] = serve_e2e(cfgs[Dh], Dh, n_prompts, ctx)
+    # ---- 3. single stream, and 4. batched / continuous serving, full width bf16
+    e2e, batched = {}, {}
+    for Dh in (64, 128):
+        weights = load_weights(cfgs[Dh], seed=0)
+        e2e[cfgs[Dh].name] = serve_e2e(cfgs[Dh], Dh, weights, ctx)
+        free()
+        batched[cfgs[Dh].name] = serve_batched(cfgs[Dh], Dh, weights, ctx,
+                                               **(dict() if Dh == 64 else BATCHED_8B))
+        del weights
         free()
 
-    # ---- 4. Strict == autoregressive in float32
-    strict_equals_ar(cfgs[64], None, 24, ctx)
+    # ---- 5. float32 equalities
+    f32_equalities(cfgs[64], ctx)
     free()
     strict_equals_ar(cfgs[128], 4, 16, ctx)
     free()
 
-    # ---- 5. the dense-verification baseline
+    # ---- 6. the dense-verification baseline
     e2e[cfgs[64].name + "-dense"] = dense_baseline(cfgs[64], ctx)
     free()
 
-    # ---- 6. serve CLI
+    # ---- 7. serve CLI
     for cfg in cfgs.values():
         serve_cli(cfg.name)
+    serve_cli(cfgs[64].name, ["--prompts", "2", "--batch", "2", "--kv-backend", "paged"],
+              "batch[0:2]: 16 tokens")
+    serve_cli(cfgs[64].name, ["--prompts", "3", "--batch", "2", "--continuous",
+                              "--arrival-rate", "0.5"], "continuous over 2 slots: 24 tokens")
 
     idle = [k for k, n in ctx["launches"].items() if n == 0]
     if idle:
         fail(f"the main paths never launched {idle}")
 
-    # ---- 7. kernel times at the slices' shapes (bf16)
+    # ---- 8. kernel times at the slices' shapes (bf16)
     rows, layer_times = kernel_times(cfgs, ctx["launches"], max_err, kind, card)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
-        {"card": card, "kind": kind, "e2e": e2e, "paths": ctx["paths"], "kernels": rows,
-         "layer_times": layer_times, "seconds": time.time() - t_start}, indent=1))
+        {"card": card, "kind": kind, "e2e": e2e, "batched": batched, "paths": ctx["paths"],
+         "kernels": rows, "layer_times": layer_times, "seconds": time.time() - t_start},
+        indent=1))
 
-    # ---- 8. summary
-    log(f"[8 done] {time.time() - t_start:.1f}s")
+    # ---- 9. summary
+    log(f"[9 done] {time.time() - t_start:.1f}s")
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -507,6 +572,22 @@ def check_kernels(cfgs, ctx):
                 torch.cuda.synchronize()
                 note(f"{case_kernel(full, branch)}_dh{Dh}",
                      check_close(f"nsa_verify {label} Dh {Dh}", got, want, dt_name))
+            del inp
+            # the paged mode: two rows of different lengths in a shuffled
+            # pool with holes inside and outside the window
+            inp = verify_inputs(cfg, dt, seed=6, prefix=(4096, 3001))
+            for mult in (1, 2):
+                pool = paged_pool(cfg, inp, mult, holes=True, seed=mult)
+                for label, C, mode, full, branch in VERIFY_CASES[:4]:
+                    args = verify_layouts(cfg, inp, C, mode, pool)
+                    oc = None if full else inp["o_cmp_in"]
+                    got = run_verify(cfg, args, full, oc, plain=False)
+                    want = run_verify(cfg, args, full, oc, plain=True)
+                    torch.cuda.synchronize()
+                    note(f"nsa_verify_paged_dh{Dh}", check_close(
+                        f"nsa_verify paged {label} ps {mult}x{cfg.nsa.sel_block} Dh {Dh}",
+                        got, want, dt_name))
+                del pool
             del inp
         # the vanilla layer (routing kernel, two branch launches, combine),
         # a counted path, against the plain NSA layer on the same weights
@@ -581,20 +662,43 @@ def generate_all(eng, prompts, cfg, label):
                 mean_accepted=sum(accepted) / len(accepted))
 
 
-def serve_e2e(cfg, Dh, n_prompts, ctx):
-    """Phase 3: both precision classes through SSVEngine; returns the
-    end-to-end numbers and adds the launch counts."""
+def load_weights(cfg, seed):
+    """Random full-width target and draft weights from a seed."""
     from repro_torch.bridge import init_params
-    from repro_torch.config import ServeConfig
-    from repro_torch.core import draft as draft_lib, engine as engine_lib
+    from repro_torch.core import draft as draft_lib
     dcfg = draft_lib.draft_config(cfg)
     gen = torch.Generator(DEV)
-    gen.manual_seed(0)
+    gen.manual_seed(seed)
     t0 = time.time()
     tp = init_params(cfg, gen, DEV)
     dp = init_params(dcfg, gen, DEV)
-    log(f"[3 e2e {cfg.name}] random weights drawn in {time.time() - t0:.1f}s")
-    prompts = [ctx["corpus"].batch(i, 1, 4097)[0] % cfg.vocab_size for i in range(n_prompts)]
+    log(f"[weights {cfg.name} {cfg.dtype}] drawn in {time.time() - t0:.1f}s")
+    return tp, dcfg, dp
+
+
+def expected_launches(cfg, dcfg, ssv, steps, paged=False):
+    """Launches per counted serving path: one per NSA layer and step
+    (routing + partial fusion on refresh layers, full fusion on reuse
+    layers; every one of them ``nsa_verify_paged`` on the paged store), 2
+    draft layers x (depth + 1) passes of flash per step."""
+    refresh = cfg.num_layers - len([i for i in ssv.refresh_schedule if 0 < i < cfg.num_layers])
+    want = {"routing": refresh * steps,
+            "flash_verify": dcfg.num_layers * (ssv.tree_depth + 1) * steps}
+    if paged:
+        want["nsa_verify_paged"] = cfg.num_layers * steps
+    else:
+        want.update(nsa_verify_partial=refresh * steps,
+                    nsa_verify_full=(cfg.num_layers - refresh) * steps)
+    return want
+
+
+def serve_e2e(cfg, Dh, weights, ctx):
+    """Phase 3: both precision classes through SSVEngine (one 4097-token
+    prompt); returns the end-to-end numbers and adds the launch counts."""
+    from repro_torch.config import ServeConfig
+    from repro_torch.core import engine as engine_lib
+    tp, dcfg, dp = weights
+    prompts = [ctx["corpus"].batch(0, 1, 4097)[0] % cfg.vocab_size]
     e2e = {}
     for pc in ("Strict", "Approx+Reuse"):
         ssv = strategy(cfg, pc)
@@ -602,13 +706,9 @@ def serve_e2e(cfg, Dh, n_prompts, ctx):
                                 ssv=ssv, use_planner=False)
         eng = engine_lib.SSVEngine(tp, cfg, dp, dcfg, serve_cfg, device=DEV)
         torch.cuda.reset_peak_memory_stats()
-        refresh = cfg.num_layers - len([i for i in ssv.refresh_schedule if 0 < i < cfg.num_layers])
-        passes = ssv.tree_depth + 1
         res = counted_path(
             ctx, f"{cfg.name} {pc}", Dh, lambda: generate_all(eng, prompts, cfg, pc),
-            lambda r: {"routing": refresh * r["steps"], "nsa_verify_partial": refresh * r["steps"],
-                       "nsa_verify_full": (cfg.num_layers - refresh) * r["steps"],
-                       "flash_verify": dcfg.num_layers * passes * r["steps"]})
+            lambda r: expected_launches(cfg, dcfg, ssv, r["steps"]))
         prof = profile_steps(eng, prompts[0])
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         e2e[pc] = dict(res, peak_gib=peak, launches=ctx["paths"][f"{cfg.name} {pc}"],
@@ -618,6 +718,142 @@ def serve_e2e(cfg, Dh, n_prompts, ctx):
             f"mean accepted/step {res['mean_accepted']:.3f}, peak memory {peak:.2f} GiB")
         del eng
     return e2e
+
+
+# 8B in phase 4: the paged store at 2 slots, one wave, Strict only; a
+# profile at 1 and 2 slots
+BATCHED_8B = dict(slots=2, n_req=2, classes=("Strict",), backends=("paged",),
+                  continuous=False, sweep=(1, 2))
+
+
+def serve_batched(cfg, Dh, weights, ctx, slots=4, n_req=6, classes=("Strict", "Approx+Reuse"),
+                  backends=("dense", "paged"), continuous=True, sweep=(1, 2, 4)):
+    """Phase 4: ``generate_batch`` over ``slots`` requests and
+    ``serve_continuous`` of ``n_req`` requests (Poisson arrivals, 0.5 per
+    step) over ``slots`` slots, per precision class and store, as counted
+    paths; paged tokens must equal dense tokens. Then a profile at each
+    slot count of ``sweep`` (Strict) on each store."""
+    from repro_torch.config import ServeConfig
+    from repro_torch.core import engine as engine_lib, schedule
+    tp, dcfg, dp = weights
+    prompts = [ctx["corpus"].batch(100 + i, 1, 4097)[0] % cfg.vocab_size for i in range(n_req)]
+    arrivals = schedule.poisson_arrivals(n_req, 0.5, seed=0)
+    out, tokens = {}, {}
+    tag = f"[4 batched {cfg.name}]"
+
+    def engine(backend, pc):
+        return engine_lib.BatchedSSVEngine(tp, cfg, dp, dcfg, ServeConfig(
+            max_new_tokens=16, temperature=0.0, max_context=8192, ssv=strategy(cfg, pc),
+            use_planner=False, kv_backend=backend), device=DEV)
+
+    def check(name, res):
+        for r in res.results:
+            if len(r.tokens) != 16 or not all(0 <= t < cfg.vocab_size for t in r.tokens):
+                fail(f"{name}: bad tokens {r.tokens}")
+
+    for backend in backends:
+        paged = backend == "paged"
+        for pc in classes:
+            ssv = strategy(cfg, pc)
+            eng = engine(backend, pc)
+            torch.cuda.reset_peak_memory_stats()
+            name = f"{cfg.name} {backend} {pc} generate_batch x{slots}"
+            res = counted_path(ctx, name, Dh, lambda: eng.generate_batch(prompts[:slots], 16),
+                               lambda r: expected_launches(cfg, dcfg, ssv, r.steps, paged))
+            check(name, res)
+            rec = dict(batch_tokens=res.total_tokens, batch_steps=res.steps,
+                       batch_wall_s=res.wall_s, batch_tok_s=res.aggregate_throughput,
+                       kv_cache_bytes=eng.kv_cache_bytes())
+            tokens[(backend, pc, "batch")] = [r.tokens.tolist() for r in res.results]
+            if continuous:
+                reqs = [schedule.Request(req_id=i, prompt=p, arrival=float(a))
+                        for i, (p, a) in enumerate(zip(prompts, arrivals))]
+                name = f"{cfg.name} {backend} {pc} serve_continuous {n_req} req x{slots} slots"
+                cres = counted_path(
+                    ctx, name, Dh,
+                    lambda: eng.serve_continuous(reqs, num_slots=slots, max_new_tokens=16),
+                    lambda r: expected_launches(cfg, dcfg, ssv, r.steps, paged))
+                check(name, cres)
+                rec.update(cont_tokens=cres.total_tokens, cont_steps=cres.steps,
+                           cont_wall_s=cres.wall_s, cont_tok_s=cres.aggregate_throughput,
+                           occupancy=cres.mean_occupancy,
+                           queue_delay_steps=cres.mean_queue_delay_steps,
+                           peak_page_occupancy=cres.peak_page_occupancy,
+                           kv_bytes=cres.kv_bytes)
+                tokens[(backend, pc, "cont")] = [r.tokens.tolist() for r in cres.results]
+            rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+            out[f"{backend} {pc}"] = rec
+            log(f"{tag} {backend} {pc} ({ctx['card']}): generate_batch {rec['batch_tokens']} "
+                f"tokens in {rec['batch_steps']} steps, {rec['batch_tok_s']:.2f} tok/s aggregate; "
+                + (f"serve_continuous {rec['cont_tokens']} tokens in {rec['cont_steps']} steps, "
+                   f"{rec['cont_tok_s']:.2f} tok/s, occupancy {rec['occupancy']:.2f}, queue "
+                   f"delay {rec['queue_delay_steps']:.2f} steps, peak page occupancy "
+                   f"{rec['peak_page_occupancy']:.3f}; " if continuous else "")
+                + f"kv_cache_bytes {rec['kv_cache_bytes']}, peak memory {rec['peak_gib']:.2f} GiB")
+            del eng
+            free()
+    for (backend, pc, mode), toks in tokens.items():
+        if backend == "paged" and ("dense", pc, mode) in tokens:
+            if toks != tokens[("dense", pc, mode)]:
+                fail(f"{cfg.name} {pc} {mode}: paged tokens differ from dense tokens")
+            log(f"{tag} {pc} {mode}: paged tokens == dense tokens ({len(toks)} requests)")
+    for backend in backends if sweep else ():
+        eng = engine(backend, "Strict")
+        for n in sweep:
+            torch.cuda.reset_peak_memory_stats()
+            prof = profile_batched(eng, prompts[:n])
+            prof["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+            prof["kv_cache_bytes"] = eng.kv_cache_bytes()
+            out[f"{backend} Strict profile x{n}"] = prof
+            log(f"{tag} {backend} Strict {n} slot(s) ({ctx['card']}): step "
+                f"{prof['step_wall_ms']:.2f} ms, {prof['tok_s']:.2f} tok/s aggregate, "
+                f"{prof['kernels_per_step']} launches/step, device busy "
+                f"{prof['device_busy_ms']:.2f} ms, idle share {prof['idle_share']:.3f}, "
+                f"{prof['dtoh_per_step']} DtoH copies/step, kv_cache_bytes "
+                f"{prof['kv_cache_bytes']}, peak memory {prof['peak_gib']:.2f} GiB")
+        del eng
+        free()
+    return out
+
+
+def profile_batched(eng, prompts, n: int = 3):
+    """A batched step at len(prompts) rows: n steps after one warm step,
+    unprofiled (host clock) for the step time and throughput, then under
+    the profiler for device busy time, launches and device-to-host copies
+    per step (the engine makes exactly one: its tokens + counts)."""
+    from torch.profiler import ProfilerActivity, profile
+    R = len(prompts)
+    eng.start(prompts)
+    active = [True] * R
+    eng.step(active)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    emitted = 0
+    for _ in range(n):
+        _, n_acc = eng.step(active)
+        emitted += int((n_acc + 1).sum())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            eng.step(active)
+        torch.cuda.synchronize()
+    busy = launches = dtoh = 0
+    for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA:
+            us = getattr(ev, "self_device_time_total", 0.0) or \
+                getattr(ev, "self_cuda_time_total", 0.0)
+            busy += us / n / 1e3
+            launches += ev.count
+            if "DtoH" in ev.key:
+                dtoh += ev.count
+    step_ms = wall * 1e3 / n
+    if dtoh != n:
+        fail(f"batched step at {R} rows: {dtoh} device-to-host copies in {n} steps, "
+             "expected one per step")
+    return {"rows": R, "step_wall_ms": step_ms, "tok_s": emitted / wall,
+            "device_busy_ms": busy, "idle_share": 1 - busy / step_ms,
+            "kernels_per_step": launches // n, "dtoh_per_step": dtoh / n}
 
 
 def profile_steps(eng, prompt, n: int = 3):
@@ -652,17 +888,14 @@ def profile_steps(eng, prompt, n: int = 3):
 
 
 def strict_equals_ar(cfg, layers, n_tok, ctx):
-    """Phase 4 (float32, full width; ``layers`` cuts depth): Strict SSV
-    tokens equal autoregressive decoding."""
-    from repro_torch.bridge import init_params
+    """Strict == AR (float32, full width; ``layers`` cuts depth): Strict SSV
+    tokens equal autoregressive decoding. Returns (weights, prompt, the
+    SSV tokens) for further checks on the same weights."""
     from repro_torch.config import ServeConfig, SSVConfig
-    from repro_torch.core import draft as draft_lib, engine as engine_lib
+    from repro_torch.core import engine as engine_lib
     cfg32 = dataclasses.replace(cfg, dtype="float32", num_layers=layers or cfg.num_layers)
-    dcfg32 = draft_lib.draft_config(cfg32)
-    gen = torch.Generator(DEV)
-    gen.manual_seed(1)
-    tp = init_params(cfg32, gen, DEV)
-    dp = init_params(dcfg32, gen, DEV)
+    weights = load_weights(cfg32, seed=1)
+    tp, dcfg32, dp = weights
     prompt = ctx["corpus"].batch(7, 1, 2049)[0] % cfg.vocab_size
     ssv = SSVConfig(tree_depth=4, tree_width=2, precision_class="Strict")
     eng = engine_lib.SSVEngine(tp, cfg32, dp, dcfg32, ServeConfig(
@@ -671,15 +904,49 @@ def strict_equals_ar(cfg, layers, n_tok, ctx):
     ssv_toks = eng.generate(prompt, max_new_tokens=n_tok).tokens
     ar_toks = engine_lib.autoregressive_decode(tp, cfg32, prompt, n_tok, 8192,
                                                device=DEV).tokens
-    tag = f"[4 strict==AR f32 {cfg.name}{f' {layers} layers' if layers else ''}]"
+    tag = f"[5 strict==AR f32 {cfg.name}{f' {layers} layers' if layers else ''}]"
     log(f"{tag} ssv {ssv_toks.tolist()}")
     log(f"{tag} ar  {ar_toks.tolist()}")
     if len(ssv_toks) != n_tok or ssv_toks.tolist() != ar_toks.tolist():
         fail(f"{cfg.name}: Strict SSV tokens differ from autoregressive decoding in float32")
+    return cfg32, weights, prompt, ssv_toks
+
+
+def f32_equalities(cfg, ctx, n_tok=16, rows=3):
+    """Phase 5 on full-depth float32 ``cfg``: Strict == AR; batched
+    ``generate_batch`` over ``rows`` 2049-token prompts equals per-request
+    ``SSVEngine.generate``; the paged single stream equals the dense one."""
+    from repro_torch.config import ServeConfig, SSVConfig
+    from repro_torch.core import engine as engine_lib
+    cfg32, (tp, dcfg32, dp), prompt, first = strict_equals_ar(cfg, None, n_tok, ctx)
+    prompts = [prompt] + [ctx["corpus"].batch(8 + i, 1, 2049)[0] % cfg.vocab_size
+                          for i in range(rows - 1)]
+
+    def serve(backend="dense"):
+        return ServeConfig(max_new_tokens=n_tok, temperature=0.0, max_context=8192,
+                           ssv=SSVConfig(tree_depth=4, tree_width=2, precision_class="Strict"),
+                           use_planner=False, kv_backend=backend)
+
+    single = [first.tolist()] + [
+        engine_lib.SSVEngine(tp, cfg32, dp, dcfg32, serve(), device=DEV)
+        .generate(p, n_tok).tokens.tolist() for p in prompts[1:]]
+    batch = engine_lib.BatchedSSVEngine(tp, cfg32, dp, dcfg32, serve(), device=DEV) \
+        .generate_batch(prompts, n_tok)
+    got = [r.tokens.tolist() for r in batch.results]
+    log(f"[5 batched==single f32 {cfg.name}] {rows} rows x {n_tok} tokens: "
+        f"{'equal' if got == single else 'DIFFERENT'}")
+    if got != single:
+        fail(f"{cfg.name}: batched tokens {got} differ from single-stream tokens {single}")
+    paged = engine_lib.SSVEngine(tp, cfg32, dp, dcfg32, serve("paged"), device=DEV) \
+        .generate(prompt, n_tok).tokens.tolist()
+    log(f"[5 paged==dense f32 {cfg.name}] single stream: "
+        f"{'equal' if paged == single[0] else 'DIFFERENT'}")
+    if paged != single[0]:
+        fail(f"{cfg.name}: paged single-stream tokens differ from dense")
 
 
 def dense_baseline(cfg, ctx):
-    """Phase 5: the dense-verification target (``attention="dense"``, the
+    """Phase 6: the dense-verification target (``attention="dense"``, the
     paper's dense baseline, as benchmarks/verification.py builds it)."""
     from repro_torch.bridge import init_params
     from repro_torch.config import ServeConfig
@@ -690,7 +957,7 @@ def dense_baseline(cfg, ctx):
     gen.manual_seed(0)
     tp = init_params(dense, gen, DEV)
     dp = init_params(dcfg, gen, DEV)
-    prompts = [ctx["corpus"].batch(i, 1, 4097)[0] % cfg.vocab_size for i in range(2)]
+    prompts = [ctx["corpus"].batch(0, 1, 4097)[0] % cfg.vocab_size]
     ssv = strategy(cfg, "Strict")
     eng = engine_lib.SSVEngine(tp, dense, dp, dcfg, ServeConfig(
         max_new_tokens=16, temperature=0.0, max_context=8192, ssv=ssv,
@@ -703,22 +970,23 @@ def dense_baseline(cfg, ctx):
                                   * r["steps"]})
     prof = profile_steps(eng, prompts[0])
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    log(f"[5 dense baseline {cfg.name}] {res['tokens']} tokens in {res['steps']} steps, "
+    log(f"[6 dense baseline {cfg.name}] {res['tokens']} tokens in {res['steps']} steps, "
         f"{res['tokens_per_s']:.2f} tok/s, peak memory {peak:.2f} GiB")
     return dict(res, peak_gib=peak, profile=prof)
 
 
-def serve_cli(arch):
+def serve_cli(arch, flags=("--prompts", "1"), expect="prompt 0: 8 tokens"):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     t0 = time.time()
     cli = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", "--arch",
-                          arch, "--prompts", "1", "--tokens", "8"],
+                          arch, "--tokens", "8", *flags],
                          cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    tag = f"[7 serve {arch} {' '.join(flags)}]"
     for line in (cli.stdout + cli.stderr).strip().splitlines()[-5:]:
-        log(f"[6 serve {arch}] {line}")
-    if cli.returncode != 0 or "prompt 0: 8 tokens" not in cli.stdout:
-        fail(f"serve CLI --arch {arch} exited {cli.returncode}")
-    log(f"[6 serve {arch}] {time.time() - t0:.1f}s")
+        log(f"{tag} {line}")
+    if cli.returncode != 0 or expect not in cli.stdout:
+        fail(f"serve CLI --arch {arch} {' '.join(flags)} exited {cli.returncode}")
+    log(f"{tag} {time.time() - t0:.1f}s")
 
 
 def kernel_row(name, Dh, source, replaces, launches, max_err, ms, plain, bnd, library=None):
@@ -744,7 +1012,7 @@ def kernel_times(cfgs, launches, max_err, kind, card):
         r_plain = time_events(lambda: run_routing(cfg, inp, True), 10)
         r_bound = routing_bound(cfg, inp)
         bounds[f"routing_dh{Dh}"] = r_bound
-        log(f"[7 time] routing Dh {Dh}: {r_ms:.4f} ms ({r_src}; {r_ev:.4f} ms by CUDA events), "
+        log(f"[8 time] routing Dh {Dh}: {r_ms:.4f} ms ({r_src}; {r_ev:.4f} ms by CUDA events), "
             f"plain {r_plain:.4f} ms, {bound_text(r_bound)}, library call: none {sig}")
         rows.append(kernel_row("routing", Dh, "src/repro_torch/csrc/routing.cu",
                                "src/repro/kernels/routing/kernel.py:70", launches, max_err,
@@ -759,13 +1027,33 @@ def kernel_times(cfgs, launches, max_err, kind, card):
             bnd = verify_bound(cfg, inp, args, full, branch)
             times[label] = (ms, plain, bnd)
             bounds[f"nsa_verify {label} dh{Dh}"] = bnd
-            log(f"[7 time] nsa_verify {label} Dh {Dh}: {ms:.4f} ms ({src}; {ev:.4f} ms by "
+            log(f"[8 time] nsa_verify {label} Dh {Dh}: {ms:.4f} ms ({src}; {ev:.4f} ms by "
                 f"CUDA events), plain {plain:.4f} ms, {bound_text(bnd)}, library call: none {sig}")
         for key, label in (("nsa_verify_full", "exact C=2 full"),
                            ("nsa_verify_partial", "exact C=2 partial")):
             ms, plain, bnd = times[label]
             rows.append(kernel_row(key, Dh, verify_src, verify_tpu, launches, max_err,
                                    ms, plain, bnd))
+        # paged: the same inputs re-homed into a shuffled pool (page size =
+        # sel_block, every page mapped); the row is the refresh-layer case
+        pool = paged_pool(cfg, inp, 1, holes=False, seed=3)
+        for label, C, mode, full in (("exact C=2 partial", 2, "exact", False),
+                                     ("exact C=2 full", 2, "exact", True)):
+            args = verify_layouts(cfg, inp, C, mode, pool)
+            oc = None if full else inp["o_cmp_in"]
+            ms, src, ev = time_kernel(lambda: run_verify(cfg, args, full, oc, False),
+                                      "nsa_verify_kernel")
+            plain = time_events(lambda: run_verify(cfg, args, full, oc, True), 5)
+            bnd = verify_bound(cfg, inp, args, full)
+            bounds[f"nsa_verify paged {label} dh{Dh}"] = bnd
+            log(f"[8 time] nsa_verify paged {label} Dh {Dh}: {ms:.4f} ms ({src}; {ev:.4f} ms "
+                f"by CUDA events; dense {times[label][0]:.4f} ms), plain {plain:.4f} ms, "
+                f"{bound_text(bnd)}, library call: none {sig}")
+            if not full:
+                rows.append(kernel_row("nsa_verify_paged", Dh, verify_src,
+                                       "src/repro/kernels/nsa_verify/kernel.py:193 (paged=True)",
+                                       launches, max_err, ms, plain, bnd))
+        del pool
         # vanilla: the mean of its two single-branch launches
         (ms_s, pl_s, b_s), (ms_w, pl_w, b_w) = times["vanilla slc"], times["vanilla win"]
         b_v = ((b_s[0] + b_w[0]) / 2, b_s[1] if b_s[0] >= b_w[0] else b_w[1])
@@ -783,7 +1071,7 @@ def kernel_times(cfgs, launches, max_err, kind, card):
         vanilla2 = time_events(lambda: vops.nsa_verify_vanilla_layer(
             mix, lcfg, x, kv, cmp, plen, pos, tm), 20)
         layer_times[f"dh{Dh}"] = dict(vanilla_ms=[vanilla, vanilla2], fused_c1_ms=fused)
-        log(f"[7 time] NSA layer Dh {Dh} (bf16, prefix 4096, T=31, C=1, CUDA events per "
+        log(f"[8 time] NSA layer Dh {Dh} (bf16, prefix 4096, T=31, C=1, CUDA events per "
             f"layer call): vanilla (routing + 2 branch launches + combine) {vanilla:.4f} / "
             f"{vanilla2:.4f} ms, fused refresh layer (routing + partial fusion) {fused:.4f} ms {sig}")
         del lcfg, mix, x, kv, cmp
@@ -794,7 +1082,7 @@ def kernel_times(cfgs, launches, max_err, kind, card):
         lib = time_events(sdpa_call(inp), 20)
         bnd = flash_bound(inp)
         bounds[f"flash {label} dh{Dh}"] = bnd
-        log(f"[7 time] flash {label} Dh {Dh}: {ms:.4f} ms ({src}; {ev:.4f} ms by CUDA "
+        log(f"[8 time] flash {label} Dh {Dh}: {ms:.4f} ms ({src}; {ev:.4f} ms by CUDA "
             f"events), plain {plain:.4f} ms, {bound_text(bnd)}, library "
             f"(scaled_dot_product_attention) {lib:.4f} ms {sig}")
         if label != "1B dense target":

@@ -160,94 +160,102 @@ def stochastic_tree_accept(topo: TreeTopology, draft_tokens: np.ndarray,
 
 
 # ------------------------------------------------------------------ device
-# Indices stay 1-element tensors: indexing with a 0-d integer tensor reads
-# its value on the host (``Tensor.item``), a device sync per lookup.
-def _at(x, idx):
-    """x[idx] for a (1,) index tensor, without a host sync; shape (1, ...)."""
-    return x.index_select(0, idx)
+# Every index is a tensor used through gather / advanced indexing: indexing
+# with a 0-d integer tensor would read its value on the host (a sync).
+def _finish(draft_tokens, tail, bonus, n_acc, max_depth):
+    path = torch.stack(tail, 1)                                       # (B, maxd+1)
+    toks_path = torch.gather(draft_tokens, 1, path[:, 1:])
+    live = torch.arange(max_depth, device=path.device)[None] < n_acc[:, None]
+    tokens = torch.where(live, toks_path, bonus[:, None])
+    return path, torch.cat([tokens, bonus[:, None]], 1)
 
 
 @torch.no_grad()
 def greedy_tree_accept_device(child_mat, max_depth: int, draft_tokens,
                               verify_logits):
-    """Greedy tree accept on the device.
+    """Greedy tree accept on the device, one walk per row.
 
     child_mat (T, k_max) long children in sibling order (-1 padded);
-    draft_tokens (T,); verify_logits (T, V). Returns (path (max_depth+1,),
-    tokens (max_depth+1,), bonus (), n_accepted ()) — path/tokens padded by
-    repeating the last entry / the bonus, the layout commit consumes. First
-    matching child wins, as in the host walk.
+    draft_tokens (B, T); verify_logits (B, T, V). Returns (path (B,
+    max_depth+1), tokens (B, max_depth+1), bonus (B,), n_accepted (B,)),
+    path / tokens padded by repeating the last entry / the bonus, the layout
+    commit consumes. First matching child wins, as in the host walk.
     """
+    B = draft_tokens.shape[0]
     dev = verify_logits.device
-    argm = verify_logits.argmax(dim=-1)                              # (T,)
-    cur = torch.zeros((1,), dtype=torch.long, device=dev)
-    alive = torch.ones((1,), dtype=torch.bool, device=dev)
-    n_acc = torch.zeros((1,), dtype=torch.long, device=dev)
+    draft_tokens = draft_tokens.long()
+    argm = verify_logits.argmax(dim=-1)                               # (B, T)
+    cur = torch.zeros((B,), dtype=torch.long, device=dev)
+    alive = torch.ones((B,), dtype=torch.bool, device=dev)
+    n_acc = torch.zeros((B,), dtype=torch.long, device=dev)
     tail = [cur]
     for _ in range(max_depth):
-        kids = _at(child_mat, cur)[0]                                # (k_max,)
-        match = (_at(draft_tokens, kids.clamp_min(0)) == _at(argm, cur)) & (kids >= 0)
-        found = match.any(0, keepdim=True) & alive
-        first = match.to(torch.int8).argmax(0, keepdim=True)
-        cur = torch.where(found, _at(kids, first), cur)
+        kids = child_mat[cur]                                         # (B, k_max)
+        match = (torch.gather(draft_tokens, 1, kids.clamp_min(0)) ==
+                 torch.gather(argm, 1, cur[:, None])) & (kids >= 0)
+        found = match.any(1) & alive
+        first = match.to(torch.int8).argmax(1, keepdim=True)
+        cur = torch.where(found, torch.gather(kids, 1, first)[:, 0], cur)
         alive = found
         n_acc = n_acc + found.long()
         tail.append(cur)
-    path = torch.cat(tail)
-    bonus = _at(argm, cur)
-    toks_path = _at(draft_tokens, path[1:])
-    tokens = torch.where(torch.arange(max_depth, device=dev) < n_acc, toks_path, bonus)
-    return path, torch.cat([tokens, bonus]), bonus[0], n_acc[0]
+    bonus = torch.gather(argm, 1, cur[:, None])[:, 0]
+    path, tokens = _finish(draft_tokens, tail, bonus, n_acc, max_depth)
+    return path, tokens, bonus, n_acc
 
 
 @torch.no_grad()
 def stochastic_tree_accept_device(child_mat, max_depth: int, draft_tokens,
                                   verify_logits, node_q, accept_u, bonus_u,
                                   temperature: float = 1.0):
-    """Multi-round rejection sampling on the device with the uniform layout
-    of ``stochastic_tree_accept_uniforms`` (accept_u (max_depth+1, k_max)
-    float32, bonus_u 0-d). Returns (path, tokens, bonus, n_accepted)."""
+    """Multi-round rejection sampling on the device, one walk per row, with
+    the uniform layout of ``stochastic_tree_accept_uniforms`` per row:
+    node_q (B, T, V), accept_u (B, max_depth+1, k_max) and bonus_u (B,)
+    float32, as in the JAX ``jit_batched_step``. Returns (path, tokens,
+    bonus, n_accepted) shaped as the greedy form's."""
+    B = draft_tokens.shape[0]
     dev = verify_logits.device
-    T, kmax = child_mat.shape
+    kmax = child_mat.shape[1]
     V = verify_logits.shape[-1]
+    draft_tokens = draft_tokens.long()
+    rows = torch.arange(B, device=dev)
     p_all = torch.softmax(verify_logits.float() / max(temperature, 1e-6), dim=-1)
     q_all = node_q.float()
-    one = lambda dtype: torch.zeros((1,), dtype=dtype, device=dev)
-    cur, n_acc, bonus = one(torch.long), one(torch.long), one(torch.long)
-    alive = torch.ones((1,), dtype=torch.bool, device=dev)
-    have_bonus = one(torch.bool)
+    zeros = lambda dtype: torch.zeros((B,), dtype=dtype, device=dev)
+    cur, n_acc, bonus, have_bonus = (zeros(torch.long), zeros(torch.long),
+                                     zeros(torch.long), zeros(torch.bool))
+    alive = torch.ones((B,), dtype=torch.bool, device=dev)
     uniform = torch.full((V,), 1.0 / V, device=dev)
-    u_bonus = bonus_u.reshape(1).float()
+    u_bonus = bonus_u.reshape(B, 1).float()
     tail = [cur]
     for r in range(max_depth + 1):
-        p, q = _at(p_all, cur)[0], _at(q_all, cur)[0]
-        kids = _at(child_mat, cur)[0]
+        p, q = p_all[rows, cur], q_all[rows, cur]                     # (B, V)
+        kids = child_mat[cur]                                         # (B, k_max)
         p_res = p
-        acc_node, accepted = one(torch.long), one(torch.bool)
+        acc_node, accepted = zeros(torch.long), zeros(torch.bool)
         for j in range(kmax):
-            kid = kids[j:j + 1]
+            kid = kids[:, j]
             valid = (kid >= 0) & ~accepted
-            t = _at(draft_tokens, kid.clamp_min(0))
-            ratio = _at(p_res, t) / _at(q, t).clamp_min(1e-12)
-            ok = valid & (accept_u[r, j] < torch.clamp(ratio, max=1.0))
+            t = torch.gather(draft_tokens, 1, kid.clamp_min(0)[:, None])
+            ratio = torch.gather(p_res, 1, t)[:, 0] / \
+                torch.gather(q, 1, t)[:, 0].clamp_min(1e-12)
+            ok = valid & (accept_u[:, r, j] < torch.clamp(ratio, max=1.0))
             rejected = valid & ~ok
             res = (p_res - q).clamp_min(0.0)
-            s = res.sum()
+            s = res.sum(-1, keepdim=True)
             res = torch.where(s > 0, res / s, uniform)
-            p_res = torch.where(rejected, res, p_res)
+            p_res = torch.where(rejected[:, None], res, p_res)
             acc_node = torch.where(ok, kid, acc_node)
             accepted = accepted | ok
         found = accepted & alive
         terminate = alive & ~accepted
-        cdf = torch.cumsum(p_res / p_res.sum().clamp_min(1e-30), dim=0)
-        draw = torch.searchsorted(cdf, u_bonus).clamp(0, V - 1)
+        cdf = torch.cumsum(p_res / p_res.sum(-1, keepdim=True).clamp_min(1e-30), dim=-1)
+        draw = torch.searchsorted(cdf, u_bonus)[:, 0].clamp(0, V - 1)
         bonus = torch.where(terminate & ~have_bonus, draw, bonus)
         cur = torch.where(found, acc_node, cur)
         alive = found
         n_acc = n_acc + found.long()
         have_bonus = have_bonus | terminate
         tail.append(cur)
-    path = torch.cat(tail[:max_depth + 1])
-    toks_path = _at(draft_tokens, path[1:])
-    tokens = torch.where(torch.arange(max_depth, device=dev) < n_acc, toks_path, bonus)
-    return path, torch.cat([tokens, bonus]), bonus[0], n_acc[0]
+    path, tokens = _finish(draft_tokens, tail[:max_depth + 1], bonus, n_acc, max_depth)
+    return path, tokens, bonus, n_acc

@@ -91,7 +91,8 @@ def expand_tree(verify_fn, draft_caches, tree: TreeTensors, pending_token,
     B = pending_token.shape[0]
     T = tree.topo.num_nodes
     dev = pending_token.device
-    positions = (tree.depths[None] + draft_caches["length"]).expand(B, T).to(torch.int32)
+    positions = (tree.depths[None] + draft_caches["length"].reshape(-1, 1)) \
+        .expand(B, T).to(torch.int32)                                # per-row lengths
     tmask = tree.mask[None].expand(B, T, T)
     tokens = torch.zeros((B, T), dtype=torch.long, device=dev)
     tokens[:, 0] = pending_token

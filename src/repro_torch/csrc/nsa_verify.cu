@@ -12,6 +12,20 @@
 // branch is walked and written without gates, the Fig. 6(a) baseline.
 // Head dim 64 and 128 are template instances.
 //
+// Paged mode (the TPU kernel's paged=True, kernel.py:193-210 with the page
+// table as its sixth scalar-prefetch operand, :236): with a non-null page
+// table the K/V cache is the shared pool (P, ps, Hkv, DH) and token tok of
+// row b lives at pool row pages[b*MP + tok/ps]*ps + tok%ps (-1 entries and
+// ids past the pool read zeros). A merged selected block never straddles a
+// page (ps % sel_block == 0), so it resolves once per block and its tile
+// loads stay 16-byte rows; a window tile may straddle pages, so each of
+// its key rows resolves on its own. An unmapped page inside the window
+// reads zeros that still pass the position mask (the JAX paged window);
+// merged blocks on unmapped pages arrive with mvalid cleared. Paging is a
+// runtime null check, not a template flag: the branch is uniform across
+// the CTA, and a flag would double the instances and the build time. The
+// pool is read in place, never copied per row; the grid is unchanged.
+//
 // One CTA per (query group g of C adjacent tree queries, kv head h, batch
 // b) holds the group's R = C*Gq query rows and walks a work list of key
 // tiles: visible cmp blocks -> merged selected blocks -> trailing window
@@ -82,9 +96,10 @@ __global__ void __launch_bounds__(NT) nsa_verify_kernel(
     const float* __restrict__ gates,      // (B,T,3,Hq)
     const float* __restrict__ ocmp_in,    // (B,T,Hq,DH) or null
     float* __restrict__ out,              // (B,T,Hq,DH)
+    const int* __restrict__ pages,        // (B,MP) page table, or null (dense)
     int T, int S, int Hkv, int Gq, int C, int G, int M, int NCB, int W,
     int sel_block, int cmp_block, int cmp_stride, int window,
-    int include_cmp, int branch) {
+    int include_cmp, int branch, int ps, int MP, int P) {
   constexpr int OUT_PER_T = RMAX * DH / NT;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem<DH>& sm = *reinterpret_cast<Smem<DH>*>(smem_raw);
@@ -117,6 +132,17 @@ __global__ void __launch_bounds__(NT) nsa_verify_kernel(
     for (int j = 0; j < OUT_PER_T; ++j) acc[br][j] = 0.f;
 
   const size_t kv_row = (size_t)Hkv * DH;
+  // K/V base of this (row, head): the row's own cache, or the shared pool
+  const size_t kv_base = (pages ? 0 : (size_t)b * S * kv_row) + (size_t)h * DH;
+  const int* prow = pages ? pages + (size_t)b * MP : nullptr;
+  // element offset of position tok's K/V row from kv_base, -1 = zeros
+  auto token_off = [&](int tok) -> long {
+    if (tok < 0 || tok >= S) return -1L;
+    if (!prow) return (long)tok * (long)kv_row;
+    const int phys = prow[tok / ps];
+    if (phys < 0 || phys >= P) return -1L;
+    return ((long)phys * ps + tok % ps) * (long)kv_row;
+  };
 
   // ---- cmp branch: visible blocks form a prefix bounded by the deepest row
   if (include_cmp) {
@@ -136,20 +162,21 @@ __global__ void __launch_bounds__(NT) nsa_verify_kernel(
 
   // ---- slc branch over the group's merged selected blocks
   if (branch != 2) {
-    const KV* kb = kcache + (size_t)b * S * kv_row + (size_t)h * DH;
-    const KV* vb = vcache + (size_t)b * S * kv_row + (size_t)h * DH;
+    const KV* kb = kcache + kv_base;
+    const KV* vb = vcache + kv_base;
     const size_t gh = ((size_t)b * G + g) * Hkv + h;
     for (int mi = 0; mi < M; ++mi) {
       const int blk = merged[gh * M + mi];
       if (blk < 0 || mvalid[gh * M + mi] == 0 || blk * sel_block >= plen) continue;
+      const long blk_off = token_off(blk * sel_block);   // one page holds the block
+      if (blk_off < 0) continue;
       const int* own_m = own + gh * (size_t)C * M + mi;     // own_m[c*M]
       for (int o0 = 0; o0 < sel_block; o0 += TK) {
         const int tok0 = blk * sel_block + o0;
         if (tok0 >= plen) break;
         tile(sm.t, sm.m[1], sm.l[1], acc[1], kb, vb, min(TK, sel_block - o0), R,
                 [&](int kk) -> long {
-                  const int tok = tok0 + kk;
-                  return tok < S ? (long)tok * (long)kv_row : -1L;
+                  return tok0 + kk < S ? blk_off + (long)(o0 + kk) * (long)kv_row : -1L;
                 },
                 [&](int r, int kk) {
                   const int tok = tok0 + kk;
@@ -161,16 +188,13 @@ __global__ void __launch_bounds__(NT) nsa_verify_kernel(
 
   // ---- win branch: trailing window of the prefix, then the draft tokens
   if (branch != 1) {
-    const KV* kb = kcache + (size_t)b * S * kv_row + (size_t)h * DH;
-    const KV* vb = vcache + (size_t)b * S * kv_row + (size_t)h * DH;
+    const KV* kb = kcache + kv_base;
+    const KV* vb = vcache + kv_base;
     for (int t0 = 0; t0 < W; t0 += TK) {
       const int kp0 = ws + t0;
       if (kp0 >= plen) break;
       tile(sm.t, sm.m[2], sm.l[2], acc[2], kb, vb, min(TK, W - t0), R,
-              [&](int kk) -> long {
-                const int kp = kp0 + kk;
-                return kp < S ? (long)kp * (long)kv_row : -1L;
-              },
+              [&](int kk) -> long { return token_off(kp0 + kk); },
               [&](int r, int kk) {
                 const int kp = kp0 + kk;
                 return kp < plen && kp > sm.pos[r] - window && kp <= sm.pos[r];
@@ -218,7 +242,7 @@ __global__ void __launch_bounds__(NT) nsa_verify_kernel(
 template <typename KV, int DH>
 int launch(const void* const* p, const int* n, cudaStream_t stream) {
   // n: B, T, S, Hkv, Gq, C, G, M, NCB, W, sel_block, cmp_block, cmp_stride,
-  //    window, include_cmp, branch, DH
+  //    window, include_cmp, branch, DH, ps, MP, P
   const size_t smem = sizeof(Smem<DH>);
   static bool attr_set = false;
   if (!attr_set) {
@@ -233,9 +257,9 @@ int launch(const void* const* p, const int* n, cudaStream_t stream) {
       (const KV*)p[4], (const KV*)p[5], (const KV*)p[6], (const int*)p[7],
       (const int*)p[8], (const int*)p[9], (const int*)p[10], (const int*)p[11],
       (const int*)p[12], (const int*)p[13], (const int*)p[14], (const int*)p[15],
-      (const float*)p[16], (const float*)p[17], (float*)p[18],
+      (const float*)p[16], (const float*)p[17], (float*)p[18], (const int*)p[19],
       n[1], n[2], n[3], n[4], n[5], n[6], n[7], n[8], n[9], n[10], n[11],
-      n[12], n[13], n[14], n[15]);
+      n[12], n[13], n[14], n[15], n[17], n[18], n[19]);
   return (int)cudaGetLastError();
 }
 
@@ -243,9 +267,11 @@ int launch(const void* const* p, const int* n, cudaStream_t stream) {
 
 // ptrs: q, k_cache, v_cache, k_cmp, v_cmp, k_draft, v_draft, merged, mvalid,
 //       own, qmap, positions, prefix_len, ncb_valid, win_start, dmask,
-//       gates, o_cmp_in (may be null), out            (19 pointers)
+//       gates, o_cmp_in (may be null), out, page_table (null = dense)
+//       (20 pointers)
 // ints: B, T, S, Hkv, Gq, C, G, M, NCB, W, sel_block, cmp_block,
-//       cmp_stride, window, include_cmp, branch, DH   (17 ints)
+//       cmp_stride, window, include_cmp, branch, DH, ps, MP, P  (20 ints;
+//       paged: k/v_cache are the (P, ps, Hkv, DH) pool, S = MP * ps)
 // branch: 0 = gated combine of all branches, 1 = slc only, 2 = win + draft
 // only (vanilla; needs include_cmp = 0, no o_cmp_in). kv_dtype: 0 =
 // float32, 1 = bfloat16. DH: 64 or 128. Returns the cudaError_t of the
@@ -257,6 +283,10 @@ extern "C" int nsa_verify_launch(const void* const* ptrs, const int* ints,
   if (branch < 0 || branch > 2 || (branch != 0 && ints[14]))
     return (int)cudaErrorInvalidValue;
   if (branch == 0 && !ints[14] && ptrs[17] == nullptr) return (int)cudaErrorInvalidValue;
+  if (ptrs[19] != nullptr &&
+      (ints[17] < 1 || ints[17] % ints[10] || ints[18] < 1 || ints[19] < 1 ||
+       ints[2] != ints[17] * ints[18]))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (kv_dtype == 0 && DH == 64) return launch<float, 64>(ptrs, ints, s);
   if (kv_dtype == 0 && DH == 128) return launch<float, 128>(ptrs, ints, s);

@@ -11,8 +11,11 @@ partially fused kernel; reuse layers run the fully fused kernel on
 inherited indices. ``nsa_verify_vanilla_layer`` is the branch-wise vanilla
 baseline: the routing kernel, Top-n, then two launches of the same kernel
 that each write one ungated branch (slc, then win + draft), and the gated
-combine in PyTorch. Only the dense KV store is ported (the paged variant
-is not).
+combine in PyTorch. Under the paged KV store (``page_table`` given, or a
+paged ``KVView``) the kernel reads K/V from the shared page pool through the
+page table; the merged schedule stays logical and a merged block whose page
+is unmapped is masked (``mvalid`` cleared), never clamped, as the JAX prep
+(``ops.py:141-146``) does. Paged launches count under ``nsa_verify_paged``.
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ from repro_torch.kernels.routing import ops as routing_ops
 FULL_LAUNCHES = LaunchCounter("nsa_verify_full")
 PARTIAL_LAUNCHES = LaunchCounter("nsa_verify_partial")
 VANILLA_LAUNCHES = LaunchCounter("nsa_verify_vanilla")
+PAGED_LAUNCHES = LaunchCounter("nsa_verify_paged")
 HEAD_DIMS = (64, 128)
 MAX_ROWS = 16
 BRANCHES = {"all": 0, "slc": 1, "win": 2}   # the kernel's ``branch`` flag
@@ -60,6 +64,21 @@ def group_layouts(sel_idx, sel_valid, positions, C: int, mode: str):
     merged, own, mvalid = overlap.merged_schedule(sel_idx, sel_valid, C)
     merged = torch.where(mvalid, merged, torch.full_like(merged, -1))
     return merged, mvalid.to(torch.int32), own.to(torch.int32), qmap
+
+
+def mask_unmapped_blocks(merged, mvalid, page_table, page_size: int, num_pages: int,
+                         sel_block: int):
+    """Clear ``mvalid`` of the merged (logical) blocks whose page is
+    unmapped or past the pool, so they are masked, never clamped (the JAX
+    paged prep, ``ops.py:141-146``). Returns (merged with -1 for the
+    cleared blocks, mvalid)."""
+    B, MP = page_table.shape
+    lp = torch.div(merged.clamp_min(0).long() * sel_block, page_size,
+                   rounding_mode="floor").clamp(0, MP - 1)
+    phys = torch.gather(page_table.long(), 1, lp.reshape(B, -1)).reshape(lp.shape)
+    mapped = (merged >= 0) & (phys >= 0) & (phys < num_pages)
+    mvalid = torch.where(mapped, mvalid, torch.zeros_like(mvalid))
+    return torch.where(mvalid > 0, merged, torch.full_like(merged, -1)), mvalid
 
 
 def prepare_groups(q, gates, sel_idx, sel_valid, positions, C: int, mode: str):
@@ -91,33 +110,47 @@ def _lib():
 def verify_groups(q, k_cache, v_cache, k_cmp, v_cmp, k_draft, v_draft, merged,
                   mvalid, own, qmap, positions, prefix_len, ncb_valid,
                   win_start, dmask, gates, o_cmp_in, *, nsa: NSAConfig,
-                  include_cmp: bool, branch: str = "all"):
+                  include_cmp: bool, branch: str = "all", page_table=None):
     """The kernel boundary. Shapes as in ``ref.verify_groups_plain``;
     prefix_len / ncb_valid / win_start are (B,) int32 device tensors.
     ``branch`` "slc" / "win" writes that one branch ungated (vanilla; needs
-    include_cmp=False). Returns (B,T,Hq,Dh) f32."""
+    include_cmp=False). ``page_table`` (B, max_pages) int32 makes k/v_cache
+    the shared pool (P, page_size, Hkv, Dh). Returns (B,T,Hq,Dh) f32."""
     geo = dict(sel_block=nsa.sel_block, cmp_block=nsa.cmp_block,
                cmp_stride=nsa.cmp_stride, window=nsa.window)
     if q.device.type == "cpu":
         return ref.verify_groups_plain(
             q, k_cache, v_cache, k_cmp, v_cmp, k_draft, v_draft, merged,
             mvalid, own, qmap, positions, prefix_len, ncb_valid, win_start,
-            dmask, gates, o_cmp_in, include_cmp=include_cmp, branch=branch, **geo)
+            dmask, gates, o_cmp_in, include_cmp=include_cmp, branch=branch,
+            page_table=page_table, **geo)
     if q.device.type != "cuda":
         raise ValueError(f"verify_groups: unsupported device {q.device}")
     return launch(q, k_cache, v_cache, k_cmp, v_cmp, k_draft, v_draft, merged,
                   mvalid, own, qmap, positions, prefix_len, ncb_valid,
                   win_start, dmask, gates, o_cmp_in, nsa=nsa,
-                  include_cmp=include_cmp, branch=branch)
+                  include_cmp=include_cmp, branch=branch, page_table=page_table)
 
 
 def launch(q, k_cache, v_cache, k_cmp, v_cmp, k_draft, v_draft, merged, mvalid,
            own, qmap, positions, prefix_len, ncb_valid, win_start, dmask,
            gates, o_cmp_in, *, nsa: NSAConfig, include_cmp: bool,
-           branch: str = "all"):
-    """Launch the CUDA kernel (CUDA tensors only); checks every input."""
+           branch: str = "all", page_table=None):
+    """Launch the CUDA kernel (CUDA tensors only); checks every input. The
+    paged pool is shared: it is never copied per row."""
     B, T, Hq, Dh = q.shape
-    S, Hkv = k_cache.shape[1], k_cache.shape[2]
+    Hkv = k_cache.shape[2]
+    paged = page_table is not None
+    if paged:
+        P, ps = k_cache.shape[0], k_cache.shape[1]
+        MP = page_table.shape[1] if page_table.dim() == 2 else -1
+        if ps % nsa.sel_block:
+            raise ValueError(f"page size {ps} must be a multiple of sel_block {nsa.sel_block}")
+        S = MP * ps
+        kv_shape = (P, ps, Hkv, Dh)
+    else:
+        S = k_cache.shape[1]
+        kv_shape = (B, S, Hkv, Dh)
     G, C = qmap.shape
     M = merged.shape[-1]
     NCB = k_cmp.shape[1]
@@ -134,8 +167,8 @@ def launch(q, k_cache, v_cache, k_cmp, v_cmp, k_draft, v_draft, merged, mvalid,
     kv_t = k_cache.dtype
     if kv_t not in (torch.float32, torch.bfloat16):
         raise TypeError(f"K/V must be float32 or bfloat16, got {kv_t}")
-    shapes = {"k_cache": (k_cache, (B, S, Hkv, Dh), kv_t),
-              "v_cache": (v_cache, (B, S, Hkv, Dh), kv_t),
+    shapes = {"k_cache": (k_cache, kv_shape, kv_t),
+              "v_cache": (v_cache, kv_shape, kv_t),
               "k_cmp": (k_cmp, (B, NCB, Hkv, Dh), kv_t),
               "v_cmp": (v_cmp, (B, NCB, Hkv, Dh), kv_t),
               "k_draft": (k_draft, (B, T, Hkv, Dh), kv_t),
@@ -150,6 +183,8 @@ def launch(q, k_cache, v_cache, k_cmp, v_cmp, k_draft, v_draft, merged, mvalid,
               "win_start": (win_start, (B,), torch.int32),
               "dmask": (dmask, (B, T, T), torch.int32),
               "gates": (gates, (B, T, 3, Hq), torch.float32)}
+    if paged:
+        shapes["page_table"] = (page_table, (B, MP), torch.int32)
     if not include_cmp and branch == "all":
         if o_cmp_in is None:
             raise ValueError("partial fusion (include_cmp=False) needs o_cmp_in")
@@ -174,16 +209,20 @@ def launch(q, k_cache, v_cache, k_cmp, v_cmp, k_draft, v_draft, merged, mvalid,
                dmask, gates]
     ptrs = [t.data_ptr() for t in tensors]
     has_cmp_in = not include_cmp and branch == "all"
-    ptrs += [o_cmp_in.data_ptr() if has_cmp_in else None, out.data_ptr()]
+    ptrs += [o_cmp_in.data_ptr() if has_cmp_in else None, out.data_ptr(),
+             page_table.data_ptr() if paged else None]
     ints = [B, T, S, Hkv, Hq // Hkv, C, G, M, NCB, min(nsa.window, S),
             nsa.sel_block, nsa.cmp_block, nsa.cmp_stride, nsa.window,
-            int(include_cmp), BRANCHES[branch], Dh]
+            int(include_cmp), BRANCHES[branch], Dh,
+            ps if paged else 0, MP if paged else 0, P if paged else 0]
     err = _lib()((ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_int * len(ints))(*ints),
                  0 if kv_t == torch.float32 else 1,
                  torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"nsa_verify kernel launch failed: cudaError {err}")
-    if branch != "all":
+    if paged:
+        PAGED_LAUNCHES.add()
+    elif branch != "all":
         VANILLA_LAUNCHES.add()
     else:
         (FULL_LAUNCHES if include_cmp else PARTIAL_LAUNCHES).add()
@@ -194,17 +233,30 @@ def nsa_verify_fused(q, k_cache, v_cache, k_cmp, v_cmp, k_draft, v_draft,
                      sel_idx, sel_valid, positions, prefix_len, ncb_valid,
                      tree_mask, gates, nsa: NSAConfig, C: int = 2,
                      mode: str = "exact", include_cmp: bool = True,
-                     o_cmp_in=None, branch: str = "all"):
-    """Fused grouped-query NSA verification on the dense store.
+                     o_cmp_in=None, branch: str = "all", page_table=None):
+    """Fused grouped-query NSA verification.
 
     q (B,T,Hq,Dh) ALREADY rope'd and scaled by 1/sqrt(Dh); prefix_len and
     ncb_valid are ints or device tensors (0-d or (B,)). ``branch`` "slc" or
     "win" computes that branch alone, ungated (the JAX ``combine=False``
-    with ``include_sel`` / ``include_win``). Returns (B,T,Hq,Dh) f32."""
+    with ``include_sel`` / ``include_win``). ``page_table`` (B, max_pages)
+    int32 switches k/v_cache to the shared page pool (P, page_size, Hkv,
+    Dh): ``merged`` stays logical and blocks on unmapped pages are masked.
+    Returns (B,T,Hq,Dh) f32."""
     B, T, Hq, Dh = q.shape
-    S = k_cache.shape[1]
     dev = q.device
     merged, mvalid, own, qmap = group_layouts(sel_idx, sel_valid, positions, C, mode)
+    if page_table is None:
+        S = k_cache.shape[1]
+    else:
+        P, ps = k_cache.shape[0], k_cache.shape[1]
+        if page_table.dim() != 2 or page_table.shape[0] != B:
+            raise ValueError(f"page_table has shape {tuple(page_table.shape)}, "
+                             f"expected ({B}, max_pages)")
+        S = page_table.shape[1] * ps
+        page_table = page_table.to(torch.int32).contiguous()
+        merged, mvalid = mask_unmapped_blocks(merged, mvalid, page_table, ps, P,
+                                              nsa.sel_block)
     W = min(nsa.window, S)
     plen = per_row(prefix_len, B, dev)
     win_start = (plen - W).clamp(0, max(S - W, 0)).to(torch.int32)
@@ -222,7 +274,7 @@ def nsa_verify_fused(q, k_cache, v_cache, k_cmp, v_cmp, k_draft, v_draft,
                          mvalid.contiguous(), own.contiguous(), qmap, positions,
                          plen, per_row(ncb_valid, B, dev), win_start, dmask,
                          gates, o_cmp_in, nsa=nsa, include_cmp=include_cmp,
-                         branch=branch)
+                         branch=branch, page_table=page_table)
 
 
 def _layer_inputs(params, cfg, x, prefix_len, positions):
@@ -249,16 +301,20 @@ def _route(q_s, cmp_cache, positions, plen, ncb_valid, nsa, kv_len):
 
 def nsa_verify_kernel_layer(params, cfg, x, cache, cmp_cache, prefix_len,
                             positions, tree_mask, sel_idx=None, sel_valid=None,
-                            C: int = 2, mode: str = "exact", reuse: bool = False):
+                            C: int = 2, mode: str = "exact", reuse: bool = False,
+                            page_table=None):
     """One NSA layer's tree verification through the kernels.
 
     reuse=False (refresh layer): routing kernel on the pre-scaled q ->
       Top-n -> (approx, C > 1: shared index, so the carried indices are the
       ones the JAX model path carries) -> partially fused verify kernel.
     reuse=True: inherited ``sel_idx`` -> fully fused verify kernel.
+    ``cache`` is a ``{"k", "v"}`` dict (dense, or the pool with
+    ``page_table``) or a ``kvstore.KVView``; the routing ``kv_len`` is the
+    view's logical capacity (max_pages * page_size when paged).
     Returns (out (B,T,D), (k_new, v_new), (sel_idx, sel_valid)).
     """
-    kv = kvstore.as_view(cache)
+    kv = kvstore.as_view(cache, page_table)
     nsa = cfg.nsa
     B, T, _ = x.shape
     q_s, k_new, v_new, g_all, plen, ncb_valid = _layer_inputs(params, cfg, x, prefix_len,
@@ -268,7 +324,8 @@ def nsa_verify_kernel_layer(params, cfg, x, cache, cmp_cache, prefix_len,
         if sel_idx is None:
             raise ValueError("reuse layers inherit indices: pass sel_idx")
         out = nsa_verify_fused(*common, sel_idx, sel_valid, positions, plen, ncb_valid,
-                               tree_mask, g_all, nsa, C=C, mode=mode, include_cmp=True)
+                               tree_mask, g_all, nsa, C=C, mode=mode, include_cmp=True,
+                               page_table=kv.pages)
     else:
         o_cmp, sel_idx, sel_valid = _route(q_s, cmp_cache, positions, plen, ncb_valid,
                                            nsa, kv.max_len)
@@ -276,7 +333,7 @@ def nsa_verify_kernel_layer(params, cfg, x, cache, cmp_cache, prefix_len,
             sel_idx, sel_valid = overlap.shared_index(sel_idx, sel_valid, positions, C)
         out = nsa_verify_fused(*common, sel_idx, sel_valid, positions, plen, ncb_valid,
                                tree_mask, g_all, nsa, C=C, mode=mode,
-                               include_cmp=False, o_cmp_in=o_cmp)
+                               include_cmp=False, o_cmp_in=o_cmp, page_table=kv.pages)
     out = out.to(x.dtype).reshape(B, T, -1) @ params["wo"]
     return out, (k_new, v_new), (sel_idx, sel_valid)
 

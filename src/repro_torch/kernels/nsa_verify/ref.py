@@ -13,6 +13,13 @@ gated sum:
   win — the trailing window [win_start, win_start + W) of the prefix plus
         the draft tokens under ``dmask`` (tree mask, window distance).
 
+Under the paged store (``page_table`` given) k/v_cache are the shared pool
+``(P, page_size, Hkv, Dh)`` and every cache read resolves through the row's
+page table; an unmapped page reads zeros (the caller has already cleared
+the validity of merged blocks on unmapped pages, so in the slc branch
+only the window can meet one, and there its zeros pass the position mask,
+as in the JAX paged window).
+
 Branches with no visible key contribute 0. ``branch="slc"`` or ``"win"``
 (the vanilla baseline, JAX ``combine=False``) returns that one branch,
 ungated. The CPU path of ``ops.verify_groups`` runs this; on the card the
@@ -21,6 +28,8 @@ kernel is held against it.
 from __future__ import annotations
 
 import torch
+
+from repro_torch.core import kvstore
 
 NEG = -1e30
 
@@ -41,15 +50,16 @@ def verify_groups_plain(q, k_cache, v_cache, k_cmp, v_cmp, k_draft, v_draft,
                         ncb_valid, win_start, dmask, gates, o_cmp_in=None, *,
                         sel_block: int, cmp_block: int, cmp_stride: int,
                         window: int, include_cmp: bool = True,
-                        branch: str = "all"):
+                        branch: str = "all", page_table=None):
     """q (B,T,Hq,Dh) pre-scaled; k/v_cache (B,S,Hkv,Dh); k/v_cmp
     (B,NCB,Hkv,Dh); k/v_draft (B,T,Hkv,Dh); merged/mvalid (B,G,Hkv,M);
     own (B,G,Hkv,C,M); qmap (G,C); positions (B,T); prefix_len, ncb_valid,
     win_start (B,); dmask (B,T,T) bool or int; gates (B,T,3,Hq); o_cmp_in
-    (B,T,Hq,Dh) when include_cmp is False and branch is "all". Returns
-    (B,T,Hq,Dh) f32."""
+    (B,T,Hq,Dh) when include_cmp is False and branch is "all"; page_table
+    (B, max_pages) int32 or None (dense). Returns (B,T,Hq,Dh) f32."""
     B, T, Hq, Dh = q.shape
-    S, Hkv = k_cache.shape[1], k_cache.shape[2]
+    view = kvstore.KVView(k_cache, v_cache, page_table)
+    S, Hkv = view.max_len, k_cache.shape[2]
     Gq = Hq // Hkv
     G, C = qmap.shape
     R = C * Gq
@@ -91,13 +101,12 @@ def verify_groups_plain(q, k_cache, v_cache, k_cmp, v_cmp, k_draft, v_draft,
     # ---- slc over the merged blocks
     if branch != "win":
         M = merged.shape[-1]
+        k_sel, v_sel = view.gather_blocks(merged.clamp_min(0), sel_block)  # (B,G,Hkv,M,lb,Dh)
+        k_sel = k_sel.reshape(B, G, Hkv, M * sel_block, Dh).float()
+        v_sel = v_sel.reshape(B, G, Hkv, M * sel_block, Dh).float()
         tok = merged.clamp_min(0)[..., None].long() * sel_block + \
             torch.arange(sel_block, device=dev)                      # (B,G,Hkv,M,lb)
-        tokc = tok.reshape(B, G, Hkv, M * sel_block).clamp(max=S - 1)
-        bidx = torch.arange(B, device=dev).reshape(B, 1, 1, 1)
-        hidx = torch.arange(Hkv, device=dev).reshape(1, 1, Hkv, 1)
-        k_sel = k_cache[bidx, tokc, hidx].float()                    # (B,G,Hkv,K,Dh)
-        v_sel = v_cache[bidx, tokc, hidx].float()
+        tokc = tok.reshape(B, G, Hkv, M * sel_block)
         valid_tok = ((merged >= 0) & (mvalid > 0)).repeat_interleave(sel_block, dim=-1)
         own_tok = (own > 0).repeat_interleave(Gq, dim=3).repeat_interleave(sel_block, dim=-1)
         tk = tokc[:, :, :, None, :]
@@ -109,9 +118,7 @@ def verify_groups_plain(q, k_cache, v_cache, k_cmp, v_cmp, k_draft, v_draft,
     # ---- win: trailing prefix slice + draft tokens
     W = min(window, S)
     kpos = win_start.reshape(B, 1).long() + torch.arange(W, device=dev)  # (B,W)
-    bw = torch.arange(B, device=dev)[:, None]
-    k_win = k_cache[bw, kpos.clamp(max=S - 1)]                    # (B,W,Hkv,Dh)
-    v_win = v_cache[bw, kpos.clamp(max=S - 1)]
+    k_win, v_win = view.gather_tokens(kpos)                       # (B,W,Hkv,Dh)
     kp = kpos.reshape(B, 1, 1, 1, W)
     wmask = (kp < plen) & (kp > pos_r - window) & (kp <= pos_r)
     drow = (dmask[:, qmap] > 0).repeat_interleave(Gq, dim=2)[:, :, None]  # (B,G,1,R,T)

@@ -1,5 +1,6 @@
-"""Serving CLI of the PyTorch port: single-stream SSV speculative
-serving of an architecture, optionally against the autoregressive baseline.
+"""Serving CLI of the PyTorch port: single-stream, batched and continuous
+SSV speculative serving of an architecture on the dense or the paged KV
+store, optionally against the autoregressive baseline.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch ssv-nsa-1b \
       --prompts 1 --tokens 8
@@ -7,12 +8,17 @@ serving of an architecture, optionally against the autoregressive baseline.
       --prompts 1 --tokens 8
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
       --precision-class Approx+Reuse --baseline
+  PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
+      --prompts 3 --batch 2 --kv-backend paged
+  PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
+      --prompts 3 --batch 2 --continuous --arrival-rate 0.5
 
 The flags are the JAX CLI's (``repro.launch.serve``) plus ``--device``
 (default ``cuda``). Weights are drawn from ``--seed`` with the JAX
-``model.init`` distributions. ``--batch > 1``, ``--continuous``,
-``--bucketed`` and ``--kv-backend paged`` belong to slices that are not
-ported yet and raise.
+``model.init`` distributions. ``--batch`` > 1 serves groups of prompts
+through ``BatchedSSVEngine.generate_batch``; ``--continuous`` serves every
+prompt over ``--batch`` slots with Poisson arrivals. ``--bucketed`` and
+``--warmup`` need the planner, which is not ported yet, and raise.
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ from repro_torch.config import ServeConfig, SSVConfig
 from repro_torch.core import draft as draft_lib
 from repro_torch.core import engine as engine_lib
 from repro_torch.core import planner as planner_lib
+from repro_torch.core import schedule as schedule_lib
 from repro_torch.data.synthetic import SyntheticConfig, SyntheticCorpus
 from repro_torch.device import resolve_device
 
@@ -62,12 +69,10 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     args = build_parser().parse_args(argv)
     unported = [flag for flag, on in (
-        ("--batch > 1", args.batch > 1), ("--continuous", args.continuous),
-        ("--bucketed", args.bucketed), ("--warmup", args.warmup),
-        ("--kv-backend paged", args.kv_backend == "paged")) if on]
+        ("--bucketed", args.bucketed), ("--warmup", args.warmup)) if on]
     if unported:
         raise NotImplementedError(f"{', '.join(unported)}: not ported yet "
-                                  "(single-stream serving only)")
+                                  "(needs the BatchPlanner)")
     dev = resolve_device(args.device)
     cfg = cfglib.reduced(args.arch) if args.reduced else cfglib.get_config(args.arch)
     dcfg = draft_lib.draft_config(cfg)
@@ -83,9 +88,46 @@ def main(argv=None):
                     refresh_schedule=sched, precision_class=args.precision_class)
     serve_cfg = ServeConfig(max_new_tokens=args.tokens, temperature=args.temperature,
                             max_context=min(cfg.max_seq_len, 2048), ssv=ssv,
-                            use_planner=False)
+                            use_planner=False, kv_backend=args.kv_backend,
+                            kv_page_size=args.kv_page_size,
+                            kv_num_pages=args.kv_num_pages)
     corpus = SyntheticCorpus(SyntheticConfig(vocab_size=cfg.vocab_size))
     prompts = [corpus.batch(i, 1, args.prompt_len)[0] for i in range(args.prompts)]
+
+    if args.continuous:     # --batch is the slot count
+        eng = engine_lib.BatchedSSVEngine(tp, cfg, dp, dcfg, serve_cfg,
+                                          rng_seed=args.seed, device=dev)
+        arrivals = schedule_lib.poisson_arrivals(len(prompts), args.arrival_rate,
+                                                 seed=args.seed)
+        reqs = [schedule_lib.Request(req_id=i, prompt=p, arrival=float(arrivals[i]))
+                for i, p in enumerate(prompts)]
+        res = eng.serve_continuous(reqs, num_slots=args.batch, max_new_tokens=args.tokens)
+        for req, gen in zip(res.requests, res.results):
+            print(f"prompt {req.req_id}: {len(gen.tokens)} tokens, "
+                  f"arrival {req.arrival:.1f}, queue delay {req.queue_delay:.1f} steps")
+        print(f"continuous over {args.batch} slots: {res.total_tokens} tokens "
+              f"in {res.wall_s:.2f}s ({res.aggregate_throughput:.1f} tok/s "
+              f"aggregate, {res.steps} steps, occupancy {res.mean_occupancy:.2f}, "
+              f"queue delay {res.mean_queue_delay_steps:.1f} steps)")
+        print(f"kv store {args.kv_backend}: {res.kv_bytes} bytes of raw KV"
+              + (f", peak page occupancy {res.peak_page_occupancy:.2f}"
+                 if args.kv_backend == "paged" else ""))
+        return
+
+    if args.batch > 1:
+        eng = engine_lib.BatchedSSVEngine(tp, cfg, dp, dcfg, serve_cfg,
+                                          rng_seed=args.seed, device=dev)
+        for lo in range(0, len(prompts), args.batch):
+            group = prompts[lo:lo + args.batch]
+            batch = eng.generate_batch(group, max_new_tokens=args.tokens)
+            for i, res in enumerate(batch.results):
+                print(f"prompt {lo + i}: {len(res.tokens)} tokens, "
+                      f"mean accepted/step {res.mean_accepted:.2f}")
+            print(f"batch[{lo}:{lo + len(group)}]: {batch.total_tokens} tokens in "
+                  f"{batch.wall_s:.2f}s ({batch.aggregate_throughput:.1f} tok/s "
+                  f"aggregate, {batch.steps} steps, kv store {args.kv_backend} "
+                  f"{eng.kv_cache_bytes()} bytes)")
+        return
 
     eng = engine_lib.SSVEngine(tp, cfg, dp, dcfg, serve_cfg, rng_seed=args.seed,
                                device=dev)

@@ -79,10 +79,11 @@ def attend_train(params, cfg: ModelConfig, x, positions, window: int = 0,
     return out @ params["wo"], (k, v)
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device):
-    shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device,
+               store: kvstore.KVStoreConfig = kvstore.DENSE):
+    """Zeroed K/V: (batch, max_len, Hkv, Dh) rows, or under the paged store
+    the shared page pool (num_pages, page_size, Hkv, Dh)."""
+    return kvstore.init_kv(cfg, batch, max_len, dtype, device, store)
 
 
 def write_cache(cache, k_new, v_new, start):
@@ -104,8 +105,10 @@ def attend_verify(params, cfg: ModelConfig, x, cache, prefix_len, positions,
 
     x: (B, T, D); positions (B, T) absolute; tree_mask (B, T, T) bool;
     prefix_len an int or 0-d/(B,) device tensor. ``cache`` is a raw
-    ``{"k", "v"}`` dict or a ``kvstore.KVView``. The draft K/V are appended
-    only for this pass; the cache is unchanged on return.
+    ``{"k", "v"}`` dict or a ``kvstore.KVView``; a paged view is
+    materialized into its logical (B, max_len, Hkv, Dh) K/V first
+    (``KVView.full``), as the JAX ``attend_verify`` does. The draft K/V are
+    appended only for this pass; the cache is unchanged on return.
 
     The flash masks add ``kpos <= position`` to the prefix mask and
     ``pos_i >= pos_j`` to the draft mask, which the JAX ``attend_verify``

@@ -5,7 +5,10 @@ Parameters are plain dicts of tensors with the JAX names, but unstacked:
 ``params["layers"]`` is a list with one block dict per layer (the JAX
 package stacks each segment along a leading axis; ``repro_torch.bridge``
 unstacks). Caches are ``{"layers": [{"kv": {"k", "v"}, "cmp": {...}}, ...],
-"length": 0-d int32 device tensor}``.
+"length": (B,) int32 device tensor[, "pages": (B, max_pages) int32]}``:
+one committed length per row. Under the paged KV store each layer's
+``kv`` is the shared page pool and ``"pages"`` the row page table (shared
+by the target and the draft); the compressed cache stays row-dense.
 
 Paths:
   * ``prefill``     — full prompt forward that builds the KV / compressed
@@ -14,8 +17,9 @@ Paths:
     refresh/reuse schedule and exact/approx grouping through the Hopper
     kernels (``kernels.nsa_verify.ops.nsa_verify_kernel_layer``); dense
     layers run the flash kernel (``attention.attend_verify``);
-  * ``commit``      — append the accepted path's K/V, update the compressed
-    cache, advance the length (all on the device);
+  * ``commit``      — append each row's accepted path's K/V at its own
+    length, update the compressed cache, advance each length (all on the
+    device);
   * ``decode_step`` — one autoregressive token (verify with T=1 + commit).
 Recurrent and MoE blocks are not ported.
 """
@@ -68,15 +72,24 @@ def _ffn(bp, cfg: ModelConfig, x):
 
 
 # ------------------------------------------------------------------ caches
-def init_caches(cfg: ModelConfig, batch: int, max_len: int, device):
+def init_caches(cfg: ModelConfig, batch: int, max_len: int, device,
+                store: kvstore.KVStoreConfig = kvstore.DENSE):
+    """Zeroed caches for ``batch`` rows, lengths 0. Paged: raw K/V are the
+    shared page pool and ``"pages"`` an empty (batch, max_pages) table; the
+    engine maps pages at admission and may share one table between models."""
     dtype = dtype_of(cfg.dtype)
     out = []
     for _ in range(cfg.num_layers):
-        c = {"kv": attention.init_cache(cfg, batch, max_len, dtype, device)}
+        c = {"kv": attention.init_cache(cfg, batch, max_len, dtype, device, store)}
         if cfg.attention == "nsa":
             c["cmp"] = nsa_lib.init_cmp_cache(cfg, batch, max_len, dtype, device)
         out.append(c)
-    return {"layers": out, "length": torch.zeros((), dtype=torch.int32, device=device)}
+    caches = {"layers": out, "length": torch.zeros((batch,), dtype=torch.int32, device=device)}
+    if store.is_paged:
+        ps = store.resolved_page_size(cfg)
+        caches["pages"] = kvstore.empty_page_table(batch, store.logical_pages(max_len, ps),
+                                                   device)
+    return caches
 
 
 # ------------------------------------------------------------------ prefill
@@ -109,7 +122,7 @@ def prefill(params, cfg: ModelConfig, tokens, max_len: int, attn_chunk: int = 51
         x = x + mix
         x = x + _ffn(bp, cfg, layers.rmsnorm(bp["norm2"], x, cfg.norm_eps))
     x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    caches["length"] = torch.full((), S, dtype=torch.int32, device=dev)
+    caches["length"] = torch.full((B,), S, dtype=torch.int32, device=dev)
     return x, caches
 
 
@@ -136,10 +149,12 @@ def _grouping(ssv: Optional[SSVConfig]) -> Tuple[int, str]:
 
 
 def _mix_verify(bp, cfg: ModelConfig, h, cache, prefix_len, positions,
-                tree_mask, carry_idx, reuse: bool, ssv: Optional[SSVConfig]):
-    """Sequence-mix one block in verify mode. Returns (mix_out,
-    {"k_new", "v_new"}, new_carry_idx)."""
-    kv = kvstore.as_view(cache["kv"])
+                tree_mask, carry_idx, reuse: bool, ssv: Optional[SSVConfig],
+                pages=None):
+    """Sequence-mix one block in verify mode; ``pages`` is the paged
+    store's page table (None = dense). Returns (mix_out, {"k_new",
+    "v_new"}, new_carry_idx)."""
+    kv = kvstore.as_view(cache["kv"], pages)
     if cfg.attention == "nsa":
         C, mode = _grouping(ssv)
         sel_idx, sel_valid = carry_idx if reuse else (None, None)
@@ -158,11 +173,13 @@ def verify_step(params, cfg: ModelConfig, caches, draft_tokens, positions,
                 tree_mask, parents=None, ssv: Optional[SSVConfig] = None):
     """Verify T draft tokens against the committed caches.
 
-    draft_tokens (B, T); positions (B, T) absolute; tree_mask (B, T, T).
-    ``parents`` is accepted for signature parity (recurrent blocks use it;
-    none are ported). Returns (logits (B, T, V), per-layer updates)."""
+    draft_tokens (B, T); positions (B, T) absolute; tree_mask (B, T, T);
+    each row verifies against its own committed length. ``parents`` is
+    accepted for signature parity (recurrent blocks use it; none are
+    ported). Returns (logits (B, T, V), per-layer updates)."""
     del parents
     prefix_len = caches["length"]
+    pages = caches.get("pages")
     x = layers.embed(params["embed"], draft_tokens)
     flags = _reuse_layer_flags(cfg, ssv)
     carry = (None, None)
@@ -170,7 +187,7 @@ def verify_step(params, cfg: ModelConfig, caches, draft_tokens, positions,
     for li, (bp, cache) in enumerate(zip(params["layers"], caches["layers"])):
         hn = layers.rmsnorm(bp["norm1"], x, cfg.norm_eps)
         mix, up, carry = _mix_verify(bp, cfg, hn, cache, prefix_len, positions,
-                                     tree_mask, carry, bool(flags[li]), ssv)
+                                     tree_mask, carry, bool(flags[li]), ssv, pages)
         x = x + mix
         x = x + _ffn(bp, cfg, layers.rmsnorm(bp["norm2"], x, cfg.norm_eps))
         updates.append(up)
@@ -187,23 +204,35 @@ def _gather_accepted(up, accepted):
 
 @torch.no_grad()
 def commit(params, cfg: ModelConfig, caches, updates, accepted, n_accepted):
-    """Commit the accepted path into the caches, on the device.
+    """Commit each row's accepted path into the caches, on the device.
 
     accepted (B, T_acc) node indices (root-to-leaf, padded with its last
-    entry); n_accepted (B,) how many are real. The K/V buffers are written in
-    place at the old length (the padded tail lands past the new length and
-    is masked by it); compressed blocks completed by the commit are added;
-    the length advances by n_accepted. The caller keeps
-    ``length + T_acc <= max_len`` (the engine asserts it from its host-side
-    length). Returns the caches dict with the new length."""
+    entry); n_accepted (B,) how many are real. Row b's K/V are written in
+    place at its own old length (the padded tail lands past its new length
+    and is masked by it), compressed blocks the commit completes are added,
+    and its length advances by n_accepted[b]. A row with n_accepted == 0 is
+    a no-op: its length stays frozen (batched serving freezes finished rows
+    this way), as in the JAX ``commit``.
+
+    Paged caches (``"pages"`` present): the K/V go into the row's pages
+    through the page table, and a row with n_accepted == 0 writes nothing
+    (``row_mask``): a released slot's pages may already belong to another
+    request. This one in-place commit stands for the JAX
+    ``commit_paged_prepare`` + ``commit_apply_paged`` pair, which splits
+    only because of ``vmap``; the compression update reads the written pool
+    (see ``nsa.update_cmp_cache_dyn``). The dense caller keeps
+    ``length + T_acc <= max_len`` for every row (the engines check it from
+    their host-side lengths). Returns the caches dict with the new lengths."""
     old_len = caches["length"]
+    pages = caches.get("pages")
     B, T_acc = accepted.shape
-    new_len = (old_len + n_accepted[0]).to(torch.int32)
+    new_len = (old_len + n_accepted.to(old_len.dtype)).to(torch.int32)
+    row_mask = n_accepted > 0 if pages is not None else None
     max_new_cmp = T_acc // cfg.nsa.cmp_stride + 2
     for bp, cache, up in zip(params["layers"], caches["layers"], updates):
         k_acc, v_acc = _gather_accepted(up, accepted)
-        view = kvstore.as_view(cache["kv"])
-        view.write(k_acc, v_acc, old_len)
+        view = kvstore.as_view(cache["kv"], pages)
+        view.write(k_acc, v_acc, old_len, row_mask=row_mask)
         if "cmp" in cache:
             new_cmp = nsa_lib.update_cmp_cache_dyn(bp["mix"], view, cache["cmp"],
                                                    old_len, new_len, max_new_cmp,
@@ -219,7 +248,7 @@ def decode_step(params, cfg: ModelConfig, caches, tokens, ssv: Optional[SSVConfi
     """One autoregressive step: tokens (B, 1). Returns (logits, caches)."""
     B = tokens.shape[0]
     dev = tokens.device
-    positions = caches["length"].reshape(1, 1).expand(B, 1).to(torch.int32)
+    positions = caches["length"].reshape(-1, 1).expand(B, 1).to(torch.int32)
     tree_mask = torch.ones((B, 1, 1), dtype=torch.bool, device=dev)
     logits, updates = verify_step(params, cfg, caches, tokens, positions, tree_mask,
                                   None, ssv)

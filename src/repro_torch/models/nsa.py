@@ -124,27 +124,37 @@ def update_cmp_cache_dyn(params, cache, cmp_cache, old_len, new_len,
                          max_new: int, nsa: NSAConfig):
     """Incremental compression update for device-resident lengths.
 
-    At most ``max_new`` blocks complete per commit; candidate blocks are
-    computed unconditionally and masked into a new cmp cache (returned; the
-    caller copies it into place). ``cache`` is the already-written raw KV.
+    ``old_len`` / ``new_len`` are ints or 0-d / (B,) device tensors (one
+    length per row). At most ``max_new`` blocks complete per commit;
+    candidate blocks are computed unconditionally and masked into a new cmp
+    cache (returned; the caller copies it into place). ``cache`` is the
+    already-written raw KV: a ``{"k", "v"}`` dict or a ``kvstore.KVView``
+    of either backend. Under the paged store the JAX package computes this
+    against the pre-write pool with the accepted tokens overlaid
+    (``commit_paged_prepare``); the port's commit writes the pool in place
+    first, so reading the written pool gives the same values (the overlay
+    casts to the store dtype for that reason), and every token of a block
+    that completes lies below the new length, inside the row's pages.
     """
     kv = kvstore.as_view(cache)
     dev = kv.k.device
-    ncb_old = dyn_num_cmp_blocks(torch.as_tensor(old_len, device=dev), nsa)
-    ncb_new = dyn_num_cmp_blocks(torch.as_tensor(new_len, device=dev), nsa)
     B, S = kv.batch, kv.max_len
-    j = torch.arange(max_new, device=dev)
-    starts = (ncb_old + j) * nsa.cmp_stride
-    idx = (starts[:, None] + torch.arange(nsa.cmp_block, device=dev)[None, :]).clamp(0, S - 1)
-    kb, vb = kv.gather_tokens(idx[None].expand(B, *idx.shape))
+    ncb_old = dyn_num_cmp_blocks(torch.as_tensor(old_len, device=dev), nsa).reshape(-1, 1)
+    ncb_new = dyn_num_cmp_blocks(torch.as_tensor(new_len, device=dev), nsa).reshape(-1, 1)
+    j = ncb_old + torch.arange(max_new, device=dev)                   # (B|1, max_new)
+    idx = (j[..., None] * nsa.cmp_stride +
+           torch.arange(nsa.cmp_block, device=dev)).clamp(0, S - 1)
+    kb, vb = kv.gather_tokens(idx.expand(B, *idx.shape[1:]))
     k_new, v_new = _pool_project(params, kb, vb, torch.float32)
-    valid = (ncb_old + j) < ncb_new                                   # (max_new,)
+    valid = j < ncb_new                                               # (B|1, max_new)
     NCB = cmp_cache["k_cmp"].shape[1]
-    slot = (ncb_old + j).clamp(0, NCB - 1)
-    oh = torch.nn.functional.one_hot(slot.long(), NCB).float() * valid[:, None]
-    keep = (1 - oh.sum(0))[None, :, None, None]
-    k_cmp = cmp_cache["k_cmp"].float() * keep + torch.einsum("bnhd,nc->bchd", k_new, oh)
-    v_cmp = cmp_cache["v_cmp"].float() * keep + torch.einsum("bnhd,nc->bchd", v_new, oh)
+    slot = j.clamp(0, NCB - 1)
+    oh = torch.nn.functional.one_hot(slot.long(), NCB).float() * valid[..., None]
+    keep = (1 - oh.sum(1))[:, :, None, None]                          # (B|1, NCB, 1, 1)
+    k_cmp = cmp_cache["k_cmp"].float() * keep + torch.einsum("bnhd,bnc->bchd", k_new,
+                                                              oh.expand(B, -1, -1))
+    v_cmp = cmp_cache["v_cmp"].float() * keep + torch.einsum("bnhd,bnc->bchd", v_new,
+                                                              oh.expand(B, -1, -1))
     return {"k_cmp": k_cmp.to(cmp_cache["k_cmp"].dtype),
             "v_cmp": v_cmp.to(cmp_cache["v_cmp"].dtype)}
 
@@ -283,7 +293,8 @@ def attend_train_nsa(params, cfg: ModelConfig, x, positions, chunk: int = 512):
 
 # ---------------------------------------------------------------- verify (ref)
 def gather_blocks(kv, idx, sel_block: int):
-    """Selected-block gather through the KV view; invalid blocks read zeros."""
+    """Selected-block gather through the KV view (dense or paged); invalid
+    and unmapped blocks read zeros."""
     return kvstore.as_view(kv).gather_blocks(idx, sel_block)
 
 
@@ -292,7 +303,9 @@ def nsa_verify_ref(params, cfg: ModelConfig, x, cache, cmp_cache, prefix_len,
     """Plain NSA verification oracle over T draft tokens (the counterpart of
     the JAX ``nsa_verify_ref``). Returns (out (B,T,D), (k_new, v_new),
     (sel_idx, sel_valid)). Not on the served path: the served verify goes
-    through ``kernels.nsa_verify.ops.nsa_verify_kernel_layer``."""
+    through ``kernels.nsa_verify.ops.nsa_verify_kernel_layer``. ``cache``
+    is a ``{"k", "v"}`` dict or a ``kvstore.KVView`` (dense or paged);
+    ``prefix_len`` an int or a 0-d / (B,) tensor."""
     nsa = cfg.nsa
     B, T, _ = x.shape
     Hq, Hkv, G, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.q_per_kv, cfg.head_dim
@@ -329,8 +342,8 @@ def nsa_verify_ref(params, cfg: ModelConfig, x, cache, cmp_cache, prefix_len,
     W = min(nsa.window, S_max)
     win_start = (plen - W).clamp(0, max(S_max - W, 0))
     k_win, v_win = kv.window(win_start, W)
-    kpos = (win_start + torch.arange(W, device=dev)).reshape(1, 1, W).expand(B, T, W)
-    pmask = (kpos < plen) & (kpos > positions[..., None] - nsa.window) & \
+    kpos = (win_start.reshape(-1, 1) + torch.arange(W, device=dev))[:, None, :]
+    pmask = (kpos < _rows(plen, dev, 3)) & (kpos > positions[..., None] - nsa.window) & \
         (kpos <= positions[..., None])
     logit_p = torch.einsum("bthgd,bkhd->bthgk", qg, k_win.float()) * scale
     logit_p = torch.where(pmask[:, :, None, None], logit_p, neg)

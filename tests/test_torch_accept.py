@@ -1,5 +1,6 @@
 """The port's tree accept and draft expansion: device accept forms equal
-the host forms on the same uniforms (and the JAX device forms), the copied
+the host forms on the same uniforms (and the JAX device forms), one row at
+a time and row by row in a batch of rows sharing a topology, the copied
 tree module matches the JAX one, and draft tree expansion on bridged
 weights gives the JAX tokens."""
 import jax
@@ -36,8 +37,9 @@ def test_greedy_device_matches_host_and_jax(block):
         cm = tree.children_matrix(topo)
         maxd = int(topo.depths.max())
         host = accept.greedy_tree_accept(topo, tokens, logits)
-        path, toks, bonus, n = accept.greedy_tree_accept_device(
-            torch.from_numpy(cm).long(), maxd, torch.from_numpy(tokens), torch.from_numpy(logits))
+        path, toks, bonus, n = (x[0] for x in accept.greedy_tree_accept_device(
+            torch.from_numpy(cm).long(), maxd, torch.from_numpy(tokens)[None],
+            torch.from_numpy(logits)[None]))
         n = int(n)
         assert n == host.n_accepted, seed
         assert np.array_equal(path.numpy()[: n + 1], host.path), seed
@@ -58,16 +60,50 @@ def test_stochastic_device_matches_host(block):
         temp = 0.5 + 0.5 * float(rng.uniform())
         host = accept.stochastic_tree_accept_uniforms(topo, tokens, logits, q, accept_u,
                                                       bonus_u, temp)
-        path, toks, bonus, n = accept.stochastic_tree_accept_device(
-            torch.from_numpy(cm).long(), maxd, torch.from_numpy(tokens),
-            torch.from_numpy(logits), torch.from_numpy(q),
-            torch.from_numpy(accept_u.astype(np.float32)), torch.tensor(np.float32(bonus_u)),
-            temp)
+        path, toks, bonus, n = (x[0] for x in accept.stochastic_tree_accept_device(
+            torch.from_numpy(cm).long(), maxd, torch.from_numpy(tokens)[None],
+            torch.from_numpy(logits)[None], torch.from_numpy(q)[None],
+            torch.from_numpy(accept_u.astype(np.float32))[None],
+            torch.tensor([np.float32(bonus_u)]), temp))
         n = int(n)
         assert n == host.n_accepted, seed
         assert np.array_equal(path.numpy()[: n + 1], host.path), seed
         assert np.array_equal(toks.numpy()[: n + 1], host.tokens), seed
         assert int(bonus) == host.bonus, seed
+
+
+@pytest.mark.parametrize("stochastic", [False, True])
+@pytest.mark.parametrize("seed", range(3))
+def test_device_accept_rows_match_host_row_by_row(seed, stochastic):
+    """A batch of 12 rows on one topology (the batched engine's case): each
+    row's walk equals the host walk on that row's tokens, logits and
+    uniforms."""
+    rng = np.random.default_rng(100 + seed)
+    topo = tree.build_topology(4, 2, ["bfs", "dfs"][seed % 2])
+    T, V, R = topo.num_nodes, 11, 12
+    cm = torch.from_numpy(tree.children_matrix(topo)).long()
+    maxd = int(topo.depths.max())
+    tokens = rng.integers(0, V, (R, T))
+    logits = rng.normal(size=(R, T, V)).astype(np.float32)
+    q = rng.dirichlet(np.ones(V), size=(R, T)).astype(np.float32)
+    us = [accept.draw_uniforms(topo, rng) for _ in range(R)]
+    if stochastic:
+        out = accept.stochastic_tree_accept_device(
+            cm, maxd, torch.from_numpy(tokens), torch.from_numpy(logits), torch.from_numpy(q),
+            torch.from_numpy(np.stack([u for u, _ in us]).astype(np.float32)),
+            torch.tensor([b for _, b in us], dtype=torch.float32), 0.8)
+    else:
+        out = accept.greedy_tree_accept_device(cm, maxd, torch.from_numpy(tokens),
+                                               torch.from_numpy(logits))
+    path, toks, bonus, n = (x.numpy() for x in out)
+    for r in range(R):
+        host = (accept.stochastic_tree_accept_uniforms(topo, tokens[r], logits[r], q[r],
+                                                       us[r][0], us[r][1], 0.8)
+                if stochastic else accept.greedy_tree_accept(topo, tokens[r], logits[r]))
+        k = int(n[r])
+        assert k == host.n_accepted
+        assert np.array_equal(path[r, : k + 1], host.path)
+        assert np.array_equal(toks[r, : k + 1], host.tokens) and int(bonus[r]) == host.bonus
 
 
 @pytest.mark.parametrize("depth,width,order,budget", [(4, 2, "bfs", 0), (3, 3, "dfs", 0),

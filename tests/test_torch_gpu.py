@@ -6,7 +6,10 @@ partial, and the vanilla single-branch launches, with the vanilla layer
 against the fused layer's plain path), and flash tree-verify (up to 124
 query rows, window 0 and 16, and on two streams at once); the wrappers
 reject head dims other than 64 and 128 and K/V that are not 16-byte
-aligned. Whether a card is present is decided in a fixture, so every worker
+aligned; the paged mode of nsa_verify (a shuffled pool with holes inside
+and outside the window, page size 1 and 2 x sel_block, bit-equal to the
+dense launch when every page is mapped) and batched paged serving against
+dense serving. Whether a card is present is decided in a fixture, so every worker
 collects the same tests; without a card they skip. Run them on
 the card with ``python -m pytest -m gpu tests/test_torch_gpu.py``."""
 import pytest
@@ -236,3 +239,127 @@ def test_wrappers_reject_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="aligned"):
         fops.flash_verify(x["q"], k_off, x["v_cache"], x["k_draft"], x["v_draft"],
                           x["pos"], x["plen"], x["tree"])
+
+
+def _paged_inputs(dev, dtype, Dh, page_mult, hole, seed=0):
+    """Two rows of different prefix lengths (180, 140) over a 256-token
+    logical cache, re-homed into a shuffled pool with spare pages; ``hole``
+    unmaps one page outside the window ("outside"), one inside it
+    ("inside"), or none. Returns (dense args, pool k, pool v, page table)."""
+    g = torch.Generator(dev)
+    g.manual_seed(seed)
+    r = lambda *s, dt=dtype: torch.randn(s, generator=g, device=dev).to(dt)
+    B, T, Hq, Hkv, S = 2, 7, 8, 2, 256
+    plen = torch.tensor([180, 140], dtype=torch.int32, device=dev)
+    pos = (plen[:, None] + torch.minimum(torch.arange(T, device=dev),
+                                         torch.tensor(3, device=dev))).to(torch.int32)
+    p_slc = torch.rand((B, T, Hkv, nsa_lib.num_sel_blocks(S, NSA)), generator=g, device=dev)
+    sel, val = nsa_lib.select_topn(p_slc, pos, plen, NSA)
+    kc, vc = r(B, S, Hkv, Dh), r(B, S, Hkv, Dh)
+    ps = NSA.sel_block * page_mult
+    mp = S // ps
+    P = B * mp + 3
+    perm = torch.randperm(P, generator=torch.Generator().manual_seed(seed))[: B * mp]
+    pages = perm.reshape(B, mp).to(torch.int32).to(dev)
+    pool_k, pool_v = r(P, ps, Hkv, Dh), r(P, ps, Hkv, Dh)
+    for b in range(B):
+        pool_k[pages[b].long()] = kc[b].reshape(mp, ps, Hkv, Dh)
+        pool_v[pages[b].long()] = vc[b].reshape(mp, ps, Hkv, Dh)
+    if hole == "outside":
+        pages[:, 0] = -1
+    elif hole == "inside":
+        pages[0, 160 // ps] = -1                 # row 0's window is 148..179
+        pages[1, 120 // ps] = -1                 # row 1's window is 108..139
+    ncb = nsa_lib.num_cmp_blocks(S, NSA)
+    args = dict(q=r(B, T, Hq, Dh, dt=torch.float32) / Dh ** 0.5, k_cmp=r(B, ncb, Hkv, Dh),
+                v_cmp=r(B, ncb, Hkv, Dh), k_draft=r(B, T, Hkv, Dh), v_draft=r(B, T, Hkv, Dh),
+                sel=sel, val=val, pos=pos, plen=plen,
+                ncb_valid=nsa_lib.dyn_num_cmp_blocks(plen, NSA),
+                tree=torch.tril(torch.ones((T, T), dtype=torch.bool, device=dev))[None]
+                .expand(B, T, T), gates=torch.sigmoid(r(B, T, 3, Hq, dt=torch.float32)),
+                o_cmp=r(B, T, Hq, Dh, dt=torch.float32), k_cache=kc, v_cache=vc)
+    return args, pool_k, pool_v, pages
+
+
+def _fused(x, k, v, C, mode, full, page_table=None):
+    return vops.nsa_verify_fused(
+        x["q"], k, v, x["k_cmp"], x["v_cmp"], x["k_draft"], x["v_draft"], x["sel"],
+        x["val"], x["pos"], x["plen"], x["ncb_valid"], x["tree"], x["gates"], NSA, C=C,
+        mode=mode, include_cmp=full, o_cmp_in=None if full else x["o_cmp"],
+        page_table=page_table)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hole", ["none", "outside", "inside"])
+@pytest.mark.parametrize("page_mult", [1, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,mode,full,Dh", [(2, "exact", True, 64), (4, "approx", False, 64),
+                                            (2, "exact", False, 128), (4, "approx", True, 128)])
+def test_paged_verify_kernel_matches_plain(cuda, C, mode, full, Dh, dtype, page_mult, hole):
+    """The paged kernel mode against its plain version (CPU) on a shuffled
+    pool with holes, two rows of different lengths in one launch; counted
+    under nsa_verify_paged only."""
+    x, pk, pv, pages = _paged_inputs(cuda, dtype, Dh, page_mult, hole, seed=C + Dh)
+    before = (vops.PAGED_LAUNCHES.count, vops.FULL_LAUNCHES.count, vops.PARTIAL_LAUNCHES.count)
+    got = _fused(x, pk, pv, C, mode, full, pages)
+    assert (vops.PAGED_LAUNCHES.count, vops.FULL_LAUNCHES.count,
+            vops.PARTIAL_LAUNCHES.count) == (before[0] + 1, before[1], before[2])
+    to_cpu = {k: v.cpu() for k, v in x.items()}
+    want = _fused(to_cpu, pk.cpu(), pv.cpu(), C, mode, full, pages.cpu())
+    torch.cuda.synchronize()
+    _close(got.cpu(), want, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Dh", [64, 128])
+def test_paged_kernel_equals_dense_kernel_bitwise(cuda, Dh):
+    """With every page mapped the paged launch reads the same values in the
+    same order as the dense launch: the outputs are bit-identical."""
+    x, pk, pv, pages = _paged_inputs(cuda, torch.bfloat16, Dh, 2, "none", seed=Dh)
+    for C, mode, full in ((2, "exact", False), (4, "approx", True)):
+        dense = _fused(x, x["k_cache"], x["v_cache"], C, mode, full)
+        paged = _fused(x, pk, pv, C, mode, full, pages)
+        torch.cuda.synchronize()
+        assert torch.equal(dense, paged)
+
+
+@pytest.mark.gpu
+def test_paged_wrapper_rejects_bad_tables(cuda):
+    x, pk, pv, pages = _paged_inputs(cuda, torch.float32, 64, 1, "none")
+    with pytest.raises(ValueError, match="page_table"):
+        _fused(x, pk, pv, 2, "exact", True, pages[:1])
+    with pytest.raises(ValueError, match="multiple"):
+        _fused(x, pk[:, :8].contiguous(), pv[:, :8].contiguous(), 2, "exact", True, pages)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pc", ["Strict", "Approx+Reuse"])
+def test_batched_paged_serving_equals_dense_on_card(cuda, pc):
+    """A small NSA model served to three requests through generate_batch on
+    the dense and on the paged store: equal tokens, every NSA layer launch
+    counted under the store's own counter."""
+    from repro_torch.config import ServeConfig, SSVConfig
+    from repro_torch.core import draft as draft_lib, engine as engine_lib, planner
+    cfg = ModelConfig(name="t", num_layers=2, d_model=512, num_heads=8, num_kv_heads=2,
+                      d_ff=256, vocab_size=97, dtype="float32", attention="nsa", nsa=NSA)
+    dcfg = draft_lib.draft_config(cfg, num_layers=1)      # 2 heads of dim 64
+    g = torch.Generator(cuda)
+    g.manual_seed(4)
+    tp, dp = init_params(cfg, g, cuda), init_params(dcfg, g, cuda)
+    prompts = [torch.randint(0, 97, (n,), generator=g, device=cuda).cpu().numpy()
+               for n in (150, 171, 133)]
+    mode, reuse = planner.class_constraints(pc)
+    ssv = SSVConfig(tree_depth=3, tree_width=2, group_size=4 if mode == "approx" else 2,
+                    group_mode=mode, refresh_schedule=(1,) if reuse else ())
+    out = {}
+    for backend in ("dense", "paged"):
+        eng = engine_lib.BatchedSSVEngine(tp, cfg, dp, dcfg, ServeConfig(
+            max_new_tokens=10, max_context=512, ssv=ssv, kv_backend=backend), device=cuda)
+        before = (vops.PAGED_LAUNCHES.count, vops.FULL_LAUNCHES.count + vops.PARTIAL_LAUNCHES.count)
+        out[backend] = [r.tokens for r in eng.generate_batch(prompts, 10).results]
+        paged_n = vops.PAGED_LAUNCHES.count - before[0]
+        dense_n = vops.FULL_LAUNCHES.count + vops.PARTIAL_LAUNCHES.count - before[1]
+        assert (paged_n > 0, dense_n > 0) == (backend == "paged", backend == "dense")
+    for a, b in zip(out["dense"], out["paged"]):
+        assert len(a) == 10
+        assert a.tolist() == b.tolist()

@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: nothing under ``src/repro_torch`` and
 nothing in ``chip_smoke.py`` imports JAX or the JAX package ``repro``
 (checked on the source, by AST). Also drives the port's serve CLI on the
-CPU and checks that unported serving modes refuse clearly."""
+CPU (single stream; batched, continuous and paged serving) and checks that
+the modes that need the unported planner refuse clearly."""
 import ast
 from pathlib import Path
 
@@ -41,6 +42,13 @@ def test_scan_covers_the_slice_2_modules():
         assert f"src/repro_torch/{rel}" in scanned
 
 
+def test_scan_covers_the_slice_3_modules():
+    scanned = {str(p.relative_to(ROOT)) for p in _port_files()}
+    for rel in ("core/kvstore.py", "core/schedule.py", "core/engine.py", "core/accept.py",
+                "kernels/nsa_verify/ref.py", "launch/serve.py"):
+        assert f"src/repro_torch/{rel}" in scanned
+
+
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_neither_jax_nor_repro(path):
     for mod in _imported_modules(path):
@@ -64,8 +72,21 @@ def test_serve_cli_on_cpu(capsys):
     assert "prompt 0: 4 tokens" in out and "AR baseline" in out
 
 
-@pytest.mark.parametrize("flags", [["--batch", "2"], ["--continuous"],
-                                   ["--kv-backend", "paged"]])
+@pytest.mark.parametrize("flags", [["--bucketed"], ["--warmup"],
+                                   ["--continuous", "--bucketed", "--warmup"]])
 def test_serve_cli_unported_modes_raise(flags):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         serve.main(["--reduced", "--device", "cpu", *flags])
+
+
+@pytest.mark.parametrize("flags,expect", [
+    (["--batch", "2"], "batch[0:2]: 8 tokens"),
+    (["--batch", "2", "--kv-backend", "paged"], "kv store paged"),
+    (["--batch", "2", "--continuous", "--arrival-rate", "0.5"], "continuous over 2 slots"),
+    (["--batch", "2", "--continuous", "--kv-backend", "paged", "--kv-num-pages", "16"],
+     "peak page occupancy")])
+def test_serve_cli_batched_modes_on_cpu(capsys, flags, expect):
+    serve.main(["--reduced", "--device", "cpu", "--prompts", "3", "--tokens", "4",
+                "--prompt-len", "40", "--tree-depth", "2", *flags])
+    out = capsys.readouterr().out
+    assert expect in out and "prompt 2: 4 tokens" in out
