@@ -5,8 +5,9 @@
 
 Phases (every phase always runs; any failure exits non-zero):
   1. build the three CUDA kernels from ``src/repro_torch/csrc`` (one nvcc
-     per source, in parallel) and print their ``-Xptxas -v`` lines per
-     template instance; print the card's name and power limit;
+     per source, in parallel) and print each template instance's registers,
+     spill bytes, stack and dynamic shared memory (fails on a spill); print
+     the card's name and power limit;
   2. hold each kernel against its plain PyTorch version, in float32 and
      bfloat16 K/V, at the full-width shapes: routing and nsa_verify (exact
      C=2 / approx C=4, full / partial fusion, and the vanilla single-branch
@@ -23,7 +24,8 @@ Phases (every phase always runs; any failure exits non-zero):
      weights from a seed, max_context 8192, 16 new tokens, D4/k2 tree,
      under Strict and Approx+Reuse, through ``SSVEngine``, with the launch
      counters checked against layers x verify passes (flash: 2 draft
-     layers x 5 passes per step) and a per-step profile;
+     layers x 5 passes per step) and a per-step profile (kernel launches
+     per step printed beside the pre-redesign tree's);
   4. batched and continuous serving: full-width ``ssv-nsa-1b`` (bf16) to 4
      slots through ``generate_batch`` (4 requests) and ``serve_continuous``
      (6 requests, Poisson arrivals), Strict and Approx+Reuse, on the dense
@@ -39,12 +41,19 @@ Phases (every phase always runs; any failure exits non-zero):
      of ``ssv-nsa-1b`` as the target, every verify through flash;
   7. the serve CLI (``python -m repro_torch.launch.serve``) for both archs,
      and batched-paged and continuous runs of ``ssv-nsa-1b``;
-  8. kernel times (profiler device time and CUDA events) beside the plain
-     version's time, the bound and, for flash, the library yardstick
-     (``scaled_dot_product_attention``, timed only); vanilla layer against
-     the fused layer;
+  8. kernel times (profiler device time and CUDA events) beside the
+     pre-redesign kernels' (before the Hopper redesign, commit 787ff43),
+     the plain version's time, the bound (nsa_verify and flash with bf16
+     K/V at the bf16 tensor-core rate, so their bytes bound them; routing
+     and float32 K/V at the float32 CUDA-core rate) and, for flash, the
+     library yardstick (``scaled_dot_product_attention``, timed only); the
+     float32 K/V instances; vanilla layer against the fused layer;
   9. the summary lines: a ``kernels`` JSON line (every kernel x head dim),
      the card line, and the ``{"ok": true, "device": ...}`` line last.
+
+``--times-only`` stops after phases 1 and 8 (no ok line); with ``--src``
+it times another checkout's kernels by the same method (the parent's, in
+the same call, for a comparison on one card).
 
 Each counted path sets every launch counter to 0 just before it runs and
 reads them just after; a kernel row's ``launches`` sums the paths at its
@@ -69,6 +78,38 @@ ROOT = Path(__file__).resolve().parent
 DEV = "cuda"
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (data sheet)
 F32_FLOPS_PER_S = 67e12         # H100 SXM float32, CUDA cores (data sheet)
+BF16_FLOPS_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense (data sheet)
+# The pre-redesign kernels: before the Hopper redesign (commit 787ff43).
+# Their times (profiler device ms per launch, bf16 K/V, this script's phase
+# 8 on NVIDIA H100 80GB HBM3, 700.00 W; PERF.md), printed beside this run's
+PRE_REDESIGN_MS = {"nsa_verify exact C=2 full dh64": 0.1155, "nsa_verify approx C=4 full dh64": 0.1433,
+           "nsa_verify exact C=2 partial dh64": 0.1039,
+           "nsa_verify approx C=4 partial dh64": 0.1238,
+           "nsa_verify vanilla slc dh64": 0.0426, "nsa_verify vanilla win dh64": 0.0219,
+           "nsa_verify paged exact C=2 partial dh64": 0.1094,
+           "nsa_verify paged exact C=2 full dh64": 0.1209,
+           "nsa_verify exact C=2 full dh128": 0.1981, "nsa_verify approx C=4 full dh128": 0.2446,
+           "nsa_verify exact C=2 partial dh128": 0.1777,
+           "nsa_verify approx C=4 partial dh128": 0.2112,
+           "nsa_verify vanilla slc dh128": 0.0745, "nsa_verify vanilla win dh128": 0.0875,
+           "nsa_verify paged exact C=2 partial dh128": 0.1850,
+           "nsa_verify paged exact C=2 full dh128": 0.2043,
+           "routing dh64": 0.0315, "routing dh128": 0.0476,
+           "flash 1B draft dh64": 0.1402, "flash 8B draft dh128": 0.2510,
+           "flash 1B dense target dh64": 0.1984}
+# The pre-redesign tree's kernel launches per decode step (copies excluded) in
+# the phase-3/4/6 profiles, measured by this script's method at the same
+# configurations (NVIDIA H100 80GB HBM3). Printed beside this run's; the
+# profiler's count moves by a few launches between runs of one tree at
+# batched configurations, so the exact check of launches is the counted
+# paths' (every kernel of the port per layer and pass).
+PRE_REDESIGN_KERNELS_PER_STEP = {
+    "ssv-nsa-1b Strict": 4567, "ssv-nsa-1b Approx+Reuse": 4174,
+    "ssv-nsa-8b Strict": 8238, "ssv-nsa-8b Approx+Reuse": 7454,
+    "ssv-nsa-1b dense-verification target": 2299,
+    "ssv-nsa-1b dense x1": 4568, "ssv-nsa-1b dense x2": 4585, "ssv-nsa-1b dense x4": 4552,
+    "ssv-nsa-1b paged x1": 5639, "ssv-nsa-1b paged x2": 5656, "ssv-nsa-1b paged x4": 5624,
+    "ssv-nsa-8b paged x1": 10234, "ssv-nsa-8b paged x2": 10276}
 # (rtol, atol). Both sides compute in float32 from the same values, so bf16
 # K/V are held to the float32 tolerance too.
 TOL = {"float32": (2e-4, 2e-5), "bfloat16": (2e-4, 2e-5)}
@@ -319,15 +360,20 @@ def check_close(name, got, want, dtype_name):
 
 
 # ---------------------------------------------------------------- bounds
-def bound(nbytes, flops):
-    """(ms, "bytes" or "operations", bytes-alone ms). The flops count at the
-    float32 CUDA-core rate: q, the logits and the accumulators are float32
-    (the kernels' contract), and that keeps the bound comparable across
-    PRs. The bytes alone are the bound a bf16 tensor-core kernel would face
-    (its flops take less time than the bytes at every shape here)."""
-    t_bytes, t_flops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+def bound(nbytes, flops, flops_per_s=F32_FLOPS_PER_S):
+    """(ms, "bytes" or "operations", bytes-alone ms). The flops count at
+    ``flops_per_s``: the bf16 tensor-core rate for a kernel whose dots run
+    there (nsa_verify and flash with bf16 K/V, so their bytes set the
+    bound), the float32 CUDA-core rate otherwise (routing, float32 K/V)."""
+    t_bytes, t_flops = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
     return (max(t_bytes, t_flops) * 1e3, ("bytes" if t_bytes >= t_flops else "operations"),
             t_bytes * 1e3)
+
+
+def dot_rate(kv_dtype):
+    """The rate of a redesigned kernel's dots: tensor cores for bf16 K/V,
+    CUDA cores for float32 K/V."""
+    return BF16_FLOPS_PER_S if kv_dtype == torch.bfloat16 else F32_FLOPS_PER_S
 
 
 def verify_bound(cfg, inp, args, include_cmp, branch="all"):
@@ -376,7 +422,8 @@ def verify_bound(cfg, inp, args, include_cmp, branch="all"):
                (kp[None] <= pos[:, None])).sum() * Hkv
         draft = args["dmask"][0].sum() * Hkv
     cmpk = nvis.sum() * Hkv if include_cmp else 0
-    return bound(nbytes, int(slc + win + draft + cmpk) * Gq * 4 * Dh)
+    return bound(nbytes, int(slc + win + draft + cmpk) * Gq * 4 * Dh,
+                 dot_rate(inp["k_cache"].dtype))
 
 
 def routing_bound(cfg, inp):
@@ -407,7 +454,8 @@ def flash_bound(inp):
     draft_keys = (inp["tree_mask"][0] & (dist >= 0)).sum(-1)
     nbytes = (min(prefix, int(pos.max()) + 1) + T) * Hkv * Dh * 2 * es \
         + inp["q"].numel() * 4 * 2 + T * 4 + T * (Hq // Hkv) * T * 4 + 4
-    return bound(nbytes, int((prefix_keys + draft_keys).sum()) * Hq * 4 * Dh)
+    return bound(nbytes, int((prefix_keys + draft_keys).sum()) * Hq * 4 * Dh,
+                 dot_rate(inp["k_cache"].dtype))
 
 
 # ---------------------------------------------------------------- timing
@@ -452,12 +500,19 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=str(ROOT / "build" / "chip_smoke"),
                     help="directory for chip_smoke.json (all numbers of the run)")
+    ap.add_argument("--times-only", action="store_true",
+                    help="build and time the kernels (phases 1 and 8, bf16 and float32 "
+                         "K/V) and stop; prints no ok line")
+    ap.add_argument("--src", default=str(ROOT / "src"),
+                    help="the directory that holds repro_torch (default: this checkout's); "
+                         "with --times-only, another checkout's kernels are timed by the "
+                         "same method")
     args = ap.parse_args(argv)
     out_dir = Path(args.out)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(Path(args.src).resolve()))
     try:
         from repro_torch import configs
         from repro_torch.data.synthetic import SyntheticConfig, SyntheticCorpus
@@ -481,13 +536,29 @@ def main(argv=None) -> int:
     t0 = time.time()
     reports = build.build_all()
     log(f"[1 build] {len(reports)} kernels built in {time.time() - t0:.1f}s")
+    instances = []
     for name, rep in reports.items():
-        for line in rep.splitlines():
-            if any(k in line for k in ("registers", "spill", "Compiling entry", "smem")):
-                log(f"  {name}: {line.strip()}")
+        for inst in ptxas_instances(name, rep):
+            inst["smem_bytes"] = smem_bytes(build, name, inst["kv"], inst["dh"])
+            instances.append(inst)
+            log(f"  [1 ptxas] {inst['instance']}: {inst.get('registers')} registers, "
+                f"{inst['spill_stores']} B spill stores, {inst['spill_loads']} B spill loads, "
+                f"{inst['stack']} B stack, shared memory {inst['smem_bytes']} B")
     log(f"[1 card] {card}")
+    spills = [i["instance"] for i in instances if i["spill_stores"] or i["spill_loads"]]
 
     cfgs = {64: configs.get_config("ssv-nsa-1b"), 128: configs.get_config("ssv-nsa-8b")}
+    if args.times_only:
+        rows, layer_times = kernel_times(cfgs, {}, {}, kind, card)
+        out_dir.mkdir(parents=True, exist_ok=True)
+        (out_dir / "chip_smoke_times.json").write_text(json.dumps(
+            {"card": card, "kind": kind, "src": args.src, "ptxas": instances, "kernels": rows,
+             "layer_times": layer_times}, indent=1))
+        print(json.dumps({"kernels": rows}))
+        print(card)
+        return 0
+    if spills:
+        fail(f"these kernel instances spill registers: {spills}")
     counters = [rops.LAUNCHES, vops.FULL_LAUNCHES, vops.PARTIAL_LAUNCHES,
                 vops.VANILLA_LAUNCHES, vops.PAGED_LAUNCHES, fops.LAUNCHES]
     ctx = dict(counters=counters, kind=kind, card=card,
@@ -535,8 +606,8 @@ def main(argv=None) -> int:
     rows, layer_times = kernel_times(cfgs, ctx["launches"], max_err, kind, card)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "kind": kind, "e2e": e2e, "batched": batched, "paths": ctx["paths"],
-         "kernels": rows, "layer_times": layer_times, "seconds": time.time() - t_start},
-        indent=1))
+         "ptxas": instances, "kernels": rows, "layer_times": layer_times,
+         "seconds": time.time() - t_start}, indent=1))
 
     # ---- 9. summary
     log(f"[9 done] {time.time() - t_start:.1f}s")
@@ -545,6 +616,40 @@ def main(argv=None) -> int:
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+def ptxas_instances(name, report):
+    """Per template instance of kernel ``name``'s ``-Xptxas -v`` report:
+    {instance, kv, dh, registers, spill_stores, spill_loads, stack}."""
+    import re
+    out, cur = [], None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            kv = "bf16" if "__nv_bfloat16" in m.group(1) else "f32"
+            ints = [int(v) for v in re.findall(r"Li(\d+)E", m.group(1))]   # DH[, row tiles]
+            dh = ints[0] if ints else 0
+            cur = dict(instance=f"{name}<{', '.join([kv] + [str(v) for v in ints])}>", kv=kv,
+                       dh=dh, stack=0, spill_stores=0, spill_loads=0)
+            out.append(cur)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if cur is not None and m:
+            cur.update(stack=int(m[1]), spill_stores=int(m[2]), spill_loads=int(m[3]))
+        m = re.search(r"Used (\d+) registers", line)
+        if cur is not None and m:
+            cur["registers"] = int(m[1])
+    return out
+
+
+def smem_bytes(build, name, kv, dh):
+    """Dynamic shared memory of one CTA of an instance, from the library
+    (routing sizes its own at launch from NCB: None)."""
+    fn = getattr(build.library(name), f"{name}_smem_bytes", None)
+    if fn is None:
+        return None
+    return fn(1 if kv == "bf16" else 0, dh)
 
 
 def check_kernels(cfgs, ctx):
@@ -709,7 +814,7 @@ def serve_e2e(cfg, Dh, weights, ctx):
         res = counted_path(
             ctx, f"{cfg.name} {pc}", Dh, lambda: generate_all(eng, prompts, cfg, pc),
             lambda r: expected_launches(cfg, dcfg, ssv, r["steps"]))
-        prof = profile_steps(eng, prompts[0])
+        prof = profile_steps(eng, prompts[0], f"{cfg.name} {pc}")
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         e2e[pc] = dict(res, peak_gib=peak, launches=ctx["paths"][f"{cfg.name} {pc}"],
                        profile=prof)
@@ -801,7 +906,7 @@ def serve_batched(cfg, Dh, weights, ctx, slots=4, n_req=6, classes=("Strict", "A
         eng = engine(backend, "Strict")
         for n in sweep:
             torch.cuda.reset_peak_memory_stats()
-            prof = profile_batched(eng, prompts[:n])
+            prof = profile_batched(eng, prompts[:n], f"{cfg.name} {backend} x{n}")
             prof["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
             prof["kv_cache_bytes"] = eng.kv_cache_bytes()
             out[f"{backend} Strict profile x{n}"] = prof
@@ -816,7 +921,19 @@ def serve_batched(cfg, Dh, weights, ctx, slots=4, n_req=6, classes=("Strict", "A
     return out
 
 
-def profile_batched(eng, prompts, n: int = 3):
+def is_copy(name):
+    return name.startswith("Memcpy") or name.startswith("Memset")
+
+
+def report_launches_per_step(key, kernels):
+    """Kernel launches per decode step (copies excluded) beside the
+    pre-redesign tree's at the same configuration (see PRE_REDESIGN_KERNELS_PER_STEP)."""
+    want = PRE_REDESIGN_KERNELS_PER_STEP[key]
+    log(f"  [{key}] {kernels} kernel launches per step (pre-redesign: {want}, "
+        f"{kernels - want:+d})")
+
+
+def profile_batched(eng, prompts, key, n: int = 3):
     """A batched step at len(prompts) rows: n steps after one warm step,
     unprofiled (host clock) for the step time and throughput, then under
     the profiler for device busy time, launches and device-to-host copies
@@ -838,25 +955,28 @@ def profile_batched(eng, prompts, n: int = 3):
         for _ in range(n):
             eng.step(active)
         torch.cuda.synchronize()
-    busy = launches = dtoh = 0
+    busy = launches = kernels = dtoh = 0
     for ev in prof.key_averages():
         if getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA:
             us = getattr(ev, "self_device_time_total", 0.0) or \
                 getattr(ev, "self_cuda_time_total", 0.0)
             busy += us / n / 1e3
             launches += ev.count
+            kernels += 0 if is_copy(ev.key) else ev.count
             if "DtoH" in ev.key:
                 dtoh += ev.count
     step_ms = wall * 1e3 / n
     if dtoh != n:
         fail(f"batched step at {R} rows: {dtoh} device-to-host copies in {n} steps, "
              "expected one per step")
+    report_launches_per_step(key, kernels // n)
     return {"rows": R, "step_wall_ms": step_ms, "tok_s": emitted / wall,
             "device_busy_ms": busy, "idle_share": 1 - busy / step_ms,
-            "kernels_per_step": launches // n, "dtoh_per_step": dtoh / n}
+            "kernels_per_step": launches // n, "kernel_launches_per_step": kernels // n,
+            "dtoh_per_step": dtoh / n}
 
 
-def profile_steps(eng, prompt, n: int = 3):
+def profile_steps(eng, prompt, key, n: int = 3):
     """Where a decode step's time goes: n steps under the profiler (after
     the main-path counts are read), device busy time per kernel against
     the host's wall time."""
@@ -883,8 +1003,11 @@ def profile_steps(eng, prompt, n: int = 3):
         f"(idle share {1 - busy / wall_ms:.3f}), {sum(k[1] for k in kern)} kernels/step")
     for t in top[:6]:
         log(f"    {t['ms']:.3f} ms x{t['launches']} {t['name']}")
+    kernels = sum(k[1] for k in kern if not is_copy(k[2]))
+    report_launches_per_step(key, kernels)
     return {"step_wall_ms": wall_ms, "device_busy_ms": busy,
-            "kernels_per_step": sum(k[1] for k in kern), "top": top}
+            "kernels_per_step": sum(k[1] for k in kern), "kernel_launches_per_step": kernels,
+            "top": top}
 
 
 def strict_equals_ar(cfg, layers, n_tok, ctx):
@@ -968,7 +1091,7 @@ def dense_baseline(cfg, ctx):
                        lambda: generate_all(eng, prompts, dense, "dense"),
                        lambda r: {"flash_verify": (dense.num_layers + dcfg.num_layers * passes)
                                   * r["steps"]})
-    prof = profile_steps(eng, prompts[0])
+    prof = profile_steps(eng, prompts[0], f"{cfg.name} dense-verification target")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"[6 dense baseline {cfg.name}] {res['tokens']} tokens in {res['steps']} steps, "
         f"{res['tokens_per_s']:.2f} tok/s, peak memory {peak:.2f} GiB")
@@ -992,12 +1115,18 @@ def serve_cli(arch, flags=("--prompts", "1"), expect="prompt 0: 8 tokens"):
 def kernel_row(name, Dh, source, replaces, launches, max_err, ms, plain, bnd, library=None):
     return dict(name=f"{name}_dh{Dh}", route="cuda", source=source, replaces=replaces,
                 launches=launches.get(f"{name}_dh{Dh}", 0),
-                max_abs_err=max_err[f"{name}_dh{Dh}"], ms=ms, plain_ms=plain,
+                max_abs_err=max_err.get(f"{name}_dh{Dh}"), ms=ms, plain_ms=plain,
                 bound_ms=bnd[0], bound_by=bnd[1], library_ms=library)
 
 
 def bound_text(bnd):
     return f"bound {bnd[0]:.5f} ms ({bnd[1]}; bytes alone {bnd[2]:.5f} ms)"
+
+
+def pre_redesign_text(key, ms):
+    """The pre-redesign kernel's time of the same case beside this run's."""
+    old = PRE_REDESIGN_MS.get(key)
+    return f"pre-redesign {old:.4f} ms ({old / ms:.2f}x)" if old else "pre-redesign: none"
 
 
 def kernel_times(cfgs, launches, max_err, kind, card):
@@ -1012,8 +1141,9 @@ def kernel_times(cfgs, launches, max_err, kind, card):
         r_plain = time_events(lambda: run_routing(cfg, inp, True), 10)
         r_bound = routing_bound(cfg, inp)
         bounds[f"routing_dh{Dh}"] = r_bound
-        log(f"[8 time] routing Dh {Dh}: {r_ms:.4f} ms ({r_src}; {r_ev:.4f} ms by CUDA events), "
-            f"plain {r_plain:.4f} ms, {bound_text(r_bound)}, library call: none {sig}")
+        log(f"[8 time] routing Dh {Dh}: {r_ms:.4f} ms ({r_src}; {r_ev:.4f} ms by CUDA events; "
+            f"{pre_redesign_text(f'routing dh{Dh}', r_ms)}), plain {r_plain:.4f} ms, "
+            f"{bound_text(r_bound)}, library call: none {sig}")
         rows.append(kernel_row("routing", Dh, "src/repro_torch/csrc/routing.cu",
                                "src/repro/kernels/routing/kernel.py:70", launches, max_err,
                                r_ms, r_plain, r_bound))
@@ -1028,7 +1158,8 @@ def kernel_times(cfgs, launches, max_err, kind, card):
             times[label] = (ms, plain, bnd)
             bounds[f"nsa_verify {label} dh{Dh}"] = bnd
             log(f"[8 time] nsa_verify {label} Dh {Dh}: {ms:.4f} ms ({src}; {ev:.4f} ms by "
-                f"CUDA events), plain {plain:.4f} ms, {bound_text(bnd)}, library call: none {sig}")
+                f"CUDA events; {pre_redesign_text(f'nsa_verify {label} dh{Dh}', ms)}), plain "
+                f"{plain:.4f} ms, {bound_text(bnd)}, library call: none {sig}")
         for key, label in (("nsa_verify_full", "exact C=2 full"),
                            ("nsa_verify_partial", "exact C=2 partial")):
             ms, plain, bnd = times[label]
@@ -1047,7 +1178,8 @@ def kernel_times(cfgs, launches, max_err, kind, card):
             bnd = verify_bound(cfg, inp, args, full)
             bounds[f"nsa_verify paged {label} dh{Dh}"] = bnd
             log(f"[8 time] nsa_verify paged {label} Dh {Dh}: {ms:.4f} ms ({src}; {ev:.4f} ms "
-                f"by CUDA events; dense {times[label][0]:.4f} ms), plain {plain:.4f} ms, "
+                f"by CUDA events; dense {times[label][0]:.4f} ms; "
+                f"{pre_redesign_text(f'nsa_verify paged {label} dh{Dh}', ms)}), plain {plain:.4f} ms, "
                 f"{bound_text(bnd)}, library call: none {sig}")
             if not full:
                 rows.append(kernel_row("nsa_verify_paged", Dh, verify_src,
@@ -1083,8 +1215,8 @@ def kernel_times(cfgs, launches, max_err, kind, card):
         bnd = flash_bound(inp)
         bounds[f"flash {label} dh{Dh}"] = bnd
         log(f"[8 time] flash {label} Dh {Dh}: {ms:.4f} ms ({src}; {ev:.4f} ms by CUDA "
-            f"events), plain {plain:.4f} ms, {bound_text(bnd)}, library "
-            f"(scaled_dot_product_attention) {lib:.4f} ms {sig}")
+            f"events; {pre_redesign_text(f'flash {label} dh{Dh}', ms)}), plain {plain:.4f} ms, "
+            f"{bound_text(bnd)}, library (scaled_dot_product_attention) {lib:.4f} ms {sig}")
         if label != "1B dense target":
             rows.append(kernel_row("flash_verify", Dh, "src/repro_torch/csrc/flash_verify.cu",
                                    "src/repro/kernels/flash/kernel.py:69", launches, max_err,
@@ -1093,7 +1225,42 @@ def kernel_times(cfgs, launches, max_err, kind, card):
                                              library_ms=lib, bound_ms=bnd[0], bound_by=bnd[1])
     layer_times["bounds"] = {k: dict(bound_ms=b[0], bound_by=b[1], bytes_ms=b[2])
                              for k, b in bounds.items()}
+    layer_times["float32"] = float32_times(cfgs, sig)
     return rows, layer_times
+
+
+def float32_times(cfgs, sig):
+    """The redesigned kernels with float32 K/V (the float32 equality runs):
+    device time per launch (profiler; CUDA events beside) at the bf16 rows'
+    shapes, bound at the float32 CUDA-core rate. {case: numbers}."""
+    out = {}
+
+    def record(key, fn, name, bnd):
+        ms, src, ev = time_kernel(fn, name)
+        out[key] = dict(ms=ms, source=src, events_ms=ev, bound_ms=bnd[0], bound_by=bnd[1])
+        log(f"[8 time f32] {key}: {ms:.4f} ms ({src}; {ev:.4f} ms by CUDA events), "
+            f"{bound_text(bnd)} {sig}")
+
+    for Dh, cfg in cfgs.items():
+        inp = verify_inputs(cfg, torch.float32, seed=2)
+        for label, C, mode, full, branch in VERIFY_CASES:
+            args = verify_layouts(cfg, inp, C, mode)
+            oc = inp["o_cmp_in"] if (not full and branch == "all") else None
+            record(f"nsa_verify {label} dh{Dh}",
+                   lambda: run_verify(cfg, args, full, oc, False, branch), "nsa_verify_kernel",
+                   verify_bound(cfg, inp, args, full, branch))
+        pool = paged_pool(cfg, inp, 1, holes=False, seed=3)
+        args = verify_layouts(cfg, inp, 2, "exact", pool)
+        record(f"nsa_verify paged exact C=2 partial dh{Dh}",
+               lambda: run_verify(cfg, args, False, inp["o_cmp_in"], False), "nsa_verify_kernel",
+               verify_bound(cfg, inp, args, False))
+        del inp, pool
+        free()
+    for label, Hq, Hkv, Dh in FLASH_CASES:
+        inp = flash_inputs(Hq, Hkv, Dh, torch.float32, seed=5)
+        record(f"flash {label} dh{Dh}", lambda: run_flash(inp, False), "flash_verify_kernel",
+               flash_bound(inp))
+    return out
 
 
 if __name__ == "__main__":

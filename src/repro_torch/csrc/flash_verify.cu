@@ -19,25 +19,27 @@
 // Design. The TPU kernel walks the cache tiles of one (b, kv head) in one
 // sequential grid dimension; here that would be B*Hkv = 8 CTAs on 132 SMs.
 // So the work is split three ways: grid.z = (b, kv head), grid.y = tiles
-// of RT query rows (R = T*Gq rows: 31 for the draft, 124 for a Gq-4
+// of RT = 16 query rows (R = T*Gq rows: 31 for the draft, 124 for a Gq-4
 // target), grid.x = splits of KS cache keys plus one split for the draft
-// tokens. Each CTA keeps an online softmax (running max and sum per row in
-// shared memory, the output accumulator in registers) over its key tiles,
-// reading only keys below prefix_len (and inside the window), K/V in their
-// own dtype with 16-byte loads, converted to f32 in registers (the tile step
-// is online_softmax.cuh, shared with nsa_verify.cu). It writes
-// its partial (m, l, acc) to scratch; the last CTA of each (b, head, row
-// tile) to finish (an atomic ticket, reset by that CTA for the next call)
-// merges the partials and writes each output row once. The tickets belong
-// to one stream (the wrapper keeps a buffer per device and stream): calls on
-// one stream never overlap, so a call always finds them at 0.
+// tokens. A split holds the keys below prefix_len, at or below the deepest
+// row and inside the shallowest row's window; a split with none (past the
+// prefix, before the window) exits at once. The others walk their keys in
+// units of 16 (online_softmax.cuh, shared with nsa_verify.cu: four warps
+// each with its own online softmax, K/V copied with cp.async into
+// per-warp rings, dots on tensor cores for bf16 K/V) and write their
+// partial (m, l, acc) to scratch. The last CTA of each (b, head, row tile)
+// to finish (an atomic ticket, reset by that CTA for the next call)
+// recomputes on the device which splits held keys, reads their m and l
+// into a table in shared memory (one pass over all threads), and then
+// every thread sums its output elements over the live splits, all loads
+// issued independently, in split order; it writes each output row once.
+// The tickets belong to one stream (the wrapper keeps a buffer per device
+// and stream): calls on one stream never overlap, so a call always finds
+// them at 0.
 //
-// Bound on this card: operations at the draft's and target's shapes. The
-// flops are 4*DH per visible (query row, key) pair at the f32 rate (CUDA
-// cores); the bytes (each K/V row of the prefix and draft once, q, out,
-// positions and mask) take about a quarter of that time at prefix 4096.
-// FMA on CUDA cores with f32 accumulation; wgmma and TMA are left for a
-// later change.
+// Bound on this card: bytes. With the dots on tensor cores (bf16), the
+// flops of the visible (row, key) pairs take less time than reading each
+// K/V row of the prefix and draft once (plus q, out, positions and mask).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -49,19 +51,15 @@ namespace {
 
 using namespace online_softmax;
 
-constexpr int RT = 32;                 // query rows per CTA
-
-template <int DH>
+template <typename KV, int DH>
 struct Smem {
-  Tile<RT, DH> t;                      // q, K/V tile, logits
-  float m[RT];
-  float l[RT];
+  Walk<KV, DH> wk;                     // rings, q, warp merge; merge tables
   int pos[RT];
   int last;
 };
 
 template <typename KV, int DH>
-__global__ void __launch_bounds__(NT) flash_verify_kernel(
+__global__ void __launch_bounds__(NT, 1) flash_verify_kernel(
     const float* __restrict__ q,                                  // (B,T,Hq,DH)
     const KV* __restrict__ kcache, const KV* __restrict__ vcache, // (B,S,Hkv,DH)
     const KV* __restrict__ kdr, const KV* __restrict__ vdr,       // (B,T,Hkv,DH)
@@ -73,126 +71,96 @@ __global__ void __launch_bounds__(NT) flash_verify_kernel(
     int* __restrict__ tickets,         // (B*Hkv, NRT), all 0 between calls
     float* __restrict__ out,                                      // (B,T,Hq,DH)
     int T, int S, int Hkv, int Gq, int window, int KS) {
-  constexpr int OUT_PER_T = RT * DH / NT;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem<DH>& sm = *reinterpret_cast<Smem<DH>*>(smem_raw);
+  Smem<KV, DH>& sm = *reinterpret_cast<Smem<KV, DH>*>(smem_raw);
   const int x = blockIdx.x, rt = blockIdx.y, z = blockIdx.z;
   const int NX = gridDim.x, NRT = gridDim.y, NS = NX - 1;
   const int b = z / Hkv, h = z % Hkv;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tid = threadIdx.x;
   const int R = T * Gq, Hq = Hkv * Gq;
   const int r0 = rt * RT, rows = min(RT, R - r0);
   const int plen = prefix_len[b];
 
-  for (int r = tid; r < RT; r += NT) {
-    sm.pos[r] = r < rows ? pos[b * T + (r0 + r) / Gq] : 0;
-    sm.m[r] = NEG;
-    sm.l[r] = 0.f;
-  }
-  for (int i = tid; i < rows * DH; i += NT) {
-    const int r = i / DH, d = i % DH;
-    const int gr = r0 + r, t = gr / Gq, head = h * Gq + gr % Gq;
-    sm.t.q[r][d] = q[(((size_t)b * T + t) * Hq + head) * DH + d];
-  }
+  for (int r = tid; r < RT; r += NT) sm.pos[r] = r < rows ? pos[b * T + (r0 + r) / Gq] : 0;
   __syncthreads();
   int min_pos = sm.pos[0], max_pos = sm.pos[0];
   for (int r = 1; r < rows; ++r) {
     min_pos = min(min_pos, sm.pos[r]);
     max_pos = max(max_pos, sm.pos[r]);
   }
-
-  float acc[OUT_PER_T];
-#pragma unroll
-  for (int j = 0; j < OUT_PER_T; ++j) acc[j] = 0.f;
+  // cache split xs: keys [lo, hi) below prefix_len, at or below the deepest
+  // row, inside the shallowest row's window
+  auto split = [&](int xs) {
+    const int lo = window > 0 ? max(xs * KS, min_pos - window + 1) : xs * KS;
+    return make_int2(lo, min(min(xs * KS + KS, S), min(plen, max_pos + 1)));
+  };
+  const int2 span = x < NS ? split(x) : make_int2(0, 0);
+  const int lo = span.x, hi = span.y;
+  const size_t slab0 = ((size_t)z * NRT + rt) * NX;               // this tile's splits
   const size_t kv_row = (size_t)Hkv * DH;
 
-  if (x < NS) {
-    // ---- cache split x: keys [x*KS, x*KS + KS) below prefix_len, at or
-    // below the deepest row, inside the shallowest row's window
-    int lo = x * KS;
-    if (window > 0) lo = max(lo, min_pos - window + 1);
-    const int hi = min(min(x * KS + KS, S), min(plen, max_pos + 1));
-    const KV* kb = kcache + (size_t)b * S * kv_row + (size_t)h * DH;
-    const KV* vb = vcache + (size_t)b * S * kv_row + (size_t)h * DH;
-    for (int k0 = lo; k0 < hi; k0 += TK) {
-      tile(sm.t, sm.m, sm.l, acc, kb, vb, min(TK, hi - k0), rows,
-               [&](int kk) -> long { return (long)(k0 + kk) * (long)kv_row; },
-               [&](int r, int kk) {
-                 const int kp = k0 + kk;
-                 return kp <= sm.pos[r] && (window <= 0 || kp > sm.pos[r] - window);
-               });
-    }
-  } else {
-    // ---- the draft tokens under the (row-expanded) draft mask
-    const KV* kd = kdr + (size_t)b * T * kv_row + (size_t)h * DH;
-    const KV* vd = vdr + (size_t)b * T * kv_row + (size_t)h * DH;
-    const int* dm = dmask + ((size_t)b * R + r0) * T;
-    for (int k0 = 0; k0 < T; k0 += TK) {
-      tile(sm.t, sm.m, sm.l, acc, kd, vd, min(TK, T - k0), rows,
-               [&](int kk) -> long { return (long)(k0 + kk) * (long)kv_row; },
-               [&](int r, int kk) { return dm[(size_t)r * T + k0 + kk] > 0; });
-    }
-  }
-
-  // ---- partials of this split
-  __syncthreads();
-  const size_t pbase = ((size_t)z * NRT + rt) * NX + x;           // (.., RT) slab
-  float* ml = part_ml + pbase * RT * 2;
-  float* pa = part_acc + pbase * RT * DH;
-  for (int r = tid; r < rows; r += NT) {
-    ml[2 * r] = sm.m[r];
-    ml[2 * r + 1] = sm.l[r];
-  }
-#pragma unroll
-  for (int j = 0; j < OUT_PER_T; ++j) {
-    const int i = tid + j * NT;
-    const int r = i / DH;
-    if (r < rows && sm.l[r] > 0.f) pa[i] = acc[j];
-  }
-
-  // ---- the last CTA of (b, h, row tile) merges the NX partials
-  __threadfence();
-  __syncthreads();
-  int* ticket = tickets + (size_t)z * NRT + rt;
-  if (tid == 0) sm.last = atomicAdd(ticket, 1) == NX - 1;
-  __syncthreads();
-  if (!sm.last) return;
-  __threadfence();
-  const size_t slab0 = ((size_t)z * NRT + rt) * NX;
-  for (int r = warp; r < rows; r += NW) {
-    float M = NEG;
-    for (int s = lane; s < NX; s += 32) M = fmaxf(M, __ldcg(part_ml + ((slab0 + s) * RT + r) * 2));
-    M = warp_max(M);
-    float L = 0.f;
-    for (int s = lane; s < NX; s += 32) {
-      const float* p = part_ml + ((slab0 + s) * RT + r) * 2;
-      const float ls = __ldcg(p + 1);
-      if (ls > 0.f) L += ls * expf(__ldcg(p) - M);
-    }
-    L = warp_sum(L);
-    if (lane == 0) {
-      sm.m[r] = M;
-      sm.l[r] = L;
-    }
-  }
-  __syncthreads();
-  for (int i = tid; i < rows * DH; i += NT) {
-    const int r = i / DH, d = i % DH;
-    const float M = sm.m[r], L = sm.l[r];
-    float a = 0.f;
-    if (L > 0.f) {
-      for (int s = 0; s < NX; ++s) {
-        const float* p = part_ml + ((slab0 + s) * RT + r) * 2;
-        const float ls = __ldcg(p + 1);
-        if (ls > 0.f)
-          a += __ldcg(part_acc + ((slab0 + s) * RT + r) * DH + d) * expf(__ldcg(p) - M);
+  if (x == NS || lo < hi) {
+    // q, loaded while the first units' copies are in flight
+    auto load_q = [&]() {
+      for (int i = tid; i < RT * DH; i += NT) {
+        const int r = i / DH, d = i % DH;
+        const int gr = r0 + r, t = gr / Gq, head = h * Gq + gr % Gq;
+        sm.wk.q.set(r, d, r < rows ? q[(((size_t)b * T + t) * Hq + head) * DH + d] : 0.f);
       }
-      a /= fmaxf(L, 1e-30f);
+      __syncthreads();
+    };
+    State<DH, 2> st;
+    st.init();
+    if (x < NS) {
+      const KV* kb = kcache + (size_t)b * S * kv_row + (size_t)h * DH;
+      const KV* vb = vcache + (size_t)b * S * kv_row + (size_t)h * DH;
+      walk(sm.wk, st, (hi - lo + UK - 1) / UK, rows, kcache,
+           [&](int u) { return lo + u * UK; },          // first key of the unit
+           [](int) { return true; },
+           [&](int) { return Rows<KV>{kb, vb}; },
+           [&](int k0, int kk) { return k0 + kk < hi ? (k0 + kk) * (int)kv_row : -1; },
+           [&](int k0) { return min(UK, hi - k0); },
+           [&](int k0, int r, int kk) {
+             const int kp = k0 + kk;
+             return kp <= sm.pos[r] && (window <= 0 || kp > sm.pos[r] - window);
+           }, load_q);
+    } else {
+      // ---- the draft tokens under the (row-expanded) draft mask
+      const KV* kd = kdr + (size_t)b * T * kv_row + (size_t)h * DH;
+      const KV* vd = vdr + (size_t)b * T * kv_row + (size_t)h * DH;
+      const int* dm = dmask + ((size_t)b * R + r0) * T;
+      walk(sm.wk, st, (T + UK - 1) / UK, rows, kcache,
+           [&](int u) { return u * UK; },               // first draft token
+           [](int) { return true; },
+           [&](int) { return Rows<KV>{kd, vd}; },
+           [&](int d0, int kk) { return d0 + kk < T ? (d0 + kk) * (int)kv_row : -1; },
+           [&](int d0) { return min(UK, T - d0); },
+           [&](int d0, int r, int kk) { return dm[(size_t)r * T + d0 + kk] > 0; }, load_q);
     }
-    const int gr = r0 + r, t = gr / Gq, head = h * Gq + gr % Gq;
-    out[(((size_t)b * T + t) * Hq + head) * DH + d] = a;
+    cta_partial(sm.wk, st, part_ml + (slab0 + x) * RT * 2, part_acc + (slab0 + x) * RT * DH);
   }
-  if (tid == 0) *ticket = 0;           // ready for the next call
+
+  // ---- the last CTA of (b, h, row tile) merges the live splits
+  if (!last_of(tickets + (size_t)z * NRT + rt, NX, &sm.last)) return;
+  float* sc = sm.wk.scratch();                       // [NX][RT]: m, then scale
+  float* xl = sc + NX * RT;                          // [NX][RT]: l
+  for (int i = tid; i < NX * RT; i += NT) {
+    const int xs = i / RT;
+    const int2 sp = xs < NS ? split(xs) : make_int2(0, 0);
+    const bool live = xs == NS || sp.x < sp.y;
+    sc[i] = live ? __ldcg(part_ml + (slab0 + xs) * RT * 2 + 2 * (i % RT)) : NEG;
+    xl[i] = live ? __ldcg(part_ml + (slab0 + xs) * RT * 2 + 2 * (i % RT) + 1) : 0.f;
+  }
+  __syncthreads();
+  for (int r = tid >> 5; r < RT; r += NW) merge_scales(sc, xl, r, 0, NX);
+  __syncthreads();
+  for (int i = tid; i < rows * DH / 4; i += NT) {
+    const int r = i / (DH / 4), d = (i % (DH / 4)) * 4;
+    const float4 a = merge_acc(sc, r, part_acc + (slab0 * RT + r) * DH + d, (size_t)RT * DH,
+                               0, NX);
+    const int gr = r0 + r, t = gr / Gq, head = h * Gq + gr % Gq;
+    *reinterpret_cast<float4*>(out + (((size_t)b * T + t) * Hq + head) * DH + d) = a;
+  }
 }
 
 template <typename KV, int DH>
@@ -200,7 +168,8 @@ int launch(const void* const* p, const int* n, cudaStream_t stream) {
   // n: B, T, S, Hkv, Gq, window, DH, KS
   const int B = n[0], T = n[1], S = n[2], Hkv = n[3], Gq = n[4], KS = n[7];
   const int NS = (S + KS - 1) / KS, NRT = (T * Gq + RT - 1) / RT;
-  const size_t smem = sizeof(Smem<DH>);
+  if (2 * (NS + 1) * RT > Walk<KV, DH>::SCRATCH) return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(Smem<KV, DH>);
   static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -223,8 +192,8 @@ int launch(const void* const* p, const int* n, cudaStream_t stream) {
 //       part_ml, part_acc, tickets, out                       (12 pointers)
 // ints: B, T, S, Hkv, Gq, window, DH, KS                      (8 ints)
 // kv_dtype: 0 = float32, 1 = bfloat16. DH: 64 or 128. Scratch sizes (from
-// NS = ceil(S/KS), NX = NS + 1, NRT = ceil(T*Gq/32)): part_ml
-// B*Hkv*NRT*NX*32*2 floats, part_acc B*Hkv*NRT*NX*32*DH floats, tickets
+// NS = ceil(S/KS), NX = NS + 1, NRT = ceil(T*Gq/16)): part_ml
+// B*Hkv*NRT*NX*16*2 floats, part_acc B*Hkv*NRT*NX*16*DH floats, tickets
 // B*Hkv*NRT ints, zero before the first call. Returns the cudaError_t of
 // the launch.
 extern "C" int flash_verify_launch(const void* const* ptrs, const int* ints,
@@ -238,4 +207,13 @@ extern "C" int flash_verify_launch(const void* const* ptrs, const int* ints,
   if (kv_dtype == 1 && DH == 64) return launch<__nv_bfloat16, 64>(ptrs, ints, s);
   if (kv_dtype == 1 && DH == 128) return launch<__nv_bfloat16, 128>(ptrs, ints, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// Dynamic shared memory of one CTA of the instance (kv_dtype, DH), or -1.
+extern "C" int flash_verify_smem_bytes(int kv_dtype, int DH) {
+  if (kv_dtype == 0 && DH == 64) return (int)sizeof(Smem<float, 64>);
+  if (kv_dtype == 0 && DH == 128) return (int)sizeof(Smem<float, 128>);
+  if (kv_dtype == 1 && DH == 64) return (int)sizeof(Smem<__nv_bfloat16, 64>);
+  if (kv_dtype == 1 && DH == 128) return (int)sizeof(Smem<__nv_bfloat16, 128>);
+  return -1;
 }

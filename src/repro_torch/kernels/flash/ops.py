@@ -18,8 +18,8 @@ from repro_torch.kernels.flash import ref
 
 LAUNCHES = LaunchCounter("flash_verify")
 HEAD_DIMS = (64, 128)
-ROWS_PER_CTA = 32           # RT in the kernel
-KEYS_PER_SPLIT = 256        # cache keys per CTA (KS in the kernel)
+ROWS_PER_CTA = 16           # RT in the kernel
+KEYS_PER_SPLIT = 512        # cache keys per CTA (KS in the kernel)
 
 _tickets: Dict[Tuple[torch.device, int], torch.Tensor] = {}
 
@@ -33,10 +33,11 @@ def _lib():
 
 
 def _ticket_buffer(n: int, dev, stream: int) -> torch.Tensor:
-    """The kernel's per-(row, kv head, row tile) merge tickets for one
-    stream: zeroed once, and each call's last CTA resets its ticket. Calls
-    on one stream run one after another, so each finds its tickets at 0;
-    calls on two streams get two buffers."""
+    """At least ``n`` merge tickets for the kernels of one stream (flash's
+    per (row, kv head, row tile), nsa_verify's per (row, group, kv head)):
+    zeroed once, and each call's last CTA resets its tickets. Calls on one
+    stream run one after another, so each finds its tickets at 0; calls on
+    two streams get two buffers."""
     key = (dev, stream)
     t = _tickets.get(key)
     if t is None or t.numel() < n:
@@ -116,6 +117,8 @@ def launch(q, k_cache, v_cache, k_draft, v_draft, positions, prefix_len, dmask,
     for name in ("k_cache", "v_cache", "k_draft", "v_draft"):
         if shapes[name][0].data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned (16-byte K/V loads)")
+        if shapes[name][0].numel() >= 2 ** 31:
+            raise ValueError(f"{name} must hold fewer than 2^31 elements (32-bit offsets)")
     NX = -(-S // KEYS_PER_SPLIT) + 1
     NRT = -(-T * Gq // ROWS_PER_CTA)
     slabs = B * Hkv * NRT * NX * ROWS_PER_CTA

@@ -29,6 +29,7 @@ import torch
 from repro_torch.config import NSAConfig
 from repro_torch.core import kvstore, overlap
 from repro_torch.kernels import LaunchCounter, build, per_row
+from repro_torch.kernels.flash import ops as flash_ops
 from repro_torch.kernels.nsa_verify import ref
 from repro_torch.kernels.routing import ops as routing_ops
 
@@ -37,8 +38,28 @@ PARTIAL_LAUNCHES = LaunchCounter("nsa_verify_partial")
 VANILLA_LAUNCHES = LaunchCounter("nsa_verify_vanilla")
 PAGED_LAUNCHES = LaunchCounter("nsa_verify_paged")
 HEAD_DIMS = (64, 128)
-MAX_ROWS = 16
+MAX_ROWS = 16               # RT in the kernel: query rows per CTA
 BRANCHES = {"all": 0, "slc": 1, "win": 2}   # the kernel's ``branch`` flag
+KEYS_PER_CHUNK = 512        # keys per CTA at up to 8 rows (256 above: twice the dots)
+MAX_BLOCKS_PER_CHUNK = 32   # MBMAX in the kernel
+MAX_CHUNKS = 64             # NXMAX in the kernel
+
+
+def split_plan(M: int, NCB: int, W: int, sel_block: int, include_cmp: bool,
+               branch: str = "all", rows: int = 8):
+    """The kernel's split of one (row, group, kv head) work list across
+    CTAs, from shapes only: (n_cmp, n_slc, n_win, keys, blocks). The cmp
+    list (NCB blocks) and the window (W keys) go in chunks of ``keys``
+    (``KEYS_PER_CHUNK``, halved when the group has more than 8 query rows
+    ``rows`` = C * Gq), the M merged blocks in chunks of ``blocks`` (about
+    ``keys`` tokens); the draft tokens join the last window chunk. A
+    branch that is computed has at least one chunk, possibly empty."""
+    keys = KEYS_PER_CHUNK if rows <= 8 else KEYS_PER_CHUNK // 2
+    blocks = min(MAX_BLOCKS_PER_CHUNK, max(1, keys // sel_block))
+    n_cmp = max(1, -(-NCB // keys)) if include_cmp else 0
+    n_slc = max(1, -(-M // blocks)) if branch != "win" else 0
+    n_win = max(1, -(-W // keys)) if branch != "slc" else 0
+    return n_cmp, n_slc, n_win, keys, blocks
 
 
 @functools.lru_cache(maxsize=256)
@@ -137,7 +158,10 @@ def launch(q, k_cache, v_cache, k_cmp, v_cmp, k_draft, v_draft, merged, mvalid,
            gates, o_cmp_in, *, nsa: NSAConfig, include_cmp: bool,
            branch: str = "all", page_table=None):
     """Launch the CUDA kernel (CUDA tensors only); checks every input. The
-    paged pool is shared: it is never copied per row."""
+    paged pool is shared: it is never copied per row. The CTAs of one
+    (row, group, kv head) merge their partials through a ticket that each
+    call leaves at 0, in a buffer per device and stream (shared with the
+    flash kernel: calls on one stream never overlap)."""
     B, T, Hq, Dh = q.shape
     Hkv = k_cache.shape[2]
     paged = page_table is not None
@@ -200,9 +224,22 @@ def launch(q, k_cache, v_cache, k_cmp, v_cmp, k_draft, v_draft, merged, mvalid,
             raise ValueError(f"{name} must be contiguous")
     if not q.is_contiguous():
         raise ValueError("q must be contiguous")
-    for name in ("k_cache", "v_cache", "k_cmp", "v_cmp", "k_draft", "v_draft"):
-        if shapes[name][0].data_ptr() % 16:
+    for name in ("k_cache", "v_cache", "k_cmp", "v_cmp", "k_draft", "v_draft", "o_cmp_in"):
+        if name in shapes and shapes[name][0].data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned (16-byte K/V loads)")
+        if name in shapes and shapes[name][0].numel() >= 2 ** 31:
+            raise ValueError(f"{name} must hold fewer than 2^31 elements (32-bit offsets)")
+    plan = split_plan(M, NCB, min(nsa.window, S), nsa.sel_block, include_cmp, branch,
+                      C * (Hq // Hkv))
+    NX = sum(plan[:3])
+    if NX > MAX_CHUNKS:
+        raise ValueError(f"nsa_verify kernel splits a work list into at most {MAX_CHUNKS} "
+                         f"chunks, these shapes need {NX}")
+    slabs = B * G * Hkv * NX * MAX_ROWS
+    part_ml = torch.empty(slabs * 2, dtype=torch.float32, device=dev)
+    part_acc = torch.empty(slabs * Dh, dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    tickets = flash_ops._ticket_buffer(B * G * Hkv, dev, stream)
     out = torch.empty((B, T, Hq, Dh), dtype=torch.float32, device=dev)
     tensors = [q, k_cache, v_cache, k_cmp, v_cmp, k_draft, v_draft, merged,
                mvalid, own, qmap, positions, prefix_len, ncb_valid, win_start,
@@ -210,14 +247,14 @@ def launch(q, k_cache, v_cache, k_cmp, v_cmp, k_draft, v_draft, merged, mvalid,
     ptrs = [t.data_ptr() for t in tensors]
     has_cmp_in = not include_cmp and branch == "all"
     ptrs += [o_cmp_in.data_ptr() if has_cmp_in else None, out.data_ptr(),
-             page_table.data_ptr() if paged else None]
+             page_table.data_ptr() if paged else None, part_ml.data_ptr(),
+             part_acc.data_ptr(), tickets.data_ptr()]
     ints = [B, T, S, Hkv, Hq // Hkv, C, G, M, NCB, min(nsa.window, S),
             nsa.sel_block, nsa.cmp_block, nsa.cmp_stride, nsa.window,
             int(include_cmp), BRANCHES[branch], Dh,
-            ps if paged else 0, MP if paged else 0, P if paged else 0]
+            ps if paged else 0, MP if paged else 0, P if paged else 0, *plan]
     err = _lib()((ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_int * len(ints))(*ints),
-                 0 if kv_t == torch.float32 else 1,
-                 torch.cuda.current_stream(dev).cuda_stream)
+                 0 if kv_t == torch.float32 else 1, stream)
     if err != 0:
         raise RuntimeError(f"nsa_verify kernel launch failed: cudaError {err}")
     if paged:

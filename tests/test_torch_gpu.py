@@ -19,7 +19,7 @@ from repro_torch.config import ModelConfig, NSAConfig
 from repro_torch.bridge import init_params
 from repro_torch.core.tree import build_topology
 from repro_torch.kernels.flash import ops as fops, ref as fref
-from repro_torch.kernels.nsa_verify import ops as vops
+from repro_torch.kernels.nsa_verify import ops as vops, ref as vref
 from repro_torch.kernels.routing import ops as rops, ref as rref
 from repro_torch.models import model as model_lib, nsa as nsa_lib
 
@@ -363,3 +363,150 @@ def test_batched_paged_serving_equals_dense_on_card(cuda, pc):
     for a, b in zip(out["dense"], out["paged"]):
         assert len(a) == 10
         assert a.tolist() == b.tolist()
+
+
+# ---- the split work lists (full-width head counts and NSA geometry: Hq 32,
+# Hkv 8, the ssv-nsa-1b NSA config, D4/k2 tree T = 31)
+FULL_NSA = NSAConfig(cmp_block=32, cmp_stride=16, sel_block=64, n_selected=16, window=512)
+
+
+def _full_inputs(dev, dtype, Dh, prefixes, S, seed):
+    """Verify-kernel inputs drawn as chip_smoke.py's verify_inputs draws
+    them, one row per prefix length."""
+    g = torch.Generator(dev)
+    g.manual_seed(seed)
+    r = lambda *s, dt=dtype: torch.randn(s, generator=g, device=dev).to(dt)
+    topo = build_topology(4, 2, "bfs")
+    plen = torch.tensor(prefixes, dtype=torch.int32, device=dev)
+    B, T, Hq, Hkv = len(prefixes), topo.num_nodes, 32, 8
+    pos = (plen[:, None] + torch.as_tensor(topo.depths, device=dev)[None]).to(torch.int32)
+    ncb = nsa_lib.num_cmp_blocks(S, FULL_NSA)
+    p_slc = torch.rand((B, T, Hkv, nsa_lib.num_sel_blocks(S, FULL_NSA)), generator=g, device=dev)
+    sel, val = nsa_lib.select_topn(p_slc, pos, plen, FULL_NSA)
+    return dict(q=r(B, T, Hq, Dh, dt=torch.float32) / Dh ** 0.5, k_cache=r(B, S, Hkv, Dh),
+                v_cache=r(B, S, Hkv, Dh), k_cmp=r(B, ncb, Hkv, Dh), v_cmp=r(B, ncb, Hkv, Dh),
+                k_draft=r(B, T, Hkv, Dh), v_draft=r(B, T, Hkv, Dh), sel=sel, val=val, pos=pos,
+                plen=plen, ncb_valid=nsa_lib.dyn_num_cmp_blocks(plen, FULL_NSA),
+                tree=torch.as_tensor(topo.mask, device=dev)[None].expand(B, T, T),
+                gates=torch.sigmoid(r(B, T, 3, Hq, dt=torch.float32)),
+                o_cmp=r(B, T, Hq, Dh, dt=torch.float32))
+
+
+def _full_fused(x, C, mode, full, rows=None, page_table=None, k=None, v=None, plain=False):
+    """nsa_verify_fused on rows ``rows`` of x (all by default); ``plain``
+    runs the plain version on the same CUDA tensors."""
+    sl = slice(None) if rows is None else rows
+    args = (x["q"][sl], x["k_cache"][sl] if k is None else k,
+            x["v_cache"][sl] if v is None else v, x["k_cmp"][sl], x["v_cmp"][sl],
+            x["k_draft"][sl], x["v_draft"][sl], x["sel"][sl], x["val"][sl], x["pos"][sl],
+            x["plen"][sl], x["ncb_valid"][sl], x["tree"][sl], x["gates"][sl], FULL_NSA)
+    kw = dict(C=C, mode=mode, include_cmp=full, o_cmp_in=None if full else x["o_cmp"][sl],
+              page_table=page_table)
+    if not plain:
+        return vops.nsa_verify_fused(*[a.contiguous() if torch.is_tensor(a) else a
+                                       for a in args], **kw)
+    B = x["q"][sl].shape[0]
+    merged, mvalid, own, qmap = vops.group_layouts(args[7], args[8], args[9], C, mode)
+    if page_table is not None:
+        merged, mvalid = vops.mask_unmapped_blocks(merged, mvalid, page_table, args[1].shape[1],
+                                                   args[1].shape[0], FULL_NSA.sel_block)
+    S = args[1].shape[1] if page_table is None else page_table.shape[1] * args[1].shape[1]
+    W = min(FULL_NSA.window, S)
+    pos = args[9]
+    dist = pos[:, :, None] - pos[:, None, :]
+    return vref.verify_groups_plain(
+        args[0], args[1], args[2], args[3], args[4], args[5], args[6], merged, mvalid, own,
+        qmap, pos, args[10], args[11].reshape(B), (args[10] - W).clamp(0, S - W),
+        args[12] & (dist < FULL_NSA.window) & (dist >= 0), args[13], kw["o_cmp_in"],
+        sel_block=64, cmp_block=32, cmp_stride=16, window=512, include_cmp=full,
+        page_table=page_table)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Dh", [64, 128])
+@pytest.mark.parametrize("prefix", ["short", "full"])
+@pytest.mark.parametrize("C,mode,full", [(2, "exact", False), (4, "approx", True)])
+def test_verify_kernel_split_edges(cuda, Dh, prefix, C, mode, full):
+    """A prefix shorter than one chunk, and one at max_context - T, at the
+    full width's head counts and NSA geometry (bf16 K/V)."""
+    S = 2048
+    plen = 40 if prefix == "short" else S - 31
+    x = _full_inputs(cuda, torch.bfloat16, Dh, (plen,), S, seed=Dh + C)
+    got = _full_fused(x, C, mode, full)
+    want = _full_fused(x, C, mode, full, plain=True)
+    torch.cuda.synchronize()
+    _close(got, want, torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Dh", [64, 128])
+@pytest.mark.parametrize("C,mode,full", [(2, "exact", False), (4, "approx", True)])
+def test_verify_kernel_rows_do_not_depend_on_batch(cuda, Dh, C, mode, full):
+    """Three rows of mixed lengths in one launch: each row is bitwise equal
+    to its own B=1 launch, two launches are bitwise equal, and the rows
+    agree with the plain version. Approx C=4 is the 64-group case (8
+    groups x 8 kv heads)."""
+    x = _full_inputs(cuda, torch.bfloat16, Dh, (1500, 700, 2017), 2048, seed=Dh)
+    out = _full_fused(x, C, mode, full)
+    again = _full_fused(x, C, mode, full)
+    single = [_full_fused(x, C, mode, full, rows=slice(b, b + 1)) for b in range(3)]
+    want = _full_fused(x, C, mode, full, plain=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    for b in range(3):
+        assert torch.equal(out[b:b + 1], single[b])
+    _close(out, want, torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Dh", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_window_units_straddle_pages(cuda, Dh, dtype):
+    """The paged mode with the window (512 keys) starting mid-page over
+    pages of 64 tokens, a hole inside each row's window and one outside,
+    rows of different lengths: against the plain paged version."""
+    S, ps = 2048, 64
+    x = _full_inputs(cuda, dtype, Dh, (1000, 1771), S, seed=Dh + 7)
+    B, mp = 2, S // ps
+    P = B * mp + 5
+    perm = torch.randperm(P, generator=torch.Generator().manual_seed(Dh))[: B * mp]
+    pages = perm.reshape(B, mp).to(torch.int32).to(cuda)
+    pool_k = torch.randn((P, ps, 8, Dh), device=cuda).to(dtype)
+    pool_v = torch.randn((P, ps, 8, Dh), device=cuda).to(dtype)
+    for b in range(B):
+        pool_k[pages[b].long()] = x["k_cache"][b].reshape(mp, ps, 8, Dh)
+        pool_v[pages[b].long()] = x["v_cache"][b].reshape(mp, ps, 8, Dh)
+    pages[0, 900 // ps] = -1                 # inside row 0's window (488..999)
+    pages[1, 1500 // ps] = -1                # inside row 1's window (1259..1770)
+    pages[1, 300 // ps] = -1                 # outside it
+    for C, mode, full in ((2, "exact", False), (4, "approx", True)):
+        got = _full_fused(x, C, mode, full, page_table=pages, k=pool_k, v=pool_v)
+        want = _full_fused(x, C, mode, full, page_table=pages, k=pool_k, v=pool_v, plain=True)
+        torch.cuda.synchronize()
+        _close(got, want, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Dh", [64, 128])
+@pytest.mark.parametrize("Hq,window", [(8, 0), (8, 100), (32, 0), (32, 700)])
+def test_flash_kernel_window_and_mid_split_prefix(cuda, Dh, Hq, window):
+    """Flash with rows whose prefix ends mid-split (1234 keys of 512-key
+    splits) and one shorter than a split (77), with and without a window,
+    at R = 31 and 124 rows (bf16)."""
+    g = torch.Generator(cuda)
+    g.manual_seed(Hq + window + Dh)
+    r = lambda *s: torch.randn(s, generator=g, device=cuda).to(torch.bfloat16)
+    topo = build_topology(4, 2, "bfs")
+    T, S, B = topo.num_nodes, 2048, 2
+    plen = torch.tensor([1234, 77], dtype=torch.int32, device=cuda)
+    pos = (plen[:, None] + torch.as_tensor(topo.depths, device=cuda)[None]).to(torch.int32)
+    tm = torch.as_tensor(topo.mask, device=cuda)[None].expand(B, T, T)
+    args = (torch.randn((B, T, Hq, Dh), generator=g, device=cuda) / Dh ** 0.5,
+            r(B, S, 8, Dh), r(B, S, 8, Dh), r(B, T, 8, Dh), r(B, T, 8, Dh), pos, plen, tm,
+            window)
+    got = fops.flash_verify(*args)
+    again = fops.flash_verify(*args)
+    want = fref.ref_flash_verify(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _close(got, want, torch.bfloat16)

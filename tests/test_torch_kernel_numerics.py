@@ -1,0 +1,336 @@
+"""The arithmetic of the Hopper nsa_verify and flash_verify kernels, emulated
+in plain torch on the CPU and held against their plain versions.
+
+The kernels take f32 q and bf16 K/V and run both products on bf16 tensor
+cores: q and the probabilities P are split into two bf16 terms (hi =
+bf16(x), lo = bf16(x - hi)), each product is two bf16 x bf16 -> f32
+products, K and V are exact in bf16. Each CTA walks its chunk of the work
+list in units of 16 keys dealt to four warps in turn, each warp with its
+own online softmax; the warps merge in order into the CTA's partial, and
+the partials merge in chunk order (``ops.split_plan``).
+The emulation below repeats exactly that, at the full-width head dims and
+head counts, with inputs drawn as ``chip_smoke.py``'s ``verify_inputs``
+draws them.
+
+Tolerance: rtol 2e-4, atol 2e-5, the f32 tolerance ``chip_smoke.py``'s
+``TOL`` holds the kernels to. The split leaves a residual of about 2^-16 of
+q and P (the lo term's own rounding), far inside rtol 2e-4, so the kernels
+keep the f32 tolerance: nothing is loosened for bf16.
+"""
+import math
+
+import pytest
+import torch
+
+from repro_torch.config import NSAConfig
+from repro_torch.core.tree import build_topology
+from repro_torch.kernels.flash import ops as fops, ref as fref
+from repro_torch.kernels.nsa_verify import ops as vops, ref as vref
+from repro_torch.models import nsa as nsa_lib
+
+NSA = NSAConfig(cmp_block=32, cmp_stride=16, sel_block=64, n_selected=16, window=512)
+RTOL, ATOL = 2e-4, 2e-5
+NEG, UK, NW = -1e30, 16, 4
+
+
+def _split(x):
+    """f32 -> (hi, lo), two bf16-valued f32 tensors with hi + lo ~= x."""
+    hi = x.to(torch.bfloat16).float()
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
+def _walk(q, k, v, mask):
+    """One CTA: q (P,R,Dh) f32; k, v (P,N,Dh) bf16-valued; mask (P,R,N),
+    N a multiple of 16. Units of 16 keys go to warp u % 4; each warp keeps
+    an online softmax; the warps merge in order. Returns (m, l, acc)."""
+    P, R, Dh = q.shape
+    q_hi, q_lo = _split(q)
+    m = torch.full((NW, P, R), NEG)
+    l = torch.zeros((NW, P, R))
+    acc = torch.zeros((NW, P, R, Dh))
+    for u in range(k.shape[1] // UK):
+        w, ks = u % NW, slice(u * UK, (u + 1) * UK)
+        kt = k[:, ks].transpose(1, 2)
+        s = (q_hi @ kt + q_lo @ kt).masked_fill(~mask[:, :, ks], -math.inf)
+        m_new = torch.maximum(m[w], s.amax(-1))
+        p = torch.where(mask[:, :, ks], torch.exp(s - m_new[..., None]), torch.zeros(()))
+        alpha = torch.exp(m[w] - m_new)
+        p_hi, p_lo = _split(p)
+        l[w] = l[w] * alpha + p.sum(-1)
+        acc[w] = acc[w] * alpha[..., None] + p_hi @ v[:, ks] + p_lo @ v[:, ks]
+        m[w] = m_new
+    live = l > 0
+    M = torch.where(live, m, torch.full((), NEG)).amax(0)
+    e = torch.where(live, torch.exp(m - M), torch.zeros(()))
+    return M, (l * e).sum(0), (acc * e[..., None]).sum(0)
+
+
+def _merge(parts):
+    """The last CTA's merge of partials [(m, l, acc)] in chunk order; rows
+    that saw no key give 0."""
+    m = torch.stack([p[0] for p in parts])
+    l = torch.stack([p[1] for p in parts])
+    live = l > 0
+    M = torch.where(live, m, torch.full((), NEG)).amax(0)
+    L = (l * torch.where(live, torch.exp(m - M), torch.zeros(()))).sum(0)
+    sc = torch.where(live & (L > 0), torch.exp(m - M) / L.clamp_min(1e-30), torch.zeros(()))
+    out = torch.zeros_like(parts[0][2])
+    for i, p in enumerate(parts):
+        out = out + sc[i][..., None] * p[2]
+    return out
+
+
+def _pad(k, v, mask):
+    """Pad the key axis to a multiple of 16 with masked zero keys."""
+    n = -k.shape[1] % UK
+    if n:
+        k = torch.cat([k, k.new_zeros(k.shape[0], n, k.shape[2])], 1)
+        v = torch.cat([v, v.new_zeros(v.shape[0], n, v.shape[2])], 1)
+        mask = torch.cat([mask, mask.new_zeros(mask.shape[0], mask.shape[1], n)], 2)
+    return k, v, mask
+
+
+def _chunks(M, NCB, W, T, sel_block, include_cmp, branch="all", rows=8):
+    """The chunks of ``ops.split_plan`` in the kernel's order, one per CTA,
+    as nsa_verify.cu cuts them: (branch, items) with branch 0 cmp, 1 slc,
+    2 win, and items a list of cmp block indices, merged-slot indices, or
+    ("w", window key) / ("d", draft token) pairs (the draft joins the last
+    window chunk)."""
+    n_cmp, n_slc, n_win, keys, blocks = vops.split_plan(M, NCB, W, sel_block, include_cmp,
+                                                        branch, rows)
+    out = [(0, list(range(x * keys, min(x * keys + keys, NCB)))) for x in range(n_cmp)]
+    out += [(1, list(range(x * blocks, min(x * blocks + blocks, M)))) for x in range(n_slc)]
+    for x in range(n_win):
+        items = [("w", k) for k in range(x * keys, min(x * keys + keys, W))]
+        if x == n_win - 1:
+            items += [("d", d) for d in range(T)]
+        out.append((2, items))
+    return out
+
+
+def _verify_inputs(Dh, prefixes, S, seed, Hq=32, Hkv=8):
+    """chip_smoke.py's verify_inputs on the CPU: D4/k2 tree, Top-n on
+    random scores, bf16 K/V, q scaled by 1/sqrt(Dh)."""
+    g = torch.Generator().manual_seed(seed)
+    topo = build_topology(4, 2, "bfs")
+    plen = torch.tensor(prefixes, dtype=torch.int32)
+    B, T = len(prefixes), topo.num_nodes
+    pos = (plen[:, None] + torch.as_tensor(topo.depths)[None]).to(torch.int32)
+
+    def r(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g).to(dtype)
+
+    NCB = nsa_lib.num_cmp_blocks(S, NSA)
+    p_slc = torch.rand((B, T, Hkv, nsa_lib.num_sel_blocks(S, NSA)), generator=g)
+    sel, val = nsa_lib.select_topn(p_slc, pos, plen, NSA)
+    return dict(q=r(B, T, Hq, Dh, dtype=torch.float32) / Dh ** 0.5,
+                k_cache=r(B, S, Hkv, Dh), v_cache=r(B, S, Hkv, Dh),
+                k_cmp=r(B, NCB, Hkv, Dh), v_cmp=r(B, NCB, Hkv, Dh),
+                k_draft=r(B, T, Hkv, Dh), v_draft=r(B, T, Hkv, Dh), sel=sel, val=val,
+                pos=pos, plen=plen, ncb_valid=nsa_lib.dyn_num_cmp_blocks(plen, NSA),
+                tree=torch.as_tensor(topo.mask)[None].expand(B, T, T),
+                gates=torch.sigmoid(r(B, T, 3, Hq, dtype=torch.float32)),
+                o_cmp=r(B, T, Hq, Dh, dtype=torch.float32))
+
+
+def _verify_args(x, C, mode):
+    """The kernel-boundary arguments (as nsa_verify_fused builds them)."""
+    S = x["k_cache"].shape[1]
+    merged, mvalid, own, qmap = vops.group_layouts(x["sel"], x["val"], x["pos"], C, mode)
+    W = min(NSA.window, S)
+    dist = x["pos"][:, :, None] - x["pos"][:, None, :]
+    return dict(q=x["q"], k_cache=x["k_cache"], v_cache=x["v_cache"], k_cmp=x["k_cmp"],
+                v_cmp=x["v_cmp"], k_draft=x["k_draft"], v_draft=x["v_draft"], merged=merged,
+                mvalid=mvalid, own=own, qmap=qmap, positions=x["pos"], prefix_len=x["plen"],
+                ncb_valid=x["ncb_valid"].reshape(-1).expand(x["q"].shape[0]),
+                win_start=(x["plen"] - W).clamp(0, S - W),
+                dmask=x["tree"] & (dist < NSA.window) & (dist >= 0), gates=x["gates"])
+
+
+def _emulate_verify(a, o_cmp_in, include_cmp):
+    """The nsa_verify kernel's arithmetic: per (row, group, kv head) the
+    three branch lists, cut by the split plan, each chunk walked as a CTA,
+    the partials merged per branch in chunk order, then the gates."""
+    B, T, Hq, Dh = a["q"].shape
+    S, Hkv = a["k_cache"].shape[1], a["k_cache"].shape[2]
+    G, C = a["qmap"].shape
+    Gq, M, NCB = Hq // Hkv, a["merged"].shape[-1], a["k_cmp"].shape[1]
+    R, lb, W = C * Gq, NSA.sel_block, min(NSA.window, S)
+    qmap = a["qmap"].long()
+    P = B * G * Hkv
+
+    def per_pair(t):                      # (B, G, Hkv, ...) -> (P, ...)
+        return t.reshape(P, *t.shape[3:])
+
+    qg = a["q"].reshape(B, T, Hkv, Gq, Dh)[:, qmap].permute(0, 1, 3, 2, 4, 5)
+    qg = per_pair(qg.reshape(B, G, Hkv, R, Dh))
+    qi = qmap.repeat_interleave(Gq, dim=1)                              # (G, R)
+    c_of = torch.arange(R) // Gq
+    pos = a["positions"].long()[:, qi][:, :, None, :].expand(B, G, Hkv, R)
+    pos = per_pair(pos)                                                 # (P, R)
+    bidx = torch.arange(B)[:, None, None].expand(B, G, Hkv).reshape(P)
+    hidx = torch.arange(Hkv)[None, None, :].expand(B, G, Hkv).reshape(P)
+    plen = a["prefix_len"].long()[bidx][:, None, None]                  # (P, 1, 1)
+
+    def kv(src_k, src_v, tok):                      # tok (P, N) -> (P, N, Dh) f32
+        t = tok.clamp(0, src_k.shape[1] - 1)
+        return (src_k[bidx[:, None], t, hidx[:, None]].float(),
+                src_v[bidx[:, None], t, hidx[:, None]].float())
+
+    # cmp: key n = cmp block n
+    n = torch.arange(NCB)
+    ncbv = a["ncb_valid"].long()[bidx][:, None, None]
+    k_c, v_c = kv(a["k_cmp"], a["v_cmp"], n[None].expand(P, NCB))
+    m_c = (n[None, None] < ncbv) & (n * NSA.cmp_stride + NSA.cmp_block - 1 <= pos[..., None])
+    # slc: slot mi holds keys mi*lb .. mi*lb + lb - 1 of its block
+    blk = per_pair(a["merged"]).long()                                  # (P, M)
+    ok = (blk >= 0) & (per_pair(a["mvalid"]) > 0)
+    tok = (blk.clamp_min(0)[..., None] * lb + torch.arange(lb)).reshape(P, M * lb)
+    k_s, v_s = kv(a["k_cache"], a["v_cache"], tok)
+    own = per_pair(a["own"]) > 0                                        # (P, C, M)
+    own_r = own[:, c_of].repeat_interleave(lb, dim=-1)                  # (P, R, M*lb)
+    m_s = ((tok[:, None] < plen) & (tok[:, None] <= pos[..., None]) & (tok[:, None] < S) &
+           ok.repeat_interleave(lb, dim=-1)[:, None] & own_r)
+    # win: W window keys from win_start, then the T draft tokens
+    kp = a["win_start"].long()[bidx][:, None] + torch.arange(W)        # (P, W)
+    k_w, v_w = kv(a["k_cache"], a["v_cache"], kp)
+    m_w = ((kp[:, None] < plen) & (kp[:, None] > pos[..., None] - NSA.window) &
+           (kp[:, None] <= pos[..., None]))
+    k_d, v_d = kv(a["k_draft"], a["v_draft"], torch.arange(T)[None].expand(P, T))
+    dm = a["dmask"].bool()[:, qi]                                       # (B, G, R, T)
+    m_d = per_pair(dm[:, :, None].expand(B, G, Hkv, R, T))
+
+    parts = {0: [], 1: [], 2: []}
+    for br, items in _chunks(M, NCB, W, T, lb, include_cmp, "all", R):
+        if br == 0:
+            idx = torch.tensor(items, dtype=torch.long)
+            chunk = [(k_c[:, idx], v_c[:, idx], m_c[:, :, idx])]
+        elif br == 1:
+            idx = (torch.tensor(items, dtype=torch.long)[:, None] * lb + torch.arange(lb))
+            idx = idx.reshape(-1)
+            chunk = [(k_s[:, idx], v_s[:, idx], m_s[:, :, idx])]
+        else:
+            wi = torch.tensor([i for t, i in items if t == "w"], dtype=torch.long)
+            di = torch.tensor([i for t, i in items if t == "d"], dtype=torch.long)
+            chunk = [(k_w[:, wi], v_w[:, wi], m_w[:, :, wi]),   # the draft starts a unit
+                     (k_d[:, di], v_d[:, di], m_d[:, :, di])]
+        padded = [_pad(*c) for c in chunk if c[0].shape[1]]
+        k, v = (torch.cat([c[i] for c in padded], 1) for i in (0, 1))
+        m = torch.cat([c[2] for c in padded], 2)
+        parts[br].append(_walk(qg, k, v, m))
+    o = {br: _merge(ps) if ps else torch.zeros_like(qg) for br, ps in parts.items()}
+    if not include_cmp:
+        oc = o_cmp_in.reshape(B, T, Hkv, Gq, Dh)[:, qmap].permute(0, 1, 3, 2, 4, 5)
+        o[0] = per_pair(oc.reshape(B, G, Hkv, R, Dh))
+    gt = a["gates"].permute(0, 1, 3, 2).reshape(B, T, Hkv, Gq, 3)[:, qmap]
+    gt = per_pair(gt.permute(0, 1, 3, 2, 4, 5).reshape(B, G, Hkv, R, 3))
+    out = gt[..., 0:1] * o[0] + gt[..., 1:2] * o[1] + gt[..., 2:3] * o[2]
+    out = out.reshape(B, G, Hkv, C, Gq, Dh).permute(0, 1, 3, 2, 4, 5)
+    return out.reshape(B, G * C, Hq, Dh)[:, :T]
+
+
+@pytest.mark.parametrize("Dh", [64, 128])
+@pytest.mark.parametrize("C,mode,include_cmp,prefixes",
+                         [(2, "exact", False, (3000,)),       # R = 8, refresh layer
+                          (4, "approx", True, (2047, 40))])   # R = 16, reuse layer
+def test_verify_arithmetic_matches_plain(Dh, C, mode, include_cmp, prefixes):
+    """The emulated kernel (bf16 hi/lo tensor-core dots, split work list,
+    chunk-order merge) against verify_groups_plain over a 4096-key cache;
+    a 40-token prefix is shorter than one chunk."""
+    x = _verify_inputs(Dh, prefixes, 4096, seed=Dh + C)
+    a = _verify_args(x, C, mode)
+    got = _emulate_verify(a, x["o_cmp"], include_cmp)
+    want = vref.verify_groups_plain(
+        **a, o_cmp_in=None if include_cmp else x["o_cmp"], sel_block=NSA.sel_block,
+        cmp_block=NSA.cmp_block, cmp_stride=NSA.cmp_stride, window=NSA.window,
+        include_cmp=include_cmp)
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+
+
+def _emulate_flash(q, kc, vc, kd, vd, pos, plen, tree, window):
+    """The flash kernel's arithmetic: per (row, kv head, tile of 16 query
+    rows) the cache in splits of KEYS_PER_SPLIT keys plus the draft split,
+    each walked as a CTA, merged in split order."""
+    B, T, Hq, Dh = q.shape
+    S, Hkv = kc.shape[1], kc.shape[2]
+    Gq, R, KS = Hq // Hkv, T * Hq // Hkv, fops.KEYS_PER_SPLIT
+    Rp = -(-R // 16) * 16                                        # row tiles of 16
+    qr = q.reshape(B, T, Hkv, Gq, Dh).permute(0, 2, 1, 3, 4).reshape(B, Hkv, R, Dh)
+    qr = torch.cat([qr, qr.new_zeros(B, Hkv, Rp - R, Dh)], 2).reshape(B * Hkv * (Rp // 16), 16, Dh)
+    rpos = pos.long().repeat_interleave(Gq, dim=1)               # (B, R)
+    rpos = torch.cat([rpos, rpos.new_zeros(B, Rp - R)], 1)
+    valid = torch.arange(Rp) < R
+    P = qr.shape[0]
+    bi = torch.arange(B)[:, None, None].expand(B, Hkv, Rp // 16).reshape(P)
+    hi = torch.arange(Hkv)[None, :, None].expand(B, Hkv, Rp // 16).reshape(P)
+    ti = torch.arange(Rp // 16)[None, None].expand(B, Hkv, Rp // 16).reshape(P)
+    rows = ti[:, None] * 16 + torch.arange(16)                   # (P, 16)
+    rp = rpos[bi[:, None], rows]
+    rv = valid[rows]
+    parts = []
+    for x in range(-(-S // KS)):
+        keys = torch.arange(x * KS, min(x * KS + KS, S))
+        k = kc[bi[:, None], keys[None], hi[:, None]].float()
+        v = vc[bi[:, None], keys[None], hi[:, None]].float()
+        m = (keys < plen.long()[bi][:, None, None]) & (keys <= rp[..., None]) & rv[..., None]
+        if window > 0:
+            m = m & (keys > rp[..., None] - window)
+        parts.append(_walk(qr, *_pad(k, v, m)))
+    dist = pos[:, :, None] - pos[:, None, :]
+    dm = tree.bool() & (dist >= 0)
+    if window > 0:
+        dm = dm & (dist < window)
+    dm = dm.repeat_interleave(Gq, dim=1)                         # (B, R, T)
+    dm = torch.cat([dm, dm.new_zeros(B, Rp - R, T)], 1)[bi[:, None], rows]
+    k = kd[bi[:, None], torch.arange(T)[None], hi[:, None]].float()
+    v = vd[bi[:, None], torch.arange(T)[None], hi[:, None]].float()
+    parts.append(_walk(qr, *_pad(k, v, dm)))
+    out = _merge(parts).reshape(B, Hkv, Rp, Dh)[:, :, :R]
+    return out.reshape(B, Hkv, T, Gq, Dh).permute(0, 2, 1, 3, 4).reshape(B, T, Hq, Dh)
+
+
+@pytest.mark.parametrize("Dh,Hq,window", [(64, 8, 0), (128, 8, 0), (64, 8, 300)])
+def test_flash_arithmetic_matches_plain(Dh, Hq, window):
+    """The emulated flash kernel at the draft's shape (R = 31 rows, two
+    tiles of 16) against ref_flash_verify over a 2048-key cache, two rows
+    whose prefixes end mid-split and inside the first split."""
+    g = torch.Generator().manual_seed(Dh + window)
+    topo = build_topology(4, 2, "bfs")
+    T, S, Hkv = topo.num_nodes, 2048, 8
+    plen = torch.tensor([1234, 77], dtype=torch.int32)
+    pos = (plen[:, None] + torch.as_tensor(topo.depths)[None]).to(torch.int32)
+    tree = torch.as_tensor(topo.mask)[None].expand(2, T, T)
+    r = lambda *s: torch.randn(s, generator=g).to(torch.bfloat16)
+    args = (torch.randn((2, T, Hq, Dh), generator=g) / Dh ** 0.5, r(2, S, Hkv, Dh),
+            r(2, S, Hkv, Dh), r(2, T, Hkv, Dh), r(2, T, Hkv, Dh), pos, plen, tree, window)
+    torch.testing.assert_close(_emulate_flash(*args), fref.ref_flash_verify(*args),
+                               rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("M,NCB,W,T,sel_block,include_cmp,branch,rows",
+                         [(32, 511, 512, 31, 64, False, "all", 8),    # exact C=2 refresh
+                          (16, 511, 512, 31, 64, True, "all", 16),    # approx C=4 reuse
+                          (13, 0, 0, 7, 16, True, "all", 8),          # empty cmp and window
+                          (45, 100, 32, 7, 16, False, "slc", 4),      # M padded past a chunk
+                          (16, 60, 700, 31, 64, False, "win", 4)])
+def test_split_plan_covers_the_work_list_once(M, NCB, W, T, sel_block, include_cmp,
+                                              branch, rows):
+    """Every cmp block, merged slot, window key and draft token of a
+    computed branch lies in exactly one chunk, chunks stay within the
+    kernel's limits, and the plan depends on shapes only."""
+    chunks = _chunks(M, NCB, W, T, sel_block, include_cmp, branch, rows)
+    plan = vops.split_plan(M, NCB, W, sel_block, include_cmp, branch, rows)
+    assert len(chunks) == sum(plan[:3]) <= vops.MAX_CHUNKS
+    assert plan[4] <= vops.MAX_BLOCKS_PER_CHUNK
+    assert [br for br, _ in chunks] == sorted(br for br, _ in chunks)
+    seen = {0: [], 1: [], 2: []}
+    for br, items in chunks:
+        seen[br] += items
+    want = {0: list(range(NCB)) if include_cmp else [],
+            1: list(range(M)) if branch != "win" else [],
+            2: ([("w", k) for k in range(W)] + [("d", d) for d in range(T)]
+                if branch != "slc" else [])}
+    assert seen == want
+    # a computed branch has a chunk even when its list is empty
+    for br, computed in ((0, include_cmp), (1, branch != "win"), (2, branch != "slc")):
+        assert any(b == br for b, _ in chunks) == computed
