@@ -9,7 +9,10 @@ Phases (every phase always runs; any failure exits non-zero):
      spill bytes, stack and dynamic shared memory (fails on a spill); print
      the card's name and power limit;
   2. hold each kernel against its plain PyTorch version, in float32 and
-     bfloat16 K/V, at the full-width shapes: routing and nsa_verify (exact
+     bfloat16 K/V, at the full-width shapes: routing (one row, and two
+     rows of prefixes 4096 and 3001 with per-row ncb_valid; Top-n indices
+     equal the plain version's; bitwise equal across calls and at B=1 and
+     B=2) and nsa_verify (exact
      C=2 / approx C=4, full / partial fusion, and the vanilla single-branch
      launches) at ``ssv-nsa-1b`` (head dim 64) and ``ssv-nsa-8b`` (head dim
      128); the paged nsa_verify mode (the same cases on two rows of
@@ -42,10 +45,11 @@ Phases (every phase always runs; any failure exits non-zero):
   7. the serve CLI (``python -m repro_torch.launch.serve``) for both archs,
      and batched-paged and continuous runs of ``ssv-nsa-1b``;
   8. kernel times (profiler device time and CUDA events) beside the
-     pre-redesign kernels' (before the Hopper redesign, commit 787ff43),
-     the plain version's time, the bound (nsa_verify and flash with bf16
-     K/V at the bf16 tensor-core rate, so their bytes bound them; routing
-     and float32 K/V at the float32 CUDA-core rate) and, for flash, the
+     pre-redesign kernels' (before the Hopper redesign, commit 787ff43;
+     routing's code was the same until commit f780c1a), the plain
+     version's time, the bound (bf16 K/V at the bf16 tensor-core rate, so
+     their bytes bound them; float32 K/V at the float32 CUDA-core rate)
+     and, for flash, the
      library yardstick (``scaled_dot_product_attention``, timed only); the
      float32 K/V instances; vanilla layer against the fused layer;
   9. the summary lines: a ``kernels`` JSON line (every kernel x head dim),
@@ -79,9 +83,10 @@ DEV = "cuda"
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (data sheet)
 F32_FLOPS_PER_S = 67e12         # H100 SXM float32, CUDA cores (data sheet)
 BF16_FLOPS_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense (data sheet)
-# The pre-redesign kernels: before the Hopper redesign (commit 787ff43).
-# Their times (profiler device ms per launch, bf16 K/V, this script's phase
-# 8 on NVIDIA H100 80GB HBM3, 700.00 W; PERF.md), printed beside this run's
+# The pre-redesign kernels: before the Hopper redesign (commit 787ff43;
+# routing's code stayed the same until f780c1a). Their times (profiler
+# device ms per launch, bf16 K/V, this script's phase 8 on NVIDIA H100 80GB
+# HBM3, 700.00 W; PERF.md), printed beside this run's
 PRE_REDESIGN_MS = {"nsa_verify exact C=2 full dh64": 0.1155, "nsa_verify approx C=4 full dh64": 0.1433,
            "nsa_verify exact C=2 partial dh64": 0.1039,
            "nsa_verify approx C=4 partial dh64": 0.1238,
@@ -284,6 +289,39 @@ def run_routing(cfg, inp, plain: bool):
                               inp["ncb_valid"], nsa, kv_len=S)
 
 
+def check_routing(cfg, inp, dt_name, note):
+    """The routing kernel against its plain version on ``inp`` (one row or
+    more): both outputs within TOL, the same Top-n indices, bitwise equal
+    across two calls and, with more than one row, each row bitwise equal to
+    its own B=1 launch."""
+    from repro_torch.models import nsa as nsa_lib
+    B, Dh = inp["q"].shape[0], inp["q"].shape[-1]
+
+    def rows(b):
+        return {**inp, **{k: inp[k][b:b + 1] for k in
+                          ("q", "k_cmp", "v_cmp", "positions", "ncb_valid", "prefix_len")}}
+
+    o_k, p_k = run_routing(cfg, inp, plain=False)
+    again = run_routing(cfg, inp, plain=False)
+    single = [run_routing(cfg, rows(b), plain=False) for b in range(B)] if B > 1 else []
+    o_r, p_r = run_routing(cfg, inp, plain=True)
+    torch.cuda.synchronize()
+    label = f"routing B={B} Dh {Dh}"
+    note(check_close(f"{label} o_cmp", o_k, o_r, dt_name))
+    note(check_close(f"{label} p_slc", p_k, p_r, dt_name))
+    topn = [nsa_lib.select_topn(p, inp["positions"], inp["prefix_len"], cfg.nsa)
+            for p in (p_k, p_r)]
+    if not all(torch.equal(a, b) for a, b in zip(*topn)):
+        fail(f"{label} [{dt_name}]: Top-n indices differ from the plain version's")
+    if not (torch.equal(o_k, again[0]) and torch.equal(p_k, again[1])):
+        fail(f"{label} [{dt_name}]: two calls differ")
+    for b, (o1, p1) in enumerate(single):
+        if not (torch.equal(o_k[b:b + 1], o1) and torch.equal(p_k[b:b + 1], p1)):
+            fail(f"{label} [{dt_name}]: row {b} differs from its B=1 launch")
+    log(f"  {label} [{dt_name}]: Top-n indices equal the plain version's; bitwise equal "
+        f"across two calls{' and to each row alone (B=1)' if single else ''}")
+
+
 def flash_inputs(Hq, Hkv, Dh, kv_dtype, seed, prefix=4096, S=8192):
     """Flash-kernel inputs at a consumer's shape: D4/k2 tree, cache S."""
     g = torch.Generator(DEV)
@@ -363,8 +401,8 @@ def check_close(name, got, want, dtype_name):
 def bound(nbytes, flops, flops_per_s=F32_FLOPS_PER_S):
     """(ms, "bytes" or "operations", bytes-alone ms). The flops count at
     ``flops_per_s``: the bf16 tensor-core rate for a kernel whose dots run
-    there (nsa_verify and flash with bf16 K/V, so their bytes set the
-    bound), the float32 CUDA-core rate otherwise (routing, float32 K/V)."""
+    there (bf16 K/V, so their bytes set the bound), the float32 CUDA-core
+    rate otherwise (float32 K/V)."""
     t_bytes, t_flops = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
     return (max(t_bytes, t_flops) * 1e3, ("bytes" if t_bytes >= t_flops else "operations"),
             t_bytes * 1e3)
@@ -427,6 +465,9 @@ def verify_bound(cfg, inp, args, include_cmp, branch="all"):
 
 
 def routing_bound(cfg, inp):
+    """Bytes: the visible cmp K/V of each kv head once, q, o_cmp, p_slc,
+    positions; flops: 4*Dh per visible (query row, cmp block) pair, at the
+    rate of the kernel's dots."""
     nsa = cfg.nsa
     es = inp["k_cmp"].element_size()
     B, T, Hq, Dh = inp["q"].shape
@@ -437,7 +478,7 @@ def routing_bound(cfg, inp):
     NSB = -(-inp["k_cache"].shape[1] // nsa.sel_block)
     nbytes = int(nvis.max()) * Hkv * Dh * 2 * es + inp["q"].numel() * 4 * 2 \
         + T * Hkv * NSB * 4 + T * 4
-    return bound(nbytes, int(nvis.sum()) * Hq * 4 * Dh)
+    return bound(nbytes, int(nvis.sum()) * Hq * 4 * Dh, dot_rate(inp["k_cmp"].dtype))
 
 
 def flash_bound(inp):
@@ -645,7 +686,7 @@ def ptxas_instances(name, report):
 
 def smem_bytes(build, name, kv, dh):
     """Dynamic shared memory of one CTA of an instance, from the library
-    (routing sizes its own at launch from NCB: None)."""
+    (None for a library that does not report it)."""
     fn = getattr(build.library(name), f"{name}_smem_bytes", None)
     if fn is None:
         return None
@@ -664,11 +705,7 @@ def check_kernels(cfgs, ctx):
     for Dh, cfg in cfgs.items():
         for dt_name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
             inp = verify_inputs(cfg, dt, seed=1)
-            o_k, p_k = run_routing(cfg, inp, plain=False)
-            o_r, p_r = run_routing(cfg, inp, plain=True)
-            torch.cuda.synchronize()
-            note(f"routing_dh{Dh}", check_close(f"routing o_cmp Dh {Dh}", o_k, o_r, dt_name))
-            note(f"routing_dh{Dh}", check_close(f"routing p_slc Dh {Dh}", p_k, p_r, dt_name))
+            check_routing(cfg, inp, dt_name, lambda e: note(f"routing_dh{Dh}", e))
             for label, C, mode, full, branch in VERIFY_CASES:
                 args = verify_layouts(cfg, inp, C, mode)
                 oc = inp["o_cmp_in"] if (not full and branch == "all") else None
@@ -678,9 +715,10 @@ def check_kernels(cfgs, ctx):
                 note(f"{case_kernel(full, branch)}_dh{Dh}",
                      check_close(f"nsa_verify {label} Dh {Dh}", got, want, dt_name))
             del inp
-            # the paged mode: two rows of different lengths in a shuffled
-            # pool with holes inside and outside the window
+            # two rows of different lengths: routing, then the paged mode in
+            # a shuffled pool with holes inside and outside the window
             inp = verify_inputs(cfg, dt, seed=6, prefix=(4096, 3001))
+            check_routing(cfg, inp, dt_name, lambda e: note(f"routing_dh{Dh}", e))
             for mult in (1, 2):
                 pool = paged_pool(cfg, inp, mult, holes=True, seed=mult)
                 for label, C, mode, full, branch in VERIFY_CASES[:4]:
@@ -1243,6 +1281,8 @@ def float32_times(cfgs, sig):
 
     for Dh, cfg in cfgs.items():
         inp = verify_inputs(cfg, torch.float32, seed=2)
+        record(f"routing dh{Dh}", lambda: run_routing(cfg, inp, False), "routing_kernel",
+               routing_bound(cfg, inp))
         for label, C, mode, full, branch in VERIFY_CASES:
             args = verify_layouts(cfg, inp, C, mode)
             oc = inp["o_cmp_in"] if (not full and branch == "all") else None

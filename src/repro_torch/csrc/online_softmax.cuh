@@ -1,6 +1,6 @@
 // The online-softmax key walk shared by the flash tree-verify kernel
-// (flash_verify.cu) and the fused NSA verify kernel (nsa_verify.cu), and the
-// warp reductions the routing kernel (routing.cu) uses too.
+// (flash_verify.cu), the fused NSA verify kernel (nsa_verify.cu) and the
+// routing kernel (routing.cu).
 //
 // A CTA of NT = 128 threads (NW = 4 warps) holds RT = 16 query rows and
 // walks a list of key units of UK = 16 keys. The units are dealt to the
@@ -36,6 +36,10 @@
 // (m[n][j], l[n][j] for row 8 n + 2 t + j, equal across the 8 lanes of one
 // t). A fully masked unit adds exactly 0 and leaves the running max
 // unchanged.
+//
+// A walk may pass a hook that sees each unit's raw S^T fragment (before
+// the mask and the softmax step): routing keeps its logits that way. The
+// default hook does nothing and compiles away.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -185,6 +189,12 @@ struct Walk {
   __device__ float* warp_scratch(int i) { return reinterpret_cast<float*>(&w[i]); }
 };
 
+// The default hook of a walk: nothing.
+struct NoHook {
+  template <typename I, typename S>
+  __device__ __forceinline__ void operator()(const I&, const S&) const {}
+};
+
 // ---------------------------------------------------------------- step
 // Masks s (key kk = g + 8 (c >> 1) < nk, row r < rows, mask(r, kk)), then
 // advances the running max / sum and rescales the accumulator; returns the
@@ -223,12 +233,13 @@ __device__ __forceinline__ void softmax_step(State<DH, NTL>& st, float (&s)[NTL]
     }
 }
 
-// One unit of nk <= UK keys whose K/V rows are in k / v (shared memory).
-template <int DH, int NTL, typename Mask>
+// One unit of nk <= UK keys whose K/V rows are in k / v (shared memory);
+// hook(s) sees the raw S^T fragment.
+template <int DH, int NTL, typename Mask, typename Hook>
 __device__ __forceinline__ void unit_step(State<DH, NTL>& st, QTile<__nv_bfloat16, DH>& q,
                                           const __nv_bfloat16 (*k)[DH + 8],
                                           const __nv_bfloat16 (*v)[DH + 8], int nk, int rows,
-                                          Mask mask) {
+                                          Mask mask, Hook hook) {
   const int lane = threadIdx.x & 31;
   float s[NTL][4];
 #pragma unroll
@@ -250,6 +261,7 @@ __device__ __forceinline__ void unit_step(State<DH, NTL>& st, QTile<__nv_bfloat1
       mma(s[n], a, bl[2 * n], bl[2 * n + 1]);
     }
   }
+  hook(s);
   softmax_step(st, s, nk, rows, mask);
   // P^T fragments (B operand, keys x rows): transpose the S^T accumulators
   uint32_t ph[NTL][2], pl[NTL][2];
@@ -276,10 +288,10 @@ __device__ __forceinline__ void unit_step(State<DH, NTL>& st, QTile<__nv_bfloat1
   }
 }
 
-template <int DH, int NTL, typename Mask>
+template <int DH, int NTL, typename Mask, typename Hook>
 __device__ __forceinline__ void unit_step(State<DH, NTL>& st, QTile<float, DH>& q,
                                           const float (*k)[DH + 4], const float (*v)[DH + 4],
-                                          int nk, int rows, Mask mask) {
+                                          int nk, int rows, Mask mask, Hook hook) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
   float s[NTL][4];
 #pragma unroll
@@ -299,6 +311,7 @@ __device__ __forceinline__ void unit_step(State<DH, NTL>& st, QTile<float, DH>& 
         s[n][j + 2] += x.x * k1.x + x.y * k1.y + x.z * k1.z + x.w * k1.w;
       }
   }
+  hook(s);
   softmax_step(st, s, nk, rows, mask);
   float (*p)[RT + 1] = q.p[warp];
 #pragma unroll
@@ -341,13 +354,14 @@ struct Rows {                          // the K and V bases of a unit's rows
 // row by lane kk < UK (a paged row resolves its page there, once); nk(i)
 // -> keys in the unit; mask(i, r, kk). pre() runs in every thread once the
 // first unit's copies are in flight, before any unit is computed (it loads
-// q into sm.q and ends with __syncthreads). `dummy`: any valid global
+// q into sm.q and ends with __syncthreads). hook(i, s) sees unit i's raw
+// S^T fragment s[NTL][4] (default: nothing). `dummy`: any valid global
 // address. Ends with every copy landed.
 template <typename KV, int DH, int NTL, typename Info, typename Valid, typename Base,
-          typename Src, typename NK, typename Mask, typename Pre>
+          typename Src, typename NK, typename Mask, typename Pre, typename Hook = NoHook>
 __device__ __forceinline__ void walk(Walk<KV, DH>& sm, State<DH, NTL>& st, int n, int rows,
                                      const KV* dummy, Info info, Valid valid, Base base,
-                                     Src src, NK nk, Mask mask, Pre pre) {
+                                     Src src, NK nk, Mask mask, Pre pre, Hook hook = Hook()) {
   constexpr int E = 16 / (int)sizeof(KV);        // elements per 16-byte copy
   constexpr int CPR = DH / E;                    // copies per row
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -380,7 +394,8 @@ __device__ __forceinline__ void walk(Walk<KV, DH>& sm, State<DH, NTL>& st, int n
     __syncwarp();
     const auto iu = info(cur);
     unit_step(st, sm.q, buf.k[stage], buf.v[stage], nk(iu), rows,
-              [&](int r, int kk) { return mask(iu, r, kk); });
+              [&](int r, int kk) { return mask(iu, r, kk); },
+              [&](const float (&s)[NTL][4]) { hook(iu, s); });
     __syncwarp();
     cur = nxt;
     stage ^= 1;

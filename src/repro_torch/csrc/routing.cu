@@ -12,26 +12,54 @@
 // p_slc (B,T,Hkv,NSB) f32, p_slc summed over the Gq query heads of each
 // kv head.
 //
-// Design. One CTA per (tree query t, kv head h, batch b) holds the Gq query
-// rows of that head, so the GQA sum happens inside the CTA (no atomics).
-// Visibility is a prefix of the cmp blocks (block ends grow with the
-// index), so the CTA walks only the visible blocks. Two passes: the
-// logits of all visible blocks go to shared memory (Gq x NCB floats, 8 KB
-// at NCB=512), then max / sum per row and one normalization, then the
-// output and the scores are read from the normalized probabilities. The
-// TPU kernel's (R, NSB) score accumulator does not fit a CTA at long
-// context; here no such accumulator exists: the overlap matrix M is banded
-// (a cmp block of length l and stride d overlaps at most ceil(l/l')+1
-// selection blocks), so each selection block's score is a short sum whose
-// overlap weights come from the geometry, never from a loaded matrix.
+// Design: the cmp chunk of nsa_verify.cu on the shared tile walk
+// (online_softmax.cuh), plus the selection scores.
+// - Rows. A CTA holds RT = 16 rows: Q = min(16 / Gq, T) consecutive tree
+//   queries x the Gq query heads of one kv head (4 queries at Gq 4), so
+//   the GQA sum of p_slc stays inside the CTA (no atomics). G = ceil(T / Q)
+//   query groups; rows past T are padding, masked and never written.
+// - Split. The cmp list (capacity NCB, never the visible length: no host
+//   sync) is cut into n_cmp chunks of `keys` blocks (ops.py:routing_plan,
+//   shapes only: `keys` grows with NCB up to KMAX so that a long cache
+//   keeps few chunks); grid (G * n_cmp, Hkv, B). Visibility is a prefix of
+//   the blocks (block ends grow with the index), so a chunk walks its blocks
+//   below the deepest row's visible prefix; a chunk past it walks none and
+//   still takes its ticket, as do rows with ncb_valid 0.
+// - Walk. 16-block units dealt to 4 warps, each with its own online
+//   softmax and cp.async ring; bf16 dots on tensor cores (mma.sync
+//   m16n8k16, f32 q split into hi + lo bf16 terms), f32 K/V on CUDA cores.
+//   A hook keeps each unit's raw logits in shared memory (RT x KMAX
+//   floats, 33 KB).
+// - Selection scores in o_cmp's rescaled space (the TPU kernel's
+//   kernel.py:47-65). After the warp merge the CTA knows m and l per row;
+//   it turns its logits into chunk-local scores sum_n exp(s_rn - m_r) *
+//   ov(n, j) / cmp_block over the few selection blocks j its chunk
+//   touches (`span` of them from its first). The overlap matrix M is
+//   banded, so the weights come from the geometry; no M is loaded.
+// - Merge. Each CTA writes its partial (m, l, acc) and its scores per row
+//   to f32 scratch; the last CTA of (b, group, kv head) (an atomic ticket,
+//   reset by it) turns the partials' m and l into scales exp(m_x - M) / L,
+//   applies them to o_cmp's accumulators and to each chunk's scores, sums
+//   chunks and then the Gq rows of each query in a fixed order and writes
+//   each real query once. Rows with L = 0 give zeros in both outputs. The
+//   order does not depend on B or the run, so a row is bitwise the same
+//   at any B and across calls. The scores reach the last CTA through
+//   shared memory (cp.async, one round trip per stage of chunks, the
+//   first overlapping the o_cmp merge): a tail that read them one output
+//   at a time cost as much as the walk.
+// Scratch (floats): part_ml B*G*Hkv*n_cmp*16*2, part_acc B*G*Hkv*n_cmp*16*DH,
+// part_sc B*G*Hkv*n_cmp*16*span; tickets B*G*Hkv ints. At B 4, Hkv 8,
+// T 31, Gq 4 (G 8), max_context 65536 (NCB 4096 blocks: 8 chunks of 512,
+// span 130) that is 4*8*8*8*16*(2+DH+130)*4 B: 25.7 MB at DH 64, 34.1 MB
+// at DH 128, below nsa_verify's part_acc at the same shapes (exact C=2,
+// full fusion: 16 groups x 13 chunks, 27.3 / 54.5 MB). The scores take
+// about NCB/4 floats per row whatever the split, so fewer, longer chunks
+// are what keeps the scratch small.
 //
-// Bound on this card: operations. The work is 4*DH flops per visible
-// (query row, cmp block) pair at the f32 rate (CUDA cores); the bytes (q,
-// the visible compressed K/V of each head once, o_cmp and p_slc) take
-// about a third of that time at the full-width ssv-nsa-1b shapes. FMA on
-// CUDA cores with f32 accumulation; wgmma/TMA are left for a later change.
-// Head dim 64 and 128 are template instances (shared memory is sized at
-// launch: Gq*(NCB + DH) floats, opted in above 48 KB).
+// Bound on this card: bytes for bf16 K/V (the visible cmp K/V of each head
+// once, q in, o_cmp and p_slc out), with the dots on tensor cores; f32
+// operations for f32 K/V (CUDA cores). Head dim 64 and 128 are template
+// instances.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -41,140 +69,257 @@
 
 namespace {
 
-using online_softmax::NT;
-using online_softmax::NW;
-using online_softmax::warp_max;
-using online_softmax::warp_sum;
+using namespace online_softmax;
 
 constexpr int GQ_MAX = 8;
-
-__device__ __forceinline__ float ld(const float* p) { return *p; }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+constexpr int KMAX = 512;              // cmp blocks per chunk (the logit buffer)
+constexpr int NXMAX = 64;              // chunks per (b, group, kv head)
 
 template <typename KV, int DH>
-__global__ void __launch_bounds__(NT) routing_kernel(
-    const float* __restrict__ q, const KV* __restrict__ kc,
-    const KV* __restrict__ vc, const int* __restrict__ pos,
-    const int* __restrict__ ncb_valid, float* __restrict__ o,
-    float* __restrict__ p_slc, int T, int Hkv, int Gq, int NCB, int NSB,
-    int cmp_block, int cmp_stride, int sel_block) {
-  constexpr int E = DH / 32;        // head-dim elements per lane in pass 1
-  extern __shared__ float smem[];
-  float* sp = smem;                 // [Gq][NCB] logits, then probabilities
-  float* sq = smem + (size_t)Gq * NCB;  // [Gq][DH]
-  const int t = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int Hq = Hkv * Gq;
+struct Smem {
+  Walk<KV, DH> wk;                     // rings, q, warp merge; merge tables
+  __align__(16) float sl[RT][KMAX + 4];  // raw logits; the last CTA's staged scores
+  int pos[RT];                         // position of each row, -1 for padding
+  int last;
+};
 
-  for (int i = tid; i < Gq * DH; i += NT) {
-    const int g = i / DH, d = i % DH;
-    sq[i] = q[(((size_t)b * T + t) * Hq + h * Gq + g) * DH + d];
-  }
-  // cmp block n is visible iff n*stride + cmp_block - 1 <= p and
-  // n < ncb_valid: a prefix [0, nvis) of the blocks
-  const int p = pos[b * T + t];
-  int nvis = (p - cmp_block + 1 >= 0) ? (p - cmp_block + 1) / cmp_stride + 1 : 0;
-  nvis = max(0, min(nvis, min(ncb_valid[b], NCB)));
+template <typename KV, int DH>
+// (launch bounds without a minimum let ptxas cap the Dh-64 instances at
+// 80 registers and spill; a minimum of one CTA lifts the cap, as in
+// nsa_verify.cu's two-row-tile instances)
+__global__ void __launch_bounds__(NT, 1) routing_kernel(
+    const float* __restrict__ q,          // (B,T,Hq,DH) pre-scaled
+    const KV* __restrict__ kc, const KV* __restrict__ vc,   // (B,NCB,Hkv,DH)
+    const int* __restrict__ pos,          // (B,T)
+    const int* __restrict__ ncb_valid,    // (B,)
+    float* __restrict__ o,                // (B,T,Hq,DH)
+    float* __restrict__ p_slc,            // (B,T,Hkv,NSB)
+    float* __restrict__ part_ml,          // (B,G,Hkv,NX,RT,2): m, l
+    float* __restrict__ part_acc,         // (B,G,Hkv,NX,RT,DH)
+    float* __restrict__ part_sc,          // (B,G,Hkv,NX,RT,span)
+    int* __restrict__ tickets,            // (B,G,Hkv), all 0 between calls
+    int T, int Hkv, int Gq, int Q, int G, int NCB, int NSB, int cmp_block,
+    int cmp_stride, int sel_block, int NX, int keys, int span) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Smem<KV, DH>& sm = *reinterpret_cast<Smem<KV, DH>*>(smem_raw);
+  const int gi = blockIdx.x / NX, x = blockIdx.x % NX, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int R = Q * Gq, Hq = Hkv * Gq;
+  const int ncbv = min(ncb_valid[b], NCB);
+  const size_t gh = ((size_t)b * G + gi) * Hkv + h;
+  const size_t kv_row = (size_t)Hkv * DH;
+  // row r: query gi * Q + r / Gq, head h * Gq + r % Gq; rows past R or T
+  // are padding
+  auto query = [&](int r) { return gi * Q + r / Gq; };
+  auto real = [&](int r) { return r < R && query(r) < T; };
+
+  for (int r = tid; r < RT; r += NT) sm.pos[r] = real(r) ? pos[b * T + query(r)] : -1;
   __syncthreads();
-
-  // pass 1: logits, one warp per cmp block (lanes split the head dim)
-  for (int n = warp; n < nvis; n += NW) {
-    const KV* kr = kc + (((size_t)b * NCB + n) * Hkv + h) * DH + E * lane;
-    float kf[E];
-#pragma unroll
-    for (int e = 0; e < E; ++e) kf[e] = ld(kr + e);
-    for (int g = 0; g < Gq; ++g) {
-      float s = 0.f;
-#pragma unroll
-      for (int e = 0; e < E; ++e) s += sq[g * DH + E * lane + e] * kf[e];
-      s = warp_sum(s);
-      if (lane == 0) sp[(size_t)g * NCB + n] = s;
+  int max_pos = -1;
+  for (int r = 0; r < R; ++r) max_pos = max(max_pos, sm.pos[r]);
+  // cmp block n is visible to row r iff n < ncb_valid and
+  // n * stride + cmp_block - 1 <= pos[r]: a prefix of the blocks
+  int nv = (max_pos - cmp_block + 1 >= 0) ? (max_pos - cmp_block + 1) / cmp_stride + 1 : 0;
+  nv = max(0, min(nv, ncbv));
+  const int lo = x * keys, hi = min(lo + keys, nv);
+  auto visible = [&](int n, int r) {
+    return n < ncbv && n * cmp_stride + cmp_block - 1 <= sm.pos[r];
+  };
+  // q, loaded while the first units' copies are in flight
+  auto load_q = [&]() {
+    for (int i = tid; i < RT * DH; i += NT) {
+      const int r = i / DH, d = i % DH;
+      sm.wk.q.set(r, d, real(r) ? q[(((size_t)b * T + query(r)) * Hq + h * Gq + r % Gq) * DH + d]
+                                : 0.f);
     }
-  }
-  __syncthreads();
+    __syncthreads();
+  };
 
-  // row softmax over the visible blocks (rows with none stay all-zero)
-  for (int g = warp; g < Gq; g += NW) {
-    float* row = sp + (size_t)g * NCB;
-    float m = -INFINITY;
-    for (int n = lane; n < nvis; n += 32) m = fmaxf(m, row[n]);
-    m = warp_max(m);
-    float l = 0.f;
-    for (int n = lane; n < nvis; n += 32) {
-      const float e = expf(row[n] - m);
-      row[n] = e;
-      l += e;
-    }
-    l = warp_sum(l);
-    for (int n = lane; n < nvis; n += 32) row[n] = row[n] / l;
-  }
-  __syncthreads();
+  State<DH, 2> st;
+  st.init();
+  const KV* kb = kc + (size_t)b * NCB * kv_row + (size_t)h * DH;
+  const KV* vb = vc + (size_t)b * NCB * kv_row + (size_t)h * DH;
+  walk(sm.wk, st, hi > lo ? (hi - lo + UK - 1) / UK : 0, R, kc,
+       [&](int u) { return lo + u * UK; },                // first cmp block
+       [](int) { return true; },
+       [&](int) { return Rows<KV>{kb, vb}; },
+       [&](int n0, int kk) { return n0 + kk < hi ? (n0 + kk) * (int)kv_row : -1; },
+       [&](int n0) { return min(UK, hi - n0); },
+       [&](int n0, int r, int kk) { return visible(n0 + kk, r); }, load_q,
+       [&](int n0, const float (&s)[2][4]) {               // keep the raw logits
+         const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+         for (int n = 0; n < 2; ++n)
+#pragma unroll
+           for (int c = 0; c < 4; ++c)
+             sm.sl[8 * n + 2 * t + (c & 1)][n0 - lo + g + 8 * (c >> 1)] = s[n][c];
+       });
 
-  // o_cmp: thread per (row, dim), coalesced over the head dim
-  for (int i = tid; i < Gq * DH; i += NT) {
-    const int g = i / DH, d = i % DH;
-    const float* row = sp + (size_t)g * NCB;
-    const KV* vb = vc + ((size_t)b * NCB * Hkv + h) * DH + d;
-    float acc = 0.f;
-    for (int n = 0; n < nvis; ++n) acc += row[n] * ld(vb + (size_t)n * Hkv * DH);
-    o[(((size_t)b * T + t) * Hq + h * Gq + g) * DH + d] = acc;
-  }
+  // ---- this chunk's partial (leaves m, l per row in cm, cl)
+  const float* mlg = part_ml + gh * NX * RT * 2;
+  const float* accg = part_acc + gh * NX * RT * DH;
+  const float* scg = part_sc + gh * NX * RT * span;
+  cta_partial(sm.wk, st, part_ml + (gh * NX + x) * RT * 2, part_acc + (gh * NX + x) * RT * DH);
 
-  // p_slc[j] = sum_n (sum_g p[g][n]) * overlap(n, j) / cmp_block over the
-  // few cmp blocks that overlap selection block j
-  for (int j = tid; j < NSB; j += NT) {
-    const int lo_tok = j * sel_block, hi_tok = (j + 1) * sel_block;
-    const int first = lo_tok - cmp_block + 1;
-    const int n_lo = first <= 0 ? 0 : (first + cmp_stride - 1) / cmp_stride;
-    const int n_hi = min(nvis - 1, (hi_tok - 1) / cmp_stride);
-    float acc = 0.f;
+  // ---- chunk-local selection scores of the rows with l > 0: each warp
+  // takes rows warp, warp + 4, ... and its lanes the (row, selection block
+  // j0 + jj) pairs of those rows; a pair sums exp(s - m) * ov / cmp_block
+  // over the few visible blocks that overlap the selection block
+  const int lane = tid & 31, warp = tid >> 5;
+  const int j0 = lo * cmp_stride / sel_block;           // the chunk's first selection block
+  const float inv_cmp = 1.f / (float)cmp_block;
+  const int nrw = (R - warp + NW - 1) / NW;             // rows of this warp
+  for (int i = lane; i < nrw * span; i += 32) {
+    const int r = warp + NW * (i / span), jj = i % span;
+    if (!(sm.wk.cl[r] > 0.f)) continue;
+    const int lo_tok = (j0 + jj) * sel_block, hi_tok = lo_tok + sel_block;
+    const int first = lo_tok - cmp_block + 1;           // blocks n with n * stride >= first
+    const int n_lo = max(lo, first <= 0 ? 0 : (first + cmp_stride - 1) / cmp_stride);
+    const int n_hi = min(hi - 1, (hi_tok - 1) / cmp_stride);
+    const float m = sm.wk.cm[r];
+    float a = 0.f;
     for (int n = n_lo; n <= n_hi; ++n) {
       const int ov = min(n * cmp_stride + cmp_block, hi_tok) - max(n * cmp_stride, lo_tok);
-      if (ov <= 0) continue;
-      float P = 0.f;
-      for (int g = 0; g < Gq; ++g) P += sp[(size_t)g * NCB + n];
-      acc += P * ((float)ov / (float)cmp_block);
+      if (ov > 0 && visible(n, r)) a += __expf(sm.sl[r][n - lo] - m) * ((float)ov * inv_cmp);
     }
-    p_slc[(((size_t)b * T + t) * Hkv + h) * NSB + j] = acc;
+    part_sc[((gh * NX + x) * RT + r) * span + jj] = a;
+  }
+  if (!last_of(tickets + gh, NX, &sm.last)) return;
+
+  // ---- the last CTA. The chunks' scores go through shared memory (the
+  // logit buffer, now free) in stages [xs, xb) of as many chunks as fit;
+  // the first stage's cp.async copies overlap the merge of o_cmp.
+  float* stg = &sm.sl[0][0];                         // [chunk][RT][span]
+  const int cap = (KMAX + 4) / span;                 // chunks per stage
+  auto j0_of = [&](int xx) { return xx * keys * cmp_stride / sel_block; };
+  auto stage = [&](int xs, int xb) {
+    const float* src = scg + (size_t)xs * RT * span;
+    for (int i = tid * 4; i < (xb - xs) * RT * span; i += NT * 4) cp16(stg + i, src + i, src);
+    cp_commit();
+  };
+  int xa = 0, xs = 0, xb = min(NX, cap);
+  stage(xs, xb);
+
+  // scale of chunk x's partial for row r, exp(m - M) / L over the chunks
+  // with l > 0 (0 for the others and when none has l > 0), a thread per
+  // row, chunks in order
+  float* sc = sm.wk.scratch();                       // [NX][RT]: m, then the scale
+  float* xl = sc + NX * RT;                          // [NX][RT]: l
+  for (int i = tid; i < NX * RT; i += NT) {
+    sc[i] = __ldcg(mlg + 2 * i);
+    xl[i] = __ldcg(mlg + 2 * i + 1);
+  }
+  __syncthreads();
+  if (tid < RT) {
+    float M = NEG, L = 0.f;
+    for (int xx = 0; xx < NX; ++xx)
+      if (xl[xx * RT + tid] > 0.f) M = fmaxf(M, sc[xx * RT + tid]);
+    for (int xx = 0; xx < NX; ++xx)
+      if (xl[xx * RT + tid] > 0.f) L += xl[xx * RT + tid] * expf(sc[xx * RT + tid] - M);
+    for (int xx = 0; xx < NX; ++xx) {
+      const int i = xx * RT + tid;
+      sc[i] = xl[i] > 0.f ? expf(sc[i] - M) / L : 0.f;
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < R * DH / 4; i += NT) {
+    const int r = i / (DH / 4), d = (i % (DH / 4)) * 4;
+    if (!real(r)) continue;
+    const float4 a = merge_acc(sc, r, accg + (size_t)r * DH + d, (size_t)RT * DH, 0, NX);
+    *reinterpret_cast<float4*>(o + (((size_t)b * T + query(r)) * Hq + h * Gq + r % Gq) * DH + d) = a;
+  }
+  // p_slc[t][j]: the chunks whose span holds j (chunk x's starts at
+  // x * keys * stride / sel_block) in order, then the Gq rows of query t in
+  // order. A stage writes the j below chunk xb's first selection block,
+  // from chunk xa's on, and holds the chunks before xa that those j need.
+  // Scores of a row whose scale is 0 are never read (may be unwritten).
+  const int nq = min(Q, T - gi * Q);
+  for (;;) {
+    cp_wait_all();
+    __syncthreads();
+    const int ja = j0_of(xa), jb = xb == NX ? NSB : min(NSB, j0_of(xb));
+    for (int i = tid; i < nq * max(jb - ja, 0); i += NT) {
+      const int c = i / (jb - ja), j = ja + i % (jb - ja);
+      float a = 0.f;
+      for (int xx = xs; xx < xb; ++xx) {
+        const int jj = j - j0_of(xx);
+        if (jj < 0 || jj >= span) continue;
+        for (int g = 0; g < Gq; ++g) {
+          const int r = c * Gq + g;
+          const float sr = sc[xx * RT + r];
+          if (sr != 0.f) a += sr * stg[((xx - xs) * RT + r) * span + jj];
+        }
+      }
+      p_slc[(((size_t)b * T + gi * Q + c) * Hkv + h) * NSB + j] = a;
+    }
+    if (xb == NX) break;
+    __syncthreads();
+    xa = xb;
+    while (xs < xa && j0_of(xa) - j0_of(xs) >= span) ++xs;   // the first chunk j0_of(xa) needs
+    xb = min(NX, xs + cap);
+    stage(xs, xb);
   }
 }
 
 template <typename KV, int DH>
-int launch(const void* q, const void* kc, const void* vc, const void* pos,
-           const void* ncb_valid, void* o, void* p_slc, int B, int T, int Hkv,
-           int Gq, int NCB, int NSB, int cmp_block, int cmp_stride,
-           int sel_block, cudaStream_t stream) {
-  const size_t smem = (size_t)Gq * (NCB + DH) * sizeof(float);
-  if (smem > 48 * 1024) {
+int launch(const void* const* p, const int* n, cudaStream_t stream) {
+  // n: B, T, Hkv, Gq, Q, G, NCB, NSB, cmp_block, cmp_stride, sel_block,
+  //    n_cmp, keys, span
+  const int T = n[1], Gq = n[3], Q = n[4], G = n[5], NX = n[11], keys = n[12];
+  const int cmp_block = n[8], cmp_stride = n[9], sel_block = n[10];
+  if (Gq < 1 || Gq > GQ_MAX || Q < 1 || Q * Gq > RT || G * Q < T || (G - 1) * Q >= T ||
+      NX < 1 || NX > NXMAX || 2 * NX * RT > Walk<KV, DH>::SCRATCH || keys < UK ||
+      keys > KMAX || keys % UK || cmp_block < 1 || cmp_stride < 1 || sel_block < 1 ||
+      n[13] < ((keys - 1) * cmp_stride + cmp_block + sel_block - 2) / sel_block + 1)
+    return (int)cudaErrorInvalidValue;
+  // every stage of the p_slc merge holds the chunks one selection block needs
+  const int span = n[13], cap = (KMAX + 4) / span;
+  auto j0_of = [&](int x) { return x * keys * cmp_stride / sel_block; };
+  for (int xa = 1, xs = 0; xa < NX; ++xa) {
+    while (j0_of(xa) - j0_of(xs) >= span) ++xs;
+    if (xa - xs >= cap) return (int)cudaErrorInvalidValue;
+  }
+  const size_t smem = sizeof(Smem<KV, DH>);
+  static bool attr_set = false;
+  if (!attr_set) {
     const cudaError_t e = cudaFuncSetAttribute(
         routing_kernel<KV, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
+    attr_set = true;
   }
-  dim3 grid(T, Hkv, B);
+  dim3 grid(G * NX, n[2], n[0]);
   routing_kernel<KV, DH><<<grid, NT, smem, stream>>>(
-      (const float*)q, (const KV*)kc, (const KV*)vc, (const int*)pos,
-      (const int*)ncb_valid, (float*)o, (float*)p_slc, T, Hkv, Gq, NCB, NSB,
-      cmp_block, cmp_stride, sel_block);
+      (const float*)p[0], (const KV*)p[1], (const KV*)p[2], (const int*)p[3],
+      (const int*)p[4], (float*)p[5], (float*)p[6], (float*)p[7], (float*)p[8],
+      (float*)p[9], (int*)p[10], T, n[2], Gq, Q, G, n[6], n[7], cmp_block, cmp_stride,
+      sel_block, NX, keys, span);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-#define ROUTING_ARGS q, kc, vc, pos, ncb_valid, o, p_slc, B, T, Hkv, Gq, NCB, \
-    NSB, cmp_block, cmp_stride, sel_block, s
-
-// kv_dtype: 0 = float32, 1 = bfloat16. DH: 64 or 128. Returns the
-// cudaError_t of the launch.
-extern "C" int routing_launch(const void* q, const void* kc, const void* vc,
-                              const void* pos, const void* ncb_valid, void* o,
-                              void* p_slc, int B, int T, int Hkv, int Gq,
-                              int NCB, int NSB, int cmp_block, int cmp_stride,
-                              int sel_block, int kv_dtype, int DH, void* stream) {
-  if (Gq < 1 || Gq > GQ_MAX) return (int)cudaErrorInvalidValue;
+// ptrs: q, k_cmp, v_cmp, positions, ncb_valid, o_cmp, p_slc, part_ml,
+//       part_acc, part_sc, tickets                          (11 pointers)
+// ints: B, T, Hkv, Gq, Q, G, NCB, NSB, cmp_block, cmp_stride, sel_block,
+//       n_cmp, keys, span  (14 ints; Q, G and the last three are the plan,
+//       ops.py:routing_plan)
+// kv_dtype: 0 = float32, 1 = bfloat16. DH: 64 or 128. Tickets are zero
+// before the first call. Returns the cudaError_t of the launch.
+extern "C" int routing_launch(const void* const* ptrs, const int* ints, int kv_dtype, int DH,
+                              void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (kv_dtype == 0 && DH == 64) return launch<float, 64>(ROUTING_ARGS);
-  if (kv_dtype == 0 && DH == 128) return launch<float, 128>(ROUTING_ARGS);
-  if (kv_dtype == 1 && DH == 64) return launch<__nv_bfloat16, 64>(ROUTING_ARGS);
-  if (kv_dtype == 1 && DH == 128) return launch<__nv_bfloat16, 128>(ROUTING_ARGS);
+  if (kv_dtype == 0 && DH == 64) return launch<float, 64>(ptrs, ints, s);
+  if (kv_dtype == 0 && DH == 128) return launch<float, 128>(ptrs, ints, s);
+  if (kv_dtype == 1 && DH == 64) return launch<__nv_bfloat16, 64>(ptrs, ints, s);
+  if (kv_dtype == 1 && DH == 128) return launch<__nv_bfloat16, 128>(ptrs, ints, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// Dynamic shared memory of one CTA of the instance (kv_dtype, DH), or -1.
+extern "C" int routing_smem_bytes(int kv_dtype, int DH) {
+  if (kv_dtype == 0 && DH == 64) return (int)sizeof(Smem<float, 64>);
+  if (kv_dtype == 0 && DH == 128) return (int)sizeof(Smem<float, 128>);
+  if (kv_dtype == 1 && DH == 64) return (int)sizeof(Smem<__nv_bfloat16, 64>);
+  if (kv_dtype == 1 && DH == 128) return (int)sizeof(Smem<__nv_bfloat16, 128>);
+  return -1;
 }

@@ -34,7 +34,8 @@ def _lib():
 
 def _ticket_buffer(n: int, dev, stream: int) -> torch.Tensor:
     """At least ``n`` merge tickets for the kernels of one stream (flash's
-    per (row, kv head, row tile), nsa_verify's per (row, group, kv head)):
+    per (row, kv head, row tile), nsa_verify's per (row, group, kv head),
+    routing's per (row, query group, kv head)):
     zeroed once, and each call's last CTA resets its tickets. Calls on one
     stream run one after another, so each finds its tickets at 0; calls on
     two streams get two buffers."""

@@ -13,19 +13,46 @@ import torch
 
 from repro_torch.config import NSAConfig
 from repro_torch.kernels import LaunchCounter, build, per_row
+from repro_torch.kernels.flash import ops as flash_ops
 from repro_torch.kernels.routing import ref
 from repro_torch.models.nsa import num_sel_blocks, overlap_tensor
 
 LAUNCHES = LaunchCounter("routing")
 HEAD_DIMS = (64, 128)
 MAX_GQ = 8
+ROWS_PER_CTA = 16           # RT in the kernel: query rows per CTA
+KEYS_PER_CHUNK = 128        # cmp blocks per CTA while the cache is short
+MAX_KEYS = 512              # KMAX in the kernel (its logit buffer)
+SPLITS = 8                  # chunks per work list up to NCB = SPLITS * MAX_KEYS
+MAX_CHUNKS = 64             # NXMAX in the kernel
+
+
+def query_groups(T: int, Gq: int):
+    """(Q, G): a CTA holds Q consecutive tree queries x the Gq query heads
+    of one kv head (at most ``ROWS_PER_CTA`` rows); G groups cover T."""
+    Q = min(ROWS_PER_CTA // Gq, T)
+    return Q, -(-T // Q)
+
+
+def routing_plan(NCB: int, nsa: NSAConfig):
+    """The kernel's split of one (row, query group, kv head) cmp list across
+    CTAs, from shapes only: (n_cmp, keys, span). Chunks of ``keys`` blocks
+    (``KEYS_PER_CHUNK``, grown in units of 16 up to ``MAX_KEYS`` so that a
+    long list keeps at most ``SPLITS`` chunks); ``span`` bounds the
+    selection blocks one chunk overlaps (its chunk-local scores). A list
+    has at least one chunk, possibly empty."""
+    keys = min(MAX_KEYS, max(KEYS_PER_CHUNK, 16 * -(-NCB // (16 * SPLITS))))
+    n_cmp = max(1, -(-NCB // keys))
+    span = ((keys - 1) * nsa.cmp_stride + nsa.cmp_block + nsa.sel_block - 2) \
+        // nsa.sel_block + 1
+    return n_cmp, keys, span
 
 
 def _lib():
-    lib = build.library("routing")
-    fn = lib.routing_launch
-    if fn.restype is not ctypes.c_int or fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+    fn = build.library("routing").routing_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -49,7 +76,10 @@ def routing_fused(q, k_cmp, v_cmp, positions, ncb_valid, nsa: NSAConfig,
 
 
 def launch(q, k_cmp, v_cmp, positions, ncb_valid, nsa: NSAConfig, NSB: int):
-    """Launch the CUDA kernel (CUDA tensors only)."""
+    """Launch the CUDA kernel (CUDA tensors only). The CTAs of one (row,
+    query group, kv head) merge their partials through a ticket that each
+    call leaves at 0, in the buffer per device and stream that the flash
+    and nsa_verify kernels use (calls on one stream never overlap)."""
     B, T, Hq, Dh = q.shape
     NCB, Hkv = k_cmp.shape[1], k_cmp.shape[2]
     dev = q.device
@@ -68,17 +98,35 @@ def launch(q, k_cmp, v_cmp, positions, ncb_valid, nsa: NSAConfig, NSB: int):
             raise ValueError(f"{name} is on {t.device}, q on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    for name, t in (("k_cmp", k_cmp), ("v_cmp", v_cmp)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (16-byte K/V loads)")
+    if NCB * Hkv * Dh >= 2 ** 31:
+        raise ValueError("a row of k_cmp must hold fewer than 2^31 elements (32-bit offsets)")
     if tuple(positions.shape) != (B, T):
         raise ValueError("positions must be (B, T)")
+    Gq = Hq // Hkv
+    Q, G = query_groups(T, Gq)
+    n_cmp, keys, span = routing_plan(NCB, nsa)
+    if n_cmp > MAX_CHUNKS:
+        raise ValueError(f"routing kernel splits a cmp list into at most {MAX_CHUNKS} "
+                         f"chunks, {NCB} blocks need {n_cmp}")
     pos = positions.to(device=dev, dtype=torch.int32).contiguous()
     nv = per_row(ncb_valid, B, dev)
     o = torch.empty((B, T, Hq, Dh), dtype=torch.float32, device=dev)
     p_slc = torch.empty((B, T, Hkv, NSB), dtype=torch.float32, device=dev)
-    err = _lib()(q.data_ptr(), k_cmp.data_ptr(), v_cmp.data_ptr(),
-                 pos.data_ptr(), nv.data_ptr(), o.data_ptr(), p_slc.data_ptr(),
-                 B, T, Hkv, Hq // Hkv, NCB, NSB, nsa.cmp_block, nsa.cmp_stride,
-                 nsa.sel_block, 0 if k_cmp.dtype == torch.float32 else 1, Dh,
-                 torch.cuda.current_stream(dev).cuda_stream)
+    slabs = B * G * Hkv * n_cmp * ROWS_PER_CTA
+    part_ml = torch.empty(slabs * 2, dtype=torch.float32, device=dev)
+    part_acc = torch.empty(slabs * Dh, dtype=torch.float32, device=dev)
+    part_sc = torch.empty(slabs * span, dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    tickets = flash_ops._ticket_buffer(B * G * Hkv, dev, stream)
+    ptrs = [t.data_ptr() for t in (q, k_cmp, v_cmp, pos, nv, o, p_slc, part_ml, part_acc,
+                                   part_sc, tickets)]
+    ints = [B, T, Hkv, Gq, Q, G, NCB, NSB, nsa.cmp_block, nsa.cmp_stride, nsa.sel_block,
+            n_cmp, keys, span]
+    err = _lib()((ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_int * len(ints))(*ints),
+                 0 if k_cmp.dtype == torch.float32 else 1, Dh, stream)
     if err != 0:
         raise RuntimeError(f"routing kernel launch failed: cudaError {err}")
     LAUNCHES.add()

@@ -3,7 +3,10 @@ against its plain PyTorch version on the same CUDA tensors, with float32
 and bfloat16 K/V (rtol=2e-4, atol=2e-5 for both), at small shapes and head
 dims 64 and 128, plus the launch counters: routing, nsa_verify (full,
 partial, and the vanilla single-branch launches, with the vanilla layer
-against the fused layer's plain path), and flash tree-verify (up to 124
+against the fused layer's plain path; routing across chunks, head groups
+and tree sizes, rows bitwise independent of B, rows without cmp blocks
+giving zeros, Top-n indices equal to the plain version's), and flash
+tree-verify (up to 124
 query rows, window 0 and 16, and on two streams at once); the wrappers
 reject head dims other than 64 and 128 and K/V that are not 16-byte
 aligned; the paged mode of nsa_verify (a shuffled pool with holes inside
@@ -239,6 +242,11 @@ def test_wrappers_reject_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="aligned"):
         fops.flash_verify(x["q"], k_off, x["v_cache"], x["k_draft"], x["v_draft"],
                           x["pos"], x["plen"], x["tree"])
+    buf = torch.empty(x["k_cmp"].numel() + 1, device=cuda)
+    kc_off = buf[1:].view(x["k_cmp"].shape)
+    kc_off.copy_(x["k_cmp"])
+    with pytest.raises(ValueError, match="aligned"):
+        rops.routing_fused(x["q"], kc_off, x["v_cmp"], x["pos"], x["ncb_valid"], NSA, 256)
 
 
 def _paged_inputs(dev, dtype, Dh, page_mult, hole, seed=0):
@@ -510,3 +518,80 @@ def test_flash_kernel_window_and_mid_split_prefix(cuda, Dh, Hq, window):
     torch.cuda.synchronize()
     assert torch.equal(got, again)
     _close(got, want, torch.bfloat16)
+
+
+def _routing_pair(x, nsa, kv_len, nv=None):
+    """(kernel, plain) routing outputs on the same CUDA tensors."""
+    nv = x["ncb_valid"] if nv is None else nv
+    got = rops.routing_fused(x["q"], x["k_cmp"], x["v_cmp"], x["pos"], nv, nsa, kv_len)
+    M = nsa_lib.overlap_tensor(x["k_cmp"].shape[1], nsa_lib.num_sel_blocks(kv_len, nsa), nsa,
+                               x["q"].device)
+    want = rref.ref_routing(x["q"], x["k_cmp"], x["v_cmp"], M, x["pos"], nv,
+                            cmp_block=nsa.cmp_block, cmp_stride=nsa.cmp_stride)
+    return got, want
+
+
+def _same_topn(p, want, x, nsa):
+    for a, b in zip(nsa_lib.select_topn(p, x["pos"], x["plen"], nsa),
+                    nsa_lib.select_topn(want, x["pos"], x["plen"], nsa)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Dh", [64, 128])
+def test_routing_kernel_rows_do_not_depend_on_batch(cuda, Dh):
+    """Three rows of mixed lengths at the full width's head counts and NSA
+    geometry (an 8192-token cache: four chunks of 128 cmp blocks, the last
+    row at max_context - T): each row bitwise equal to its own B=1 launch,
+    two launches bitwise equal, the rows against the plain version with
+    the same Top-n indices (bf16)."""
+    S = 8192
+    x = _full_inputs(cuda, torch.bfloat16, Dh, (4096, 700, S - 31), S, seed=Dh)
+    (o, p), (o_r, p_r) = _routing_pair(x, FULL_NSA, S)
+    again = rops.routing_fused(x["q"], x["k_cmp"], x["v_cmp"], x["pos"], x["ncb_valid"],
+                               FULL_NSA, S)
+    single = [rops.routing_fused(x["q"][b:b + 1], x["k_cmp"][b:b + 1], x["v_cmp"][b:b + 1],
+                                 x["pos"][b:b + 1], x["ncb_valid"][b:b + 1], FULL_NSA, S)
+              for b in range(3)]
+    torch.cuda.synchronize()
+    assert torch.equal(o, again[0]) and torch.equal(p, again[1])
+    for b in range(3):
+        assert torch.equal(o[b:b + 1], single[b][0]) and torch.equal(p[b:b + 1], single[b][1])
+    _close(o, o_r, torch.bfloat16)
+    _close(p, p_r, torch.bfloat16)
+    _same_topn(p, p_r, x, FULL_NSA)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_routing_kernel_rows_without_cmp_blocks_give_zeros(cuda, dtype):
+    """Beside a row that sees cmp blocks, a row whose ncb_valid is 0 and a
+    row whose prefix is shorter than one cmp block give zeros in o_cmp and
+    p_slc."""
+    x = _full_inputs(cuda, dtype, 64, (1000, 1000, 10), 2048, seed=3)
+    nv = x["ncb_valid"].clone()
+    nv[1] = 0
+    (o, p), (o_r, p_r) = _routing_pair(x, FULL_NSA, 2048, nv)
+    torch.cuda.synchronize()
+    assert bool((o[1:] == 0).all()) and bool((p[1:] == 0).all())
+    assert bool((o[0] != 0).any())
+    _close(o, o_r, dtype)
+    _close(p, p_r, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Gq", [1, 2, 3, 8])
+@pytest.mark.parametrize("T", [1, 7, 31])
+def test_routing_kernel_head_groups_and_tree_sizes(cuda, Gq, T):
+    """Gq 1, 2, 3 and 8 query heads per kv head (16, 8, 5 and 2 queries per
+    CTA; at Gq 3 one of the 16 rows is padding) and T 1, 7 and 31 (the
+    last group padded), over four chunks of 128 cmp blocks (the small NSA
+    geometry over a 2048-token cache), f32 and bf16 K/V: against the plain
+    version, with the same Top-n indices."""
+    for dtype in (torch.float32, torch.bfloat16):
+        x = _inputs(cuda, dtype, T=T, Hq=2 * Gq, Hkv=2, S=2048, prefix=1800, seed=Gq + T)
+        (o, p), (o_r, p_r) = _routing_pair(x, NSA, 2048)
+        torch.cuda.synchronize()
+        _close(o, o_r, dtype)
+        _close(p, p_r, dtype)
+        _same_topn(p, p_r, x, NSA)

@@ -1,5 +1,6 @@
-"""The arithmetic of the Hopper nsa_verify and flash_verify kernels, emulated
-in plain torch on the CPU and held against their plain versions.
+"""The arithmetic of the Hopper nsa_verify, flash_verify and routing
+kernels, emulated in plain torch on the CPU and held against their plain
+versions.
 
 The kernels take f32 q and bf16 K/V and run both products on bf16 tensor
 cores: q and the probabilities P are split into two bf16 terms (hi =
@@ -7,7 +8,9 @@ bf16(x), lo = bf16(x - hi)), each product is two bf16 x bf16 -> f32
 products, K and V are exact in bf16. Each CTA walks its chunk of the work
 list in units of 16 keys dealt to four warps in turn, each warp with its
 own online softmax; the warps merge in order into the CTA's partial, and
-the partials merge in chunk order (``ops.split_plan``).
+the partials merge in chunk order (``ops.split_plan``; routing:
+``ops.routing_plan``, with the chunk-local selection scores rescaled by
+the same merge scales as o_cmp).
 The emulation below repeats exactly that, at the full-width head dims and
 head counts, with inputs drawn as ``chip_smoke.py``'s ``verify_inputs``
 draws them.
@@ -26,6 +29,7 @@ from repro_torch.config import NSAConfig
 from repro_torch.core.tree import build_topology
 from repro_torch.kernels.flash import ops as fops, ref as fref
 from repro_torch.kernels.nsa_verify import ops as vops, ref as vref
+from repro_torch.kernels.routing import ops as rops, ref as rref
 from repro_torch.models import nsa as nsa_lib
 
 NSA = NSAConfig(cmp_block=32, cmp_stride=16, sel_block=64, n_selected=16, window=512)
@@ -39,10 +43,12 @@ def _split(x):
     return hi, (x - hi).to(torch.bfloat16).float()
 
 
-def _walk(q, k, v, mask):
+def _walk(q, k, v, mask, logits=None):
     """One CTA: q (P,R,Dh) f32; k, v (P,N,Dh) bf16-valued; mask (P,R,N),
     N a multiple of 16. Units of 16 keys go to warp u % 4; each warp keeps
-    an online softmax; the warps merge in order. Returns (m, l, acc)."""
+    an online softmax; the warps merge in order. Returns (m, l, acc); each
+    unit's raw logits (P,R,16), before the mask, go to the list
+    ``logits`` when one is given (routing's hook)."""
     P, R, Dh = q.shape
     q_hi, q_lo = _split(q)
     m = torch.full((NW, P, R), NEG)
@@ -51,7 +57,10 @@ def _walk(q, k, v, mask):
     for u in range(k.shape[1] // UK):
         w, ks = u % NW, slice(u * UK, (u + 1) * UK)
         kt = k[:, ks].transpose(1, 2)
-        s = (q_hi @ kt + q_lo @ kt).masked_fill(~mask[:, :, ks], -math.inf)
+        s = q_hi @ kt + q_lo @ kt
+        if logits is not None:
+            logits.append(s)
+        s = s.masked_fill(~mask[:, :, ks], -math.inf)
         m_new = torch.maximum(m[w], s.amax(-1))
         p = torch.where(mask[:, :, ks], torch.exp(s - m_new[..., None]), torch.zeros(()))
         alpha = torch.exp(m[w] - m_new)
@@ -65,15 +74,22 @@ def _walk(q, k, v, mask):
     return M, (l * e).sum(0), (acc * e[..., None]).sum(0)
 
 
-def _merge(parts):
-    """The last CTA's merge of partials [(m, l, acc)] in chunk order; rows
-    that saw no key give 0."""
+def _scales(parts):
+    """The last CTA's scale of each partial [(m, l, acc)] per row,
+    exp(m - M) / L over the partials with l > 0 (0 for the others and for
+    rows that saw no key): (X, P, R)."""
     m = torch.stack([p[0] for p in parts])
     l = torch.stack([p[1] for p in parts])
     live = l > 0
     M = torch.where(live, m, torch.full((), NEG)).amax(0)
     L = (l * torch.where(live, torch.exp(m - M), torch.zeros(()))).sum(0)
-    sc = torch.where(live & (L > 0), torch.exp(m - M) / L.clamp_min(1e-30), torch.zeros(()))
+    return torch.where(live & (L > 0), torch.exp(m - M) / L.clamp_min(1e-30), torch.zeros(()))
+
+
+def _merge(parts):
+    """The last CTA's merge of partials [(m, l, acc)] in chunk order; rows
+    that saw no key give 0."""
+    sc = _scales(parts)
     out = torch.zeros_like(parts[0][2])
     for i, p in enumerate(parts):
         out = out + sc[i][..., None] * p[2]
@@ -334,3 +350,111 @@ def test_split_plan_covers_the_work_list_once(M, NCB, W, T, sel_block, include_c
     # a computed branch has a chunk even when its list is empty
     for br, computed in ((0, include_cmp), (1, branch != "win"), (2, branch != "slc")):
         assert any(b == br for b, _ in chunks) == computed
+
+
+def _emulate_routing(q, k_cmp, v_cmp, pos, ncb_valid, kv_len):
+    """The routing kernel's arithmetic: per (row, query group, kv head) a
+    CTA of Q queries x Gq heads (``rops.query_groups``) walks each chunk of
+    ``rops.routing_plan`` with the hook keeping its raw logits; the chunk's
+    scores sum_n exp(s - m) ov(n, j) / cmp_block of its visible blocks
+    cover ``span`` selection blocks from its first; the last CTA scales
+    o_cmp's partials and each chunk's scores by exp(m_x - M) / L, sums
+    chunks, then the Gq rows of each query."""
+    B, T, Hq, Dh = q.shape
+    NCB, Hkv = k_cmp.shape[1], k_cmp.shape[2]
+    Gq, RT = Hq // Hkv, rops.ROWS_PER_CTA
+    Q, G = rops.query_groups(T, Gq)
+    n_cmp, keys, span = rops.routing_plan(NCB, NSA)
+    NSB = nsa_lib.num_sel_blocks(kv_len, NSA)
+    ov = nsa_lib.overlap_tensor(n_cmp * keys, NSB, NSA, "cpu")   # (blocks, NSB)
+    P = B * G * Hkv
+    r = torch.arange(RT)
+    t = torch.arange(G)[:, None] * Q + r // Gq                     # (G, RT) query of row r
+    real = (r < Q * Gq) & (t < T)
+    tc = t.clamp(max=T - 1)
+    head = torch.arange(Hkv)[:, None] * Gq + r % Gq                 # (Hkv, RT)
+    qr = q[:, tc[None, :, :], head[:, None, :]]                     # (B, Hkv, G, RT, Dh)
+    qr = (qr.permute(0, 2, 1, 3, 4) * real[None, :, None, :, None]).reshape(P, RT, Dh)
+    rpos = pos.long()[:, tc].reshape(B, G, 1, RT).expand(B, G, Hkv, RT).reshape(P, RT)
+    rreal = real[None, :, None].expand(B, G, Hkv, RT).reshape(P, RT)
+    nv = ncb_valid.reshape(-1).long().expand(B)[:, None, None].expand(B, G, Hkv)
+    nv = nv.reshape(P)[:, None, None]
+    kk = k_cmp.permute(0, 2, 1, 3)[:, None].expand(B, G, Hkv, NCB, Dh).reshape(P, NCB, Dh)
+    vv = v_cmp.permute(0, 2, 1, 3)[:, None].expand(B, G, Hkv, NCB, Dh).reshape(P, NCB, Dh)
+    parts, scores = [], []
+    for x in range(n_cmp):
+        n = torch.arange(x * keys, min(x * keys + keys, NCB))
+        mask = ((n < nv) & (n * NSA.cmp_stride + NSA.cmp_block - 1 <= rpos[..., None]) &
+                rreal[..., None])
+        units = []
+        part = _walk(qr, *_pad(kk[:, n].float(), vv[:, n].float(), mask), logits=units)
+        s = torch.cat(units, 2)[:, :, :len(n)]
+        live = part[1] > 0
+        e = torch.where(mask & live[..., None], torch.exp(s - part[0][..., None]),
+                        torch.zeros(()))
+        sc = e @ ov[n]                                              # (P, RT, NSB)
+        j0 = x * keys * NSA.cmp_stride // NSA.sel_block
+        outside = torch.ones(NSB, dtype=torch.bool)
+        outside[j0:j0 + span] = False
+        assert not sc[..., outside].any()                           # span covers the chunk
+        parts.append(part)
+        scores.append(sc)
+    scale = _scales(parts)                                          # (n_cmp, P, RT)
+    o = sum(scale[i][..., None] * parts[i][2] for i in range(n_cmp))
+    p_row = sum(scale[i][..., None] * scores[i] for i in range(n_cmp))
+    o = o.reshape(B, G, Hkv, RT, Dh)[:, :, :, :Q * Gq].reshape(B, G, Hkv, Q, Gq, Dh)
+    o = o.permute(0, 1, 3, 2, 4, 5).reshape(B, G * Q, Hq, Dh)[:, :T]
+    p = p_row.reshape(B, G, Hkv, RT, NSB)[:, :, :, :Q * Gq].reshape(B, G, Hkv, Q, Gq, NSB)
+    p = p.sum(4).permute(0, 1, 3, 2, 4).reshape(B, G * Q, Hkv, NSB)[:, :T]
+    return o, p
+
+
+@pytest.mark.parametrize("Dh", [64, 128])
+@pytest.mark.parametrize("prefixes", [(4096,), (4096, 3001)])
+def test_routing_arithmetic_matches_plain(Dh, prefixes):
+    """The emulated routing kernel (16-row CTAs of 4 queries x 4 heads,
+    bf16 hi/lo tensor-core dots, 16-block units dealt to 4 warps, the
+    chunk-order merge, scores rescaled by the merge scales) against
+    ref_routing at full width (Hq 32, Hkv 8, T 31, an 8192-token cache),
+    per-row ncb_valid; Top-n picks the same blocks from both."""
+    x = _verify_inputs(Dh, prefixes, 8192, seed=Dh + len(prefixes))
+    k_cmp = torch.cat([x["k_cmp"], x["k_cmp"][:, :1]], 1)          # padded to 512 blocks
+    v_cmp = torch.cat([x["v_cmp"], x["v_cmp"][:, :1]], 1)
+    nv = x["ncb_valid"].reshape(-1)
+    got_o, got_p = _emulate_routing(x["q"], k_cmp, v_cmp, x["pos"], nv, 8192)
+    M = nsa_lib.overlap_tensor(k_cmp.shape[1], nsa_lib.num_sel_blocks(8192, NSA), NSA, "cpu")
+    want_o, want_p = rref.ref_routing(x["q"], k_cmp, v_cmp, M, x["pos"], nv,
+                                      cmp_block=NSA.cmp_block, cmp_stride=NSA.cmp_stride)
+    torch.testing.assert_close(got_o, want_o, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(got_p, want_p, rtol=RTOL, atol=ATOL)
+    for a, b in zip(nsa_lib.select_topn(got_p, x["pos"], x["plen"], NSA),
+                    nsa_lib.select_topn(want_p, x["pos"], x["plen"], NSA)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("NCB", [1, 8, 100, 512, 4096, 32768])
+def test_routing_plan_covers_the_cmp_list_once(NCB):
+    """The chunks of ``routing_plan`` cover the cmp blocks once, within the
+    kernel's limits (16-block units, at most MAX_KEYS blocks and
+    MAX_CHUNKS chunks), and ``span`` holds every selection block a chunk
+    overlaps; query groups hold at most 16 rows and cover T once. At
+    max_context 65536 (4096 blocks) the scratch of B=4 rows stays below
+    nsa_verify's part_acc (exact C=2, full fusion) at the same shapes."""
+    n_cmp, keys, span = rops.routing_plan(NCB, NSA)
+    assert keys % 16 == 0 and 16 <= keys <= rops.MAX_KEYS and n_cmp <= rops.MAX_CHUNKS
+    chunks = [range(x * keys, min(x * keys + keys, NCB)) for x in range(n_cmp)]
+    assert [n for c in chunks for n in c] == list(range(NCB))
+    for x, c in enumerate(chunks):
+        if len(c):
+            j0 = x * keys * NSA.cmp_stride // NSA.sel_block
+            j1 = ((c[-1]) * NSA.cmp_stride + NSA.cmp_block - 1) // NSA.sel_block
+            assert j1 - j0 + 1 <= span
+    for Gq in range(1, 9):
+        for T in (1, 7, 31):
+            Q, G = rops.query_groups(T, Gq)
+            assert Q * Gq <= rops.ROWS_PER_CTA and (G - 1) * Q < T <= G * Q
+    if NCB == 4096:
+        G_r = rops.query_groups(31, 4)[1]
+        routing = G_r * n_cmp * 16 * (2 + 64 + span)
+        nx = sum(vops.split_plan(32, NCB, 512, NSA.sel_block, True, "all", 8)[:3])
+        assert routing <= 16 * nx * 16 * 64
