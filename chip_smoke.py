@@ -35,15 +35,29 @@ Phases (every phase always runs; any failure exits non-zero):
      and on the paged store (paged tokens must equal dense tokens), launch
      counters checked (``nsa_verify_paged`` on paged runs), a profile at 1,
      2 and 4 slots on each store (one device-to-host copy per step); then
-     full-width ``ssv-nsa-8b`` on the paged store at 2 slots;
+     bucketed serving of ``ssv-nsa-1b`` to 4 slots (6 requests of 1025 and
+     4097 tokens, Poisson arrivals, a hand-built two-bucket profile:
+     D6/k10/budget 128 (T = 129) below 2048 tokens, D4/k2 above, Strict)
+     with ``warmup`` capturing one CUDA graph per (strategy, group size)
+     (2 x 3), on the dense and the paged store: no capture during the
+     serve, launch counters exact under replay, paged tokens == dense
+     tokens; and a profile of one group step at g = 1 and 4, eager against
+     graph replay (wall, device busy, idle share, launches, host copies);
+     then full-width ``ssv-nsa-8b`` on the paged store at 2 slots;
   5. float32 equalities on full-depth ``ssv-nsa-1b``: Strict SSV equals
      autoregressive decoding; batched ``generate_batch`` (3 rows) equals
      per-request ``SSVEngine.generate``; the paged single stream equals the
-     dense one; and Strict == AR on ``ssv-nsa-8b`` cut to 4 layers;
+     dense one; bucketed ``serve_continuous`` with captured group steps (3
+     rows of the two lengths) equals each row's ``SSVEngine.generate``
+     under its bucket's strategy, and graph replay equals the eager
+     ``step_group`` bitwise; and Strict == AR on ``ssv-nsa-8b`` cut to 4
+     layers;
   6. the dense-verification baseline: the ``attention="dense"`` replacement
      of ``ssv-nsa-1b`` as the target, every verify through flash;
   7. the serve CLI (``python -m repro_torch.launch.serve``) for both archs,
-     and batched-paged and continuous runs of ``ssv-nsa-1b``;
+     and batched-paged, continuous and bucketed (``--continuous --bucketed
+     --profile-json --warmup``, a profile this script writes) runs of
+     ``ssv-nsa-1b``;
   8. kernel times (profiler device time and CUDA events) beside the
      pre-redesign kernels' (before the Hopper redesign, commit 787ff43;
      routing's code was the same until commit f780c1a), the plain
@@ -618,6 +632,12 @@ def main(argv=None) -> int:
         free()
         batched[cfgs[Dh].name] = serve_batched(cfgs[Dh], Dh, weights, ctx,
                                                **(dict() if Dh == 64 else BATCHED_8B))
+        if Dh == 64:
+            free()
+            batched[cfgs[Dh].name]["bucketed"] = serve_bucketed(cfgs[Dh], Dh, weights, ctx)
+            free()
+            batched[cfgs[Dh].name]["group_step_profile"] = profile_group_steps(
+                cfgs[Dh], weights, ctx)
         del weights
         free()
 
@@ -638,6 +658,11 @@ def main(argv=None) -> int:
               "batch[0:2]: 16 tokens")
     serve_cli(cfgs[64].name, ["--prompts", "3", "--batch", "2", "--continuous",
                               "--arrival-rate", "0.5"], "continuous over 2 slots: 24 tokens")
+    cli_profile = out_dir / "bucket_profile.json"
+    cli_profile.write_text(cli_bucket_profile().to_json())
+    serve_cli(cfgs[64].name, ["--prompts", "3", "--batch", "2", "--continuous", "--bucketed",
+                              "--profile-json", str(cli_profile), "--warmup"],
+              ("continuous over 2 slots: 24 tokens", "bucketed: ", "/ 4 misses"))
 
     idle = [k for k, n in ctx["launches"].items() if n == 0]
     if idle:
@@ -819,14 +844,23 @@ def load_weights(cfg, seed):
     return tp, dcfg, dp
 
 
+def draft_passes(ssv):
+    """Draft verify passes per step: one per level of the built tree plus
+    the final pass (a node budget can leave the tree shallower than
+    tree_depth: D6/k10/budget 128 has 3 levels)."""
+    from repro_torch.core.tree import build_topology
+    topo = build_topology(ssv.tree_depth, ssv.tree_width, ssv.traversal, ssv.tree_budget)
+    return int(topo.depths.max()) + 1
+
+
 def expected_launches(cfg, dcfg, ssv, steps, paged=False):
     """Launches per counted serving path: one per NSA layer and step
     (routing + partial fusion on refresh layers, full fusion on reuse
     layers; every one of them ``nsa_verify_paged`` on the paged store), 2
-    draft layers x (depth + 1) passes of flash per step."""
+    draft layers x (tree levels + 1) passes of flash per step."""
     refresh = cfg.num_layers - len([i for i in ssv.refresh_schedule if 0 < i < cfg.num_layers])
     want = {"routing": refresh * steps,
-            "flash_verify": dcfg.num_layers * (ssv.tree_depth + 1) * steps}
+            "flash_verify": dcfg.num_layers * draft_passes(ssv) * steps}
     if paged:
         want["nsa_verify_paged"] = cfg.num_layers * steps
     else:
@@ -956,6 +990,223 @@ def serve_batched(cfg, Dh, weights, ctx, slots=4, n_req=6, classes=("Strict", "A
                 f"{prof['kv_cache_bytes']}, peak memory {prof['peak_gib']:.2f} GiB")
         del eng
         free()
+    return out
+
+
+# Phase 4, bucketed: two context buckets of ssv-nsa-1b under Strict. Bucket
+# 0 runs the JAX candidate D6/k10/budget 128 (T = 129, 3 levels), bucket 1 the D4/k2
+# tree; prompts of 1025 and 4097 tokens keep both buckets live.
+BUCKETS = ((0, 2048), (2048, 8192))
+BUCKET_LENS = (1025, 4097)
+
+
+def bucket_profile(cfg):
+    """The hand-built two-bucket profile (a ``planner.Profile``). Expected
+    acceptance 0 keeps each bucket's guard at rank 0, so a bucket's
+    strategy is fixed. Not ``candidate_strategies`` whole: its largest
+    trees (5,461 nodes for D6/k4) need a step headroom beyond max_context
+    8192."""
+    from repro_torch.config import SSVConfig
+    from repro_torch.core import planner as planner_lib
+    short = next(s for s in planner_lib.candidate_strategies("Strict", cfg.num_layers)
+                 if (s.tree_depth, s.tree_width, s.tree_budget, s.traversal) == (6, 10, 128, "bfs"))
+    long_ = SSVConfig(tree_depth=4, tree_width=2, group_size=2, group_mode="exact",
+                      precision_class="Strict")
+    return planner_lib.Profile(
+        table={(0, "Strict"): [planner_lib.ProfileEntry(short, 0.0, 0.01)],
+               (1, "Strict"): [planner_lib.ProfileEntry(long_, 0.0, 0.01)]},
+        buckets=BUCKETS)
+
+
+def cli_bucket_profile():
+    """The serve CLI's profile for phase 7: its mixed prompts of 24, 48 and
+    96 tokens fall in two buckets (D3/k2 below 40 tokens, D4/k2 above)."""
+    from repro_torch.config import SSVConfig
+    from repro_torch.core import planner as planner_lib
+    entry = lambda d: [planner_lib.ProfileEntry(SSVConfig(tree_depth=d, tree_width=2), 0.0, 0.01)]
+    return planner_lib.Profile(table={(0, "Strict"): entry(3), (1, "Strict"): entry(4)},
+                               buckets=((0, 40), (40, 2048)))
+
+
+def bucket_strategy(profile, prompt):
+    from repro_torch.core import planner as planner_lib
+    return profile.table[(planner_lib.bucket_of(len(prompt), profile.buckets), "Strict")][0].strategy
+
+
+def bucket_engine(cfg, weights, profile, backend="dense", graphs=True, max_new=16):
+    from repro_torch.config import ServeConfig
+    from repro_torch.core import engine as engine_lib, planner as planner_lib
+    tp, dcfg, dp = weights
+    return engine_lib.BatchedSSVEngine(tp, cfg, dp, dcfg, ServeConfig(
+        max_new_tokens=max_new, temperature=0.0, max_context=8192,
+        ssv=profile.table[(1, "Strict")][0].strategy, use_planner=False, kv_backend=backend),
+        planner=planner_lib.BatchPlanner(profile), device=DEV, cuda_graphs=graphs)
+
+
+def serve_bucketed(cfg, Dh, weights, ctx, slots=4, n_req=6):
+    """Phase 4, bucketed: ``warmup`` captures |strategies| x |group sizes|
+    graphs; then ``serve_continuous(warmup=True)`` of ``n_req`` requests
+    (Poisson arrivals, 0.5 per step) as a counted path: every group step a
+    graph replay, no capture during the serve, the counters exact under
+    replay (each graph's launches per replay equal one eager step's, and
+    the totals equal the replays' sums); paged tokens == dense tokens."""
+    from repro_torch.core import schedule
+    tp, dcfg, dp = weights
+    profile = bucket_profile(cfg)
+    prompts = [ctx["corpus"].batch(200 + i, 1, BUCKET_LENS[i % 2])[0] % cfg.vocab_size
+               for i in range(n_req)]
+    arrivals = schedule.poisson_arrivals(n_req, 0.5, seed=1)
+    tag = f"[4 bucketed {cfg.name}]"
+    out, tokens = {}, {}
+    for backend in ("dense", "paged"):
+        paged = backend == "paged"
+        eng = bucket_engine(cfg, weights, profile, backend)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        built = eng.warmup(num_slots=slots)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        entries = list(eng.step_cache._exe.values())
+        want = len(eng.planner.reachable_strategies()) * len(eng._padded_group_sizes())
+        captured = sum(e.graph is not None for e in entries)
+        if built != want or captured != want:
+            fail(f"{tag} {backend}: warmup built {built} entries, {captured} graphs; "
+                 f"expected {want}")
+        for e in entries:
+            per = {k: v for k, v in expected_launches(cfg, dcfg, e.ssv, 1, paged).items() if v}
+            got = {c.name: n for c, n in e.counts.items()}
+            if got != per:
+                fail(f"{tag} {backend}: graph {e.ssv.tree_depth}/{e.ssv.tree_width} g={e.g} "
+                     f"replays {got} launches, one eager step makes {per}")
+            e.runs = 0
+        misses = eng.step_cache.misses
+        reqs = [schedule.Request(req_id=i, prompt=p, arrival=float(a))
+                for i, (p, a) in enumerate(zip(prompts, arrivals))]
+        name = f"{cfg.name} {backend} bucketed serve_continuous {n_req} req x{slots} slots"
+
+        def replay_counts(res):
+            want = {}
+            for e in entries:
+                for k, v in expected_launches(cfg, dcfg, e.ssv, e.runs, paged).items():
+                    want[k] = want.get(k, 0) + v
+            return want
+
+        res = counted_path(ctx, name, Dh, lambda: eng.serve_continuous(
+            reqs, num_slots=slots, max_new_tokens=16, warmup=True), replay_counts)
+        if eng.step_cache.misses != misses:
+            fail(f"{tag} {backend}: {eng.step_cache.misses - misses} group steps were "
+                 "built during the serve")
+        if res.group_launches != sum(e.runs for e in entries):
+            fail(f"{tag} {backend}: {res.group_launches} group launches, "
+                 f"{sum(e.runs for e in entries)} replays")
+        for r in res.results:
+            if len(r.tokens) != 16 or not all(0 <= t < cfg.vocab_size for t in r.tokens):
+                fail(f"{name}: bad tokens {r.tokens}")
+        if set(res.bucket_occupancy) != {0, 1}:
+            fail(f"{name}: bucket occupancy {res.bucket_occupancy}, expected both buckets live")
+        tokens[backend] = [r.tokens.tolist() for r in res.results]
+        rec = dict(warmup_s=warm_s, graphs=captured, tokens=res.total_tokens, steps=res.steps,
+                   group_launches=res.group_launches, wall_s=res.wall_s,
+                   tok_s=res.aggregate_throughput, occupancy=res.mean_occupancy,
+                   bucket_occupancy=res.bucket_occupancy, kernel_cache=res.kernel_cache,
+                   replays={f"D{e.ssv.tree_depth}/k{e.ssv.tree_width} g={e.g}": e.runs
+                            for e in entries},
+                   peak_page_occupancy=res.peak_page_occupancy, kv_bytes=res.kv_bytes,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        out[backend] = rec
+        log(f"{tag} {backend} ({ctx['card']}): warmup captured {captured} graphs in "
+            f"{warm_s:.2f}s; {rec['tokens']} tokens in {rec['steps']} rounds, "
+            f"{rec['group_launches']} group steps (replays {rec['replays']}), "
+            f"{rec['tok_s']:.2f} tok/s, bucket occupancy "
+            f"{ {b: round(v, 3) for b, v in res.bucket_occupancy.items()} }, step cache "
+            f"{res.kernel_cache['step_cache_hits']} hits / "
+            f"{res.kernel_cache['step_cache_misses']} misses, peak memory "
+            f"{rec['peak_gib']:.2f} GiB")
+        del eng, entries
+        free()
+    if tokens["paged"] != tokens["dense"]:
+        fail(f"{tag}: paged tokens differ from dense tokens")
+    log(f"{tag} paged tokens == dense tokens ({n_req} requests)")
+    return out
+
+
+def step_profile(fn, n):
+    """n calls of ``fn`` after one: host wall per call, then under the
+    profiler device busy time, device kernels, host launch calls and
+    host<->device copies per call."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    busy = kernels = htod = dtoh = host_launches = 0
+    for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA:
+            busy += (getattr(ev, "self_device_time_total", 0.0) or
+                     getattr(ev, "self_cuda_time_total", 0.0)) / 1e3
+            kernels += 0 if is_copy(ev.key) else ev.count
+            htod += ev.count if "HtoD" in ev.key else 0
+            dtoh += ev.count if "DtoH" in ev.key else 0
+        elif ev.key in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                        "cudaGraphLaunch"):
+            host_launches += ev.count
+    busy /= n
+    return {"step_wall_ms": wall_ms, "device_busy_ms": busy, "idle_share": 1 - busy / wall_ms,
+            "device_kernels_per_step": kernels / n, "host_launch_calls_per_step": host_launches / n,
+            "htod_per_step": htod / n, "dtoh_per_step": dtoh / n}
+
+
+def profile_group_steps(cfg, weights, ctx, slots=4, n=3):
+    """Phase 4 profile: one group step of the D4/k2 bucket (4097-token
+    prompts, dense store, Strict) at g = 1 and g = 4, eager ``step_group``
+    against graph replay on the same admitted state; whether the first
+    step's tokens and caches are bitwise equal (bf16) is reported. These
+    are records, not claims."""
+    from repro_torch.core import engine as engine_lib
+    profile = bucket_profile(cfg)
+    ssv = profile.table[(1, "Strict")][0].strategy
+    prompts = [ctx["corpus"].batch(300 + i, 1, 4097)[0] % cfg.vocab_size for i in range(slots)]
+    engs = {mode: bucket_engine(cfg, weights, profile, graphs=mode == "graph")
+            for mode in ("eager", "graph")}
+    engs["graph"].warmup(num_slots=slots, strategies=[ssv])
+    for eng in engs.values():
+        eng.start_empty(slots)       # the graph engine keeps its graphs
+        for s, p in enumerate(prompts):
+            eng.admit(s, p, max_new_tokens=64)
+    out = {}
+    for g in (1, slots):
+        # both engines make the same steps, so they stay in one state
+        rows = list(range(g))
+        first = {}
+        for mode, eng in engs.items():
+            toks, n_acc = eng.step_group(rows, ssv)
+            torch.cuda.synchronize()
+            first[mode] = ((toks.tolist(), n_acc.tolist()),
+                           [t.clone() for c in (eng.t_caches, eng.d_caches)
+                            for t in engine_lib._row_leaves(c, False)])
+            out[f"{mode} g={g}"] = step_profile(lambda: eng.step_group(rows, ssv), n)
+        bitwise = first["eager"][0] == first["graph"][0] and all(
+            torch.equal(a, b) for a, b in zip(first["eager"][1], first["graph"][1]))
+        out[f"bitwise g={g}"] = bitwise
+        for mode in ("eager", "graph"):
+            p = out[f"{mode} g={g}"]
+            log(f"[4 group-step profile {cfg.name} D4/k2 g={g} {mode}] ({ctx['card']}): step "
+                f"{p['step_wall_ms']:.2f} ms wall, device busy {p['device_busy_ms']:.2f} ms, "
+                f"idle share {p['idle_share']:.3f}, {p['device_kernels_per_step']:.0f} device "
+                f"kernels/step, {p['host_launch_calls_per_step']:.0f} host launch calls/step, "
+                f"{p['htod_per_step']:.0f} HtoD + {p['dtoh_per_step']:.0f} DtoH copies/step")
+        log(f"[4 group-step profile {cfg.name} g={g}] bf16 graph replay vs eager step_group "
+            f"(first step, tokens and caches): {'bitwise equal' if bitwise else 'NOT bitwise equal'}")
+        del first
+    del engs
+    free()
     return out
 
 
@@ -1104,6 +1355,54 @@ def f32_equalities(cfg, ctx, n_tok=16, rows=3):
         f"{'equal' if paged == single[0] else 'DIFFERENT'}")
     if paged != single[0]:
         fail(f"{cfg.name}: paged single-stream tokens differ from dense")
+    bucketed_f32(cfg32, (tp, dcfg32, dp), ctx, n_tok)
+
+
+def bucketed_f32(cfg32, weights, ctx, n_tok, slots=3):
+    """Phase 5, bucketed: ``serve_continuous`` with ``warmup=True`` (one
+    CUDA graph per strategy and group size) over 3 rows of the two bucket
+    lengths equals each row's ``SSVEngine.generate`` under its bucket's
+    strategy; then graph replay against the eager ``step_group`` on the
+    same admitted rows (g = 1, 2 and 3, both strategies): bitwise equal
+    tokens and caches."""
+    from repro_torch.config import ServeConfig
+    from repro_torch.core import engine as engine_lib
+    tp, dcfg32, dp = weights
+    profile = bucket_profile(cfg32)
+    prompts = [ctx["corpus"].batch(400 + i, 1, BUCKET_LENS[i % 2])[0] % cfg32.vocab_size
+               for i in range(slots)]
+    single = [engine_lib.SSVEngine(tp, cfg32, dp, dcfg32, ServeConfig(
+        max_new_tokens=n_tok, temperature=0.0, max_context=8192,
+        ssv=bucket_strategy(profile, p), use_planner=False), device=DEV)
+        .generate(p, n_tok).tokens.tolist() for p in prompts]
+    eng = bucket_engine(cfg32, weights, profile, max_new=n_tok)
+    res = eng.serve_continuous(prompts, num_slots=slots, max_new_tokens=n_tok, warmup=True)
+    got = [r.tokens.tolist() for r in res.results]
+    tag = f"[5 bucketed==single f32 {cfg32.name}]"
+    log(f"{tag} {slots} rows x {n_tok} tokens ({res.group_launches} group steps, "
+        f"{res.kernel_cache['step_cache_misses']} graphs captured by warmup): "
+        f"{'equal' if got == single else 'DIFFERENT'}")
+    if got != single:
+        fail(f"{cfg32.name}: bucketed tokens {got} differ from single-stream tokens {single}")
+    eager = bucket_engine(cfg32, weights, profile, graphs=False, max_new=n_tok)
+    strategies = [profile.table[(b, "Strict")][0].strategy for b in (0, 1)]
+    script = [([0], 0), ([0, 2], 1), ([1], 0), ([0, 1, 2], 1), ([2, 0], 0), ([0, 1, 2], 0)]
+    runs = []
+    for e in (eng, eager):
+        e.start_empty(slots)
+        for i, p in enumerate(prompts):
+            e.admit(i, p, max_new_tokens=n_tok)
+        steps = [[x.tolist() for x in e.step_group(rows, strategies[k])] for rows, k in script]
+        torch.cuda.synchronize()
+        runs.append((steps, [t.clone() for c in (e.t_caches, e.d_caches)
+                             for t in engine_lib._row_leaves(c, False)]))
+    if eng.step_cache.misses != res.kernel_cache["step_cache_misses"]:
+        fail(f"{tag}: a graph was captured after warmup")
+    bitwise = runs[0][0] == runs[1][0] and all(torch.equal(a, b) for a, b in zip(*[r[1] for r in runs]))
+    log(f"[5 graph==eager f32 {cfg32.name}] {len(script)} group steps at g = 1, 2, 3 under both "
+        f"strategies: {'bitwise equal' if bitwise else 'NOT bitwise equal'}")
+    if not bitwise:
+        fail(f"{cfg32.name}: graph replay differs from the eager step_group in float32")
 
 
 def dense_baseline(cfg, ctx):
@@ -1124,7 +1423,7 @@ def dense_baseline(cfg, ctx):
         max_new_tokens=16, temperature=0.0, max_context=8192, ssv=ssv,
         use_planner=False), device=DEV)
     torch.cuda.reset_peak_memory_stats()
-    passes = ssv.tree_depth + 1
+    passes = draft_passes(ssv)
     res = counted_path(ctx, f"{cfg.name} dense-verification target", 64,
                        lambda: generate_all(eng, prompts, dense, "dense"),
                        lambda r: {"flash_verify": (dense.num_layers + dcfg.num_layers * passes)
@@ -1145,7 +1444,8 @@ def serve_cli(arch, flags=("--prompts", "1"), expect="prompt 0: 8 tokens"):
     tag = f"[7 serve {arch} {' '.join(flags)}]"
     for line in (cli.stdout + cli.stderr).strip().splitlines()[-5:]:
         log(f"{tag} {line}")
-    if cli.returncode != 0 or expect not in cli.stdout:
+    expect = (expect,) if isinstance(expect, str) else expect
+    if cli.returncode != 0 or not all(e in cli.stdout for e in expect):
         fail(f"serve CLI --arch {arch} {' '.join(flags)} exited {cli.returncode}")
     log(f"{tag} {time.time() - t0:.1f}s")
 

@@ -15,23 +15,54 @@ A wrapper given CUDA tensors launches its kernel (or raises); given CPU
 tensors it runs the plain version. Sources live in ``repro_torch/csrc``
 and are built by ``kernels.build``.
 """
+from typing import Dict, List
+
 import torch
 
 
 class LaunchCounter:
     """Counts a kernel's launches; the wrapper adds one where it launches
     the kernel and nowhere else, so a run can show that its main path went
-    through the kernel."""
+    through the kernel.
+
+    A CUDA graph replays its launches without calling the wrappers, so the
+    engine that captures one takes the counts its capture added
+    (``snapshot`` before, ``since`` after), restores them (a capture
+    launches nothing) and adds them again on every replay (``add_counts``).
+    """
+
+    registry: List["LaunchCounter"] = []
 
     def __init__(self, name: str):
         self.name = name
         self.count = 0
+        LaunchCounter.registry.append(self)
 
-    def add(self) -> None:
-        self.count += 1
+    def add(self, n: int = 1) -> None:
+        self.count += n
 
     def reset(self) -> None:
         self.count = 0
+
+    @classmethod
+    def snapshot(cls) -> Dict["LaunchCounter", int]:
+        return {c: c.count for c in cls.registry}
+
+    @classmethod
+    def since(cls, snap: Dict["LaunchCounter", int]) -> Dict["LaunchCounter", int]:
+        """Counts added since ``snap`` (counters made later count from 0)."""
+        return {c: c.count - snap.get(c, 0) for c in cls.registry
+                if c.count != snap.get(c, 0)}
+
+    @classmethod
+    def restore(cls, snap: Dict["LaunchCounter", int]) -> None:
+        for c in cls.registry:
+            c.count = snap.get(c, 0)
+
+    @staticmethod
+    def add_counts(counts: Dict["LaunchCounter", int]) -> None:
+        for c, n in counts.items():
+            c.add(n)
 
 
 def per_row(x, B: int, device) -> torch.Tensor:

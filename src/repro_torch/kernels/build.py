@@ -18,7 +18,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -79,11 +79,25 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     return {name: _paths(name)[2].read_text() for name in names}
 
 
+_hits = _misses = 0
+
+
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if needed."""
+    """The loaded library of kernel ``name``, built first if needed. Every
+    launch looks its library up here: a hit is a launch that found its
+    kernel loaded, a miss one that had to build or load it."""
+    global _hits, _misses
     lib = _loaded.get(name)
     if lib is None:
+        _misses += 1
         build_all([name])
         lib = ctypes.CDLL(str(_paths(name)[1]))
         _loaded[name] = lib
+    else:
+        _hits += 1
     return lib
+
+
+def library_cache_info() -> Tuple[int, int, int]:
+    """(hits, misses, libraries loaded) of ``library`` in this process."""
+    return _hits, _misses, len(_loaded)

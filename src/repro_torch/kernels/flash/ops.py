@@ -9,7 +9,7 @@ two on the card and no fallback.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -22,6 +22,9 @@ ROWS_PER_CTA = 16           # RT in the kernel
 KEYS_PER_SPLIT = 512        # cache keys per CTA (KS in the kernel)
 
 _tickets: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+# buffers that a larger request replaced: a captured CUDA graph may still
+# write to one, so none is ever freed
+_retired: List[torch.Tensor] = []
 
 
 def _lib():
@@ -38,10 +41,14 @@ def _ticket_buffer(n: int, dev, stream: int) -> torch.Tensor:
     routing's per (row, query group, kv head)):
     zeroed once, and each call's last CTA resets its tickets. Calls on one
     stream run one after another, so each finds its tickets at 0; calls on
-    two streams get two buffers."""
+    two streams get two buffers. A buffer that grows is replaced, and the
+    old one is kept alive (``_retired``): a CUDA graph captured with it
+    goes on using it, after each replay at 0 again."""
     key = (dev, stream)
     t = _tickets.get(key)
     if t is None or t.numel() < n:
+        if t is not None:
+            _retired.append(t)
         t = _tickets[key] = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
     return t
 

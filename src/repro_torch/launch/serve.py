@@ -12,13 +12,20 @@ store, optionally against the autoregressive baseline.
       --prompts 3 --batch 2 --kv-backend paged
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
       --prompts 3 --batch 2 --continuous --arrival-rate 0.5
+  PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
+      --prompts 6 --batch 2 --continuous --bucketed --profile-json profile.json --warmup
 
 The flags are the JAX CLI's (``repro.launch.serve``) plus ``--device``
 (default ``cuda``). Weights are drawn from ``--seed`` with the JAX
 ``model.init`` distributions. ``--batch`` > 1 serves groups of prompts
 through ``BatchedSSVEngine.generate_batch``; ``--continuous`` serves every
-prompt over ``--batch`` slots with Poisson arrivals. ``--bucketed`` and
-``--warmup`` need the planner, which is not ported yet, and raise.
+prompt over ``--batch`` slots with Poisson arrivals. ``--bucketed`` serves a
+mixed-length workload (prompts of half, once and twice ``--prompt-len``)
+through bucket-local execution groups, each under the strategy that the
+offline profile (``--profile-json``, a ``planner.Profile`` written with
+``Profile.to_json`` by either package) ranks first for its context bucket;
+``--warmup`` builds every reachable (strategy, group size) group step —
+on the card, captures its CUDA graph — before serving.
 """
 from __future__ import annotations
 
@@ -55,9 +62,14 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=list(planner_lib.PRECISION_CLASSES))
     ap.add_argument("--tree-depth", type=int, default=4)
     ap.add_argument("--tree-width", type=int, default=2)
-    ap.add_argument("--bucketed", action="store_true")
-    ap.add_argument("--warmup", action="store_true")
-    ap.add_argument("--profile-json", default=None)
+    ap.add_argument("--bucketed", action="store_true",
+                    help="continuous mode: step context-bucket execution groups, "
+                         "each under its bucket's profile strategy (needs --profile-json)")
+    ap.add_argument("--warmup", action="store_true",
+                    help="build every reachable (strategy, group size) group step "
+                         "before serving (bucketed only)")
+    ap.add_argument("--profile-json", default=None,
+                    help="offline profile (planner.Profile JSON) backing --bucketed")
     ap.add_argument("--baseline", action="store_true",
                     help="also run the autoregressive decode baseline")
     ap.add_argument("--seed", type=int, default=0)
@@ -68,11 +80,16 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    unported = [flag for flag, on in (
-        ("--bucketed", args.bucketed), ("--warmup", args.warmup)) if on]
-    if unported:
-        raise NotImplementedError(f"{', '.join(unported)}: not ported yet "
-                                  "(needs the BatchPlanner)")
+    if args.bucketed:
+        if not args.continuous:
+            raise ValueError("--bucketed groups the continuous batch; add --continuous")
+        if not args.profile_json:
+            raise ValueError(
+                "--bucketed needs an offline profile to rank strategies per "
+                "context bucket: pass --profile-json <path> (a "
+                "planner.Profile serialized with Profile.to_json)")
+    if args.warmup and not args.bucketed:
+        raise ValueError("--warmup builds the bucketed group-step cache; add --bucketed")
     dev = resolve_device(args.device)
     cfg = cfglib.reduced(args.arch) if args.reduced else cfglib.get_config(args.arch)
     dcfg = draft_lib.draft_config(cfg)
@@ -92,16 +109,28 @@ def main(argv=None):
                             kv_page_size=args.kv_page_size,
                             kv_num_pages=args.kv_num_pages)
     corpus = SyntheticCorpus(SyntheticConfig(vocab_size=cfg.vocab_size))
-    prompts = [corpus.batch(i, 1, args.prompt_len)[0] for i in range(args.prompts)]
+    if args.bucketed:
+        # mixed-length workload: spread prompt lengths across the profile's
+        # context buckets so the planner forms several groups
+        lens = [max(8, args.prompt_len // 2), args.prompt_len, args.prompt_len * 2]
+        prompts = [corpus.batch(i, 1, lens[i % len(lens)])[0] for i in range(args.prompts)]
+    else:
+        prompts = [corpus.batch(i, 1, args.prompt_len)[0] for i in range(args.prompts)]
 
     if args.continuous:     # --batch is the slot count
-        eng = engine_lib.BatchedSSVEngine(tp, cfg, dp, dcfg, serve_cfg,
+        planner = None
+        if args.bucketed:
+            with open(args.profile_json) as f:
+                profile = planner_lib.Profile.from_json(f.read())
+            planner = planner_lib.BatchPlanner(profile, args.precision_class)
+        eng = engine_lib.BatchedSSVEngine(tp, cfg, dp, dcfg, serve_cfg, planner=planner,
                                           rng_seed=args.seed, device=dev)
         arrivals = schedule_lib.poisson_arrivals(len(prompts), args.arrival_rate,
                                                  seed=args.seed)
         reqs = [schedule_lib.Request(req_id=i, prompt=p, arrival=float(arrivals[i]))
                 for i, p in enumerate(prompts)]
-        res = eng.serve_continuous(reqs, num_slots=args.batch, max_new_tokens=args.tokens)
+        res = eng.serve_continuous(reqs, num_slots=args.batch, max_new_tokens=args.tokens,
+                                   warmup=args.warmup)
         for req, gen in zip(res.requests, res.results):
             print(f"prompt {req.req_id}: {len(gen.tokens)} tokens, "
                   f"arrival {req.arrival:.1f}, queue delay {req.queue_delay:.1f} steps")
@@ -112,6 +141,11 @@ def main(argv=None):
         print(f"kv store {args.kv_backend}: {res.kv_bytes} bytes of raw KV"
               + (f", peak page occupancy {res.peak_page_occupancy:.2f}"
                  if args.kv_backend == "paged" else ""))
+        if args.bucketed:
+            occ = ", ".join(f"bucket{b}={v:.2f}" for b, v in sorted(res.bucket_occupancy.items()))
+            print(f"bucketed: {res.group_launches} group launches ({occ}); "
+                  f"step cache {res.kernel_cache['step_cache_hits']} hits / "
+                  f"{res.kernel_cache['step_cache_misses']} misses")
         return
 
     if args.batch > 1:

@@ -23,7 +23,9 @@ def rmsnorm(params, x, eps: float = 1e-6):
 def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
     half = head_dim // 2
     exps = torch.arange(0, half, dtype=torch.float32, device=device) / half
-    return 1.0 / (torch.tensor(theta, dtype=torch.float32, device=device) ** exps)
+    # a Python-scalar base: no host-to-device copy, so a CUDA graph can
+    # capture the step that calls this (theta is rounded to float32 as before)
+    return 1.0 / torch.pow(float(theta), exps)
 
 
 def apply_rope(x, positions, theta: float = 10000.0):

@@ -211,8 +211,11 @@ def commit(params, cfg: ModelConfig, caches, updates, accepted, n_accepted):
     place at its own old length (the padded tail lands past its new length
     and is masked by it), compressed blocks the commit completes are added,
     and its length advances by n_accepted[b]. A row with n_accepted == 0 is
-    a no-op: its length stays frozen (batched serving freezes finished rows
-    this way), as in the JAX ``commit``.
+    a no-op that leaves every byte of its caches as it was: its length
+    stays frozen (batched serving freezes finished rows and steps rows
+    outside an execution group this way). The dense store writes such a
+    row's current K/V back in place of the path (at a start clamped into
+    the row, so a finished row near the end of its cache writes in range).
 
     Paged caches (``"pages"`` present): the K/V go into the row's pages
     through the page table, and a row with n_accepted == 0 writes nothing
@@ -221,25 +224,41 @@ def commit(params, cfg: ModelConfig, caches, updates, accepted, n_accepted):
     ``commit_paged_prepare`` + ``commit_apply_paged`` pair, which splits
     only because of ``vmap``; the compression update reads the written pool
     (see ``nsa.update_cmp_cache_dyn``). The dense caller keeps
-    ``length + T_acc <= max_len`` for every row (the engines check it from
-    their host-side lengths). Returns the caches dict with the new lengths."""
+    ``length + T_acc <= max_len`` for every committing row (the engines
+    check it from their host-side lengths).
+
+    Everything is written in place, the lengths too (``caches["length"]``
+    keeps its tensor), so a CUDA graph that captured the step goes on
+    reading the buffers the engine holds. Returns the caches dict."""
     old_len = caches["length"]
     pages = caches.get("pages")
     B, T_acc = accepted.shape
     new_len = (old_len + n_accepted.to(old_len.dtype)).to(torch.int32)
-    row_mask = n_accepted > 0 if pages is not None else None
+    live = n_accepted > 0
+    row_mask = live if pages is not None else None
     max_new_cmp = T_acc // cfg.nsa.cmp_stride + 2
+    start = old_len
+    if pages is None:
+        # the same (row, position) pairs in every layer
+        S = caches["layers"][0]["kv"]["k"].shape[1]
+        start = torch.where(live, old_len, old_len.clamp(max=S - T_acc))
+        rows = torch.arange(B, device=old_len.device)[:, None]
+        pos = start.long()[:, None] + torch.arange(T_acc, device=old_len.device)
+        keep = live[:, None, None, None]
     for bp, cache, up in zip(params["layers"], caches["layers"], updates):
         k_acc, v_acc = _gather_accepted(up, accepted)
         view = kvstore.as_view(cache["kv"], pages)
-        view.write(k_acc, v_acc, old_len, row_mask=row_mask)
+        if pages is None:
+            k_acc = torch.where(keep, k_acc.to(view.k.dtype), view.k[rows, pos])
+            v_acc = torch.where(keep, v_acc.to(view.v.dtype), view.v[rows, pos])
+        view.write(k_acc, v_acc, start, row_mask=row_mask)
         if "cmp" in cache:
             new_cmp = nsa_lib.update_cmp_cache_dyn(bp["mix"], view, cache["cmp"],
                                                    old_len, new_len, max_new_cmp,
                                                    cfg.nsa)
             cache["cmp"]["k_cmp"].copy_(new_cmp["k_cmp"])
             cache["cmp"]["v_cmp"].copy_(new_cmp["v_cmp"])
-    caches["length"] = new_len
+    caches["length"].copy_(new_len)
     return caches
 
 

@@ -150,13 +150,13 @@ def update_cmp_cache_dyn(params, cache, cmp_cache, old_len, new_len,
     NCB = cmp_cache["k_cmp"].shape[1]
     slot = j.clamp(0, NCB - 1)
     oh = torch.nn.functional.one_hot(slot.long(), NCB).float() * valid[..., None]
-    keep = (1 - oh.sum(1))[:, :, None, None]                          # (B|1, NCB, 1, 1)
-    k_cmp = cmp_cache["k_cmp"].float() * keep + torch.einsum("bnhd,bnc->bchd", k_new,
-                                                              oh.expand(B, -1, -1))
-    v_cmp = cmp_cache["v_cmp"].float() * keep + torch.einsum("bnhd,bnc->bchd", v_new,
-                                                              oh.expand(B, -1, -1))
-    return {"k_cmp": k_cmp.to(cmp_cache["k_cmp"].dtype),
-            "v_cmp": v_cmp.to(cmp_cache["v_cmp"].dtype)}
+    # a slot no new block lands in keeps its bytes exactly
+    written = (oh.sum(1) > 0)[:, :, None, None]                       # (B|1, NCB, 1, 1)
+    k_cmp = torch.where(written, torch.einsum("bnhd,bnc->bchd", k_new, oh.expand(B, -1, -1))
+                        .to(cmp_cache["k_cmp"].dtype), cmp_cache["k_cmp"])
+    v_cmp = torch.where(written, torch.einsum("bnhd,bnc->bchd", v_new, oh.expand(B, -1, -1))
+                        .to(cmp_cache["v_cmp"].dtype), cmp_cache["v_cmp"])
+    return {"k_cmp": k_cmp, "v_cmp": v_cmp}
 
 
 # ---------------------------------------------------------------- routing

@@ -6,7 +6,7 @@ window + n * sel_block): ``generate_batch`` under Strict and Approx+Reuse,
 admission times), a stochastic batched run drawing the same uniforms, and
 each row against the port's own single-stream ``SSVEngine``. Also: a
 completion mask freezes a row (length and cache bytes), and the modes that
-need the planner refuse. Tokens must be equal, not close."""
+need a planner refuse without one. Tokens must be equal, not close."""
 import dataclasses
 
 import jax
@@ -149,18 +149,19 @@ def test_completion_mask_freezes_rows(pair):
 
 
 def test_unported_modes_refuse(pair):
+    """The planner's modes refuse without their planner, with the JAX
+    engine's errors (bucketed serving and warmup need a BatchPlanner), and
+    a prompt past the headroom is refused."""
     jc, tc, jd, td, jtp, jdp, ttp, tdp, prompts = pair
     serve = ServeConfig(max_new_tokens=MAX_NEW, max_context=MAX_CTX, ssv=SSVConfig(**strategy()))
-    with pytest.raises(NotImplementedError, match="planner"):
-        engine.BatchedSSVEngine(ttp, tc, tdp, td, serve, planner=object(), device="cpu")
     te = engine.BatchedSSVEngine(ttp, tc, tdp, td, serve, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="BatchPlanner"):
         te.serve_continuous(prompts[:1], num_slots=1, bucketed=True)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        te.step_group([0], serve.ssv)
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="warmup"):
+        te.serve_continuous(prompts[:1], num_slots=1, warmup=True)
+    with pytest.raises(ValueError, match="BatchPlanner"):
         te.warmup()
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="bucket_of"):
         schedule.Scheduler(2, policy="bucket")
     with pytest.raises(ValueError, match="headroom"):
         te.generate_batch([np.arange(MAX_CTX - 4)], MAX_NEW)

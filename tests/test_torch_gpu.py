@@ -11,8 +11,11 @@ query rows, window 0 and 16, and on two streams at once); the wrappers
 reject head dims other than 64 and 128 and K/V that are not 16-byte
 aligned; the paged mode of nsa_verify (a shuffled pool with holes inside
 and outside the window, page size 1 and 2 x sel_block, bit-equal to the
-dense launch when every page is mapped) and batched paged serving against
-dense serving. Whether a card is present is decided in a fixture, so every worker
+dense launch when every page is mapped), batched paged serving against
+dense serving, and the bucketed group steps as captured CUDA graphs (replay
+bitwise equal to the eager group steps with the launch counters advancing
+alike, the merge-ticket buffers kept across captures, ``start_empty``
+keeping or dropping the graphs). Whether a card is present is decided in a fixture, so every worker
 collects the same tests; without a card they skip. Run them on
 the card with ``python -m pytest -m gpu tests/test_torch_gpu.py``."""
 import pytest
@@ -595,3 +598,140 @@ def test_routing_kernel_head_groups_and_tree_sizes(cuda, Gq, T):
         _close(o, o_r, dtype)
         _close(p, p_r, dtype)
         _same_topn(p, p_r, x, NSA)
+
+
+# ---- group steps as captured CUDA graphs (bucketed serving)
+def _graph_pair(cuda):
+    """A small NSA target (2 layers, 8 query / 2 kv heads of dim 64,
+    float32) and its 1-layer draft, random weights from a seed, prompts of
+    four lengths."""
+    from repro_torch.core import draft as draft_lib
+    cfg = ModelConfig(name="t", num_layers=2, d_model=512, num_heads=8, num_kv_heads=2,
+                      d_ff=256, vocab_size=97, dtype="float32", attention="nsa", nsa=NSA)
+    dcfg = draft_lib.draft_config(cfg, num_layers=1)
+    g = torch.Generator(cuda)
+    g.manual_seed(11)
+    tp, dp = init_params(cfg, g, cuda), init_params(dcfg, g, cuda)
+    prompts = [torch.randint(0, 97, (n,), generator=g, device=cuda).cpu().numpy()
+               for n in (150, 171, 133, 160)]
+    return cfg, dcfg, tp, dp, prompts
+
+
+GRAPH_SHAPES = (dict(tree_depth=2, tree_width=2), dict(tree_depth=3, tree_width=2, group_size=2))
+
+
+def _graph_engine(cuda, pair, backend, graphs, temperature=0.0):
+    from repro_torch.config import ServeConfig, SSVConfig
+    from repro_torch.core import engine as engine_lib
+    cfg, dcfg, tp, dp, _ = pair
+    return engine_lib.BatchedSSVEngine(tp, cfg, dp, dcfg, ServeConfig(
+        max_new_tokens=10, max_context=512, temperature=temperature,
+        ssv=SSVConfig(**GRAPH_SHAPES[0]), kv_backend=backend), device=cuda, cuda_graphs=graphs)
+
+
+def _drive_groups(eng, pair, script):
+    """Admit prompts 0-2 into 3 slots, then run ``script``: ("step", rows,
+    strategy index) or ("admit", slot, prompt index). Returns every step's
+    (tokens, n_accepted)."""
+    from repro_torch.config import SSVConfig
+    prompts = pair[-1]
+    eng.start_empty(3)
+    for s in range(3):
+        eng.admit(s, prompts[s], max_new_tokens=10)
+    out = []
+    for op, a, b in script:
+        if op == "admit":
+            eng.admit(a, prompts[b], max_new_tokens=10)
+        else:
+            toks, n = eng.step_group(a, SSVConfig(**GRAPH_SHAPES[b]))
+            out.append((toks.tolist(), n.tolist()))
+    return out
+
+
+# two keys interleaved, gathered groups of 1 and 2 and the direct group of
+# 3, a mid-flight admission (paged: new pages, so the page table changes)
+GRAPH_SCRIPT = [("step", [0], 0), ("step", [1, 2], 1), ("step", [0, 2], 0), ("step", [1], 1),
+                ("step", [0, 1, 2], 0), ("admit", 1, 3), ("step", [1], 0), ("step", [0, 1], 1),
+                ("step", [2, 1], 0), ("step", [0, 1, 2], 1)]
+
+
+def _cache_tensors(eng):
+    from repro_torch.core import engine as engine_lib
+    return [t for c in (eng.t_caches, eng.d_caches) for t in engine_lib._row_leaves(c, False)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("temperature", [0.0, 0.7])
+@pytest.mark.parametrize("backend", ["dense", "paged"])
+def test_graph_replay_equals_eager_group_steps(cuda, backend, temperature):
+    """Captured group steps (g = 1 and 2 gathered, g = 3 direct; two
+    strategies interleaved; a mid-flight admission with a page-table
+    change) against the eager group steps on the same weights, float32:
+    equal tokens and counts, bitwise equal caches, and the launch counters
+    advance by the same counts under replay as under the eager steps."""
+    from repro_torch.kernels import LaunchCounter
+    pair = _graph_pair(cuda)
+    runs, counts = {}, {}
+    for graphs in (True, False):
+        eng = _graph_engine(cuda, pair, backend, graphs, temperature)
+        if graphs:
+            from repro_torch.config import SSVConfig
+            eng.start_empty(3)
+            assert eng.warmup(strategies=[SSVConfig(**s) for s in GRAPH_SHAPES]) == 6
+            assert all(e.graph is not None for e in eng.step_cache._exe.values())
+        snap = LaunchCounter.snapshot()
+        runs[graphs] = _drive_groups(eng, pair, GRAPH_SCRIPT)
+        torch.cuda.synchronize()
+        counts[graphs] = {c.name: n for c, n in LaunchCounter.since(snap).items()}
+        runs[graphs].append([t.clone() for t in _cache_tensors(eng)])
+        if graphs:
+            assert eng.step_cache.misses == 6, "a graph was captured mid-run"
+    assert runs[True][:-1] == runs[False][:-1]
+    for a, b in zip(runs[True][-1], runs[False][-1]):
+        assert torch.equal(a, b)
+    assert counts[True] == counts[False] and counts[True].get("routing", 0) > 0
+    assert counts[True].get("flash_verify", 0) > 0
+
+
+@pytest.mark.gpu
+def test_ticket_buffer_outlives_captures(cuda):
+    """Warmup warms every key before the first capture, so no capture
+    replaces the merge-ticket buffer of the capture stream; when a later
+    request grows it, the replaced buffer stays alive and the graphs
+    captured with it still replay right."""
+    from repro_torch.config import SSVConfig
+    from repro_torch.kernels.flash import ops as fops
+    pair = _graph_pair(cuda)
+    eng = _graph_engine(cuda, pair, "dense", True)
+    eng.start_empty(3)
+    small = SSVConfig(**GRAPH_SHAPES[0])
+    entries = [eng._group_step(small, g, capture=False) for g in eng._padded_group_sizes()]
+    stream = eng._capture_stream().cuda_stream
+    key = next(k for k in fops._tickets if k[1] == stream)
+    buf = fops._tickets[key]
+    for e in entries:
+        e.capture()
+    assert fops._tickets[key] is buf
+    script = [("step", [0], 0), ("step", [0, 2], 0), ("step", [0, 1, 2], 0)]
+    want = _drive_groups(_graph_engine(cuda, pair, "dense", False), pair, script)
+    grown = fops._ticket_buffer(buf.numel() * 4, key[0], stream)
+    assert grown is not buf and any(t is buf for t in fops._retired)
+    assert _drive_groups(eng, pair, script) == want
+    assert int(buf.abs().sum()) == 0                  # every replay left its tickets at 0
+
+
+@pytest.mark.gpu
+def test_start_empty_keeps_graphs_at_the_same_slot_count(cuda):
+    """start_empty at the same slot count clears the caches in place and
+    the graphs replay right on them; another slot count drops the graphs."""
+    from repro_torch.config import SSVConfig
+    pair = _graph_pair(cuda)
+    eng = _graph_engine(cuda, pair, "paged", True)
+    eng.start_empty(3)
+    eng.warmup(strategies=[SSVConfig(**GRAPH_SHAPES[0])])
+    script = GRAPH_SCRIPT[:1] + GRAPH_SCRIPT[2:3] + GRAPH_SCRIPT[4:5]
+    first = _drive_groups(eng, pair, script)
+    second = _drive_groups(eng, pair, script)                    # start_empty(3) inside
+    assert eng.step_cache.misses == 3 and first == second
+    eng.start_empty(2)
+    assert eng.step_cache.size == 0 and eng._graph_pool is None

@@ -2,7 +2,7 @@
 nothing in ``chip_smoke.py`` imports JAX or the JAX package ``repro``
 (checked on the source, by AST). Also drives the port's serve CLI on the
 CPU (single stream; batched, continuous and paged serving) and checks that
-the modes that need the unported planner refuse clearly."""
+the bucketed flags refuse what the JAX CLI refuses."""
 import ast
 from pathlib import Path
 
@@ -49,6 +49,14 @@ def test_scan_covers_the_slice_3_modules():
         assert f"src/repro_torch/{rel}" in scanned
 
 
+def test_scan_covers_the_planner_modules():
+    """The planner, bucket admission and group-step modules are scanned."""
+    scanned = {str(p.relative_to(ROOT)) for p in _port_files()}
+    for rel in ("core/planner.py", "core/schedule.py", "core/engine.py", "kernels/__init__.py",
+                "kernels/build.py", "launch/serve.py"):
+        assert f"src/repro_torch/{rel}" in scanned
+
+
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_neither_jax_nor_repro(path):
     for mod in _imported_modules(path):
@@ -72,10 +80,14 @@ def test_serve_cli_on_cpu(capsys):
     assert "prompt 0: 4 tokens" in out and "AR baseline" in out
 
 
-@pytest.mark.parametrize("flags", [["--bucketed"], ["--warmup"],
-                                   ["--continuous", "--bucketed", "--warmup"]])
-def test_serve_cli_unported_modes_raise(flags):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+@pytest.mark.parametrize("flags,match", [
+    (["--bucketed"], "--continuous"), (["--warmup"], "--bucketed"),
+    (["--continuous", "--bucketed", "--warmup"], "--profile-json")])
+def test_serve_cli_unported_modes_raise(flags, match):
+    """The bucketed flags refuse what the JAX CLI refuses: --bucketed
+    outside continuous serving or without a profile, --warmup without
+    --bucketed."""
+    with pytest.raises(ValueError, match=match):
         serve.main(["--reduced", "--device", "cpu", *flags])
 
 

@@ -94,7 +94,7 @@ def test_transitions_and_arguments_are_checked():
         S.Scheduler(0)
     with pytest.raises(ValueError, match="pair"):
         S.Scheduler(1, pages_for=lambda r: 1)
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="bucket_of"):
         S.Scheduler(1, policy="bucket")
     with pytest.raises(ValueError, match="policy"):
         S.Scheduler(1, policy="lifo")
