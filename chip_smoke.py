@@ -66,7 +66,27 @@ Phases (every phase always runs; any failure exits non-zero):
      and, for flash, the
      library yardstick (``scaled_dot_product_attention``, timed only); the
      float32 K/V instances; vanilla layer against the fused layer;
-  9. the summary lines: a ``kernels`` JSON line (every kernel x head dim),
+  9. training (``repro_torch.runtime.trainer.Trainer``): full-width
+     ``ssv-nsa-1b`` (bf16, remat) and then its full-width draft train 3
+     steps each on 1 x 4096-token ``SyntheticCorpus`` batches (finite
+     losses and grad norms, every matrix moved; step ms, tokens/s, peak
+     GiB and the share of 989 TFLOP/s that the model FLOPs reach: 6 x
+     non-embedding params x tokens plus 3 x the attention forward FLOPs
+     the function needs, causal and sparse); the draft's train state round-trips bitwise
+     through an ``AsyncCheckpointer`` checkpoint; one reduced float32
+     train step on the card equals the CPU's (loss rtol 2e-4 / atol 2e-5,
+     every gradient leaf rtol 1e-3 / atol 1e-6); a restart after an
+     injected failure lands on the uninterrupted trajectory bitwise (under
+     ``torch.use_deterministic_algorithms``); a head-dim-64 target + draft
+     pair trained on the card until it accepts draft tokens, the three
+     kernels held against their plain versions at the pair's shapes
+     (prefix 1024, cache 2048, the target's 4 heads and the draft's 2),
+     then the pair served through them (f32: Strict == AR, and each
+     model's committed K/V rows, compressed blocks and next logits equal
+     a one-token-at-a-time ``decode_step``'s; bf16: Strict and
+     Approx+Reuse SSV with exact launch counts, and AR; mean accepted > 0);
+     the train CLI twice (train, then resume);
+ 10. the summary lines: a ``kernels`` JSON line (every kernel x head dim),
      the card line, and the ``{"ok": true, "device": ...}`` line last.
 
 ``--times-only`` stops after phases 1 and 8 (no ok line); with ``--src``
@@ -85,12 +105,18 @@ import dataclasses
 import gc
 import json
 import os
+import shutil
+import statistics
 import subprocess
 import sys
 import time
 from pathlib import Path
 
-import torch
+# cuBLAS reads this when it first makes a handle; phase 9's restart check
+# runs under torch.use_deterministic_algorithms, which requires it
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import torch  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent
 DEV = "cuda"
@@ -132,6 +158,7 @@ PRE_REDESIGN_KERNELS_PER_STEP = {
 # (rtol, atol). Both sides compute in float32 from the same values, so bf16
 # K/V are held to the float32 tolerance too.
 TOL = {"float32": (2e-4, 2e-5), "bfloat16": (2e-4, 2e-5)}
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 FLASH_CASES = [("1B draft", 8, 8, 64), ("8B draft", 8, 8, 128), ("1B dense target", 32, 8, 64)]
 
 
@@ -303,7 +330,7 @@ def run_routing(cfg, inp, plain: bool):
                               inp["ncb_valid"], nsa, kv_len=S)
 
 
-def check_routing(cfg, inp, dt_name, note):
+def check_routing(cfg, inp, dt_name, note, tag=""):
     """The routing kernel against its plain version on ``inp`` (one row or
     more): both outputs within TOL, the same Top-n indices, bitwise equal
     across two calls and, with more than one row, each row bitwise equal to
@@ -320,7 +347,7 @@ def check_routing(cfg, inp, dt_name, note):
     single = [run_routing(cfg, rows(b), plain=False) for b in range(B)] if B > 1 else []
     o_r, p_r = run_routing(cfg, inp, plain=True)
     torch.cuda.synchronize()
-    label = f"routing B={B} Dh {Dh}"
+    label = f"{tag}routing B={B} Dh {Dh}"
     note(check_close(f"{label} o_cmp", o_k, o_r, dt_name))
     note(check_close(f"{label} p_slc", p_k, p_r, dt_name))
     topn = [nsa_lib.select_topn(p, inp["positions"], inp["prefix_len"], cfg.nsa)
@@ -334,6 +361,29 @@ def check_routing(cfg, inp, dt_name, note):
             fail(f"{label} [{dt_name}]: row {b} differs from its B=1 launch")
     log(f"  {label} [{dt_name}]: Top-n indices equal the plain version's; bitwise equal "
         f"across two calls{' and to each row alone (B=1)' if single else ''}")
+
+
+def check_verify_cases(cfg, inp, dt_name, note, tag="", cases=VERIFY_CASES):
+    """nsa_verify's ``cases`` on ``inp`` against the plain version."""
+    Dh = cfg.head_dim
+    for label, C, mode, full, branch in cases:
+        args = verify_layouts(cfg, inp, C, mode)
+        oc = inp["o_cmp_in"] if (not full and branch == "all") else None
+        got = run_verify(cfg, args, full, oc, plain=False, branch=branch)
+        want = run_verify(cfg, args, full, oc, plain=True, branch=branch)
+        torch.cuda.synchronize()
+        note(f"{case_kernel(full, branch)}_dh{Dh}",
+             check_close(f"{tag}nsa_verify {label} Dh {Dh}", got, want, dt_name))
+
+
+def check_flash(label, Hq, Hkv, Dh, dt_name, note, seed, **shape):
+    """flash_verify against its plain version at (Hq, Hkv, Dh)."""
+    inp = flash_inputs(Hq, Hkv, Dh, DTYPES[dt_name], seed, **shape)
+    got = run_flash(inp, plain=False)
+    want = run_flash(inp, plain=True)
+    torch.cuda.synchronize()
+    note(f"flash_verify_dh{Dh}", check_close(
+        f"flash {label} (R={inp['q'].shape[1] * Hq // Hkv}, Dh {Dh})", got, want, dt_name))
 
 
 def flash_inputs(Hq, Hkv, Dh, kv_dtype, seed, prefix=4096, S=8192):
@@ -399,7 +449,7 @@ def layer_inputs(cfg, dtype_name, seed, prefix=4096, S=8192):
         positions, tree_mask
 
 
-def check_close(name, got, want, dtype_name):
+def check_close(name, got, want, dtype_name, against="its plain version"):
     rtol, atol = TOL[dtype_name]
     err = (got - want).abs()
     max_err = float(err.max())
@@ -407,7 +457,7 @@ def check_close(name, got, want, dtype_name):
     log(f"  {name} [{dtype_name}]: max_abs_err={max_err:.3e} "
         f"(rtol={rtol}, atol={atol}) {'ok' if ok else 'MISMATCH'}")
     if not ok:
-        fail(f"{name} [{dtype_name}] disagrees with its plain version")
+        fail(f"{name} [{dtype_name}] disagrees with {against}")
     return max_err
 
 
@@ -622,6 +672,7 @@ def main(argv=None) -> int:
 
     # ---- 2. kernels vs plain versions at full width
     max_err = check_kernels(cfgs, ctx)
+    ctx["note_err"] = lambda key, e: max_err.__setitem__(key, max(max_err.get(key, 0.0), e))
     log("[2 kernels] all cases agree with the plain versions")
 
     # ---- 3. single stream, and 4. batched / continuous serving, full width bf16
@@ -670,13 +721,21 @@ def main(argv=None) -> int:
 
     # ---- 8. kernel times at the slices' shapes (bf16)
     rows, layer_times = kernel_times(cfgs, ctx["launches"], max_err, kind, card)
+
+    # ---- 9. training, and the serve of a pair trained on the card
+    t0 = time.time()
+    train = train_phase(cfgs[64], ctx, out_dir / "train")
+    log(f"[9 train] {time.time() - t0:.1f}s")
+    for row in rows:        # the trained pair's serve launched and checked the kernels too
+        row["launches"] = ctx["launches"].get(row["name"], 0)
+        row["max_abs_err"] = max_err.get(row["name"])
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "kind": kind, "e2e": e2e, "batched": batched, "paths": ctx["paths"],
-         "ptxas": instances, "kernels": rows, "layer_times": layer_times,
+         "ptxas": instances, "kernels": rows, "layer_times": layer_times, "train": train,
          "seconds": time.time() - t_start}, indent=1))
 
-    # ---- 9. summary
-    log(f"[9 done] {time.time() - t_start:.1f}s")
+    # ---- 10. summary
+    log(f"[10 done] {time.time() - t_start:.1f}s")
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -731,14 +790,7 @@ def check_kernels(cfgs, ctx):
         for dt_name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
             inp = verify_inputs(cfg, dt, seed=1)
             check_routing(cfg, inp, dt_name, lambda e: note(f"routing_dh{Dh}", e))
-            for label, C, mode, full, branch in VERIFY_CASES:
-                args = verify_layouts(cfg, inp, C, mode)
-                oc = inp["o_cmp_in"] if (not full and branch == "all") else None
-                got = run_verify(cfg, args, full, oc, plain=False, branch=branch)
-                want = run_verify(cfg, args, full, oc, plain=True, branch=branch)
-                torch.cuda.synchronize()
-                note(f"{case_kernel(full, branch)}_dh{Dh}",
-                     check_close(f"nsa_verify {label} Dh {Dh}", got, want, dt_name))
+            check_verify_cases(cfg, inp, dt_name, note)
             del inp
             # two rows of different lengths: routing, then the paged mode in
             # a shuffled pool with holes inside and outside the window
@@ -773,13 +825,8 @@ def check_kernels(cfgs, ctx):
              check_close(f"vanilla layer vs plain NSA layer Dh {Dh}", got, want, "float32"))
         del lcfg, mix, x, kv, cmp
     for label, Hq, Hkv, Dh in FLASH_CASES:
-        for dt_name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-            inp = flash_inputs(Hq, Hkv, Dh, dt, seed=Hq + Dh)
-            got = run_flash(inp, plain=False)
-            want = run_flash(inp, plain=True)
-            torch.cuda.synchronize()
-            note(f"flash_verify_dh{Dh}", check_close(
-                f"flash {label} (R={inp['q'].shape[1] * Hq // Hkv}, Dh {Dh})", got, want, dt_name))
+        for dt_name in DTYPES:
+            check_flash(label, Hq, Hkv, Dh, dt_name, note, seed=Hq + Dh)
     free()
     return max_err
 
@@ -814,13 +861,13 @@ def strategy(cfg, pc):
                      group_mode=mode, refresh_schedule=sched, precision_class=pc)
 
 
-def generate_all(eng, prompts, cfg, label):
+def generate_all(eng, prompts, cfg, label, new_tokens=16):
     n_tok = n_steps = 0
     step_s = 0.0
     accepted = []
     for prompt in prompts:
-        res = eng.generate(prompt, max_new_tokens=16)
-        if len(res.tokens) != 16 or not all(0 <= t < cfg.vocab_size for t in res.tokens):
+        res = eng.generate(prompt, max_new_tokens=new_tokens)
+        if len(res.tokens) != new_tokens or not all(0 <= t < cfg.vocab_size for t in res.tokens):
             fail(f"{label}: bad tokens {res.tokens}")
         n_tok += len(res.tokens)
         n_steps += len(res.steps)
@@ -1433,6 +1480,510 @@ def dense_baseline(cfg, ctx):
     log(f"[6 dense baseline {cfg.name}] {res['tokens']} tokens in {res['steps']} steps, "
         f"{res['tokens_per_s']:.2f} tok/s, peak memory {peak:.2f} GiB")
     return dict(res, peak_gib=peak, profile=prof)
+
+
+# ---------------------------------------------------------------- 9. training
+# The head-dim-64 pair trained on the card (benchmarks/common.py's data; a
+# target the kernels take: reduced ssv-nsa-1b, d 256, 4 heads of 64; a
+# 1-layer draft of d 128, 2 heads of 64), trained in rounds until the
+# target has learned the corpus past its unigram statistics and a greedy
+# serve of the held-out prompt accepts draft tokens in float32 and bf16.
+PAIR = dict(vocab=256, data_seed=11, batch=8, seq=1024, lr=3e-3, per_round=100,
+            max_rounds=8, prompt_step=10_000, prompt_len=1024, tokens=16,
+            loss_margin=0.1, min_distinct=4)
+
+
+def leaves_of(tree):
+    from repro_torch.optim import tree_leaves
+    return tree_leaves(tree)
+
+
+def attention_flops(cfg, B, S):
+    """Forward FLOPs the train attention needs per step (all layers): 2 x
+    Dh for the logit and 2 x Dh for the value product of each (query, key)
+    pair a query attends, per query head. A query at position p attends
+    p + 1 keys in the dense causal attention; under NSA it attends the
+    num_cmp_blocks(p) compressed blocks of its prefix, at most min(n_selected
+    x sel_block, p) selected keys and min(window, p + 1) window keys. The
+    masked products the plain NSA version computes are not counted."""
+    import numpy as np
+    from repro_torch.models import nsa as nsa_lib
+    p = np.arange(S, dtype=np.float64)
+    if cfg.attention == "nsa":
+        nsa = cfg.nsa
+        ncb = np.array([nsa_lib.num_cmp_blocks(int(x), nsa) for x in p])
+        keys = ncb + np.minimum(nsa.n_selected * nsa.sel_block, p) + np.minimum(nsa.window, p + 1)
+    else:
+        keys = p + 1
+    return 4 * cfg.head_dim * cfg.num_heads * B * float(keys.sum()) * cfg.num_layers
+
+
+def train_full_width(cfg, ctx, steps=3, B=1, S=4096):
+    """``steps`` Trainer steps of full-width ``cfg`` from ``init_params``;
+    returns (numbers, trainer)."""
+    from repro_torch.bridge import init_params
+    from repro_torch.config import TrainConfig
+    from repro_torch.data.synthetic import SyntheticConfig
+    from repro_torch.runtime.trainer import Trainer
+    gen = torch.Generator(DEV)
+    gen.manual_seed(0)
+    params = init_params(cfg, gen, DEV)
+    before = [p.clone() for p in leaves_of(params)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(cfg, TrainConfig(steps=steps, learning_rate=3e-4, warmup_steps=1,
+                                  checkpoint_every=0, seed=0),
+                 data_cfg=SyntheticConfig(vocab_size=cfg.vocab_size), batch_size=B, seq_len=S,
+                 params=params, device=DEV, resume=False)
+    tr.run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    m = tr.metrics_log
+    tag = f"[9 train {cfg.name} {cfg.dtype}]"
+    if len(m) != steps or not all(map(torch.isfinite, torch.tensor(
+            [[x["loss"], x["grad_norm"]] for x in m]).flatten())):
+        fail(f"{tag} a loss or grad norm is not finite: {m}")
+    after = leaves_of(tr.state.params)
+    still = [i for i, (a, b) in enumerate(zip(before, after)) if a.ndim >= 2 and torch.equal(a, b)]
+    if still:
+        fail(f"{tag} {len(still)} weight matrices did not move")
+    moved = sum(not torch.equal(a, b) for a, b in zip(before, after))
+    del before, after
+    n_params = sum(p.numel() for p in leaves_of(tr.state.params))
+    n_matmul = n_params - tr.state.params["embed"]["table"].numel()   # the lookup is no product
+    step_s = statistics.median(x["time_s"] for x in m[1:])          # the first step warms up
+    # model FLOPs: forward + backward (3 x forward) of what the function
+    # needs; remat's recomputed forward and masked products not counted
+    flops = 6 * n_matmul * B * S + 3 * attention_flops(cfg, B, S)
+    res = dict(steps=steps, batch=B, seq=S, params=n_params, losses=[x["loss"] for x in m],
+               grad_norms=[x["grad_norm"] for x in m], step_ms=[x["time_s"] * 1e3 for x in m],
+               median_step_ms=step_s * 1e3, tokens_per_s=B * S / step_s, peak_gib=peak,
+               model_flops=flops, flops_share=flops / step_s / BF16_FLOPS_PER_S,
+               leaves_moved=moved, leaves=len(leaves_of(tr.state.params)))
+    log(f"{tag} {ctx['kind']} ({ctx['card']}): {n_params / 1e9:.3f}e9 params, {B} x {S} "
+        f"tokens/step; losses {[round(x, 4) for x in res['losses']]}; grad norms "
+        f"{[round(x, 3) for x in res['grad_norms']]}; step ms "
+        f"{[round(x, 1) for x in res['step_ms']]} (median after the first "
+        f"{res['median_step_ms']:.1f}); {res['tokens_per_s']:.0f} trained tokens/s; peak "
+        f"{peak:.2f} GiB; model FLOPs (6 x non-embedding params x tokens + needed attention) "
+        f"{flops / 1e12:.2f} TFLOP/step, "
+        f"{100 * res['flops_share']:.2f}% of 989 TFLOP/s; {moved}/{res['leaves']} leaves moved")
+    return res, tr
+
+
+def profile_train_step(tr, tag):
+    """One more train step under the profiler: its wall time, device busy
+    time, idle share, kernel count and the top kernels by device time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        tr.run(1)
+        torch.cuda.synchronize()
+    wall_ms = tr.metrics_log[-1]["time_s"] * 1e3
+    kern = []
+    for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA:
+            us = getattr(ev, "self_device_time_total", 0.0) or \
+                getattr(ev, "self_cuda_time_total", 0.0)
+            kern.append((us / 1e3, ev.count, ev.key))
+    kern.sort(reverse=True)
+    busy = sum(k[0] for k in kern)
+    top = [{"ms": ms, "launches": c, "name": name[:90]} for ms, c, name in kern[:8]]
+    log(f"  {tag} profiled step: {wall_ms:.1f} ms wall (profiler on), device busy "
+        f"{busy:.1f} ms (idle share {1 - busy / wall_ms:.3f}), "
+        f"{sum(k[1] for k in kern if not is_copy(k[2]))} kernels")
+    for t in top[:6]:
+        log(f"    {t['ms']:.2f} ms x{t['launches']} {t['name']}")
+    return {"step_wall_ms": wall_ms, "device_busy_ms": busy, "idle_share": 1 - busy / wall_ms,
+            "kernels": sum(k[1] for k in kern if not is_copy(k[2])), "top": top}
+
+
+def checkpoint_round_trip(cfg, tr, ckdir):
+    """The trainer's state through an ``AsyncCheckpointer`` checkpoint and
+    back onto the card: every tensor bitwise, dtype and device kept."""
+    from repro_torch.ckpt import AsyncCheckpointer, restore
+    shutil.rmtree(ckdir, ignore_errors=True)
+    tree = {"params": tr.state.params, "opt": tr.state.opt, "residual": tr.state.residual}
+    t0 = time.time()
+    ck = AsyncCheckpointer(str(ckdir), cfg)
+    ck.save(tr.state.step, tree)
+    ck.wait()
+    step, back = restore(str(ckdir), tree, cfg)
+    a, b = leaves_of(tree), leaves_of(back)
+    same = step == tr.state.step and len(a) == len(b) and all(
+        x.dtype == y.dtype and y.device == x.device and torch.equal(x, y) for x, y in zip(a, b))
+    nbytes = sum(x.numel() * x.element_size() for x in a)
+    log(f"[9 checkpoint {cfg.name}] {len(a)} tensors, {nbytes / 2 ** 30:.2f} GiB on the card, "
+        f"save + restore {time.time() - t0:.1f}s: {'bitwise equal' if same else 'DIFFERENT'}")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    if not same:
+        fail(f"{cfg.name}: the checkpoint round trip on the card is not bitwise")
+    return dict(tensors=len(a), gib=nbytes / 2 ** 30, bitwise=same)
+
+
+def card_step_equals_cpu(cfg, seed=0, B=2, S=256):
+    """One train step's loss and gradients of float32 ``cfg`` on the card
+    and on the CPU (TF32 off): loss rtol 2e-4 / atol 2e-5, every gradient
+    leaf rtol 1e-3 / atol 1e-6."""
+    from repro_torch.bridge import init_params
+    from repro_torch.data.synthetic import SyntheticConfig, SyntheticCorpus
+    from repro_torch.models import model
+    from repro_torch.optim import tree_map
+    params = init_params(cfg, torch.Generator().manual_seed(seed), "cpu")
+    tokens = torch.from_numpy(SyntheticCorpus(SyntheticConfig(vocab_size=cfg.vocab_size))
+                              .batch(seed, B, S))
+    out = []
+    for dev in ("cpu", DEV):
+        p = tree_map(lambda t: t.to(dev), params)
+        leaves = leaves_of(p)
+        for t in leaves:
+            t.requires_grad_(True)
+        loss = model.loss_fn(p, cfg, tokens.to(dev), remat=True)
+        grads = torch.autograd.grad(loss, leaves)
+        out.append((loss.detach().cpu(), [g.cpu() for g in grads]))
+    (lc, gc_), (lg, gg) = out
+    worst = max(float(((a - b).abs() / (1e-6 + 1e-3 * b.abs())).max()) for a, b in zip(gg, gc_))
+    ok = torch.allclose(lg, lc, rtol=2e-4, atol=2e-5) and all(
+        torch.allclose(a, b, rtol=1e-3, atol=1e-6) for a, b in zip(gg, gc_))
+    log(f"[9 card step == CPU step {cfg.name} f32] loss {float(lg):.6f} vs {float(lc):.6f}; "
+        f"{len(gg)} gradient leaves, worst |diff| / (1e-6 + 1e-3 |cpu|) {worst:.3f}: "
+        f"{'equal within tolerance' if ok else 'DIFFERENT'}")
+    if not ok:
+        fail(f"{cfg.name}: the train step on the card differs from the CPU's")
+    return dict(loss_card=float(lg), loss_cpu=float(lc), worst_grad_ratio=worst)
+
+
+def restart_equals_uninterrupted(cfg, workdir, B=2, S=256):
+    """8 steps with a checkpoint every 4, and the same with a failure
+    injected at step 6 and a restart from the step-4 checkpoint, under
+    ``torch.use_deterministic_algorithms(True)``: params and the last
+    losses bitwise equal."""
+    from repro_torch.config import TrainConfig
+    from repro_torch.runtime.fault import FailureInjector, run_with_restarts
+    from repro_torch.runtime.trainer import Trainer
+    runs = []
+    torch.use_deterministic_algorithms(True)
+    try:
+        for inject in (False, True):
+            ckdir = workdir / f"restart_{int(inject)}"
+            shutil.rmtree(ckdir, ignore_errors=True)
+            tc = TrainConfig(steps=8, checkpoint_every=4, checkpoint_dir=str(ckdir),
+                             learning_rate=1e-3, seed=3)
+            inj = FailureInjector(fail_at_steps=[6]) if inject else None
+            holder = {}
+
+            def driver():
+                holder["tr"] = Trainer(cfg, tc, batch_size=B, seq_len=S, injector=inj,
+                                       device=DEV)
+                return holder["tr"].run()
+
+            rep = run_with_restarts(driver)
+            if not rep.completed or rep.restarts != int(inject):
+                fail(f"restart run: {rep}")
+            runs.append(holder["tr"])
+            shutil.rmtree(ckdir, ignore_errors=True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    plain, crashed = runs
+    same = crashed.metrics_log[0]["step"] == 4 and all(
+        torch.equal(a, b) for a, b in zip(leaves_of(plain.state.params),
+                                          leaves_of(crashed.state.params))) and \
+        [m["loss"] for m in plain.metrics_log[-2:]] == [m["loss"] for m in crashed.metrics_log[-2:]]
+    log(f"[9 restart == uninterrupted {cfg.name} f32] failure at step 6, resumed at step "
+        f"{crashed.metrics_log[0]['step']}: {'bitwise equal' if same else 'DIFFERENT'}")
+    if not same:
+        fail(f"{cfg.name}: the restarted run left the uninterrupted trajectory")
+    return dict(bitwise=same, losses=[m["loss"] for m in plain.metrics_log])
+
+
+def as_dtype(params, cfg, dtype):
+    """The params with each leaf in the dtype ``init_params`` gives it for
+    ``cfg`` at ``dtype`` (bf16 weights; float32 gates and pooling logits)."""
+    from repro_torch.bridge import init_params
+    from repro_torch.optim import tree_map
+    tmpl = init_params(dataclasses.replace(cfg, dtype=dtype), torch.Generator(), "cpu")
+    return tree_map(lambda p, t: p.to(t.dtype), params, tmpl)
+
+
+def train_pair(ctx):
+    """The head-dim-64 pair, trained on the card in rounds of
+    ``per_round`` steps until the target has learned the corpus (its loss
+    ``loss_margin`` nats below the unigram entropy, at least
+    ``min_distinct`` distinct tokens in its greedy continuation of the
+    held-out prompt) and greedy serving accepts draft tokens in float32
+    Strict and bf16 Strict and Approx+Reuse. Then the three kernels are
+    held against their plain versions at the pair's shapes, and the pair
+    is served: float32 Strict on the card equals the CPU's and its
+    commits equal a chain replay; bf16 Strict / Approx+Reuse SSV (counted
+    launches) and AR."""
+    from repro_torch import configs
+    from repro_torch.config import ServeConfig, SSVConfig, TrainConfig
+    from repro_torch.core import draft as draft_lib, engine as engine_lib
+    from repro_torch.data.synthetic import SyntheticConfig, SyntheticCorpus
+    from repro_torch.optim import tree_map
+    from repro_torch.runtime.trainer import Trainer
+    tcfg = configs.reduced("ssv-nsa-1b", vocab=PAIR["vocab"])
+    dcfg = draft_lib.draft_config(tcfg, num_layers=1, d_model=128)
+    if (tcfg.head_dim, dcfg.head_dim) != (64, 64):
+        fail(f"the pair's head dims {tcfg.head_dim}, {dcfg.head_dim} are not the kernels' 64")
+    data = SyntheticConfig(vocab_size=PAIR["vocab"], num_classes=8, seed=PAIR["data_seed"])
+    total = PAIR["per_round"] * PAIR["max_rounds"]
+    trainers = [Trainer(cfg, TrainConfig(steps=total, learning_rate=PAIR["lr"], warmup_steps=10,
+                                         checkpoint_every=0, seed=seed),
+                        data_cfg=data, batch_size=PAIR["batch"], seq_len=PAIR["seq"],
+                        device=DEV, resume=False)
+                for cfg, seed in ((tcfg, 0), (dcfg, 1))]
+    prompt = SyntheticCorpus(data).batch(PAIR["prompt_step"], 1, PAIR["prompt_len"])[0]
+    n_tok = PAIR["tokens"]
+
+    def engine(tp, dp, dtype, ssv, dev=DEV):
+        t32 = dataclasses.replace(tcfg, dtype=dtype)
+        d32 = dataclasses.replace(dcfg, dtype=dtype)
+        return engine_lib.SSVEngine(as_dtype(tp, tcfg, dtype), t32, as_dtype(dp, dcfg, dtype),
+                                    d32, ServeConfig(max_new_tokens=n_tok, temperature=0.0,
+                                                     max_context=2048, ssv=ssv,
+                                                     use_planner=False), device=dev)
+
+    served_as = [("float32", "Strict"), ("bfloat16", "Strict"), ("bfloat16", "Approx+Reuse")]
+    unigram, oracle = corpus_losses(SyntheticCorpus(data))
+    rounds = []
+    t0 = time.time()
+    for r in range(PAIR["max_rounds"]):
+        for tr in trainers:
+            tr.run(PAIR["per_round"])
+        tp, dp = (tr.state.params for tr in trainers)
+        res = {f"{dt} {pc}": engine(tp, dp, dt, strategy(tcfg, pc)).generate(prompt, 2 * n_tok)
+               for dt, pc in served_as}
+        acc = {k: v.mean_accepted for k, v in res.items()}
+        loss = statistics.mean(m["loss"] for m in trainers[0].metrics_log[-20:])
+        distinct = len(set(res["float32 Strict"].tokens.tolist()))
+        rounds.append(dict(steps=trainers[0].state.step, target_loss=loss,
+                           draft_loss=statistics.mean(m["loss"] for m in
+                                                      trainers[1].metrics_log[-20:]),
+                           distinct_tokens=distinct, mean_accepted=acc))
+        log(f"  [9 pair] {rounds[-1]}")
+        learned = loss < unigram - PAIR["loss_margin"] and distinct >= PAIR["min_distinct"]
+        if learned and min(acc.values()) > 0:
+            break
+    train_s = time.time() - t0
+    step_ms = {cfg.name: statistics.median(m["time_s"] for m in tr.metrics_log) * 1e3
+               for cfg, tr in zip((tcfg, dcfg), trainers)}
+    tok_s = {k: PAIR["batch"] * PAIR["seq"] / v * 1e3 for k, v in step_ms.items()}
+    log(f"[9 pair trained] {ctx['kind']} ({ctx['card']}): {rounds[-1]['steps']} steps of "
+        f"{PAIR['batch']} x {PAIR['seq']} tokens each model in {train_s:.1f}s (median step ms "
+        f"{step_ms}; trained tokens/s {tok_s}); losses target "
+        f"{rounds[-1]['target_loss']:.4f}, draft "
+        f"{rounds[-1]['draft_loss']:.4f} (the corpus: unigram entropy {unigram:.4f}, the "
+        f"true model's next-token loss {oracle:.4f} nats)")
+    if min(rounds[-1]["mean_accepted"].values()) <= 0:
+        fail(f"the trained pair accepts no draft tokens after {rounds[-1]['steps']} steps")
+    if not learned:
+        fail(f"after {rounds[-1]['steps']} steps the target's loss {loss:.4f} is not "
+             f"{PAIR['loss_margin']} nats below the unigram entropy {unigram:.4f}, or its "
+             f"greedy output has fewer than {PAIR['min_distinct']} distinct tokens")
+
+    tp, dp = (tr.state.params for tr in trainers)
+    check_pair_kernels(tcfg, dcfg, ctx)
+    # float32 Strict, step by step: the tokens and accepted counts equal the
+    # CPU's plain path on the same weights; the caches equal a chain replay
+    strict = strategy(tcfg, "Strict")
+    runs = {}
+    for dev in (DEV, "cpu"):
+        eng = engine(tree_map(lambda t: t.to(dev), tp), tree_map(lambda t: t.to(dev), dp),
+                     "float32", strict, dev)
+        eng.start(prompt)
+        steps = []
+        while sum(map(len, steps)) < 2 * n_tok:
+            steps.append(eng.step()[0])
+        runs[dev] = (eng, steps)
+    eng, steps = runs[DEV]
+    ssv_toks = [t for toks in steps for t in toks]
+    log(f"[9 pair f32 Strict] {ssv_toks} (accepted per step {[len(t) - 1 for t in steps]})")
+    if steps != runs["cpu"][1]:
+        fail(f"the card's float32 Strict serve differs from the CPU's: {runs['cpu'][1]}")
+    log("[9 pair f32 Strict] card == CPU (plain versions): the same tokens and accepted counts")
+    commit_err = commit_equals_replay(eng, prompt, steps, strict)
+    # Not a check: Strict verifies a tree node's cmp and slc branches
+    # against the committed prefix only (the JAX reference's semantics),
+    # so after an accepted draft the target sees less than autoregressive
+    # decoding at the same position and the two may part.
+    ar_toks = engine_lib.autoregressive_decode(tp, tcfg, prompt, len(ssv_toks), 2048,
+                                               device=DEV).tokens.tolist()
+    agree = next((i for i, (a, b) in enumerate(zip(ssv_toks, ar_toks)) if a != b),
+                 len(ssv_toks))
+    log(f"[9 pair f32 AR] {ar_toks} (the first {agree} tokens equal the Strict serve's)")
+    del eng, runs
+    served = {}
+    t16 = dataclasses.replace(tcfg, dtype="bfloat16")
+    for pc in ("Strict", "Approx+Reuse"):
+        ssv = strategy(tcfg, pc)
+        eng = engine(tp, dp, "bfloat16", ssv)
+        eng.generate(prompt, n_tok)                                  # warm
+        res = counted_path(ctx, f"trained pair {pc}", 64,
+                           lambda: generate_all(eng, [prompt], t16, pc, 2 * n_tok),
+                           lambda r: expected_launches(tcfg, dcfg, ssv, r["steps"]))
+        eng.start(prompt)
+        res["profile"] = step_profile(eng.step, 3)
+        served[pc] = res
+        log(f"  [trained pair {pc}] step profile {res['profile']}")
+        log(f"[9 pair serve bf16 {pc}] {ctx['kind']} ({ctx['card']}): {res['tokens']} tokens in "
+            f"{res['steps']} steps, {res['tokens_per_s']:.2f} tok/s, mean accepted/step "
+            f"{res['mean_accepted']:.3f}")
+        if res["mean_accepted"] <= 0:
+            fail(f"the trained pair accepts no draft tokens in bf16 {pc}")
+    tp16 = as_dtype(tp, tcfg, "bfloat16")
+    engine_lib.autoregressive_decode(tp16, t16, prompt, 4, 2048, device=DEV)   # warm
+    ar = engine_lib.autoregressive_decode(tp16, t16, prompt, 2 * n_tok, 2048, device=DEV)
+    served["AR"] = dict(tokens=len(ar.tokens), tokens_per_s=ar.accepted_token_throughput)
+    log(f"[9 pair AR bf16] {ctx['kind']} ({ctx['card']}): {len(ar.tokens)} tokens, "
+        f"{ar.accepted_token_throughput:.2f} tok/s; SSV Strict / AR = "
+        f"{served['Strict']['tokens_per_s'] / ar.accepted_token_throughput:.2f}x")
+    return dict(rounds=rounds, train_s=train_s, median_step_ms=step_ms, tokens_per_s=tok_s,
+                served=served, f32_strict_tokens=ssv_toks, f32_ar_tokens=ar_toks,
+                f32_tokens_equal_to_ar=agree,
+                f32_accepted_per_step=[len(t) - 1 for t in steps],
+                commit_equals_replay_max_err=commit_err, corpus_unigram_nats=unigram,
+                corpus_true_model_nats=oracle)
+
+
+def check_pair_kernels(tcfg, dcfg, ctx, prefix=1024, S=2048):
+    """The three kernels against their plain versions at the trained
+    pair's serving shapes (prefix ``prefix``, cache ``S``, D4/k2 tree):
+    routing and the fused nsa_verify cases at the target's heads, flash at
+    the draft's, in float32 and bf16 K/V."""
+    note = ctx["note_err"]
+    for dt_name, dt in DTYPES.items():
+        inp = verify_inputs(tcfg, dt, seed=21, prefix=prefix, S=S)
+        check_routing(tcfg, inp, dt_name, lambda e: note(f"routing_dh{tcfg.head_dim}", e),
+                      tag="pair ")
+        check_verify_cases(tcfg, inp, dt_name, note, "pair ", VERIFY_CASES[:4])
+        del inp
+        check_flash("pair draft", dcfg.num_heads, dcfg.num_kv_heads, dcfg.head_dim, dt_name,
+                    note, seed=22, prefix=prefix, S=S)
+    free()
+
+
+def commit_equals_replay(eng, prompt, steps, ssv):
+    """After a float32 greedy serve driven step by step (``steps``: the
+    tokens each step emitted), rebuild each model's caches without the
+    tree: from the prefill, each step's accepted path (the pending token
+    and the accepted drafts) goes through ``verify_step`` as a chain (node
+    d sees nodes < d) at the step's committed length and is committed
+    whole. Each of the target's chain nodes must predict (argmax) the
+    token the serve emitted after it, and each model's caches (the
+    committed K/V rows, the compressed blocks, the length) and the next
+    logits must equal the serve's within the float32 tolerance; the
+    compressed blocks must also equal ``compress_kv`` of the committed
+    rows. Returns the worst |diff| per model."""
+    from repro_torch.models import model, nsa as nsa_lib
+    L = eng.committed_len
+    emitted = [t for toks in steps for t in toks]
+    fed = [int(prompt[-1])] + emitted[:-1]
+    pending = torch.tensor([[eng.pending]], device=DEV)
+    worst = {}
+    for label, params, cfg, caches in (("target", eng.tp, eng.tcfg, eng.t_caches),
+                                       ("draft", eng.dp, eng.dcfg, eng.d_caches)):
+        _, ref = model.prefill(params, cfg, torch.as_tensor(prompt[:-1], device=DEV)[None],
+                               eng.serve.max_context)
+        i = 0
+        for toks in steps:
+            n = len(toks)
+            pos = (torch.arange(n, device=DEV) + int(ref["length"][0])).to(torch.int32)[None]
+            chain = torch.ones((n, n), dtype=torch.bool, device=DEV).tril()[None]
+            logits, up = model.verify_step(params, cfg, ref, torch.tensor([fed[i:i + n]],
+                                           device=DEV), pos, chain, None, ssv)
+            if label == "target" and logits[0].argmax(-1).tolist() != toks:
+                fail(f"the target's chain replay predicts {logits[0].argmax(-1).tolist()} "
+                     f"where the serve emitted {toks} (tokens {i}-{i + n - 1})")
+            ref = model.commit(params, cfg, ref, up, torch.arange(n, device=DEV)[None],
+                               torch.tensor([n], dtype=torch.int32, device=DEV))
+            i += n
+        if int(caches["length"][0]) != L or int(ref["length"][0]) != L:
+            fail(f"{label}: committed lengths {int(caches['length'][0])}, "
+                 f"{int(ref['length'][0])}, expected {L}")
+        pairs = []
+        for li, (got, want) in enumerate(zip(caches["layers"], ref["layers"])):
+            pairs += [(f"layer {li} {k}", got["kv"][k][:, :L], want["kv"][k][:, :L])
+                      for k in ("k", "v")]
+            if "cmp" in got:
+                nb = nsa_lib.num_cmp_blocks(L, cfg.nsa)
+                pairs += [(f"layer {li} {k}", got["cmp"][k][:, :nb], want["cmp"][k][:, :nb])
+                          for k in ("k_cmp", "v_cmp")]
+                # and the blocks the prefill's compression makes of the rows
+                pooled = nsa_lib.compress_kv(params["layers"][li]["mix"], got["kv"]["k"][:, :L],
+                                             got["kv"]["v"][:, :L], cfg.nsa)
+                pairs += [(f"layer {li} {k} (compress_kv of the rows)", got["cmp"][k][:, :nb], c)
+                          for k, c in zip(("k_cmp", "v_cmp"), pooled)]
+        pairs.append(("next logits", model.decode_step(params, cfg, caches, pending)[0],
+                      model.decode_step(params, cfg, ref, pending)[0]))
+        worst[label] = max(check_close(f"[9 pair commit == replay f32] {label} {name}", g, w,
+                                       "float32", "the replay") for name, g, w in pairs)
+    return worst
+
+
+def corpus_losses(corpus, n=4000, burn=100):
+    """(unigram entropy, the next-token loss of the corpus's own model
+    (the order-2 class chain, filtered exactly over its C x C states) on
+    one sampled sequence), in nats: the floor a trained model can reach."""
+    import numpy as np
+    x = corpus.batch(PAIR["prompt_step"] + 1, 1, n)[0]
+    C = corpus.cfg.num_classes
+    belief = np.full((C, C), 1.0 / (C * C))
+    nll = []
+    for tok in x:
+        joint = np.einsum("ab,abc->bc", belief, corpus.trans)    # (c2, c3)
+        nll.append(-np.log(joint.sum(0) @ corpus.emis[:, tok]))
+        post = joint * corpus.emis[:, tok][None, :]
+        belief = post / post.sum()
+    u = np.bincount(corpus.batch(0, 8, 2048).ravel(), minlength=corpus.cfg.vocab_size) / 16384
+    return float(-(u[u > 0] * np.log(u[u > 0])).sum()), float(np.mean(nll[burn:]))
+
+
+def train_cli(workdir):
+    """The train CLI as a user runs it: 2 steps, then again to step 4 (the
+    second run resumes from the first's checkpoint)."""
+    ckdir = workdir / "cli_ckpt"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    base = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "ssv-nsa-1b",
+            "--reduced", "--batch", "2", "--seq", "256", "--ckpt", str(ckdir),
+            "--ckpt-every", "2"]
+    for steps, want in ((2, ("resume step 0", "done at step 2")),
+                        (4, ("resume step 2", "done at step 4"))):
+        t0 = time.time()
+        cli = subprocess.run(base + ["--steps", str(steps)], cwd=ROOT, env=env,
+                             capture_output=True, text=True, timeout=600)
+        tag = f"[9 train CLI --steps {steps}]"
+        for line in (cli.stdout + cli.stderr).strip().splitlines()[-4:]:
+            log(f"{tag} {line}")
+        if cli.returncode != 0 or not all(w in cli.stdout for w in want):
+            fail(f"train CLI --steps {steps} exited {cli.returncode}")
+        log(f"{tag} {time.time() - t0:.1f}s")
+    shutil.rmtree(ckdir, ignore_errors=True)
+
+
+def train_phase(cfg, ctx, workdir):
+    """Phase 9 (see the module docstring)."""
+    from repro_torch import configs
+    from repro_torch.core import draft as draft_lib
+    workdir.mkdir(parents=True, exist_ok=True)
+    out = {}
+    out["target"], tr = train_full_width(cfg, ctx)
+    out["target"]["profile"] = profile_train_step(tr, f"[9 train {cfg.name}]")
+    del tr
+    free()
+    dcfg = draft_lib.draft_config(cfg)
+    out["draft"], tr = train_full_width(dcfg, ctx)
+    out["checkpoint"] = checkpoint_round_trip(dcfg, tr, workdir / "ckpt_draft")
+    del tr
+    free()
+    small = configs.reduced("ssv-nsa-1b")
+    out["card_step_equals_cpu"] = card_step_equals_cpu(small)
+    out["restart"] = restart_equals_uninterrupted(small, workdir)
+    free()
+    out["pair"] = train_pair(ctx)
+    free()
+    train_cli(workdir)
+    return out
 
 
 def serve_cli(arch, flags=("--prompts", "1"), expect="prompt 0: 8 tokens"):

@@ -6,6 +6,11 @@ port's parameter dict. The JAX package stacks each segment's blocks along a
 leading axis (``repro.models.model.segments``); the port keeps one block
 dict per layer, so the bridge unstacks in layer order.
 
+``to_jax`` is its inverse: it re-stacks ``params["layers"]`` into the JAX
+``segments`` layout with numpy leaves. The checkpoint writer stores that
+layout (``restack`` keeps tensor leaves), so a checkpoint written by either
+package loads in the other.
+
 ``init_params`` draws the same distributions as the JAX ``model.init``
 (not the same numbers: the generators differ), so a machine without JAX
 can build a full-width model from a seed.
@@ -21,6 +26,7 @@ import torch
 from repro_torch.config import ModelConfig
 from repro_torch.device import dtype_of, resolve_device
 from repro_torch.models.model import check_supported, segments
+from repro_torch.optim.adamw import tree_map
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -32,27 +38,66 @@ def _tensor(a, device) -> torch.Tensor:
     return t.to(device)
 
 
-def _map(tree, fn):
-    if isinstance(tree, dict):
-        return {k: _map(v, fn) for k, v in tree.items()}
-    return fn(tree)
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as numpy on the host; bf16 becomes ``ml_dtypes.bfloat16``,
+    the dtype ``np.asarray`` gives a JAX bf16 array (bit for bit)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes                       # only bf16 needs it
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
 
 
 def from_jax(np_params: Dict[str, Any], cfg: ModelConfig, device=None) -> Dict[str, Any]:
     """JAX params pytree (numpy leaves) -> port params on ``device``."""
     check_supported(cfg)
     dev = resolve_device(device)
-    out = {k: _map(np_params[k], lambda a: _tensor(a, dev))
+    out = {k: tree_map(lambda a: _tensor(a, dev), np_params[k])
            for k in ("embed", "lm_head", "final_norm")}
     blocks = []
     for (kinds, n), stacked in zip(segments(cfg), np_params["segments"]):
         for i in range(n):
             for j in range(len(kinds)):
-                blocks.append(_map(stacked[j], lambda a, i=i: _tensor(np.asarray(a)[i], dev)))
+                blocks.append(tree_map(lambda a, i=i: _tensor(np.asarray(a)[i], dev), stacked[j]))
     if len(blocks) != cfg.num_layers:
         raise ValueError(f"bridged {len(blocks)} blocks for {cfg.num_layers} layers")
     out["layers"] = blocks
     return out
+
+
+def restack(params: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
+    """Port params (or any tree of that structure, e.g. AdamW moments) ->
+    the JAX layout, leaves stacked per segment position with
+    ``torch.stack`` (same dtype and device)."""
+    if len(params["layers"]) != cfg.num_layers:
+        raise ValueError(f"{len(params['layers'])} blocks for {cfg.num_layers} layers")
+    out = {k: params[k] for k in ("embed", "lm_head", "final_norm")}
+    segs, base = [], 0
+    for kinds, n in segments(cfg):
+        m = len(kinds)
+        group = []
+        for j in range(m):
+            blocks = [params["layers"][base + i * m + j] for i in range(n)]
+            group.append(_stack(blocks))
+        segs.append(tuple(group))
+        base += n * m
+    out["segments"] = segs
+    return out
+
+
+def _stack(blocks):
+    first = blocks[0]
+    if isinstance(first, dict):
+        return {k: _stack([b[k] for b in blocks]) for k in first}
+    return torch.stack(blocks)
+
+
+def to_jax(params: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
+    """Port params -> the JAX ``model.init`` pytree with numpy leaves (the
+    inverse of ``from_jax``): ``from_jax(to_jax(p, cfg), cfg)`` equals
+    ``p`` bitwise, bf16 included."""
+    check_supported(cfg)
+    return tree_map(_numpy, restack(params, cfg))
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, device=None) -> Dict[str, Any]:

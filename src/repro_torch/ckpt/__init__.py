@@ -1,0 +1,9 @@
+from repro_torch.ckpt.checkpoint import (  # noqa: F401
+    AsyncCheckpointer,
+    gc_old,
+    jax_layout,
+    latest_step,
+    load,
+    restore,
+    save,
+)

@@ -5,6 +5,7 @@ from repro_torch.config.base import (
     RecurrentConfig,
     ServeConfig,
     SSVConfig,
+    TrainConfig,
 )
 
 __all__ = [
@@ -14,4 +15,5 @@ __all__ = [
     "RecurrentConfig",
     "ServeConfig",
     "SSVConfig",
+    "TrainConfig",
 ]

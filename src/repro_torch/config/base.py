@@ -6,8 +6,8 @@ compare, and serialize trivially (msgpack/json via ``asdict``).
 
 A copy of ``repro.config.base`` (stdlib only) with the same fields and
 defaults for the configs the port serves with, kept in the PyTorch package
-so it imports nothing of the JAX one (the shape, mesh and training configs
-come with their slices).
+so it imports nothing of the JAX one (the shape and mesh configs come with
+their slices).
 """
 from __future__ import annotations
 
@@ -224,6 +224,30 @@ class SSVConfig:
         if self.tree_budget:
             n = min(n, self.tree_budget)
         return n
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """The JAX ``TrainConfig``'s fields and defaults, except two:
+    ``checkpoint_dir`` defaults to a directory under the working directory,
+    and ``checkpoint_every <= 0`` saves no checkpoint at all (the JAX
+    trainer always saves the last step), which a full-width run that only
+    measures steps uses."""
+
+    steps: int = 100
+    learning_rate: float = 3e-4
+    warmup_steps: int = 10
+    weight_decay: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    grad_clip: float = 1.0
+    micro_batches: int = 1
+    checkpoint_every: int = 50
+    checkpoint_dir: str = "build/ckpt"
+    seed: int = 0
+    remat: bool = True
+    grad_compression: str = "none"  # none | int8_ef
+    log_every: int = 10
 
 
 @dataclass(frozen=True)

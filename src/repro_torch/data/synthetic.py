@@ -1,5 +1,5 @@
-"""Deterministic synthetic LM corpus (a copy of ``repro.data.synthetic``
-without the training stream; the port uses it for prompts).
+"""Deterministic synthetic LM corpus (a copy of ``repro.data.synthetic``):
+prompts for serving and the training stream.
 
 An order-2 Markov chain over token classes with per-class emission tables,
 seeded and position-reproducible: ``batch(step)`` is a pure function of
@@ -13,7 +13,10 @@ makes draft acceptance rates meaningful in the SSV end-to-end experiments.
 """
 from __future__ import annotations
 
+import bisect
 import dataclasses
+from typing import Iterator, Tuple
+
 import numpy as np
 
 
@@ -42,15 +45,33 @@ class SyntheticCorpus:
             boost[c, c * span:(c + 1) * span] = 3.0 / span
         self.emis = (emis + boost)
         self.emis /= self.emis.sum(-1, keepdims=True)
+        # the normalised CDFs ``Generator.choice(p=...)`` builds on every call
+        trans_cdf = self.trans.cumsum(-1)
+        trans_cdf /= trans_cdf[..., -1:]
+        self._trans_cdf = trans_cdf.tolist()
+        self._emis_cdf = self.emis.cumsum(-1)
+        self._emis_cdf /= self._emis_cdf[..., -1:]
 
     def sample(self, rng: np.random.Generator, length: int) -> np.ndarray:
+        """The JAX corpus's draws, token for token: there every step calls
+        ``rng.choice(C, p=trans[c1, c2])`` and then ``rng.choice(V,
+        p=emis[c])``, and each call draws one double ``u`` and returns
+        ``searchsorted(cdf, u, side="right")``. Here the 2 x length doubles
+        are drawn at once (the same stream), the class chain walks them in
+        Python and the emissions are looked up per class in bulk."""
         C = self.cfg.num_classes
         c1, c2 = rng.integers(C), rng.integers(C)
+        u = rng.random(2 * length)
+        classes = np.empty(length, np.int64)
+        for t, ut in enumerate(u[0::2].tolist()):
+            c = bisect.bisect_right(self._trans_cdf[c1][c2], ut)
+            classes[t] = c
+            c1, c2 = c2, c
         out = np.empty(length, np.int64)
-        for t in range(length):
-            c_next = rng.choice(C, p=self.trans[c1, c2])
-            out[t] = rng.choice(self.cfg.vocab_size, p=self.emis[c_next])
-            c1, c2 = c2, c_next
+        u_emit = u[1::2]
+        for c in range(C):
+            hit = classes == c
+            out[hit] = np.searchsorted(self._emis_cdf[c], u_emit[hit], side="right")
         return out
 
     def batch(self, step: int, batch_size: int, seq_len: int,
@@ -65,3 +86,12 @@ class SyntheticCorpus:
             out[i] = self.sample(rng, seq_len)
         return out
 
+
+
+def token_stream(corpus: SyntheticCorpus, batch_size: int, seq_len: int,
+                 start_step: int = 0, shard: int = 0,
+                 num_shards: int = 1) -> Iterator[Tuple[int, np.ndarray]]:
+    step = start_step
+    while True:
+        yield step, corpus.batch(step, batch_size, seq_len, shard, num_shards)
+        step += 1

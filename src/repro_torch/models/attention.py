@@ -1,5 +1,6 @@
-"""Dense GQA attention: train/prefill (chunked causal) and the tree-masked
-speculative verification the dense draft runs — the PyTorch counterparts of
+"""Dense GQA attention: train/prefill (chunked causal, online softmax, and
+flash with its own backward) and the tree-masked speculative verification
+the dense draft runs — the PyTorch counterparts of
 ``repro.models.attention``.
 
 Shapes convention:
@@ -15,6 +16,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig
 from repro_torch.core import kvstore
@@ -57,25 +59,205 @@ def causal_mask(sq: int, skv: int, device, q_offset: int = 0, window: int = 0):
     return m[None]                                          # (1, Sq, Skv)
 
 
+def remat(fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward pass when
+    autograd records (``jax.checkpoint``'s role in the JAX package)."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 def attend_train(params, cfg: ModelConfig, x, positions, window: int = 0,
-                 chunk: int = 0):
+                 chunk: int = 0, remat_chunks: bool = False):
     """Full-sequence causal attention (optionally sliding-window), chunked
     over queries when ``chunk`` divides S so the score working set stays
-    bounded. Returns (out (B,S,D), (k, v))."""
+    bounded; ``remat_chunks`` recomputes each chunk in the backward pass
+    instead of keeping its probabilities. Returns (out (B,S,D), (k, v))."""
     B, S, _ = x.shape
     G = cfg.q_per_kv
     q, k, v = qkv(params, cfg, x, positions)
     qg = q.reshape(B, S, cfg.num_kv_heads, G, cfg.head_dim)
     scale = 1.0 / math.sqrt(cfg.head_dim)
     if chunk and S % chunk == 0 and S > chunk:
+        def body(i, qc, k, v):
+            m = causal_mask(chunk, S, x.device, q_offset=i * chunk, window=window)
+            return _sdpa(qc, k, v, m, scale)
+
         outs = []
         for i in range(S // chunk):
-            m = causal_mask(chunk, S, x.device, q_offset=i * chunk, window=window)
-            outs.append(_sdpa(qg[:, i * chunk:(i + 1) * chunk], k, v, m, scale))
+            qc = qg[:, i * chunk:(i + 1) * chunk]
+            outs.append(remat(body, i, qc, k, v) if remat_chunks else body(i, qc, k, v))
         out = torch.cat(outs, dim=1)
     else:
         out = _sdpa(qg, k, v, causal_mask(S, S, x.device, window=window), scale)
     out = out.reshape(B, S, cfg.num_heads * cfg.head_dim)
+    return out @ params["wo"], (k, v)
+
+
+def _tile_mask(qi: int, qc: int, ki: int, kc: int, window: int, device):
+    """(qc, kc) visibility of key tile ki to query tile qi (causal, window)."""
+    qpos = qi * qc + torch.arange(qc, device=device)
+    kpos = ki * kc + torch.arange(kc, device=device)
+    m = kpos[None, :] <= qpos[:, None]
+    if window > 0:
+        m &= kpos[None, :] > qpos[:, None] - window
+    return m
+
+
+def _tile_visible(qi: int, qc: int, ki: int, kc: int, window: int) -> bool:
+    """Whether any key of tile ki is visible to a query of tile qi. A tile
+    with none leaves the online softmax's (m, l, acc) and every gradient as
+    they were, so the loops skip it (the JAX scans visit it, masked)."""
+    if ki * kc > qi * qc + qc - 1:
+        return False
+    return window <= 0 or ki * kc + kc - 1 > qi * qc - window
+
+
+def _chunk_size(S: int, chunk: int) -> int:
+    c = min(chunk, S)
+    while S % c:
+        c //= 2
+    return c
+
+
+def attend_train_online(params, cfg: ModelConfig, x, positions, window: int = 0,
+                        q_chunk: int = 512, kv_chunk: int = 512):
+    """Flash-style attention in plain PyTorch: an online softmax over KV
+    tiles, so the (Sq, Skv) score matrix is never built; each KV tile's
+    step is recomputed in the backward pass (the JAX inner checkpoint).
+    Semantics identical to ``attend_train`` (causal + optional window)."""
+    B, S, _ = x.shape
+    Hkv, G, Dh = cfg.num_kv_heads, cfg.q_per_kv, cfg.head_dim
+    q, k, v = qkv(params, cfg, x, positions)
+    scale = 1.0 / math.sqrt(Dh)
+    qc, kc = _chunk_size(S, q_chunk), _chunk_size(S, kv_chunk)
+    qg = q.reshape(B, S, Hkv, G, Dh)
+
+    def kv_step(m, l, acc, qx, kx, vx, mask):
+        logits = torch.einsum("bqhgd,bkhd->bhgqk", qx, kx.float()) * scale
+        logits = torch.where(mask, logits, torch.full((), NEG_INF, device=x.device))
+        m_new = torch.maximum(m, logits.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(logits - m_new[..., None]) * mask
+        l_new = l * alpha + p.sum(-1)
+        acc_new = acc * alpha[..., None] + torch.einsum("bhgqk,bkhd->bhgqd", p, vx.float())
+        return m_new, l_new, acc_new
+
+    outs = []
+    for qi in range(S // qc):
+        qx = qg[:, qi * qc:(qi + 1) * qc].float()
+        m = torch.full((B, Hkv, G, qc), NEG_INF, device=x.device)
+        l = torch.zeros((B, Hkv, G, qc), device=x.device)
+        acc = torch.zeros((B, Hkv, G, qc, Dh), device=x.device)
+        for ki in range(S // kc):
+            if not _tile_visible(qi, qc, ki, kc, window):
+                continue
+            mask = _tile_mask(qi, qc, ki, kc, window, x.device)
+            m, l, acc = remat(kv_step, m, l, acc, qx, k[:, ki * kc:(ki + 1) * kc],
+                               v[:, ki * kc:(ki + 1) * kc], mask)
+        o = torch.where(l[..., None] > 0, acc / torch.clamp(l, min=1e-30)[..., None],
+                        torch.zeros((), device=x.device))
+        outs.append(o.permute(0, 3, 1, 2, 4))                # (B, qc, Hkv, G, Dh)
+    out = torch.cat(outs, dim=1).reshape(B, S, cfg.num_heads * Dh)
+    return out.to(x.dtype) @ params["wo"], (k, v)
+
+
+def _flash_fwd_impl(q, k, v, scale: float, window: int, c: int):
+    """q (B,S,Hkv,G,Dh) f32; k/v (B,S,Hkv,Dh) f32 -> (o, lse (B,Hkv,G,S))."""
+    B, S, Hkv, G, Dh = q.shape
+    n = S // c
+    dev = q.device
+    o = torch.empty_like(q)
+    lse = torch.empty((B, Hkv, G, S), device=dev)
+    for qi in range(n):
+        qx = q[:, qi * c:(qi + 1) * c]
+        m = torch.full((B, Hkv, G, c), NEG_INF, device=dev)
+        l = torch.zeros((B, Hkv, G, c), device=dev)
+        acc = torch.zeros((B, Hkv, G, c, Dh), device=dev)
+        for ki in range(n):
+            if not _tile_visible(qi, c, ki, c, window):
+                continue
+            mask = _tile_mask(qi, c, ki, c, window, dev)
+            lg = torch.einsum("bqhgd,bkhd->bhgqk", qx, k[:, ki * c:(ki + 1) * c]) * scale
+            lg = torch.where(mask, lg, torch.full((), NEG_INF, device=dev))
+            m_new = torch.maximum(m, lg.amax(-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(lg - m_new[..., None]) * mask
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum("bhgqk,bkhd->bhgqd", p,
+                                                        v[:, ki * c:(ki + 1) * c])
+            m = m_new
+        ob = torch.where(l[..., None] > 0, acc / torch.clamp(l, min=1e-30)[..., None],
+                         torch.zeros((), device=dev))
+        o[:, qi * c:(qi + 1) * c] = ob.permute(0, 3, 1, 2, 4)
+        lse[..., qi * c:(qi + 1) * c] = m + torch.log(torch.clamp(l, min=1e-30))
+    return o, lse
+
+
+def _flash_bwd(q, k, v, o, lse, do, scale: float, window: int, c: int):
+    """FlashAttention-style backward: p tiles recomputed from the saved
+    lse; one pass over query tiles for dq, one over key tiles for dk/dv."""
+    B, S, Hkv, G, Dh = q.shape
+    n = S // c
+    dev = q.device
+    D = torch.einsum("bshgd,bshgd->bhgs", do, o)
+    dq = torch.zeros_like(q)
+    dk = torch.zeros_like(k)
+    dv = torch.zeros_like(v)
+
+    def tile(qi, ki):
+        mask = _tile_mask(qi, c, ki, c, window, dev)
+        qx, dox = q[:, qi * c:(qi + 1) * c], do[:, qi * c:(qi + 1) * c]
+        kx, vx = k[:, ki * c:(ki + 1) * c], v[:, ki * c:(ki + 1) * c]
+        lg = torch.einsum("bqhgd,bkhd->bhgqk", qx, kx) * scale
+        p = torch.exp(lg - lse[..., qi * c:(qi + 1) * c, None]) * mask
+        dp = torch.einsum("bqhgd,bkhd->bhgqk", dox, vx)
+        ds = p * (dp - D[..., qi * c:(qi + 1) * c, None]) * scale
+        return qx, dox, kx, p, ds
+
+    for qi in range(n):
+        for ki in range(n):
+            if _tile_visible(qi, c, ki, c, window):
+                _, _, kx, _, ds = tile(qi, ki)
+                dq[:, qi * c:(qi + 1) * c] += torch.einsum("bhgqk,bkhd->bqhgd", ds, kx)
+    for ki in range(n):
+        for qi in range(n):
+            if _tile_visible(qi, c, ki, c, window):
+                qx, dox, _, p, ds = tile(qi, ki)
+                dv[:, ki * c:(ki + 1) * c] += torch.einsum("bhgqk,bqhgd->bkhd", p, dox)
+                dk[:, ki * c:(ki + 1) * c] += torch.einsum("bhgqk,bqhgd->bkhd", ds, qx)
+    return dq, dk, dv
+
+
+class FlashCore(torch.autograd.Function):
+    """``_flash_core`` of the JAX package: blockwise attention whose
+    forward keeps only (q, k, v, o, lse) and whose backward recomputes the
+    probability tiles — neither pass builds the (Sq, Skv) scores."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale: float, window: int, chunk: int):
+        o, lse = _flash_fwd_impl(q, k, v, scale, window, chunk)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (scale, window, chunk)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd(q, k, v, o, lse, do.contiguous(), *ctx.args)
+        return dq, dk, dv, None, None, None
+
+
+def attend_train_flash(params, cfg: ModelConfig, x, positions, window: int = 0,
+                       chunk: int = 512):
+    """Flash attention with a FlashAttention-style backward
+    (``FlashCore``): neither pass materializes (Sq, Skv) scores."""
+    B, S, _ = x.shape
+    Hkv, G, Dh = cfg.num_kv_heads, cfg.q_per_kv, cfg.head_dim
+    q, k, v = qkv(params, cfg, x, positions)
+    o = FlashCore.apply(q.reshape(B, S, Hkv, G, Dh).float(), k.float(), v.float(),
+                        1.0 / math.sqrt(Dh), window, _chunk_size(S, chunk))
+    out = o.reshape(B, S, cfg.num_heads * Dh).to(x.dtype)
     return out @ params["wo"], (k, v)
 
 

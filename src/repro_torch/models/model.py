@@ -1,5 +1,5 @@
-"""Decoder-only model, attention blocks only — the serving paths of
-``repro.models.model`` in PyTorch.
+"""Decoder-only model, attention blocks only — the training and serving
+paths of ``repro.models.model`` in PyTorch.
 
 Parameters are plain dicts of tensors with the JAX names, but unstacked:
 ``params["layers"]`` is a list with one block dict per layer (the JAX
@@ -11,6 +11,9 @@ one committed length per row. Under the paged KV store each layer's
 by the target and the draft); the compressed cache stays row-dense.
 
 Paths:
+  * ``loss_fn`` / ``forward_train`` — full-sequence causal training forward
+    (chunked attention, one recomputed layer at a time under ``remat``, and
+    the chunked vocab cross-entropy); differentiable by autograd;
   * ``prefill``     — full prompt forward that builds the KV / compressed
     caches;
   * ``verify_step`` — T tree-masked draft tokens; NSA layers run the
@@ -69,6 +72,77 @@ def logits_fn(params, cfg: ModelConfig, hidden):
 
 def _ffn(bp, cfg: ModelConfig, x):
     return layers.ffn(bp["ffn"], x, cfg.activation)
+
+
+# ------------------------------------------------------------------ train fwd
+def block_apply_train(bp, cfg: ModelConfig, kind: str, x, positions, chunk: int):
+    """One attention block over the full sequence. Returns (y, aux); aux is
+    0 for every kind the port has (the MoE load-balancing loss would be the
+    only other term)."""
+    del kind                                   # attention blocks only (check_supported)
+    h = layers.rmsnorm(bp["norm1"], x, cfg.norm_eps)
+    if cfg.attention == "nsa":
+        mix, _ = nsa_lib.attend_train_nsa(bp["mix"], cfg, h, positions, chunk=chunk)
+    elif cfg.attention_impl == "flash":
+        mix, _ = attention.attend_train_flash(bp["mix"], cfg, h, positions)
+    elif cfg.attention_impl == "online":
+        mix, _ = attention.attend_train_online(bp["mix"], cfg, h, positions)
+    else:
+        mix, _ = attention.attend_train(
+            bp["mix"], cfg, h, positions, chunk=chunk,
+            remat_chunks=(cfg.attention_impl == "chunked_remat"))
+    x = x + mix
+    return x + _ffn(bp, cfg, layers.rmsnorm(bp["norm2"], x, cfg.norm_eps))
+
+
+def embed_inputs(params, cfg: ModelConfig, tokens, frontend=None):
+    """Text only: returns (x (B, S, d), positions (B, S) int32, n_prefix=0)."""
+    if frontend is not None:
+        raise NotImplementedError("modality frontends are not ported")
+    x = layers.embed(params["embed"], tokens)
+    B, S, _ = x.shape
+    positions = torch.arange(S, dtype=torch.int32, device=tokens.device)[None].expand(B, S)
+    return x, positions, 0
+
+
+def forward_train(params, cfg: ModelConfig, tokens, frontend=None, remat: bool = True,
+                  attn_chunk: int = 512):
+    """tokens (B, S) int64 -> (hidden (B, S, d), aux 0-d f32, n_prefix).
+    ``remat`` recomputes each layer in the backward pass
+    (``torch.utils.checkpoint``, as the JAX package wraps each segment
+    body in ``jax.checkpoint``), so only the layers' inputs stay alive."""
+    check_supported(cfg)
+    x, positions, n_prefix = embed_inputs(params, cfg, tokens, frontend)
+    for bp in params["layers"]:
+        if remat:
+            x = attention.remat(block_apply_train, bp, cfg, "attn", x, positions, attn_chunk)
+        else:
+            x = block_apply_train(bp, cfg, "attn", x, positions, attn_chunk)
+    x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return x, torch.zeros((), device=x.device), n_prefix
+
+
+def loss_fn(params, cfg: ModelConfig, tokens, frontend=None, remat: bool = True,
+            loss_chunk: int = 512, aux_weight: float = 0.01, attn_chunk: int = 512):
+    """Next-token cross-entropy, chunked over the sequence so the (chunk, V)
+    logits working set stays bounded. Logits come out in the parameter
+    dtype and are cast to float32 before the log-sum-exp, as in JAX."""
+    hidden, aux, n_prefix = forward_train(params, cfg, tokens, frontend, remat, attn_chunk)
+    B, S_tok = tokens.shape
+    h_pred = hidden[:, n_prefix:n_prefix + S_tok - 1]
+    labels = tokens[:, 1:].long()
+    S = h_pred.shape[1]
+    chunk = min(loss_chunk, S)
+    while S % chunk:
+        chunk -= 1
+    total = torch.zeros((), device=hidden.device)
+    for i in range(S // chunk):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        logits = logits_fn(params, cfg, h_pred[:, sl]).float()
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[:, sl, None])[..., 0]
+        total = total + (logz - gold).sum()
+    return total / (B * S) + aux_weight * aux
 
 
 # ------------------------------------------------------------------ caches

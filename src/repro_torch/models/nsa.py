@@ -8,8 +8,9 @@ NSA fuses three branches with learned per-head gates:
   win — dense sliding window over the last w tokens
 
 Here: geometry, compression (prefill + incremental commit update),
-routing / Top-n selection / gates, the mask-based prefill
-(``attend_train_nsa``) and the plain verify oracle (``nsa_verify_ref``).
+routing / Top-n selection / gates, the mask-based train / prefill
+attention (``attend_train_nsa``) and the plain verify oracle
+(``nsa_verify_ref``).
 The served verify path goes through ``kernels.nsa_verify`` instead.
 
 Lengths (``prefix_len``, ``ncb_valid``, ``old_len``) may be Python ints or
@@ -202,7 +203,8 @@ def select_topn(p_slc, positions, kv_len, nsa: NSAConfig):
     B, T, Hkv, NSB = p_slc.shape
     dev = p_slc.device
     n = min(nsa.n_selected, NSB)
-    starts = torch.arange(NSB, device=dev) * nsa.sel_block
+    blk = torch.arange(NSB, device=dev)
+    starts = blk * nsa.sel_block
     causal = (starts <= positions[..., None, None]).expand(B, T, Hkv, NSB)
     causal = causal & (starts < _rows(kv_len, dev, 4))
     neg = torch.full((), NEG_INF, device=dev)
@@ -215,8 +217,7 @@ def select_topn(p_slc, positions, kv_len, nsa: NSAConfig):
         last_blk = torch.div(last, nsa.sel_block, rounding_mode="floor").reshape(B, T, 1, 1)
         off = torch.arange(nsa.n_local_blocks, device=dev).reshape(1, 1, 1, -1)
         loc = (last_blk - off).clamp(0, NSB - 1)                     # (B,T,1,nl)
-        hit = torch.zeros((B, T, 1, NSB), dtype=torch.bool, device=dev)
-        hit.scatter_(-1, loc.long(), True)
+        hit = (loc[..., None] == blk).any(dim=3)                     # (B,T,1,NSB)
         mand = mand | hit
     mand = mand & causal
     scores = torch.where(mand, scores + 1e6, scores)
@@ -240,13 +241,17 @@ def gates(params, x, num_heads: int):
 
 # ---------------------------------------------------------------- prefill
 def attend_train_nsa(params, cfg: ModelConfig, x, positions, chunk: int = 512):
-    """Full-sequence NSA with exact semantics via masks (prefill).
+    """Full-sequence NSA with exact semantics via masks (train / prefill).
 
     Returns (out (B,S,D), (k, v)). Chunked over queries only when
     ``S % chunk == 0``, as in the JAX package; otherwise one chunk builds
     S x S score tensors. The query at position p treats tokens < p as its
     committed prefix (the serve-consistent semantics ``nsa_verify_ref``
-    computes with prefix_len == p).
+    computes with prefix_len == p). Differentiable: autograd gives the JAX
+    gradients; the Top-n indices carry none, in either package. Every op
+    has a deterministic CUDA implementation (the selection masks are
+    comparisons, not scatters), so a train step can run under
+    ``torch.use_deterministic_algorithms(True)``.
     """
     nsa = cfg.nsa
     B, S, _ = x.shape
@@ -271,9 +276,9 @@ def attend_train_nsa(params, cfg: ModelConfig, x, positions, chunk: int = 512):
         o_cmp, p_slc = routing(params, cfg, qc, k_cmp, v_cmp, posc - 1, S)
         idx, idx_valid = select_topn(p_slc, posc - 1, S, nsa)        # (B,Sc,Hkv,n)
         # token-granular selection mask: block-level hits, then per token
-        hits = torch.zeros((B, Sc, Hkv, nsb), dtype=torch.int32, device=dev)
-        hits.scatter_add_(-1, idx.long(), idx_valid.to(torch.int32))
-        sel_mask = (hits > 0)[..., blk_of_tok]                       # (B,Sc,Hkv,S)
+        hits = ((idx[..., None] == torch.arange(nsb, device=dev)) &
+                idx_valid[..., None]).any(dim=3)                     # (B,Sc,Hkv,nsb)
+        sel_mask = hits[..., blk_of_tok]                             # (B,Sc,Hkv,S)
         sel_mask = sel_mask & (tok < posc[..., None])[:, :, None, :]
         qg = qc.reshape(B, Sc, Hkv, G, Dh).float()
         logit = torch.einsum("bthgd,bkhd->bhgtk", qg, kf) * scale

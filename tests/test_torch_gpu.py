@@ -15,7 +15,10 @@ dense launch when every page is mapped), batched paged serving against
 dense serving, and the bucketed group steps as captured CUDA graphs (replay
 bitwise equal to the eager group steps with the launch counters advancing
 alike, the merge-ticket buffers kept across captures, ``start_empty``
-keeping or dropping the graphs). Whether a card is present is decided in a fixture, so every worker
+keeping or dropping the graphs), and training on the card (one train
+step's loss and gradients equal to the CPU's, AdamW's float32 moments
+under bf16 params, the ``AsyncCheckpointer`` round trip from device
+tensors). Whether a card is present is decided in a fixture, so every worker
 collects the same tests; without a card they skip. Run them on
 the card with ``python -m pytest -m gpu tests/test_torch_gpu.py``."""
 import pytest
@@ -735,3 +738,89 @@ def test_start_empty_keeps_graphs_at_the_same_slot_count(cuda):
     assert eng.step_cache.misses == 3 and first == second
     eng.start_empty(2)
     assert eng.step_cache.size == 0 and eng._graph_pool is None
+
+
+# ---- training on the card (reduced ssv-nsa-1b, float32; TF32 off)
+def _train_pair(dev, dtype="float32"):
+    import dataclasses
+    from repro_torch.configs import reduced
+    cfg = dataclasses.replace(reduced("ssv-nsa-1b", vocab=128), dtype=dtype)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    return cfg, params
+
+
+@pytest.mark.gpu
+def test_train_step_on_card_equals_cpu(cuda):
+    """The loss and every gradient leaf of one train step (autograd through
+    ``attend_train_nsa`` with remat) on the card equal the CPU's: loss rtol
+    2e-4 / atol 2e-5, gradients rtol 1e-3 / atol 1e-6."""
+    from repro_torch.optim import tree_leaves, tree_map
+    cfg, params = _train_pair(cuda)
+    tokens = torch.randint(0, 128, (2, 160), generator=torch.Generator().manual_seed(1))
+    out = {}
+    for dev in ("cpu", cuda):
+        p = tree_map(lambda t: t.to(dev), params)
+        leaves = tree_leaves(p)
+        for t in leaves:
+            t.requires_grad_(True)
+        loss = model_lib.loss_fn(p, cfg, tokens.to(dev), remat=True, attn_chunk=32)
+        out[str(dev)] = (loss.detach().cpu(), [g.cpu() for g in torch.autograd.grad(loss, leaves)])
+    (lc, gc), (lg, gg) = out["cpu"], out["cuda"]
+    torch.testing.assert_close(lg, lc, rtol=2e-4, atol=2e-5)
+    for a, b in zip(gg, gc):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_adamw_keeps_float32_moments_under_bf16_params_on_card(cuda):
+    """bf16 params on the card: float32 moments, bf16 params back, equal to
+    the CPU update (moments rtol 1e-6; params within one bf16 step)."""
+    from repro_torch.config import TrainConfig
+    from repro_torch.optim import adamw, tree_leaves, tree_map
+    cfg, params = _train_pair(cuda, "bfloat16")
+    g = torch.Generator().manual_seed(2)
+    grads = tree_map(lambda p: torch.randn(p.shape, generator=g).to(p.dtype), params)
+    tc = TrainConfig(steps=10, learning_rate=1e-2, warmup_steps=0)
+    res = {}
+    for dev in ("cpu", cuda):
+        p, gr = tree_map(lambda t: t.to(dev), params), tree_map(lambda t: t.to(dev), grads)
+        st = adamw.adamw_init(p)
+        for _ in range(2):
+            p, st = adamw.adamw_update(gr, st, p, tc)
+        res[str(dev)] = (p, st)
+    (pc, sc), (pg, sg) = res["cpu"], res["cuda"]
+    assert sg.count.device.type == "cuda" and int(sg.count) == 2
+    for m in tree_leaves(sg.mu) + tree_leaves(sg.nu):
+        assert m.dtype == torch.float32 and m.device.type == "cuda"
+    for a, b in zip(tree_leaves(sg.mu) + tree_leaves(sg.nu), tree_leaves(sc.mu) + tree_leaves(sc.nu)):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-6, atol=1e-12)
+    for a, b, p in zip(tree_leaves(pg), tree_leaves(pc), tree_leaves(params)):
+        assert a.dtype == p.dtype
+        torch.testing.assert_close(a.cpu().float(), b.float(), rtol=8e-3, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_async_checkpointer_round_trip_from_device_tensors(cuda, tmp_path):
+    """A train state on the card (bf16 params, float32 moments, int32
+    count) saved by ``AsyncCheckpointer`` and restored onto the card is
+    bitwise the same; the file is the JAX layout."""
+    from repro_torch.ckpt import AsyncCheckpointer, load, restore
+    from repro_torch.config import TrainConfig
+    from repro_torch.optim import tree_leaves, tree_map
+    from repro_torch.runtime.trainer import Trainer
+    cfg, params = _train_pair(cuda, "bfloat16")
+    tr = Trainer(cfg, TrainConfig(checkpoint_every=0, checkpoint_dir=str(tmp_path / "x")),
+                 batch_size=2, seq_len=64, params=tree_map(lambda t: t.to(cuda), params),
+                 device=cuda, resume=False)
+    tr.run(2)
+    tree = {"params": tr.state.params, "opt": tr.state.opt, "residual": tr.state.residual}
+    ck = AsyncCheckpointer(str(tmp_path / "c"), cfg)
+    ck.save(2, tree)
+    ck.wait()
+    _, flat = load(str(tmp_path / "c"))
+    assert flat["params"]["segments"][0][0]["mix"]["wq"].shape[0] == cfg.num_layers
+    step, back = restore(str(tmp_path / "c"), tree, cfg)
+    assert step == 2
+    for a, b in zip(tree_leaves(tree), tree_leaves(back)):
+        assert b.device.type == "cuda" and a.dtype == b.dtype
+        assert torch.equal(a, b)

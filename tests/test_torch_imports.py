@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: nothing under ``src/repro_torch`` and
 nothing in ``chip_smoke.py`` imports JAX or the JAX package ``repro``
-(checked on the source, by AST). Also drives the port's serve CLI on the
+(checked on the source, by AST; the training modules too). Also drives the port's serve CLI on the
 CPU (single stream; batched, continuous and paged serving) and checks that
 the bucketed flags refuse what the JAX CLI refuses."""
 import ast
@@ -54,6 +54,16 @@ def test_scan_covers_the_planner_modules():
     scanned = {str(p.relative_to(ROOT)) for p in _port_files()}
     for rel in ("core/planner.py", "core/schedule.py", "core/engine.py", "kernels/__init__.py",
                 "kernels/build.py", "launch/serve.py"):
+        assert f"src/repro_torch/{rel}" in scanned
+
+
+def test_scan_covers_the_training_modules():
+    """The training slice's modules are scanned."""
+    scanned = {str(p.relative_to(ROOT)) for p in _port_files()}
+    for rel in ("optim/adamw.py", "optim/compress.py", "ckpt/checkpoint.py",
+                "data/pipeline.py", "data/synthetic.py", "runtime/fault.py",
+                "runtime/straggler.py", "runtime/trainer.py", "launch/train.py",
+                "bridge.py", "models/model.py", "models/attention.py"):
         assert f"src/repro_torch/{rel}" in scanned
 
 
