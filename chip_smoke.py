@@ -86,12 +86,35 @@ Phases (every phase always runs; any failure exits non-zero):
      a one-token-at-a-time ``decode_step``'s; bf16: Strict and
      Approx+Reuse SSV with exact launch counts, and AR; mean accepted > 0);
      the train CLI twice (train, then resume);
- 10. the summary lines: a ``kernels`` JSON line (every kernel x head dim),
-     the card line, and the ``{"ok": true, "device": ...}`` line last.
+ 10. the model zoo: qwen3-8b, granite-20b, musicgen-medium,
+     mixtral-8x22b and qwen3-moe-235b-a22b, each as its NSA variant
+     (``configs.nsa_variant``) with its ``draft_config`` draft, at full
+     width (the two MoE archs cut to 4 layers), bf16, random weights from
+     a seed, one at a time: a 4097-token prompt, max_context 8192, D4/k2,
+     16 new tokens, Strict and Approx+Reuse through ``SSVEngine`` with
+     exact launch counts, a 3-step profile (one device-to-host copy per
+     step), tok/s and peak memory; ``generate_batch`` at 2 slots on the
+     dense and the paged store for qwen3-8b and qwen3-moe (paged ==
+     dense); qwen3-moe served bucketed at 4 slots (D6/k10/budget 128, T =
+     129, and D4/k2) with every group step a captured CUDA graph, launch
+     counts exact under replay, paged == dense; one MoE FFN over an odd
+     4097 tokens (its experts one by one, as a prefill runs them);
+     float32: Strict == AR on qwen3-8b, granite-20b and musicgen-medium
+     cut to 4 layers, and for
+     both MoE archs (experts, top-k, dispatch group and heads kept, width
+     cut) card tokens and accepted counts == the CPU plain path's and
+     batched == single stream; the serve CLI with ``--arch qwen3-8b``.
+     Phase 2 holds the kernels at the zoo's shapes too (Gq 16, 48, 6, 1;
+     flash at Gq 48 and windowed at mixtral's), and phase 8 times them;
+ 11. the summary lines: a ``kernels`` JSON line (every kernel x head dim,
+     and x query-head group for the zoo's), the card line, and the
+     ``{"ok": true, "device": ...}`` line last.
 
-``--times-only`` stops after phases 1 and 8 (no ok line); with ``--src``
-it times another checkout's kernels by the same method (the parent's, in
-the same call, for a comparison on one card).
+``--times-only`` stops after phases 1 and 8 (no ok line), ``--serve-only``
+after phases 1 and 3 (no ok line; the served tokens go to
+``chip_smoke_serve.json``); with ``--src`` either times or serves another
+checkout's package by the same method (the parent's, in the same call, for
+a comparison on one card).
 
 Each counted path sets every launch counter to 0 just before it runs and
 reads them just after; a kernel row's ``launches`` sums the paths at its
@@ -376,9 +399,9 @@ def check_verify_cases(cfg, inp, dt_name, note, tag="", cases=VERIFY_CASES):
              check_close(f"{tag}nsa_verify {label} Dh {Dh}", got, want, dt_name))
 
 
-def check_flash(label, Hq, Hkv, Dh, dt_name, note, seed, **shape):
+def check_flash(label, Hq, Hkv, Dh, dt_name, note, seed, window=0, **shape):
     """flash_verify against its plain version at (Hq, Hkv, Dh)."""
-    inp = flash_inputs(Hq, Hkv, Dh, DTYPES[dt_name], seed, **shape)
+    inp = dict(flash_inputs(Hq, Hkv, Dh, DTYPES[dt_name], seed, **shape), window=window)
     got = run_flash(inp, plain=False)
     want = run_flash(inp, plain=True)
     torch.cuda.synchronize()
@@ -608,10 +631,14 @@ def main(argv=None) -> int:
     ap.add_argument("--times-only", action="store_true",
                     help="build and time the kernels (phases 1 and 8, bf16 and float32 "
                          "K/V) and stop; prints no ok line")
+    ap.add_argument("--serve-only", action="store_true",
+                    help="build and serve the 1B / 8B cells of phase 3 (bf16 single stream, "
+                         "Strict and Approx+Reuse, launch counts, profile) and stop; prints "
+                         "no ok line")
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="the directory that holds repro_torch (default: this checkout's); "
-                         "with --times-only, another checkout's kernels are timed by the "
-                         "same method")
+                         "with --times-only or --serve-only, another checkout's package is "
+                         "timed or served by the same method")
     args = ap.parse_args(argv)
     out_dir = Path(args.out)
     if not torch.cuda.is_available():
@@ -653,8 +680,9 @@ def main(argv=None) -> int:
     spills = [i["instance"] for i in instances if i["spill_stores"] or i["spill_loads"]]
 
     cfgs = {64: configs.get_config("ssv-nsa-1b"), 128: configs.get_config("ssv-nsa-8b")}
-    if args.times_only:
-        rows, layer_times = kernel_times(cfgs, {}, {}, kind, card)
+    own_src = Path(args.src).resolve() == (ROOT / "src").resolve()
+    if args.times_only:       # another checkout's kernels may predate the zoo's head groups
+        rows, layer_times = kernel_times(cfgs, {}, {}, kind, card, zoo=own_src)
         out_dir.mkdir(parents=True, exist_ok=True)
         (out_dir / "chip_smoke_times.json").write_text(json.dumps(
             {"card": card, "kind": kind, "src": args.src, "ptxas": instances, "kernels": rows,
@@ -669,11 +697,23 @@ def main(argv=None) -> int:
     ctx = dict(counters=counters, kind=kind, card=card,
                corpus=SyntheticCorpus(SyntheticConfig(vocab_size=cfgs[128].vocab_size)),
                launches={}, paths={})
+    if args.serve_only:
+        e2e = {}
+        for Dh in (64, 128):
+            weights = load_weights(cfgs[Dh], seed=0)
+            e2e[cfgs[Dh].name] = serve_e2e(cfgs[Dh], Dh, weights, ctx)
+            del weights
+            free()
+        (out_dir / "chip_smoke_serve.json").write_text(json.dumps(
+            {"card": card, "kind": kind, "src": args.src, "e2e": e2e}, indent=1))
+        print(card)
+        return 0
 
     # ---- 2. kernels vs plain versions at full width
+    t0 = time.time()
     max_err = check_kernels(cfgs, ctx)
     ctx["note_err"] = lambda key, e: max_err.__setitem__(key, max(max_err.get(key, 0.0), e))
-    log("[2 kernels] all cases agree with the plain versions")
+    log(f"[2 kernels] all cases agree with the plain versions ({time.time() - t0:.1f}s)")
 
     # ---- 3. single stream, and 4. batched / continuous serving, full width bf16
     e2e, batched = {}, {}
@@ -691,6 +731,8 @@ def main(argv=None) -> int:
                 cfgs[Dh], weights, ctx)
         del weights
         free()
+
+    log(f"[3-4 serve] done at {time.time() - t_start:.1f}s")
 
     # ---- 5. float32 equalities
     f32_equalities(cfgs[64], ctx)
@@ -719,23 +761,36 @@ def main(argv=None) -> int:
     if idle:
         fail(f"the main paths never launched {idle}")
 
+    log(f"[5-7] done at {time.time() - t_start:.1f}s")
+
     # ---- 8. kernel times at the slices' shapes (bf16)
+    t0 = time.time()
     rows, layer_times = kernel_times(cfgs, ctx["launches"], max_err, kind, card)
+    log(f"[8 time] {time.time() - t0:.1f}s")
 
     # ---- 9. training, and the serve of a pair trained on the card
     t0 = time.time()
     train = train_phase(cfgs[64], ctx, out_dir / "train")
     log(f"[9 train] {time.time() - t0:.1f}s")
-    for row in rows:        # the trained pair's serve launched and checked the kernels too
+
+    # ---- 10. the model zoo
+    t0 = time.time()
+    zoo = zoo_phase(ctx)
+    serve_cli("qwen3-8b")
+    log(f"[10 zoo] {time.time() - t0:.1f}s")
+    idle = [r["name"] for r in rows if ctx["launches"].get(r["name"], 0) == 0]
+    if idle:
+        fail(f"the main paths never launched {idle}")
+    for row in rows:        # the trained pair's and the zoo's serves launched the kernels too
         row["launches"] = ctx["launches"].get(row["name"], 0)
         row["max_abs_err"] = max_err.get(row["name"])
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "kind": kind, "e2e": e2e, "batched": batched, "paths": ctx["paths"],
          "ptxas": instances, "kernels": rows, "layer_times": layer_times, "train": train,
-         "seconds": time.time() - t_start}, indent=1))
+         "zoo": zoo, "seconds": time.time() - t_start}, indent=1))
 
-    # ---- 10. summary
-    log(f"[10 done] {time.time() - t_start:.1f}s")
+    # ---- 11. summary
+    log(f"[11 done] {time.time() - t_start:.1f}s")
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -787,28 +842,7 @@ def check_kernels(cfgs, ctx):
         max_err[key] = max(max_err.get(key, 0.0), e)
 
     for Dh, cfg in cfgs.items():
-        for dt_name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-            inp = verify_inputs(cfg, dt, seed=1)
-            check_routing(cfg, inp, dt_name, lambda e: note(f"routing_dh{Dh}", e))
-            check_verify_cases(cfg, inp, dt_name, note)
-            del inp
-            # two rows of different lengths: routing, then the paged mode in
-            # a shuffled pool with holes inside and outside the window
-            inp = verify_inputs(cfg, dt, seed=6, prefix=(4096, 3001))
-            check_routing(cfg, inp, dt_name, lambda e: note(f"routing_dh{Dh}", e))
-            for mult in (1, 2):
-                pool = paged_pool(cfg, inp, mult, holes=True, seed=mult)
-                for label, C, mode, full, branch in VERIFY_CASES[:4]:
-                    args = verify_layouts(cfg, inp, C, mode, pool)
-                    oc = None if full else inp["o_cmp_in"]
-                    got = run_verify(cfg, args, full, oc, plain=False)
-                    want = run_verify(cfg, args, full, oc, plain=True)
-                    torch.cuda.synchronize()
-                    note(f"nsa_verify_paged_dh{Dh}", check_close(
-                        f"nsa_verify paged {label} ps {mult}x{cfg.nsa.sel_block} Dh {Dh}",
-                        got, want, dt_name))
-                del pool
-            del inp
+        check_kernel_shapes(cfg, note)
         # the vanilla layer (routing kernel, two branch launches, combine),
         # a counted path, against the plain NSA layer on the same weights
         # and caches
@@ -827,14 +861,81 @@ def check_kernels(cfgs, ctx):
     for label, Hq, Hkv, Dh in FLASH_CASES:
         for dt_name in DTYPES:
             check_flash(label, Hq, Hkv, Dh, dt_name, note, seed=Hq + Dh)
+    check_zoo_kernels(cfgs, note)
     free()
     return max_err
 
 
-def counted_path(ctx, name, Dh, fn, want_of):
+def check_kernel_shapes(cfg, note, tag=""):
+    """Phase 2 at one (Hq, Hkv, Dh): routing (one row, then two rows) and
+    every nsa_verify case, then the paged mode, in f32 and bf16 K/V."""
+    Dh = cfg.head_dim
+    for dt_name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        inp = verify_inputs(cfg, dt, seed=1)
+        check_routing(cfg, inp, dt_name, lambda e: note(f"routing_dh{Dh}", e), tag)
+        check_verify_cases(cfg, inp, dt_name, note, tag)
+        del inp
+        # two rows of different lengths: routing, then the paged mode in
+        # a shuffled pool with holes inside and outside the window
+        inp = verify_inputs(cfg, dt, seed=6, prefix=(4096, 3001))
+        check_routing(cfg, inp, dt_name, lambda e: note(f"routing_dh{Dh}", e), tag)
+        for mult in (1, 2):
+            pool = paged_pool(cfg, inp, mult, holes=True, seed=mult)
+            for label, C, mode, full, branch in VERIFY_CASES[:4]:
+                args = verify_layouts(cfg, inp, C, mode, pool)
+                oc = None if full else inp["o_cmp_in"]
+                got = run_verify(cfg, args, full, oc, plain=False)
+                want = run_verify(cfg, args, full, oc, plain=True)
+                torch.cuda.synchronize()
+                note(f"nsa_verify_paged_dh{Dh}", check_close(
+                    f"{tag}nsa_verify paged {label} ps {mult}x{cfg.nsa.sel_block} Dh {Dh}",
+                    got, want, dt_name))
+            del pool
+        del inp
+
+
+# The attention shapes of the zoo's NSA variants (label, Dh, Hq, Hkv): the
+# query-head groups the kernels take beyond the 1B / 8B targets' Gq 4
+ZOO_SHAPES = [("qwen3-moe", 64, 64, 4), ("granite", 128, 48, 1), ("mixtral", 128, 48, 8),
+              ("musicgen", 64, 24, 24)]
+
+
+def zoo_kernel_cfg(cfgs, Dh, Hq, Hkv):
+    """The 1B / 8B config of head dim Dh with the zoo's head counts (the
+    kernels see only heads, head dim and the NSA geometry, which is the
+    same default NSAConfig)."""
+    return dataclasses.replace(cfgs[Dh], num_heads=Hq, num_kv_heads=Hkv, head_dim=Dh,
+                               d_model=Hq * Dh)
+
+
+def check_zoo_kernels(cfgs, note):
+    """Phase 2 at the zoo's shapes: routing and nsa_verify at Gq 16 (one
+    query per routing CTA; 32 / 64 verify rows in 2 / 4 row tiles), 48
+    (three routing head slabs; 96 / 192 rows in 6 / 12 row tiles), 6 (24
+    rows at approx C=4: two row tiles) and 1; flash at Gq 48 and windowed
+    (4096) at mixtral's shapes."""
+    for label, Dh, Hq, Hkv in ZOO_SHAPES:
+        gq = Hq // Hkv
+        check_kernel_shapes(zoo_kernel_cfg(cfgs, Dh, Hq, Hkv),
+                            lambda k, e, gq=gq: note(k + f"_gq{gq}", e), f"{label} Gq {gq} ")
+    for dt_name in DTYPES:
+        check_flash("granite target Gq 48", 48, 1, 128, dt_name, note, seed=5)
+        check_flash("mixtral target, window 4096", 48, 8, 128, dt_name, note, seed=6,
+                    prefix=6000, window=4096)
+
+
+def launch_key(counter, Dh, gq=4):
+    """The kernel row a launch counts under: ``<counter>_dh<Dh>``, with
+    ``_gq<Gq>`` for the zoo targets' query-head groups other than the 1B /
+    8B targets' 4 (flash serves the drafts, Gq 1, under its plain name)."""
+    return f"{counter}_dh{Dh}" + ("" if gq == 4 or counter == "flash_verify" else f"_gq{gq}")
+
+
+def counted_path(ctx, name, Dh, fn, want_of, gq=4):
     """Run one main path with every counter at 0, read the counts after it
     and check them against ``want_of(result)`` ({counter: count}, the rest
-    must stay 0). Adds the counts to the launches of head dim Dh."""
+    must stay 0). Adds the counts to the launches of head dim Dh (and the
+    target's query-head group ``gq``)."""
     for c in ctx["counters"]:
         c.reset()
     res = fn()
@@ -846,7 +947,7 @@ def counted_path(ctx, name, Dh, fn, want_of):
         fail(f"{name}: launch counts {counts}, expected {want}")
     ctx["paths"][name] = counts
     for k, v in counts.items():
-        key = f"{k}_dh{Dh}"
+        key = launch_key(k, Dh, gq)
         ctx["launches"][key] = ctx["launches"].get(key, 0) + v
     log(f"  [{name}] launches {counts}")
     return res
@@ -864,9 +965,10 @@ def strategy(cfg, pc):
 def generate_all(eng, prompts, cfg, label, new_tokens=16):
     n_tok = n_steps = 0
     step_s = 0.0
-    accepted = []
+    accepted, token_ids = [], []
     for prompt in prompts:
         res = eng.generate(prompt, max_new_tokens=new_tokens)
+        token_ids.append(res.tokens.tolist())
         if len(res.tokens) != new_tokens or not all(0 <= t < cfg.vocab_size for t in res.tokens):
             fail(f"{label}: bad tokens {res.tokens}")
         n_tok += len(res.tokens)
@@ -874,7 +976,7 @@ def generate_all(eng, prompts, cfg, label, new_tokens=16):
         step_s += sum(s.latency_s for s in res.steps)
         accepted += [s.accepted for s in res.steps]
     return dict(tokens=n_tok, steps=n_steps, tokens_per_s=n_tok / step_s,
-                mean_accepted=sum(accepted) / len(accepted))
+                mean_accepted=sum(accepted) / len(accepted), token_ids=token_ids)
 
 
 def load_weights(cfg, seed):
@@ -951,7 +1053,8 @@ BATCHED_8B = dict(slots=2, n_req=2, classes=("Strict",), backends=("paged",),
 
 
 def serve_batched(cfg, Dh, weights, ctx, slots=4, n_req=6, classes=("Strict", "Approx+Reuse"),
-                  backends=("dense", "paged"), continuous=True, sweep=(1, 2, 4)):
+                  backends=("dense", "paged"), continuous=True, sweep=(1, 2, 4), gq=4,
+                  prompt_len=4097):
     """Phase 4: ``generate_batch`` over ``slots`` requests and
     ``serve_continuous`` of ``n_req`` requests (Poisson arrivals, 0.5 per
     step) over ``slots`` slots, per precision class and store, as counted
@@ -960,10 +1063,11 @@ def serve_batched(cfg, Dh, weights, ctx, slots=4, n_req=6, classes=("Strict", "A
     from repro_torch.config import ServeConfig
     from repro_torch.core import engine as engine_lib, schedule
     tp, dcfg, dp = weights
-    prompts = [ctx["corpus"].batch(100 + i, 1, 4097)[0] % cfg.vocab_size for i in range(n_req)]
+    prompts = [ctx["corpus"].batch(100 + i, 1, prompt_len)[0] % cfg.vocab_size
+               for i in range(n_req)]
     arrivals = schedule.poisson_arrivals(n_req, 0.5, seed=0)
     out, tokens = {}, {}
-    tag = f"[4 batched {cfg.name}]"
+    tag = f"[{'4' if gq == 4 else '10'} batched {cfg.name}]"
 
     def engine(backend, pc):
         return engine_lib.BatchedSSVEngine(tp, cfg, dp, dcfg, ServeConfig(
@@ -983,7 +1087,7 @@ def serve_batched(cfg, Dh, weights, ctx, slots=4, n_req=6, classes=("Strict", "A
             torch.cuda.reset_peak_memory_stats()
             name = f"{cfg.name} {backend} {pc} generate_batch x{slots}"
             res = counted_path(ctx, name, Dh, lambda: eng.generate_batch(prompts[:slots], 16),
-                               lambda r: expected_launches(cfg, dcfg, ssv, r.steps, paged))
+                               lambda r: expected_launches(cfg, dcfg, ssv, r.steps, paged), gq)
             check(name, res)
             rec = dict(batch_tokens=res.total_tokens, batch_steps=res.steps,
                        batch_wall_s=res.wall_s, batch_tok_s=res.aggregate_throughput,
@@ -1090,7 +1194,7 @@ def bucket_engine(cfg, weights, profile, backend="dense", graphs=True, max_new=1
         planner=planner_lib.BatchPlanner(profile), device=DEV, cuda_graphs=graphs)
 
 
-def serve_bucketed(cfg, Dh, weights, ctx, slots=4, n_req=6):
+def serve_bucketed(cfg, Dh, weights, ctx, slots=4, n_req=6, gq=4):
     """Phase 4, bucketed: ``warmup`` captures |strategies| x |group sizes|
     graphs; then ``serve_continuous(warmup=True)`` of ``n_req`` requests
     (Poisson arrivals, 0.5 per step) as a counted path: every group step a
@@ -1139,7 +1243,7 @@ def serve_bucketed(cfg, Dh, weights, ctx, slots=4, n_req=6):
             return want
 
         res = counted_path(ctx, name, Dh, lambda: eng.serve_continuous(
-            reqs, num_slots=slots, max_new_tokens=16, warmup=True), replay_counts)
+            reqs, num_slots=slots, max_new_tokens=16, warmup=True), replay_counts, gq)
         if eng.step_cache.misses != misses:
             fail(f"{tag} {backend}: {eng.step_cache.misses - misses} group steps were "
                  "built during the serve")
@@ -1180,7 +1284,8 @@ def serve_bucketed(cfg, Dh, weights, ctx, slots=4, n_req=6):
 def step_profile(fn, n):
     """n calls of ``fn`` after one: host wall per call, then under the
     profiler device busy time, device kernels, host launch calls and
-    host<->device copies per call."""
+    host<->device copies per call, and the 10 kernels with the most device
+    time per call."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -1194,10 +1299,13 @@ def step_profile(fn, n):
             fn()
         torch.cuda.synchronize()
     busy = kernels = htod = dtoh = host_launches = 0
+    kern = []
     for ev in prof.key_averages():
         if getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA:
-            busy += (getattr(ev, "self_device_time_total", 0.0) or
-                     getattr(ev, "self_cuda_time_total", 0.0)) / 1e3
+            ms = (getattr(ev, "self_device_time_total", 0.0) or
+                  getattr(ev, "self_cuda_time_total", 0.0)) / 1e3
+            busy += ms
+            kern.append((ms / n, ev.count / n, ev.key[:80]))
             kernels += 0 if is_copy(ev.key) else ev.count
             htod += ev.count if "HtoD" in ev.key else 0
             dtoh += ev.count if "DtoH" in ev.key else 0
@@ -1207,7 +1315,9 @@ def step_profile(fn, n):
     busy /= n
     return {"step_wall_ms": wall_ms, "device_busy_ms": busy, "idle_share": 1 - busy / wall_ms,
             "device_kernels_per_step": kernels / n, "host_launch_calls_per_step": host_launches / n,
-            "htod_per_step": htod / n, "dtoh_per_step": dtoh / n}
+            "htod_per_step": htod / n, "dtoh_per_step": dtoh / n,
+            "top": [{"ms": ms, "launches": c, "name": name}
+                    for ms, c, name in sorted(kern, reverse=True)[:10]]}
 
 
 def profile_group_steps(cfg, weights, ctx, slots=4, n=3):
@@ -1264,7 +1374,10 @@ def is_copy(name):
 def report_launches_per_step(key, kernels):
     """Kernel launches per decode step (copies excluded) beside the
     pre-redesign tree's at the same configuration (see PRE_REDESIGN_KERNELS_PER_STEP)."""
-    want = PRE_REDESIGN_KERNELS_PER_STEP[key]
+    want = PRE_REDESIGN_KERNELS_PER_STEP.get(key)
+    if want is None:
+        log(f"  [{key}] {kernels} kernel launches per step")
+        return
     log(f"  [{key}] {kernels} kernel launches per step (pre-redesign: {want}, "
         f"{kernels - want:+d})")
 
@@ -1346,7 +1459,7 @@ def profile_steps(eng, prompt, key, n: int = 3):
             "top": top}
 
 
-def strict_equals_ar(cfg, layers, n_tok, ctx):
+def strict_equals_ar(cfg, layers, n_tok, ctx, prompt_len=2049, tag="5"):
     """Strict == AR (float32, full width; ``layers`` cuts depth): Strict SSV
     tokens equal autoregressive decoding. Returns (weights, prompt, the
     SSV tokens) for further checks on the same weights."""
@@ -1355,7 +1468,7 @@ def strict_equals_ar(cfg, layers, n_tok, ctx):
     cfg32 = dataclasses.replace(cfg, dtype="float32", num_layers=layers or cfg.num_layers)
     weights = load_weights(cfg32, seed=1)
     tp, dcfg32, dp = weights
-    prompt = ctx["corpus"].batch(7, 1, 2049)[0] % cfg.vocab_size
+    prompt = ctx["corpus"].batch(7, 1, prompt_len)[0] % cfg.vocab_size
     ssv = SSVConfig(tree_depth=4, tree_width=2, precision_class="Strict")
     eng = engine_lib.SSVEngine(tp, cfg32, dp, dcfg32, ServeConfig(
         max_new_tokens=n_tok, temperature=0.0, max_context=8192, ssv=ssv,
@@ -1363,7 +1476,7 @@ def strict_equals_ar(cfg, layers, n_tok, ctx):
     ssv_toks = eng.generate(prompt, max_new_tokens=n_tok).tokens
     ar_toks = engine_lib.autoregressive_decode(tp, cfg32, prompt, n_tok, 8192,
                                                device=DEV).tokens
-    tag = f"[5 strict==AR f32 {cfg.name}{f' {layers} layers' if layers else ''}]"
+    tag = f"[{tag} strict==AR f32 {cfg.name}{f' {layers} layers' if layers else ''}]"
     log(f"{tag} ssv {ssv_toks.tolist()}")
     log(f"{tag} ar  {ar_toks.tolist()}")
     if len(ssv_toks) != n_tok or ssv_toks.tolist() != ar_toks.tolist():
@@ -1480,6 +1593,184 @@ def dense_baseline(cfg, ctx):
     log(f"[6 dense baseline {cfg.name}] {res['tokens']} tokens in {res['steps']} steps, "
         f"{res['tokens_per_s']:.2f} tok/s, peak memory {peak:.2f} GiB")
     return dict(res, peak_gib=peak, profile=prof)
+
+
+# ---------------------------------------------------------------- 10. the zoo
+# The JAX package's attention archs that the kernels' head dims take, each
+# served as its NSA variant (``configs.nsa_variant``, as the serve CLIs do)
+# at full width with its ``draft_config`` draft. The MoE archs keep 4 of
+# their layers: one card holds ~5 GB of bf16 experts per layer, so 56 and
+# 94 layers (~282 and ~463 GB) do not fit.
+ZOO = ("qwen3-8b", "granite-20b", "musicgen-medium", "mixtral-8x22b", "qwen3-moe-235b-a22b")
+ZOO_LAYERS = {"mixtral-8x22b": 4, "qwen3-moe-235b-a22b": 4}
+ZOO_PAGED = ("qwen3-8b", "qwen3-moe-235b-a22b")      # generate_batch, paged == dense
+ZOO_F32_AR = ("qwen3-8b", "granite-20b", "musicgen-medium")
+ZOO_MOE = ("mixtral-8x22b", "qwen3-moe-235b-a22b")
+
+
+def zoo_config(arch, layers=None):
+    from repro_torch import configs
+    cfg = configs.nsa_variant(configs.get_config(arch))
+    layers = layers or ZOO_LAYERS.get(arch)
+    return dataclasses.replace(cfg, num_layers=layers) if layers else cfg
+
+
+def serve_zoo(arch, ctx, n_tok=16):
+    """Phase 10, one arch: one 4097-token prompt prefilled once into one
+    ``SSVEngine`` (bf16, random weights from a seed, max_context 8192),
+    then per precision class (Strict, then Approx+Reuse, each step under
+    its strategy): ``n_tok`` D4/k2 steps as a counted path, then a 3-step
+    profile (wall, device busy, idle share, launches, host copies: exactly
+    one device-to-host copy per step); tok/s and peak memory. qwen3-8b and
+    qwen3-moe then serve 2 slots through ``generate_batch`` on the dense
+    and the paged store (paged tokens == dense tokens); qwen3-moe also
+    serves bucketed at 4 slots with captured group steps (phase 4's
+    ``serve_bucketed``)."""
+    from repro_torch.config import ServeConfig
+    from repro_torch.core import engine as engine_lib
+    cfg = zoo_config(arch)
+    Dh, gq = cfg.head_dim, cfg.num_heads // cfg.num_kv_heads
+    weights = load_weights(cfg, seed=0)
+    tp, dcfg, dp = weights
+    prompt = ctx["corpus"].batch(0, 1, 4097)[0] % cfg.vocab_size
+    out = {"layers": cfg.num_layers, "params": cfg.param_count(), "gq": gq, "head_dim": Dh}
+    eng = engine_lib.SSVEngine(tp, cfg, dp, dcfg, ServeConfig(
+        max_new_tokens=n_tok, temperature=0.0, max_context=8192, use_planner=False),
+        device=DEV)
+    torch.cuda.reset_peak_memory_stats()
+    eng.start(prompt)
+
+    def serve(ssv):
+        toks, lat, acc = [], [], []
+        for _ in range(n_tok):
+            emitted, st = eng.step(ssv)
+            toks += emitted
+            lat.append(st.latency_s)
+            acc.append(st.accepted)
+        if not all(0 <= t < cfg.vocab_size for t in toks):
+            fail(f"{cfg.name}: bad tokens {toks}")
+        return dict(tokens=len(toks), steps=n_tok, tokens_per_s=len(toks) / sum(lat),
+                    mean_accepted=sum(acc) / n_tok)
+
+    for pc in ("Strict", "Approx+Reuse"):
+        ssv = strategy(cfg, pc)
+        name = f"{cfg.name} {pc}"
+        res = counted_path(ctx, name, Dh, lambda: serve(ssv),
+                           lambda r: expected_launches(cfg, dcfg, ssv, r["steps"]), gq)
+        prof = step_profile(lambda: eng.step(ssv), 3)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if prof["dtoh_per_step"] != 1:
+            fail(f"{name}: {prof['dtoh_per_step']} device-to-host copies per step, expected 1")
+        out[pc] = dict(res, peak_gib=peak, launches=ctx["paths"][name], profile=prof)
+        log(f"[10 zoo {name}] {ctx['kind']} ({ctx['card']}): {cfg.num_layers} layers, "
+            f"Gq {gq}, Dh {Dh}: {res['tokens']} tokens in {res['steps']} steps, "
+            f"{res['tokens_per_s']:.2f} tok/s (decode steps only), mean accepted/step "
+            f"{res['mean_accepted']:.3f}, peak memory {peak:.2f} GiB; profile: step "
+            f"{prof['step_wall_ms']:.2f} ms wall, device busy {prof['device_busy_ms']:.2f} ms, "
+            f"idle share {prof['idle_share']:.3f}, {prof['device_kernels_per_step']:.0f} device "
+            f"kernels/step, {prof['dtoh_per_step']:.0f} DtoH copy/step")
+        for t in prof["top"][:5]:
+            log(f"    {t['ms']:.3f} ms x{t['launches']:.0f} {t['name']}")
+    del eng
+    free()
+    if arch in ZOO_PAGED:
+        out["batched"] = serve_batched(cfg, Dh, weights, ctx, slots=2, n_req=2,
+                                       classes=("Strict",), continuous=False, sweep=(), gq=gq,
+                                       prompt_len=2049)
+    if arch == "qwen3-moe-235b-a22b":
+        # 4 slots of T = 129 and of D4/k2 trees: MoE group steps as graphs
+        out["bucketed"] = serve_bucketed(cfg, Dh, weights, ctx, slots=4, n_req=4, gq=gq)
+        out["moe_odd_prefill"] = moe_odd_prefill(cfg, tp, ctx)
+    del weights, tp, dp
+    free()
+    return out
+
+
+def moe_odd_prefill(cfg, tp, ctx):
+    """One MoE FFN over 4097 tokens: odd, so the dispatch group falls to 1
+    token and the reference's one-hot expert inputs would be 4097 x 128 x 8
+    x 4096 bf16 (~34 GB); the port runs its experts one by one over the
+    assignments each kept, as a prefill does. Finite output, and the peak
+    memory it adds."""
+    from repro_torch.models import moe as moe_lib
+    g = torch.Generator(DEV)
+    g.manual_seed(9)
+    x = torch.randn((1, 4097, cfg.d_model), generator=g, device=DEV).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    y, _ = moe_lib.moe_apply(tp["layers"][0]["ffn"], cfg, x, by_expert=True)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    added = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    if y.shape != x.shape or not bool(torch.isfinite(y).all()):
+        fail("MoE FFN over 4097 tokens: bad output")
+    log(f"[10 zoo {cfg.name}] MoE FFN over 4097 tokens (group 1, capacity "
+        f"{moe_lib.capacity(1, cfg.moe)}): finite, {dt * 1e3:.1f} ms, peak +{added:.2f} GiB "
+        f"({ctx['card']})")
+    return dict(ms=dt * 1e3, peak_added_gib=added)
+
+
+def zoo_moe_f32(arch, ctx, n_tok=8):
+    """Phase 10, float32: a MoE arch with its experts, top-k, dispatch group
+    and heads kept (the draft's width too) and the target cut to 2 layers,
+    d_model 1024 and d_expert 256 so the CPU can follow: card tokens and
+    accepted counts == the CPU plain path's on the same weights, and
+    batched ``generate_batch`` (2 rows) == single stream. Not held to AR:
+    the reference's verify drops over-capacity assignments that a
+    one-token decode never drops."""
+    from repro_torch.bridge import init_params
+    from repro_torch.config import ServeConfig, SSVConfig
+    from repro_torch.core import draft as draft_lib, engine as engine_lib
+    from repro_torch.optim.adamw import tree_map
+    full = zoo_config(arch)
+    cfg = dataclasses.replace(full, num_layers=2, d_model=1024, d_ff=256, vocab_size=4096,
+                              moe=dataclasses.replace(full.moe, d_expert=256),
+                              dtype="float32")
+    dcfg = draft_lib.draft_config(cfg, d_model=full.head_dim * max(2, full.num_heads // 4))
+    gen = torch.Generator()
+    gen.manual_seed(11)
+    cpu = (init_params(cfg, gen, "cpu"), init_params(dcfg, gen, "cpu"))
+    card = tuple(tree_map(lambda t: t.to(DEV), p) for p in cpu)
+    prompts = [ctx["corpus"].batch(20 + i, 1, 700)[0] % cfg.vocab_size for i in range(2)]
+    serve = ServeConfig(max_new_tokens=n_tok, temperature=0.0, max_context=1024,
+                        ssv=SSVConfig(tree_depth=4, tree_width=2, precision_class="Strict"),
+                        use_planner=False)
+    runs = {}
+    for dev, (tp, dp) in (("cpu", cpu), (DEV, card)):
+        eng = engine_lib.SSVEngine(tp, cfg, dp, dcfg, serve, device=dev)
+        res = [eng.generate(p, n_tok) for p in prompts]
+        runs[dev] = [(r.tokens.tolist(), [s.accepted for s in r.steps]) for r in res]
+    batch = engine_lib.BatchedSSVEngine(card[0], cfg, card[1], dcfg, serve, device=DEV) \
+        .generate_batch(prompts, n_tok)
+    got = [r.tokens.tolist() for r in batch.results]
+    tag = f"[10 zoo f32 {cfg.name} (2 layers, d 1024, E {cfg.moe.num_experts}, K {cfg.moe.top_k})]"
+    log(f"{tag} card {runs[DEV]}")
+    log(f"{tag} cpu  {runs['cpu']}")
+    if runs[DEV] != runs["cpu"]:
+        fail(f"{cfg.name}: card tokens / accepted counts differ from the CPU plain path's")
+    if got != [t for t, _ in runs[DEV]]:
+        fail(f"{cfg.name}: batched tokens {got} differ from single-stream tokens")
+    log(f"{tag} card == CPU (tokens and accepted counts), batched == single stream")
+    return dict(tokens=runs[DEV], batched=got)
+
+
+def zoo_phase(ctx):
+    """Phase 10: serve the zoo one arch at a time (memory freed between),
+    then the float32 equalities."""
+    out = {}
+    for arch in ZOO:
+        t0 = time.time()
+        out[arch] = serve_zoo(arch, ctx)
+        log(f"[10 zoo] {arch} in {time.time() - t0:.1f}s")
+    for arch in ZOO_F32_AR:
+        strict_equals_ar(zoo_config(arch), 4, 16, ctx, prompt_len=1025, tag="10")
+        free()
+    for arch in ZOO_MOE:
+        out[f"{arch} f32"] = zoo_moe_f32(arch, ctx)
+        free()
+    return out
 
 
 # ---------------------------------------------------------------- 9. training
@@ -1824,7 +2115,8 @@ def train_pair(ctx):
         eng.start(prompt)
         res["profile"] = step_profile(eng.step, 3)
         served[pc] = res
-        log(f"  [trained pair {pc}] step profile {res['profile']}")
+        log(f"  [trained pair {pc}] step profile "
+            f"{ {k: v for k, v in res['profile'].items() if k != 'top'} }")
         log(f"[9 pair serve bf16 {pc}] {ctx['kind']} ({ctx['card']}): {res['tokens']} tokens in "
             f"{res['steps']} steps, {res['tokens_per_s']:.2f} tok/s, mean accepted/step "
             f"{res['mean_accepted']:.3f}")
@@ -2001,11 +2293,12 @@ def serve_cli(arch, flags=("--prompts", "1"), expect="prompt 0: 8 tokens"):
     log(f"{tag} {time.time() - t0:.1f}s")
 
 
-def kernel_row(name, Dh, source, replaces, launches, max_err, ms, plain, bnd, library=None):
-    return dict(name=f"{name}_dh{Dh}", route="cuda", source=source, replaces=replaces,
-                launches=launches.get(f"{name}_dh{Dh}", 0),
-                max_abs_err=max_err.get(f"{name}_dh{Dh}"), ms=ms, plain_ms=plain,
-                bound_ms=bnd[0], bound_by=bnd[1], library_ms=library)
+def kernel_row(name, Dh, source, replaces, launches, max_err, ms, plain, bnd, library=None,
+               gq=4):
+    key = launch_key(name, Dh, gq)
+    return dict(name=key, route="cuda", source=source, replaces=replaces,
+                launches=launches.get(key, 0), max_abs_err=max_err.get(key), ms=ms,
+                plain_ms=plain, bound_ms=bnd[0], bound_by=bnd[1], library_ms=library)
 
 
 def bound_text(bnd):
@@ -2018,7 +2311,7 @@ def pre_redesign_text(key, ms):
     return f"pre-redesign {old:.4f} ms ({old / ms:.2f}x)" if old else "pre-redesign: none"
 
 
-def kernel_times(cfgs, launches, max_err, kind, card):
+def kernel_times(cfgs, launches, max_err, kind, card, zoo=True):
     from repro_torch.kernels.nsa_verify import ops as vops
     rows = []
     bounds = {}
@@ -2082,6 +2375,8 @@ def kernel_times(cfgs, launches, max_err, kind, card):
                                "src/repro/kernels/nsa_verify/kernel.py:156 (combine=False)",
                                launches, max_err, (ms_s + ms_w) / 2, (pl_s + pl_w) / 2, b_v))
         del inp
+    if zoo:
+        rows += zoo_kernel_times(cfgs, launches, max_err, bounds, sig)
     layer_times = {}
     for Dh, cfg in cfgs.items():
         lcfg, mix, x, kv, cmp, plen, pos, tm = layer_inputs(cfg, "bfloat16", seed=4)
@@ -2116,6 +2411,53 @@ def kernel_times(cfgs, launches, max_err, kind, card):
                              for k, b in bounds.items()}
     layer_times["float32"] = float32_times(cfgs, sig)
     return rows, layer_times
+
+
+def zoo_kernel_times(cfgs, launches, max_err, bounds, sig):
+    """Phase 8 at the zoo's query-head groups (bf16, prefix 4096, S 8192,
+    T 31): routing and nsa_verify (exact C=2 and approx C=4, full and
+    partial; the paged refresh case where a zoo path runs paged). Rows:
+    routing, exact C=2 full / partial and, at Gq 16, paged partial."""
+    rows = []
+    verify_src = "src/repro_torch/csrc/nsa_verify.cu"
+    for label, Dh, Hq, Hkv in ZOO_SHAPES:
+        gq = Hq // Hkv
+        cfg = zoo_kernel_cfg(cfgs, Dh, Hq, Hkv)
+        inp = verify_inputs(cfg, torch.bfloat16, seed=2)
+        tag = f"{label} Gq {gq} Dh {Dh}"
+        ms, src, ev = time_kernel(lambda: run_routing(cfg, inp, False), "routing_kernel")
+        plain = time_events(lambda: run_routing(cfg, inp, True), 5)
+        bnd = routing_bound(cfg, inp)
+        bounds[f"routing dh{Dh} gq{gq}"] = bnd
+        log(f"[8 time] routing {tag}: {ms:.4f} ms ({src}; {ev:.4f} ms by CUDA events), plain "
+            f"{plain:.4f} ms, {bound_text(bnd)}, library call: none {sig}")
+        rows.append(kernel_row("routing", Dh, "src/repro_torch/csrc/routing.cu",
+                               "src/repro/kernels/routing/kernel.py:70", launches, max_err,
+                               ms, plain, bnd, gq=gq))
+        cases = [(c, None) for c in VERIFY_CASES[:4]]
+        if gq == 16:
+            cases.append((VERIFY_CASES[1], paged_pool(cfg, inp, 1, holes=False, seed=3)))
+        for (case, C, mode, full, branch), pool in cases:
+            args = verify_layouts(cfg, inp, C, mode, pool)
+            oc = inp["o_cmp_in"] if not full else None
+            ms, src, ev = time_kernel(lambda: run_verify(cfg, args, full, oc, False),
+                                      "nsa_verify_kernel")
+            plain = time_events(lambda: run_verify(cfg, args, full, oc, True), 3)
+            bnd = verify_bound(cfg, inp, args, full)
+            what = ("paged " if pool else "") + case
+            bounds[f"nsa_verify {what} dh{Dh} gq{gq}"] = bnd
+            log(f"[8 time] nsa_verify {what} {tag} ({C * gq} rows, "
+                f"{-(-C * gq // 16)} row tiles): {ms:.4f} ms ({src}; {ev:.4f} ms by CUDA "
+                f"events), plain {plain:.4f} ms, {bound_text(bnd)}, library call: none {sig}")
+            if mode == "exact":
+                key = ("nsa_verify_paged" if pool else
+                       "nsa_verify_full" if full else "nsa_verify_partial")
+                rows.append(kernel_row(key, Dh, verify_src,
+                                       "src/repro/kernels/nsa_verify/kernel.py:156", launches,
+                                       max_err, ms, plain, bnd, gq=gq))
+        del inp, cases
+        free()
+    return rows
 
 
 def float32_times(cfgs, sig):

@@ -25,6 +25,7 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.device import dtype_of, resolve_device
+from repro_torch.models.layers import GATED
 from repro_torch.models.model import check_supported, segments
 from repro_torch.optim.adamw import tree_map
 
@@ -52,8 +53,8 @@ def from_jax(np_params: Dict[str, Any], cfg: ModelConfig, device=None) -> Dict[s
     """JAX params pytree (numpy leaves) -> port params on ``device``."""
     check_supported(cfg)
     dev = resolve_device(device)
-    out = {k: tree_map(lambda a: _tensor(a, dev), np_params[k])
-           for k in ("embed", "lm_head", "final_norm")}
+    out = {k: tree_map(lambda a: _tensor(a, dev), v) for k, v in np_params.items()
+           if k != "segments"}
     blocks = []
     for (kinds, n), stacked in zip(segments(cfg), np_params["segments"]):
         for i in range(n):
@@ -71,7 +72,7 @@ def restack(params: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
     ``torch.stack`` (same dtype and device)."""
     if len(params["layers"]) != cfg.num_layers:
         raise ValueError(f"{len(params['layers'])} blocks for {cfg.num_layers} layers")
-    out = {k: params[k] for k in ("embed", "lm_head", "final_norm")}
+    out = {k: v for k, v in params.items() if k != "layers"}
     segs, base = [], 0
     for kinds, n in segments(cfg):
         m = len(kinds)
@@ -101,8 +102,9 @@ def to_jax(params: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, device=None) -> Dict[str, Any]:
-    """Random parameters with the JAX ``model.init`` distributions, drawn
-    from ``generator`` (which must live on ``device``)."""
+    """Random parameters with the JAX ``model.init`` distributions (the MoE
+    leaves with ``moe_init``'s, the router in float32 as there), drawn from
+    ``generator`` (which must live on ``device``)."""
     check_supported(cfg)
     dev = resolve_device(device)
     dtype = dtype_of(cfg.dtype)
@@ -119,13 +121,32 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None) -> Di
     def ones(n):
         return {"scale": torch.ones((n,), dtype=dtype, device=dev)}
 
+    def ffn(d_ff):                  # drawn in this order (the seeds' numbers)
+        if cfg.activation not in GATED:
+            return {"w_up": linear(d, d_ff), "w_down": linear(d_ff, d)}
+        return {"w_gate": linear(d, d_ff), "w_up": linear(d, d_ff), "w_down": linear(d_ff, d)}
+
+    def moe():
+        m = cfg.moe
+        E, dff = m.num_experts, m.d_expert or cfg.d_ff
+        p = {"router": normal(d, E, scale=0.02),
+             "w_up": normal(E, d, dff, scale=1 / math.sqrt(d)).to(dtype),
+             "w_down": normal(E, dff, d, scale=1 / math.sqrt(dff)).to(dtype)}
+        if cfg.activation in GATED:
+            p["w_gate"] = normal(E, d, dff, scale=1 / math.sqrt(d)).to(dtype)
+        if m.num_shared_experts:
+            p["shared"] = ffn(cfg.d_ff)
+        return p
+
     params: Dict[str, Any] = {
-        "embed": {"table": normal(cfg.vocab_size, d, scale=0.02).to(dtype)},
-        "lm_head": {"w": (normal(d, cfg.vocab_size) / math.sqrt(d)).to(dtype)},
-        "final_norm": ones(d),
-    }
+        "embed": {"table": normal(cfg.vocab_size, d, scale=0.02).to(dtype)}}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = {"w": (normal(d, cfg.vocab_size) / math.sqrt(d)).to(dtype)}
+    params["final_norm"] = ones(d)
+    if cfg.modality != "text" and cfg.frontend_dim:
+        params["frontend_proj"] = {"w": linear(cfg.frontend_dim, d)}
     layers = []
-    for _ in range(cfg.num_layers):
+    for kind in cfg.layer_kinds():
         mix = {"wq": linear(d, hq * hd), "wk": linear(d, hkv * hd),
                "wv": linear(d, hkv * hd), "wo": linear(hq * hd, d)}
         if cfg.qk_norm:
@@ -139,7 +160,6 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None) -> Di
             mix["w_gate"] = normal(d, 3 * hq, scale=0.01).to(dtype)
             mix["b_gate"] = torch.zeros((3 * hq,), device=dev)
         layers.append({"norm1": ones(d), "norm2": ones(d), "mix": mix,
-                       "ffn": {"w_gate": linear(d, cfg.d_ff), "w_up": linear(d, cfg.d_ff),
-                               "w_down": linear(cfg.d_ff, d)}})
+                       "ffn": moe() if kind == "moe" else ffn(cfg.d_ff)})
     params["layers"] = layers
     return params

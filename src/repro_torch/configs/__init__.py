@@ -1,29 +1,61 @@
 """Architecture registry: ``--arch <id>`` resolution.
 
-The port carries the architectures whose serving path it runs; the JAX
-package's other ids raise until their slice is ported. ``reduced()`` builds
-the CI-scale variant exactly as ``repro.configs.reduced`` does.
+The port carries the architectures whose serving path it runs, each module
+a copy of the JAX package's (CONFIG, and DRYRUN / FRONTEND_LEN where it has
+them); the JAX package's other ids raise, naming what they wait for.
+``reduced()`` builds the CI-scale variant and ``nsa_variant()`` the
+SSV-serving variant exactly as ``repro.configs`` does.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Optional
+from typing import Dict, Optional
 
 from repro_torch.config import ModelConfig, MoEConfig, NSAConfig
 
-ARCH_IDS = ("ssv-nsa-1b", "ssv-nsa-8b")
+ARCH_IDS = ("qwen3-8b", "granite-20b", "mixtral-8x22b", "qwen3-moe-235b-a22b",
+            "musicgen-medium", "ssv-nsa-1b", "ssv-nsa-8b")
+
+# The JAX package's other ids and what the port still needs for each
+NOT_PORTED = {
+    "smollm-360m": "the kernels' head-dim-80 instances (its draft's head dim)",
+    "pixtral-12b": "the kernels' head-dim-160 instances",
+    "nemotron-4-340b": "the kernels' head-dim-192 instances",
+    "recurrentgemma-9b": "models/recurrent.py (RG-LRU blocks) and head-dim-256 instances",
+    "xlstm-125m": "models/recurrent.py (mLSTM / sLSTM blocks) and a head-dim-96 draft",
+}
 
 
 def _module(arch_id: str):
+    if arch_id in NOT_PORTED:
+        raise KeyError(f"arch {arch_id!r} is not ported yet: it waits for "
+                       f"{NOT_PORTED[arch_id]}; ported: {ARCH_IDS}")
+    if arch_id not in ARCH_IDS:
+        raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
     return importlib.import_module(
         "repro_torch.configs." + arch_id.replace("-", "_"))
 
 
 def get_config(arch_id: str) -> ModelConfig:
-    if arch_id not in ARCH_IDS:
-        raise KeyError(f"arch {arch_id!r} is not ported yet; ported: {ARCH_IDS}")
     return _module(arch_id).CONFIG
+
+
+def dryrun_overrides(arch_id: str) -> Dict:
+    return getattr(_module(arch_id), "DRYRUN", {})
+
+
+def frontend_len(arch_id: str) -> int:
+    return getattr(_module(arch_id), "FRONTEND_LEN", 0)
+
+
+def nsa_variant(cfg: ModelConfig) -> ModelConfig:
+    """The SSV-serving variant of an architecture: attention layers replaced
+    by NSA (paper §7.2, 'attention layers replaced by NSA-based sparse
+    verification'). No-op for attention-free archs."""
+    if all(k in ("rglru", "mlstm", "slstm") for k in cfg.layer_kinds()):
+        return cfg
+    return dataclasses.replace(cfg, attention="nsa", name=cfg.name + "-nsa")
 
 
 def reduced(arch_id: str, *, vocab: int = 512, layers: Optional[int] = None,

@@ -203,8 +203,11 @@ def verify_accept(params, cfg: ModelConfig, caches, tokens, plan: StepPlan,
     B, T = tokens.shape
     positions = (plan.tree.depths[None] + caches["length"].reshape(-1, 1)) \
         .expand(B, T).to(torch.int32)
+    # each row is its own request: MoE dispatch groups per row, as the JAX
+    # batched step's per-row vmap has them
     logits, updates = model.verify_step(params, cfg, caches, tokens, positions,
-                                        plan.tree.mask[None].expand(B, T, T), None, ssv)
+                                        plan.tree.mask[None].expand(B, T, T), None, ssv,
+                                        moe_per_row=True)
     if node_q is None:
         path, out_tokens, _, n_acc = accept_lib.greedy_tree_accept_device(
             plan.child_mat, plan.max_depth, tokens, logits)

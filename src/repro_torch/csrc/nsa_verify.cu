@@ -31,17 +31,24 @@
 // tokens. Each branch's list is cut into chunks of a fixed size (`keys`
 // cmp blocks or window keys, `blocks` merged blocks; the draft joins the
 // last window chunk), and one CTA takes one chunk: the grid is
-// (G * NX, Hkv, B) with NX = n_cmp + n_slc + n_win chunks. The plan is a
-// function of shapes only (ops.py:split_plan), never of lengths or B.
-// A CTA holds the group's R = C*Gq <= 16 query rows and walks its chunk in
+// (G * NRT * NX, Hkv, B) with NX = n_cmp + n_slc + n_win chunks. The plan
+// is a function of shapes only (ops.py:split_plan), never of lengths or B.
+// Rows. The group has R = C*Gq query rows (row c*Gq + i: query c, head i
+// of the kv head), cut into NRT = ceil(R / 16) row tiles of 16; one CTA
+// takes one (row tile, chunk) pair, so a group above 16 rows (approx C=4
+// at Gq 6: 24 rows; Gq 48 under MQA: 96 or 192) walks each chunk's K/V
+// once per row tile (NRT times, from L2 after the first) and each tile
+// merges its own rows under its own ticket; the ownership bits and the
+// masks stay per query. NRT = 1 up to 16 rows, as before.
+// A CTA holds the tile's up to 16 query rows and walks its chunk in
 // units of 16 keys, four warps each with its own online softmax, K/V
 // copied with cp.async into per-warp rings, dots on tensor cores for bf16
 // K/V (online_softmax.cuh, shared with flash_verify.cu). Units that no row
 // can see (a cmp block past the deepest row, an invalid merged block, keys
 // past prefix_len) are never copied; a chunk with none writes an empty
 // partial (l = 0). Each CTA writes its partial (m, l, acc) per row to f32
-// scratch; the last CTA of (b, g, h) to finish (an atomic ticket, reset by
-// it) merges the partials of each branch in chunk order, applies the
+// scratch; the last CTA of (b, g, h, row tile) to finish (an atomic ticket,
+// reset by it) merges the partials of each branch in chunk order, applies the
 // learned gates (vanilla: the one branch, ungated) and writes each real
 // query row once. The merge order is fixed, so a row's output does not
 // depend on B or on the run. Masks are the TPU kernel's: cmp visibility
@@ -111,19 +118,21 @@ __global__ void __launch_bounds__(NT, NTL == 2 ? 1 : sizeof(KV) == 2 ? 5 : 4)
     const float* __restrict__ ocmp_in,    // (B,T,Hq,DH) or null
     float* __restrict__ out,              // (B,T,Hq,DH)
     const int* __restrict__ pages,        // (B,MP) page table, or null (dense)
-    float* __restrict__ part_ml,          // (B,G,Hkv,NX,RT,2): m, l
-    float* __restrict__ part_acc,         // (B,G,Hkv,NX,RT,DH)
-    int* __restrict__ tickets,            // (B,G,Hkv), all 0 between calls
+    float* __restrict__ part_ml,          // (B,G,Hkv,NRT,NX,RT,2): m, l
+    float* __restrict__ part_acc,         // (B,G,Hkv,NRT,NX,RT,DH)
+    int* __restrict__ tickets,            // (B,G,Hkv,NRT), all 0 between calls
     int T, int S, int Hkv, int Gq, int C, int G, int M, int NCB, int W,
     int sel_block, int cmp_block, int cmp_stride, int window,
     int include_cmp, int branch, int ps, int MP, int P,
-    int n_cmp, int n_slc, int n_win, int keys, int blocks) {
+    int n_cmp, int n_slc, int n_win, int keys, int blocks, int NRT) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem<KV, DH>& sm = *reinterpret_cast<Smem<KV, DH>*>(smem_raw);
   const int NX = n_cmp + n_slc + n_win;
-  const int g = blockIdx.x / NX, x = blockIdx.x % NX, h = blockIdx.y, b = blockIdx.z;
+  const int g = blockIdx.x / (NRT * NX), x = blockIdx.x % NX;
+  const int h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x;
-  const int R = C * Gq, Hq = Hkv * Gq;
+  const int r0 = blockIdx.x / NX % NRT * RT;   // the row tile's first row of the group
+  const int R = min(RT, C * Gq - r0), Hq = Hkv * Gq;
   const int plen = prefix_len[b], ncbv = ncb_valid[b], ws = win_start[b];
   const size_t gh = ((size_t)b * G + g) * Hkv + h;
   const size_t kv_row = (size_t)Hkv * DH;
@@ -157,7 +166,7 @@ __global__ void __launch_bounds__(NT, NTL == 2 ? 1 : sizeof(KV) == 2 ? 5 : 4)
   }
 
   for (int r = tid; r < RT; r += NT) {
-    const int c = r < R ? r / Gq : 0;
+    const int c = r < R ? (r0 + r) / Gq : 0;
     const int qi = qmap[g * C + c];
     sm.qi[r] = qi;
     sm.c_of[r] = c;
@@ -170,7 +179,7 @@ __global__ void __launch_bounds__(NT, NTL == 2 ? 1 : sizeof(KV) == 2 ? 5 : 4)
   auto load_q = [&]() {
     for (int i = tid; i < RT * DH; i += NT) {
       const int r = i / DH, d = i % DH;
-      const int head = h * Gq + r % Gq;
+      const int head = h * Gq + (r0 + r) % Gq;
       sm.wk.q.set(r, d, r < R ? q[(((size_t)b * T + sm.qi[r]) * Hq + head) * DH + d] : 0.f);
     }
     __syncthreads();
@@ -247,11 +256,12 @@ __global__ void __launch_bounds__(NT, NTL == 2 ? 1 : sizeof(KV) == 2 ? 5 : 4)
          }, load_q);
   }
 
-  // ---- this chunk's partial; the last CTA of (b, g, h) merges them
-  const float* mlg = part_ml + gh * NX * RT * 2;
-  const float* accg = part_acc + gh * NX * RT * DH;
-  cta_partial(sm.wk, st, part_ml + (gh * NX + x) * RT * 2, part_acc + (gh * NX + x) * RT * DH);
-  if (!last_of(tickets + gh, NX, &sm.last)) return;
+  // ---- this chunk's partial; the last CTA of (b, g, h, row tile) merges them
+  const size_t ght = gh * NRT + blockIdx.x / NX % NRT;   // the tile's ticket and partials
+  const float* mlg = part_ml + ght * NX * RT * 2;
+  const float* accg = part_acc + ght * NX * RT * DH;
+  cta_partial(sm.wk, st, part_ml + (ght * NX + x) * RT * 2, part_acc + (ght * NX + x) * RT * DH);
+  if (!last_of(tickets + ght, NX, &sm.last)) return;
 
   // scale of chunk x's partial for row r: exp(m - M) / L of its branch
   float* sc = sm.wk.scratch();                       // [NX][RT]
@@ -278,7 +288,7 @@ __global__ void __launch_bounds__(NT, NTL == 2 ? 1 : sizeof(KV) == 2 ? 5 : 4)
     const float4 o_slc = merge_acc(sc, r, a, (size_t)RT * DH, x_of(1), x_of(2));
     const float4 o_win = merge_acc(sc, r, a, (size_t)RT * DH, x_of(2), x_of(3));
     const int qi = sm.qi[r];
-    const int head = h * Gq + r % Gq;
+    const int head = h * Gq + (r0 + r) % Gq;
     const size_t row = ((size_t)b * T + qi) * Hq + head;
     float4* dst = reinterpret_cast<float4*>(out + row * DH + d);
     if (branch != 0) {
@@ -300,7 +310,7 @@ template <typename KV, int DH, int NTL>
 int launch_rows(const void* const* p, const int* n, cudaStream_t stream) {
   // n: B, T, S, Hkv, Gq, C, G, M, NCB, W, sel_block, cmp_block, cmp_stride,
   //    window, include_cmp, branch, DH, ps, MP, P, n_cmp, n_slc, n_win,
-  //    keys, blocks
+  //    keys, blocks, NRT
   const int NX = n[20] + n[21] + n[22];
   if (NX < 1 || NX > NXMAX || n[24] < 1 || n[24] > MBMAX || n[23] < 1 ||
       2 * NX * RT > Walk<KV, DH>::SCRATCH)
@@ -313,7 +323,7 @@ int launch_rows(const void* const* p, const int* n, cudaStream_t stream) {
     if (e != cudaSuccess) return (int)e;
     attr_set = true;
   }
-  dim3 grid(n[6] * NX, n[3], n[0]);
+  dim3 grid(n[6] * n[25] * NX, n[3], n[0]);
   nsa_verify_kernel<KV, DH, NTL><<<grid, NT, smem, stream>>>(
       (const float*)p[0], (const KV*)p[1], (const KV*)p[2], (const KV*)p[3],
       (const KV*)p[4], (const KV*)p[5], (const KV*)p[6], (const int*)p[7],
@@ -322,12 +332,13 @@ int launch_rows(const void* const* p, const int* n, cudaStream_t stream) {
       (const float*)p[16], (const float*)p[17], (float*)p[18], (const int*)p[19],
       (float*)p[20], (float*)p[21], (int*)p[22],
       n[1], n[2], n[3], n[4], n[5], n[6], n[7], n[8], n[9], n[10], n[11],
-      n[12], n[13], n[14], n[15], n[17], n[18], n[19], n[20], n[21], n[22], n[23], n[24]);
+      n[12], n[13], n[14], n[15], n[17], n[18], n[19], n[20], n[21], n[22], n[23], n[24],
+      n[25]);
   return (int)cudaGetLastError();
 }
 
-// one row tile of 8 for groups of at most 8 rows (exact C=2, vanilla),
-// two otherwise
+// one n8 row tile for groups of at most 8 rows (exact C=2, vanilla at
+// Gq 4), two otherwise (every 16-row tile of a larger group)
 template <typename KV, int DH>
 int launch(const void* const* p, const int* n, cudaStream_t stream) {
   return n[4] * n[5] <= 8 ? launch_rows<KV, DH, 1>(p, n, stream)
@@ -342,19 +353,19 @@ int launch(const void* const* p, const int* n, cudaStream_t stream) {
 //       part_ml, part_acc, tickets                        (23 pointers)
 // ints: B, T, S, Hkv, Gq, C, G, M, NCB, W, sel_block, cmp_block,
 //       cmp_stride, window, include_cmp, branch, DH, ps, MP, P, n_cmp,
-//       n_slc, n_win, keys, blocks  (25 ints; paged: k/v_cache are the
-//       (P, ps, Hkv, DH) pool, S = MP * ps; the last five are the split
-//       plan, ops.py:split_plan)
+//       n_slc, n_win, keys, blocks, NRT  (26 ints; paged: k/v_cache are the
+//       (P, ps, Hkv, DH) pool, S = MP * ps; n_cmp .. blocks are the split
+//       plan, ops.py:split_plan; NRT = ceil(C * Gq / 16) row tiles)
 // branch: 0 = gated combine of all branches, 1 = slc only, 2 = win + draft
 // only (vanilla; needs include_cmp = 0, no o_cmp_in). kv_dtype: 0 =
 // float32, 1 = bfloat16. DH: 64 or 128. Scratch (NX = n_cmp + n_slc +
-// n_win): part_ml B*G*Hkv*NX*16*2 floats, part_acc B*G*Hkv*NX*16*DH
-// floats, tickets B*G*Hkv ints, zero before the first call. Returns the
-// cudaError_t of the launch.
+// n_win): part_ml B*G*Hkv*NRT*NX*16*2 floats, part_acc
+// B*G*Hkv*NRT*NX*16*DH floats, tickets B*G*Hkv*NRT ints, zero before the
+// first call. Returns the cudaError_t of the launch.
 extern "C" int nsa_verify_launch(const void* const* ptrs, const int* ints,
                                  int kv_dtype, void* stream) {
   const int Gq = ints[4], C = ints[5], branch = ints[15], DH = ints[16];
-  if (C * Gq < 1 || C * Gq > RT) return (int)cudaErrorInvalidValue;
+  if (C * Gq < 1 || ints[25] != (C * Gq + RT - 1) / RT) return (int)cudaErrorInvalidValue;
   if (branch < 0 || branch > 2 || (branch != 0 && ints[14]))
     return (int)cudaErrorInvalidValue;
   if (branch == 0 && !ints[14] && ptrs[17] == nullptr) return (int)cudaErrorInvalidValue;

@@ -17,11 +17,17 @@
 // - Rows. A CTA holds RT = 16 rows: Q = min(16 / Gq, T) consecutive tree
 //   queries x the Gq query heads of one kv head (4 queries at Gq 4), so
 //   the GQA sum of p_slc stays inside the CTA (no atomics). G = ceil(T / Q)
-//   query groups; rows past T are padding, masked and never written.
+//   query groups; rows past T are padding, masked and never written. At
+//   Gq > 16 (MQA granite: 48) a query's heads do not fit one CTA: they
+//   are cut into HS = ceil(Gq / 16) head slabs of up to 16 heads (Q = 1),
+//   one CTA per slab and chunk, all under the group's one ticket; the last
+//   CTA merges the slabs one after another and adds each slab's GQA sum
+//   to p_slc in slab order (the GQA sum over Gq heads, split in fixed
+//   pieces). HS = 1 below 17 heads.
 // - Split. The cmp list (capacity NCB, never the visible length: no host
 //   sync) is cut into n_cmp chunks of `keys` blocks (ops.py:routing_plan,
 //   shapes only: `keys` grows with NCB up to KMAX so that a long cache
-//   keeps few chunks); grid (G * n_cmp, Hkv, B). Visibility is a prefix of
+//   keeps few chunks); grid (G * HS * n_cmp, Hkv, B). Visibility is a prefix of
 //   the blocks (block ends grow with the index), so a chunk walks its blocks
 //   below the deepest row's visible prefix; a chunk past it walks none and
 //   still takes its ticket, as do rows with ncb_valid 0.
@@ -40,15 +46,17 @@
 //   to f32 scratch; the last CTA of (b, group, kv head) (an atomic ticket,
 //   reset by it) turns the partials' m and l into scales exp(m_x - M) / L,
 //   applies them to o_cmp's accumulators and to each chunk's scores, sums
-//   chunks and then the Gq rows of each query in a fixed order and writes
-//   each real query once. Rows with L = 0 give zeros in both outputs. The
+//   chunks and then the rows of each query in a fixed order and writes
+//   each real query once (a later head slab adds to what the earlier ones
+//   wrote). Rows with L = 0 give zeros in both outputs. The
 //   order does not depend on B or the run, so a row is bitwise the same
 //   at any B and across calls. The scores reach the last CTA through
 //   shared memory (cp.async, one round trip per stage of chunks, the
 //   first overlapping the o_cmp merge): a tail that read them one output
 //   at a time cost as much as the walk.
-// Scratch (floats): part_ml B*G*Hkv*n_cmp*16*2, part_acc B*G*Hkv*n_cmp*16*DH,
-// part_sc B*G*Hkv*n_cmp*16*span; tickets B*G*Hkv ints. At B 4, Hkv 8,
+// Scratch (floats): part_ml B*G*Hkv*HS*n_cmp*16*2, part_acc
+// B*G*Hkv*HS*n_cmp*16*DH, part_sc B*G*Hkv*HS*n_cmp*16*span; tickets B*G*Hkv
+// ints. At B 4, Hkv 8,
 // T 31, Gq 4 (G 8), max_context 65536 (NCB 4096 blocks: 8 chunks of 512,
 // span 130) that is 4*8*8*8*16*(2+DH+130)*4 B: 25.7 MB at DH 64, 34.1 MB
 // at DH 128, below nsa_verify's part_acc at the same shapes (exact C=2,
@@ -71,7 +79,6 @@ namespace {
 
 using namespace online_softmax;
 
-constexpr int GQ_MAX = 8;
 constexpr int KMAX = 512;              // cmp blocks per chunk (the logit buffer)
 constexpr int NXMAX = 64;              // chunks per (b, group, kv head)
 
@@ -94,26 +101,35 @@ __global__ void __launch_bounds__(NT, 1) routing_kernel(
     const int* __restrict__ ncb_valid,    // (B,)
     float* __restrict__ o,                // (B,T,Hq,DH)
     float* __restrict__ p_slc,            // (B,T,Hkv,NSB)
-    float* __restrict__ part_ml,          // (B,G,Hkv,NX,RT,2): m, l
-    float* __restrict__ part_acc,         // (B,G,Hkv,NX,RT,DH)
-    float* __restrict__ part_sc,          // (B,G,Hkv,NX,RT,span)
+    float* __restrict__ part_ml,          // (B,G,Hkv,HS,NX,RT,2): m, l
+    float* __restrict__ part_acc,         // (B,G,Hkv,HS,NX,RT,DH)
+    float* __restrict__ part_sc,          // (B,G,Hkv,HS,NX,RT,span)
     int* __restrict__ tickets,            // (B,G,Hkv), all 0 between calls
     int T, int Hkv, int Gq, int Q, int G, int NCB, int NSB, int cmp_block,
-    int cmp_stride, int sel_block, int NX, int keys, int span) {
+    int cmp_stride, int sel_block, int NX, int keys, int span, int HS) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem<KV, DH>& sm = *reinterpret_cast<Smem<KV, DH>*>(smem_raw);
-  const int gi = blockIdx.x / NX, x = blockIdx.x % NX, h = blockIdx.y, b = blockIdx.z;
+  const int gi = blockIdx.x / (HS * NX), sx = blockIdx.x % (HS * NX), h = blockIdx.y,
+            b = blockIdx.z;
+  const int hs = sx / NX, x = sx % NX;                  // head slab, chunk
   const int tid = threadIdx.x;
-  const int R = Q * Gq, Hq = Hkv * Gq;
+  const int Hq = Hkv * Gq, gs = min(Gq, RT);            // heads per slab
+  // slab s holds heads [s * gs, s * gs + nh(s)) of Q queries: row r is
+  // query gi * Q + r / nh(s), head h * Gq + s * gs + r % nh(s); rows past
+  // Q * nh(s) or T are padding
+  auto nh = [&](int s) { return min(gs, Gq - s * gs); };
+  auto query = [&](int s, int r) { return gi * Q + r / nh(s); };
+  auto real = [&](int s, int r) { return r < Q * nh(s) && query(s, r) < T; };
+  auto qrow = [&](int s, int r) {                       // (b, query, head) row of q and o
+    return ((size_t)b * T + query(s, r)) * Hq + h * Gq + s * gs + r % nh(s);
+  };
+  const int R = Q * nh(hs);
   const int ncbv = min(ncb_valid[b], NCB);
-  const size_t gh = ((size_t)b * G + gi) * Hkv + h;
+  const size_t gh = ((size_t)b * G + gi) * Hkv + h;     // the ticket of (b, group, kv head)
+  const size_t NXT = (size_t)HS * NX;                   // CTAs per ticket
   const size_t kv_row = (size_t)Hkv * DH;
-  // row r: query gi * Q + r / Gq, head h * Gq + r % Gq; rows past R or T
-  // are padding
-  auto query = [&](int r) { return gi * Q + r / Gq; };
-  auto real = [&](int r) { return r < R && query(r) < T; };
 
-  for (int r = tid; r < RT; r += NT) sm.pos[r] = real(r) ? pos[b * T + query(r)] : -1;
+  for (int r = tid; r < RT; r += NT) sm.pos[r] = real(hs, r) ? pos[b * T + query(hs, r)] : -1;
   __syncthreads();
   int max_pos = -1;
   for (int r = 0; r < R; ++r) max_pos = max(max_pos, sm.pos[r]);
@@ -129,8 +145,7 @@ __global__ void __launch_bounds__(NT, 1) routing_kernel(
   auto load_q = [&]() {
     for (int i = tid; i < RT * DH; i += NT) {
       const int r = i / DH, d = i % DH;
-      sm.wk.q.set(r, d, real(r) ? q[(((size_t)b * T + query(r)) * Hq + h * Gq + r % Gq) * DH + d]
-                                : 0.f);
+      sm.wk.q.set(r, d, real(hs, r) ? q[qrow(hs, r) * DH + d] : 0.f);
     }
     __syncthreads();
   };
@@ -156,10 +171,8 @@ __global__ void __launch_bounds__(NT, 1) routing_kernel(
        });
 
   // ---- this chunk's partial (leaves m, l per row in cm, cl)
-  const float* mlg = part_ml + gh * NX * RT * 2;
-  const float* accg = part_acc + gh * NX * RT * DH;
-  const float* scg = part_sc + gh * NX * RT * span;
-  cta_partial(sm.wk, st, part_ml + (gh * NX + x) * RT * 2, part_acc + (gh * NX + x) * RT * DH);
+  const size_t px = gh * NXT + sx;                      // this CTA's partial
+  cta_partial(sm.wk, st, part_ml + px * RT * 2, part_acc + px * RT * DH);
 
   // ---- chunk-local selection scores of the rows with l > 0: each warp
   // takes rows warp, warp + 4, ... and its lanes the (row, selection block
@@ -182,92 +195,104 @@ __global__ void __launch_bounds__(NT, 1) routing_kernel(
       const int ov = min(n * cmp_stride + cmp_block, hi_tok) - max(n * cmp_stride, lo_tok);
       if (ov > 0 && visible(n, r)) a += __expf(sm.sl[r][n - lo] - m) * ((float)ov * inv_cmp);
     }
-    part_sc[((gh * NX + x) * RT + r) * span + jj] = a;
+    part_sc[(px * RT + r) * span + jj] = a;
   }
-  if (!last_of(tickets + gh, NX, &sm.last)) return;
+  if (!last_of(tickets + gh, (int)NXT, &sm.last)) return;
 
-  // ---- the last CTA. The chunks' scores go through shared memory (the
-  // logit buffer, now free) in stages [xs, xb) of as many chunks as fit;
-  // the first stage's cp.async copies overlap the merge of o_cmp.
+  // ---- the last CTA, one head slab after another. The chunks' scores go
+  // through shared memory (the logit buffer, now free) in stages [xs, xb)
+  // of as many chunks as fit; the first stage's cp.async copies overlap
+  // the merge of o_cmp.
   float* stg = &sm.sl[0][0];                         // [chunk][RT][span]
   const int cap = (KMAX + 4) / span;                 // chunks per stage
   auto j0_of = [&](int xx) { return xx * keys * cmp_stride / sel_block; };
-  auto stage = [&](int xs, int xb) {
-    const float* src = scg + (size_t)xs * RT * span;
-    for (int i = tid * 4; i < (xb - xs) * RT * span; i += NT * 4) cp16(stg + i, src + i, src);
-    cp_commit();
-  };
-  int xa = 0, xs = 0, xb = min(NX, cap);
-  stage(xs, xb);
-
-  // scale of chunk x's partial for row r, exp(m - M) / L over the chunks
-  // with l > 0 (0 for the others and when none has l > 0), a thread per
-  // row, chunks in order
-  float* sc = sm.wk.scratch();                       // [NX][RT]: m, then the scale
-  float* xl = sc + NX * RT;                          // [NX][RT]: l
-  for (int i = tid; i < NX * RT; i += NT) {
-    sc[i] = __ldcg(mlg + 2 * i);
-    xl[i] = __ldcg(mlg + 2 * i + 1);
-  }
-  __syncthreads();
-  if (tid < RT) {
-    float M = NEG, L = 0.f;
-    for (int xx = 0; xx < NX; ++xx)
-      if (xl[xx * RT + tid] > 0.f) M = fmaxf(M, sc[xx * RT + tid]);
-    for (int xx = 0; xx < NX; ++xx)
-      if (xl[xx * RT + tid] > 0.f) L += xl[xx * RT + tid] * expf(sc[xx * RT + tid] - M);
-    for (int xx = 0; xx < NX; ++xx) {
-      const int i = xx * RT + tid;
-      sc[i] = xl[i] > 0.f ? expf(sc[i] - M) / L : 0.f;
-    }
-  }
-  __syncthreads();
-  for (int i = tid; i < R * DH / 4; i += NT) {
-    const int r = i / (DH / 4), d = (i % (DH / 4)) * 4;
-    if (!real(r)) continue;
-    const float4 a = merge_acc(sc, r, accg + (size_t)r * DH + d, (size_t)RT * DH, 0, NX);
-    *reinterpret_cast<float4*>(o + (((size_t)b * T + query(r)) * Hq + h * Gq + r % Gq) * DH + d) = a;
-  }
-  // p_slc[t][j]: the chunks whose span holds j (chunk x's starts at
-  // x * keys * stride / sel_block) in order, then the Gq rows of query t in
-  // order. A stage writes the j below chunk xb's first selection block,
-  // from chunk xa's on, and holds the chunks before xa that those j need.
-  // Scores of a row whose scale is 0 are never read (may be unwritten).
-  const int nq = min(Q, T - gi * Q);
-  for (;;) {
-    cp_wait_all();
-    __syncthreads();
-    const int ja = j0_of(xa), jb = xb == NX ? NSB : min(NSB, j0_of(xb));
-    for (int i = tid; i < nq * max(jb - ja, 0); i += NT) {
-      const int c = i / (jb - ja), j = ja + i % (jb - ja);
-      float a = 0.f;
-      for (int xx = xs; xx < xb; ++xx) {
-        const int jj = j - j0_of(xx);
-        if (jj < 0 || jj >= span) continue;
-        for (int g = 0; g < Gq; ++g) {
-          const int r = c * Gq + g;
-          const float sr = sc[xx * RT + r];
-          if (sr != 0.f) a += sr * stg[((xx - xs) * RT + r) * span + jj];
-        }
-      }
-      p_slc[(((size_t)b * T + gi * Q + c) * Hkv + h) * NSB + j] = a;
-    }
-    if (xb == NX) break;
-    __syncthreads();
-    xa = xb;
-    while (xs < xa && j0_of(xa) - j0_of(xs) >= span) ++xs;   // the first chunk j0_of(xa) needs
-    xb = min(NX, xs + cap);
+  for (int s = 0; s < HS; ++s) {
+    const float* mlg = part_ml + gh * NXT * RT * 2 + (size_t)s * NX * RT * 2;
+    const float* accg = part_acc + gh * NXT * RT * DH + (size_t)s * NX * RT * DH;
+    const float* scg = part_sc + gh * NXT * RT * span + (size_t)s * NX * RT * span;
+    const int ns = nh(s), Rs = Q * ns;
+    auto stage = [&](int xs, int xb) {
+      const float* src = scg + (size_t)xs * RT * span;
+      for (int i = tid * 4; i < (xb - xs) * RT * span; i += NT * 4) cp16(stg + i, src + i, src);
+      cp_commit();
+    };
+    int xa = 0, xs = 0, xb = min(NX, cap);
     stage(xs, xb);
+
+    // scale of chunk x's partial for row r, exp(m - M) / L over the chunks
+    // with l > 0 (0 for the others and when none has l > 0), a thread per
+    // row, chunks in order
+    float* sc = sm.wk.scratch();                       // [NX][RT]: m, then the scale
+    float* xl = sc + NX * RT;                          // [NX][RT]: l
+    for (int i = tid; i < NX * RT; i += NT) {
+      sc[i] = __ldcg(mlg + 2 * i);
+      xl[i] = __ldcg(mlg + 2 * i + 1);
+    }
+    __syncthreads();
+    if (tid < RT) {
+      float M = NEG, L = 0.f;
+      for (int xx = 0; xx < NX; ++xx)
+        if (xl[xx * RT + tid] > 0.f) M = fmaxf(M, sc[xx * RT + tid]);
+      for (int xx = 0; xx < NX; ++xx)
+        if (xl[xx * RT + tid] > 0.f) L += xl[xx * RT + tid] * expf(sc[xx * RT + tid] - M);
+      for (int xx = 0; xx < NX; ++xx) {
+        const int i = xx * RT + tid;
+        sc[i] = xl[i] > 0.f ? expf(sc[i] - M) / L : 0.f;
+      }
+    }
+    __syncthreads();
+    for (int i = tid; i < Rs * DH / 4; i += NT) {
+      const int r = i / (DH / 4), d = (i % (DH / 4)) * 4;
+      if (!real(s, r)) continue;
+      const float4 a = merge_acc(sc, r, accg + (size_t)r * DH + d, (size_t)RT * DH, 0, NX);
+      *reinterpret_cast<float4*>(o + qrow(s, r) * DH + d) = a;
+    }
+    // p_slc[t][j]: the chunks whose span holds j (chunk x's starts at
+    // x * keys * stride / sel_block) in order, then the slab's rows of query
+    // t in order, added to the earlier slabs' sum. A stage writes the j below
+    // chunk xb's first selection block, from chunk xa's on, and holds the
+    // chunks before xa that those j need. Every slab has the same stages, so
+    // a thread reads back only what it wrote itself. Scores of a row whose
+    // scale is 0 are never read (may be unwritten).
+    const int nq = min(Q, T - gi * Q);
+    for (;;) {
+      cp_wait_all();
+      __syncthreads();
+      const int ja = j0_of(xa), jb = xb == NX ? NSB : min(NSB, j0_of(xb));
+      for (int i = tid; i < nq * max(jb - ja, 0); i += NT) {
+        const int c = i / (jb - ja), j = ja + i % (jb - ja);
+        float* dst = p_slc + (((size_t)b * T + gi * Q + c) * Hkv + h) * NSB + j;
+        float a = s == 0 ? 0.f : *dst;
+        for (int xx = xs; xx < xb; ++xx) {
+          const int jj = j - j0_of(xx);
+          if (jj < 0 || jj >= span) continue;
+          for (int g = 0; g < ns; ++g) {
+            const int r = c * ns + g;
+            const float sr = sc[xx * RT + r];
+            if (sr != 0.f) a += sr * stg[((xx - xs) * RT + r) * span + jj];
+          }
+        }
+        *dst = a;
+      }
+      if (xb == NX) break;
+      __syncthreads();
+      xa = xb;
+      while (xs < xa && j0_of(xa) - j0_of(xs) >= span) ++xs;   // the first chunk j0_of(xa) needs
+      xb = min(NX, xs + cap);
+      stage(xs, xb);
+    }
+    __syncthreads();                                   // the stage buffer and scales are free
   }
 }
 
 template <typename KV, int DH>
 int launch(const void* const* p, const int* n, cudaStream_t stream) {
   // n: B, T, Hkv, Gq, Q, G, NCB, NSB, cmp_block, cmp_stride, sel_block,
-  //    n_cmp, keys, span
-  const int T = n[1], Gq = n[3], Q = n[4], G = n[5], NX = n[11], keys = n[12];
+  //    n_cmp, keys, span, HS
+  const int T = n[1], Gq = n[3], Q = n[4], G = n[5], NX = n[11], keys = n[12], HS = n[14];
   const int cmp_block = n[8], cmp_stride = n[9], sel_block = n[10];
-  if (Gq < 1 || Gq > GQ_MAX || Q < 1 || Q * Gq > RT || G * Q < T || (G - 1) * Q >= T ||
+  if (Gq < 1 || HS != (Gq + RT - 1) / RT || Q < 1 || Q * min(Gq, RT) > RT ||
+      (HS > 1 && Q != 1) || G * Q < T || (G - 1) * Q >= T ||
       NX < 1 || NX > NXMAX || 2 * NX * RT > Walk<KV, DH>::SCRATCH || keys < UK ||
       keys > KMAX || keys % UK || cmp_block < 1 || cmp_stride < 1 || sel_block < 1 ||
       n[13] < ((keys - 1) * cmp_stride + cmp_block + sel_block - 2) / sel_block + 1)
@@ -287,12 +312,12 @@ int launch(const void* const* p, const int* n, cudaStream_t stream) {
     if (e != cudaSuccess) return (int)e;
     attr_set = true;
   }
-  dim3 grid(G * NX, n[2], n[0]);
+  dim3 grid(G * HS * NX, n[2], n[0]);
   routing_kernel<KV, DH><<<grid, NT, smem, stream>>>(
       (const float*)p[0], (const KV*)p[1], (const KV*)p[2], (const int*)p[3],
       (const int*)p[4], (float*)p[5], (float*)p[6], (float*)p[7], (float*)p[8],
       (float*)p[9], (int*)p[10], T, n[2], Gq, Q, G, n[6], n[7], cmp_block, cmp_stride,
-      sel_block, NX, keys, span);
+      sel_block, NX, keys, span, HS);
   return (int)cudaGetLastError();
 }
 
@@ -301,8 +326,8 @@ int launch(const void* const* p, const int* n, cudaStream_t stream) {
 // ptrs: q, k_cmp, v_cmp, positions, ncb_valid, o_cmp, p_slc, part_ml,
 //       part_acc, part_sc, tickets                          (11 pointers)
 // ints: B, T, Hkv, Gq, Q, G, NCB, NSB, cmp_block, cmp_stride, sel_block,
-//       n_cmp, keys, span  (14 ints; Q, G and the last three are the plan,
-//       ops.py:routing_plan)
+//       n_cmp, keys, span, HS  (15 ints; Q, G and HS are ops.py:query_groups,
+//       n_cmp, keys and span ops.py:routing_plan)
 // kv_dtype: 0 = float32, 1 = bfloat16. DH: 64 or 128. Tickets are zero
 // before the first call. Returns the cudaError_t of the launch.
 extern "C" int routing_launch(const void* const* ptrs, const int* ints, int kv_dtype, int DH,

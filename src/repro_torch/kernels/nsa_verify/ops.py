@@ -38,7 +38,7 @@ PARTIAL_LAUNCHES = LaunchCounter("nsa_verify_partial")
 VANILLA_LAUNCHES = LaunchCounter("nsa_verify_vanilla")
 PAGED_LAUNCHES = LaunchCounter("nsa_verify_paged")
 HEAD_DIMS = (64, 128)
-MAX_ROWS = 16               # RT in the kernel: query rows per CTA
+ROWS_PER_CTA = 16           # RT in the kernel: query rows per CTA (one row tile)
 BRANCHES = {"all": 0, "slc": 1, "win": 2}   # the kernel's ``branch`` flag
 KEYS_PER_CHUNK = 512        # keys per CTA at up to 8 rows (256 above: twice the dots)
 MAX_BLOCKS_PER_CHUNK = 32   # MBMAX in the kernel
@@ -53,13 +53,22 @@ def split_plan(M: int, NCB: int, W: int, sel_block: int, include_cmp: bool,
     (``KEYS_PER_CHUNK``, halved when the group has more than 8 query rows
     ``rows`` = C * Gq), the M merged blocks in chunks of ``blocks`` (about
     ``keys`` tokens); the draft tokens join the last window chunk. A
-    branch that is computed has at least one chunk, possibly empty."""
+    branch that is computed has at least one chunk, possibly empty. Above
+    16 rows each ``row_tiles`` tile of 16 walks these chunks."""
     keys = KEYS_PER_CHUNK if rows <= 8 else KEYS_PER_CHUNK // 2
     blocks = min(MAX_BLOCKS_PER_CHUNK, max(1, keys // sel_block))
     n_cmp = max(1, -(-NCB // keys)) if include_cmp else 0
     n_slc = max(1, -(-M // blocks)) if branch != "win" else 0
     n_win = max(1, -(-W // keys)) if branch != "slc" else 0
     return n_cmp, n_slc, n_win, keys, blocks
+
+
+def row_tiles(C: int, Gq: int) -> int:
+    """Row tiles of a group's C * Gq query rows (query c, head i at row
+    c * Gq + i): one CTA per (row tile, chunk), each tile merged under its
+    own ticket. Every tile walks the group's whole work list, so above 16
+    rows the K/V of a chunk is read once per tile."""
+    return -(-C * Gq // ROWS_PER_CTA)
 
 
 @functools.lru_cache(maxsize=256)
@@ -184,8 +193,8 @@ def launch(q, k_cache, v_cache, k_cmp, v_cmp, k_draft, v_draft, merged, mvalid,
     if branch not in BRANCHES or (branch != "all" and include_cmp):
         raise ValueError(f"branch {branch!r}: one of {tuple(BRANCHES)}; a single "
                          "branch runs without the cmp branch (include_cmp=False)")
-    if Hq % Hkv or not 1 <= C * (Hq // Hkv) <= MAX_ROWS:
-        raise ValueError(f"nsa_verify kernel takes C*Gq <= {MAX_ROWS} rows per CTA")
+    if Hkv < 1 or Hq % Hkv or C < 1:
+        raise ValueError(f"{Hq} query heads do not group over {Hkv} kv heads")
     if q.dtype != torch.float32:
         raise TypeError(f"q must be float32 (pre-scaled), got {q.dtype}")
     kv_t = k_cache.dtype
@@ -235,11 +244,12 @@ def launch(q, k_cache, v_cache, k_cmp, v_cmp, k_draft, v_draft, merged, mvalid,
     if NX > MAX_CHUNKS:
         raise ValueError(f"nsa_verify kernel splits a work list into at most {MAX_CHUNKS} "
                          f"chunks, these shapes need {NX}")
-    slabs = B * G * Hkv * NX * MAX_ROWS
+    NRT = row_tiles(C, Hq // Hkv)
+    slabs = B * G * Hkv * NRT * NX * ROWS_PER_CTA
     part_ml = torch.empty(slabs * 2, dtype=torch.float32, device=dev)
     part_acc = torch.empty(slabs * Dh, dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    tickets = flash_ops._ticket_buffer(B * G * Hkv, dev, stream)
+    tickets = flash_ops._ticket_buffer(B * G * Hkv * NRT, dev, stream)
     out = torch.empty((B, T, Hq, Dh), dtype=torch.float32, device=dev)
     tensors = [q, k_cache, v_cache, k_cmp, v_cmp, k_draft, v_draft, merged,
                mvalid, own, qmap, positions, prefix_len, ncb_valid, win_start,
@@ -252,7 +262,7 @@ def launch(q, k_cache, v_cache, k_cmp, v_cmp, k_draft, v_draft, merged, mvalid,
     ints = [B, T, S, Hkv, Hq // Hkv, C, G, M, NCB, min(nsa.window, S),
             nsa.sel_block, nsa.cmp_block, nsa.cmp_stride, nsa.window,
             int(include_cmp), BRANCHES[branch], Dh,
-            ps if paged else 0, MP if paged else 0, P if paged else 0, *plan]
+            ps if paged else 0, MP if paged else 0, P if paged else 0, *plan, NRT]
     err = _lib()((ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_int * len(ints))(*ints),
                  0 if kv_t == torch.float32 else 1, stream)
     if err != 0:

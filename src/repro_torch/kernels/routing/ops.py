@@ -19,7 +19,6 @@ from repro_torch.models.nsa import num_sel_blocks, overlap_tensor
 
 LAUNCHES = LaunchCounter("routing")
 HEAD_DIMS = (64, 128)
-MAX_GQ = 8
 ROWS_PER_CTA = 16           # RT in the kernel: query rows per CTA
 KEYS_PER_CHUNK = 128        # cmp blocks per CTA while the cache is short
 MAX_KEYS = 512              # KMAX in the kernel (its logit buffer)
@@ -28,10 +27,13 @@ MAX_CHUNKS = 64             # NXMAX in the kernel
 
 
 def query_groups(T: int, Gq: int):
-    """(Q, G): a CTA holds Q consecutive tree queries x the Gq query heads
-    of one kv head (at most ``ROWS_PER_CTA`` rows); G groups cover T."""
-    Q = min(ROWS_PER_CTA // Gq, T)
-    return Q, -(-T // Q)
+    """(Q, G, HS): a CTA holds Q consecutive tree queries x up to
+    ``ROWS_PER_CTA`` query heads of one kv head; G groups cover T. Above
+    ``ROWS_PER_CTA`` heads (Gq 48 under MQA) a query's heads are cut into HS
+    head slabs of up to 16 heads, one CTA each, and Q is 1; the last CTA
+    adds the slabs' GQA sums of the selection scores in slab order."""
+    Q = max(1, min(ROWS_PER_CTA // Gq, T))
+    return Q, -(-T // Q), -(-Gq // ROWS_PER_CTA)
 
 
 def routing_plan(NCB: int, nsa: NSAConfig):
@@ -77,7 +79,8 @@ def routing_fused(q, k_cmp, v_cmp, positions, ncb_valid, nsa: NSAConfig,
 
 def launch(q, k_cmp, v_cmp, positions, ncb_valid, nsa: NSAConfig, NSB: int):
     """Launch the CUDA kernel (CUDA tensors only). The CTAs of one (row,
-    query group, kv head) merge their partials through a ticket that each
+    query group, kv head), every head slab and chunk, merge their partials
+    through a ticket that each
     call leaves at 0, in the buffer per device and stream that the flash
     and nsa_verify kernels use (calls on one stream never overlap)."""
     B, T, Hq, Dh = q.shape
@@ -85,8 +88,8 @@ def launch(q, k_cmp, v_cmp, positions, ncb_valid, nsa: NSAConfig, NSB: int):
     dev = q.device
     if Dh not in HEAD_DIMS:
         raise ValueError(f"routing kernel is built for head_dim in {HEAD_DIMS}, got {Dh}")
-    if Hq % Hkv or not 1 <= Hq // Hkv <= MAX_GQ:
-        raise ValueError(f"routing kernel takes 1..{MAX_GQ} query heads per kv head")
+    if Hkv < 1 or Hq % Hkv:
+        raise ValueError(f"{Hq} query heads do not group over {Hkv} kv heads")
     if q.dtype != torch.float32:
         raise TypeError(f"q must be float32 (pre-scaled), got {q.dtype}")
     if k_cmp.dtype not in (torch.float32, torch.bfloat16) or v_cmp.dtype != k_cmp.dtype:
@@ -106,7 +109,7 @@ def launch(q, k_cmp, v_cmp, positions, ncb_valid, nsa: NSAConfig, NSB: int):
     if tuple(positions.shape) != (B, T):
         raise ValueError("positions must be (B, T)")
     Gq = Hq // Hkv
-    Q, G = query_groups(T, Gq)
+    Q, G, HS = query_groups(T, Gq)
     n_cmp, keys, span = routing_plan(NCB, nsa)
     if n_cmp > MAX_CHUNKS:
         raise ValueError(f"routing kernel splits a cmp list into at most {MAX_CHUNKS} "
@@ -115,7 +118,7 @@ def launch(q, k_cmp, v_cmp, positions, ncb_valid, nsa: NSAConfig, NSB: int):
     nv = per_row(ncb_valid, B, dev)
     o = torch.empty((B, T, Hq, Dh), dtype=torch.float32, device=dev)
     p_slc = torch.empty((B, T, Hkv, NSB), dtype=torch.float32, device=dev)
-    slabs = B * G * Hkv * n_cmp * ROWS_PER_CTA
+    slabs = B * G * Hkv * HS * n_cmp * ROWS_PER_CTA
     part_ml = torch.empty(slabs * 2, dtype=torch.float32, device=dev)
     part_acc = torch.empty(slabs * Dh, dtype=torch.float32, device=dev)
     part_sc = torch.empty(slabs * span, dtype=torch.float32, device=dev)
@@ -124,7 +127,7 @@ def launch(q, k_cmp, v_cmp, positions, ncb_valid, nsa: NSAConfig, NSB: int):
     ptrs = [t.data_ptr() for t in (q, k_cmp, v_cmp, pos, nv, o, p_slc, part_ml, part_acc,
                                    part_sc, tickets)]
     ints = [B, T, Hkv, Gq, Q, G, NCB, NSB, nsa.cmp_block, nsa.cmp_stride, nsa.sel_block,
-            n_cmp, keys, span]
+            n_cmp, keys, span, HS]
     err = _lib()((ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_int * len(ints))(*ints),
                  0 if k_cmp.dtype == torch.float32 else 1, Dh, stream)
     if err != 0:

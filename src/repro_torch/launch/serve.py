@@ -6,6 +6,10 @@ store, optionally against the autoregressive baseline.
       --prompts 1 --tokens 8
   PYTHONPATH=src python -m repro_torch.launch.serve --arch ssv-nsa-8b \
       --prompts 1 --tokens 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \
+      --prompts 1 --tokens 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-235b-a22b \
+      --reduced --device cpu --tokens 4
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
       --precision-class Approx+Reuse --baseline
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
@@ -16,7 +20,9 @@ store, optionally against the autoregressive baseline.
       --prompts 6 --batch 2 --continuous --bucketed --profile-json profile.json --warmup
 
 The flags are the JAX CLI's (``repro.launch.serve``) plus ``--device``
-(default ``cuda``). Weights are drawn from ``--seed`` with the JAX
+(default ``cuda``). An ``--arch`` whose attention is not NSA (qwen3-8b,
+granite-20b, mixtral-8x22b, qwen3-moe-235b-a22b, musicgen-medium) is served
+as its ``configs.nsa_variant``, as the JAX CLI serves it. Weights are drawn from ``--seed`` with the JAX
 ``model.init`` distributions. ``--batch`` > 1 serves groups of prompts
 through ``BatchedSSVEngine.generate_batch``; ``--continuous`` serves every
 prompt over ``--batch`` slots with Poisson arrivals. ``--bucketed`` serves a
@@ -92,6 +98,8 @@ def main(argv=None):
         raise ValueError("--warmup builds the bucketed group-step cache; add --bucketed")
     dev = resolve_device(args.device)
     cfg = cfglib.reduced(args.arch) if args.reduced else cfglib.get_config(args.arch)
+    if cfg.attention != "nsa":       # served through SSV: NSA in for attention
+        cfg = cfglib.nsa_variant(cfg) if cfg.d_ff or cfg.block_pattern == ("attn",) else cfg
     dcfg = draft_lib.draft_config(cfg)
     gen = torch.Generator(dev)
     gen.manual_seed(args.seed)

@@ -1,5 +1,6 @@
-"""Core layer primitives: RMSNorm, rotary embeddings, the SwiGLU FFN,
-embedding and LM head — the PyTorch counterparts of ``repro.models.layers``.
+"""Core layer primitives: RMSNorm, rotary embeddings, activations, the
+gated and non-gated FFN, embedding (tied or separate unembedding) and LM
+head — the PyTorch counterparts of ``repro.models.layers``.
 
 Parameters are plain dicts of tensors with the JAX package's names and
 layouts (``x @ w`` with ``w`` of shape (d_in, d_out)), so weights bridge
@@ -40,15 +41,41 @@ def apply_rope(x, positions, theta: float = 10000.0):
     return out.to(x.dtype)
 
 
+def gelu(x):
+    """``jax.nn.gelu``'s default, the tanh approximation (PyTorch's default
+    is the exact erf form)."""
+    return F.gelu(x, approximate="tanh")
+
+
+def squared_relu(x):
+    return torch.square(F.relu(x))
+
+
+ACTIVATIONS = {
+    "gelu": gelu,
+    "relu": F.relu,
+    "silu": F.silu,
+    "squared_relu": squared_relu,
+}
+
+GATED = {"swiglu": F.silu, "geglu": gelu, "reglu": F.relu}
+
+
 def ffn(params, x, activation: str):
-    if activation != "swiglu":
-        raise NotImplementedError(f"activation {activation!r} is not ported yet")
-    h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
+    if activation in GATED:
+        h = GATED[activation](x @ params["w_gate"]) * (x @ params["w_up"])
+    else:
+        h = ACTIVATIONS[activation](x @ params["w_up"])
     return h @ params["w_down"]
 
 
 def embed(params, tokens):
     return params["table"][tokens]
+
+
+def unembed(params, x):
+    """x: (..., d) -> logits (..., V) through the (tied) embedding table."""
+    return x @ params["table"].T
 
 
 def lm_head(params, x):

@@ -1,5 +1,5 @@
-"""Decoder-only model, attention blocks only — the training and serving
-paths of ``repro.models.model`` in PyTorch.
+"""Decoder-only model over attention and MoE blocks — the training and
+serving paths of ``repro.models.model`` in PyTorch.
 
 Parameters are plain dicts of tensors with the JAX names, but unstacked:
 ``params["layers"]`` is a list with one block dict per layer (the JAX
@@ -24,7 +24,12 @@ Paths:
     length, update the compressed cache, advance each length (all on the
     device);
   * ``decode_step`` — one autoregressive token (verify with T=1 + commit).
-Recurrent and MoE blocks are not ported.
+Blocks are ``"attn"`` (attention + FFN) or ``"moe"`` (attention + the MoE
+FFN of ``models.moe``); attention is NSA, dense or sliding-window
+(``"swa"``: ``cfg.window`` reaches every attention call, as in JAX). A
+modality frontend (``cfg.frontend_dim``) projects precomputed frames in
+front of the tokens; tied embeddings unembed through the embedding table.
+Recurrent blocks are not ported.
 """
 from __future__ import annotations
 
@@ -37,7 +42,9 @@ from repro_torch.config import ModelConfig, SSVConfig
 from repro_torch.core import kvstore
 from repro_torch.device import dtype_of
 from repro_torch.kernels.nsa_verify import ops as nsa_ops
-from repro_torch.models import attention, layers, nsa as nsa_lib
+from repro_torch.models import attention, layers, moe as moe_lib, nsa as nsa_lib
+
+RECURRENT_KINDS = ("rglru", "mlstm", "slstm")
 
 
 def segments(cfg: ModelConfig) -> List[Tuple[Tuple[str, ...], int]]:
@@ -57,69 +64,91 @@ def segments(cfg: ModelConfig) -> List[Tuple[Tuple[str, ...], int]]:
 
 def check_supported(cfg: ModelConfig) -> None:
     kinds = set(cfg.layer_kinds())
-    if kinds != {"attn"} or cfg.moe is not None:
+    if kinds & set(RECURRENT_KINDS):
         raise NotImplementedError(
-            f"{cfg.name}: only attention blocks are ported (got {sorted(kinds)})")
-    if cfg.attention not in ("nsa", "dense"):
+            f"{cfg.name}: recurrent blocks {sorted(kinds & set(RECURRENT_KINDS))} "
+            "are not ported yet")
+    if cfg.attention not in ("nsa", "dense", "swa"):
         raise NotImplementedError(f"attention={cfg.attention!r} is not ported yet")
-    if cfg.tie_embeddings or cfg.modality != "text":
-        raise NotImplementedError("tied embeddings / modality frontends are not ported")
 
 
 def logits_fn(params, cfg: ModelConfig, hidden):
+    if cfg.tie_embeddings:
+        return layers.unembed(params["embed"], hidden)
     return layers.lm_head(params["lm_head"], hidden)
 
 
-def _ffn(bp, cfg: ModelConfig, x):
-    return layers.ffn(bp["ffn"], x, cfg.activation)
+def _attn_window(cfg: ModelConfig) -> int:
+    return cfg.window if cfg.attention == "swa" else 0
+
+
+def _apply_ffn(bp, cfg: ModelConfig, kind: str, x, moe_per_row: bool = False,
+               moe_by_expert: bool = False):
+    """Returns (y, aux): the MoE FFN and its load-balancing loss for a
+    ``"moe"`` block (dispatch groups per row with ``moe_per_row``; experts
+    one by one, reading counts on the host, with ``moe_by_expert``), else
+    the dense FFN and None (no loss term, and no launch for a zero)."""
+    if kind == "moe":
+        return moe_lib.moe_apply(bp["ffn"], cfg, x, per_row=moe_per_row,
+                                 by_expert=moe_by_expert)
+    return layers.ffn(bp["ffn"], x, cfg.activation), None
 
 
 # ------------------------------------------------------------------ train fwd
 def block_apply_train(bp, cfg: ModelConfig, kind: str, x, positions, chunk: int):
-    """One attention block over the full sequence. Returns (y, aux); aux is
-    0 for every kind the port has (the MoE load-balancing loss would be the
-    only other term)."""
-    del kind                                   # attention blocks only (check_supported)
+    """One block over the full sequence. Returns (y, aux): aux is the MoE
+    load-balancing loss of a ``"moe"`` block, else None."""
     h = layers.rmsnorm(bp["norm1"], x, cfg.norm_eps)
+    window = _attn_window(cfg)
     if cfg.attention == "nsa":
         mix, _ = nsa_lib.attend_train_nsa(bp["mix"], cfg, h, positions, chunk=chunk)
     elif cfg.attention_impl == "flash":
-        mix, _ = attention.attend_train_flash(bp["mix"], cfg, h, positions)
+        mix, _ = attention.attend_train_flash(bp["mix"], cfg, h, positions, window=window)
     elif cfg.attention_impl == "online":
-        mix, _ = attention.attend_train_online(bp["mix"], cfg, h, positions)
+        mix, _ = attention.attend_train_online(bp["mix"], cfg, h, positions, window=window)
     else:
         mix, _ = attention.attend_train(
-            bp["mix"], cfg, h, positions, chunk=chunk,
+            bp["mix"], cfg, h, positions, window=window, chunk=chunk,
             remat_chunks=(cfg.attention_impl == "chunked_remat"))
     x = x + mix
-    return x + _ffn(bp, cfg, layers.rmsnorm(bp["norm2"], x, cfg.norm_eps))
+    y, aux = _apply_ffn(bp, cfg, kind, layers.rmsnorm(bp["norm2"], x, cfg.norm_eps))
+    return x + y, aux
 
 
 def embed_inputs(params, cfg: ModelConfig, tokens, frontend=None):
-    """Text only: returns (x (B, S, d), positions (B, S) int32, n_prefix=0)."""
-    if frontend is not None:
-        raise NotImplementedError("modality frontends are not ported")
+    """Returns (x (B, S_total, d), positions (B, S_total) int32, n_prefix):
+    with a frontend (B, F, frontend_dim) and a ``frontend_proj``, its
+    projected frames come first and n_prefix = F."""
     x = layers.embed(params["embed"], tokens)
+    n_prefix = 0
+    if frontend is not None and "frontend_proj" in params:
+        fx = frontend.to(x.dtype) @ params["frontend_proj"]["w"]
+        x = torch.cat([fx, x], dim=1)
+        n_prefix = frontend.shape[1]
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device)[None].expand(B, S)
-    return x, positions, 0
+    return x, positions, n_prefix
 
 
 def forward_train(params, cfg: ModelConfig, tokens, frontend=None, remat: bool = True,
                   attn_chunk: int = 512):
-    """tokens (B, S) int64 -> (hidden (B, S, d), aux 0-d f32, n_prefix).
+    """tokens (B, S) int64 -> (hidden (B, S_total, d), aux 0-d f32 (the MoE
+    layers' load-balancing losses summed), n_prefix (frontend frames)).
     ``remat`` recomputes each layer in the backward pass
     (``torch.utils.checkpoint``, as the JAX package wraps each segment
     body in ``jax.checkpoint``), so only the layers' inputs stay alive."""
     check_supported(cfg)
     x, positions, n_prefix = embed_inputs(params, cfg, tokens, frontend)
-    for bp in params["layers"]:
+    aux_total = torch.zeros((), device=x.device)
+    for bp, kind in zip(params["layers"], cfg.layer_kinds()):
         if remat:
-            x = attention.remat(block_apply_train, bp, cfg, "attn", x, positions, attn_chunk)
+            x, aux = attention.remat(block_apply_train, bp, cfg, kind, x, positions, attn_chunk)
         else:
-            x = block_apply_train(bp, cfg, "attn", x, positions, attn_chunk)
+            x, aux = block_apply_train(bp, cfg, kind, x, positions, attn_chunk)
+        if aux is not None:
+            aux_total = aux_total + aux
     x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return x, torch.zeros((), device=x.device), n_prefix
+    return x, aux_total, n_prefix
 
 
 def loss_fn(params, cfg: ModelConfig, tokens, frontend=None, remat: bool = True,
@@ -168,18 +197,21 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, device,
 
 # ------------------------------------------------------------------ prefill
 @torch.no_grad()
-def prefill(params, cfg: ModelConfig, tokens, max_len: int, attn_chunk: int = 512):
-    """Run the full prompt and build the caches. tokens (B, S) on the
-    model's device. Returns (hidden (B,S,d), caches)."""
+def prefill(params, cfg: ModelConfig, tokens, max_len: int, frontend=None,
+            attn_chunk: int = 512):
+    """Run the full prompt (after the frontend's frames, if any) and build
+    the caches. tokens (B, S) on the model's device; MoE experts run one
+    by one over their kept tokens (a host sync per MoE layer: a prefill is
+    never captured). Returns (hidden (B, S_total, d), caches)."""
     check_supported(cfg)
     dev = tokens.device
-    B, S = tokens.shape
+    x, positions, _ = embed_inputs(params, cfg, tokens, frontend)
+    B, S, _ = x.shape
     if S > max_len:
         raise ValueError(f"prompt of {S} tokens exceeds max_len={max_len}")
-    x = layers.embed(params["embed"], tokens)
-    positions = torch.arange(S, dtype=torch.int32, device=dev)[None].expand(B, S)
     caches = init_caches(cfg, B, max_len, dev)
-    for bp, cache in zip(params["layers"], caches["layers"]):
+    window = _attn_window(cfg)
+    for bp, cache, kind in zip(params["layers"], caches["layers"], cfg.layer_kinds()):
         hn = layers.rmsnorm(bp["norm1"], x, cfg.norm_eps)
         if cfg.attention == "nsa":
             mix, (k, v) = nsa_lib.attend_train_nsa(bp["mix"], cfg, hn, positions,
@@ -189,12 +221,16 @@ def prefill(params, cfg: ModelConfig, tokens, max_len: int, attn_chunk: int = 51
             if ncb:
                 cache["cmp"]["k_cmp"][:, :ncb] = k_cmp.to(cache["cmp"]["k_cmp"].dtype)
                 cache["cmp"]["v_cmp"][:, :ncb] = v_cmp.to(cache["cmp"]["v_cmp"].dtype)
+        elif cfg.attention_impl == "flash":
+            mix, (k, v) = attention.attend_train_flash(bp["mix"], cfg, hn, positions,
+                                                       window=window)
         else:
             mix, (k, v) = attention.attend_train(bp["mix"], cfg, hn, positions,
-                                                 chunk=attn_chunk)
+                                                 window=window, chunk=attn_chunk)
         attention.write_cache(cache["kv"], k, v, 0)
         x = x + mix
-        x = x + _ffn(bp, cfg, layers.rmsnorm(bp["norm2"], x, cfg.norm_eps))
+        x = x + _apply_ffn(bp, cfg, kind, layers.rmsnorm(bp["norm2"], x, cfg.norm_eps),
+                           moe_by_expert=True)[0]
     x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     caches["length"] = torch.full((B,), S, dtype=torch.int32, device=dev)
     return x, caches
@@ -238,19 +274,25 @@ def _mix_verify(bp, cfg: ModelConfig, h, cache, prefix_len, positions,
             reuse=reuse)
         return out, {"k_new": k_new, "v_new": v_new}, carry_idx
     out, (k_new, v_new) = attention.attend_verify(bp["mix"], cfg, h, kv, prefix_len,
-                                                  positions, tree_mask)
+                                                  positions, tree_mask,
+                                                  window=_attn_window(cfg))
     return out, {"k_new": k_new, "v_new": v_new}, carry_idx
 
 
 @torch.no_grad()
 def verify_step(params, cfg: ModelConfig, caches, draft_tokens, positions,
-                tree_mask, parents=None, ssv: Optional[SSVConfig] = None):
+                tree_mask, parents=None, ssv: Optional[SSVConfig] = None,
+                moe_per_row: bool = False):
     """Verify T draft tokens against the committed caches.
 
     draft_tokens (B, T); positions (B, T) absolute; tree_mask (B, T, T);
     each row verifies against its own committed length. ``parents`` is
     accepted for signature parity (recurrent blocks use it; none are
-    ported). Returns (logits (B, T, V), per-layer updates)."""
+    ported). ``moe_per_row`` cuts MoE dispatch groups from each row's T
+    tokens, as the JAX batched engine's per-row ``vmap`` does; without it
+    the B*T tokens are flattened, as a direct JAX call does. MoE experts
+    run all at once with no host sync, so a step can be captured in a CUDA
+    graph. Returns (logits (B, T, V), per-layer updates)."""
     del parents
     prefix_len = caches["length"]
     pages = caches.get("pages")
@@ -258,12 +300,14 @@ def verify_step(params, cfg: ModelConfig, caches, draft_tokens, positions,
     flags = _reuse_layer_flags(cfg, ssv)
     carry = (None, None)
     updates = []
-    for li, (bp, cache) in enumerate(zip(params["layers"], caches["layers"])):
+    for li, (bp, cache, kind) in enumerate(zip(params["layers"], caches["layers"],
+                                               cfg.layer_kinds())):
         hn = layers.rmsnorm(bp["norm1"], x, cfg.norm_eps)
         mix, up, carry = _mix_verify(bp, cfg, hn, cache, prefix_len, positions,
                                      tree_mask, carry, bool(flags[li]), ssv, pages)
         x = x + mix
-        x = x + _ffn(bp, cfg, layers.rmsnorm(bp["norm2"], x, cfg.norm_eps))
+        x = x + _apply_ffn(bp, cfg, kind, layers.rmsnorm(bp["norm2"], x, cfg.norm_eps),
+                           moe_per_row)[0]
         updates.append(up)
     x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return logits_fn(params, cfg, x), updates

@@ -5,7 +5,9 @@ dims 64 and 128, plus the launch counters: routing, nsa_verify (full,
 partial, and the vanilla single-branch launches, with the vanilla layer
 against the fused layer's plain path; routing across chunks, head groups
 and tree sizes, rows bitwise independent of B, rows without cmp blocks
-giving zeros, Top-n indices equal to the plain version's), and flash
+giving zeros, Top-n indices equal to the plain version's; the zoo's
+query-head groups: routing's head slabs past 16 heads, nsa_verify's row
+tiles past 16 rows), and flash
 tree-verify (up to 124
 query rows, window 0 and 16, and on two streams at once); the wrappers
 reject head dims other than 64 and 128 and K/V that are not 16-byte
@@ -384,7 +386,7 @@ def test_batched_paged_serving_equals_dense_on_card(cuda, pc):
 FULL_NSA = NSAConfig(cmp_block=32, cmp_stride=16, sel_block=64, n_selected=16, window=512)
 
 
-def _full_inputs(dev, dtype, Dh, prefixes, S, seed):
+def _full_inputs(dev, dtype, Dh, prefixes, S, seed, Hq=32, Hkv=8):
     """Verify-kernel inputs drawn as chip_smoke.py's verify_inputs draws
     them, one row per prefix length."""
     g = torch.Generator(dev)
@@ -392,7 +394,7 @@ def _full_inputs(dev, dtype, Dh, prefixes, S, seed):
     r = lambda *s, dt=dtype: torch.randn(s, generator=g, device=dev).to(dt)
     topo = build_topology(4, 2, "bfs")
     plen = torch.tensor(prefixes, dtype=torch.int32, device=dev)
-    B, T, Hq, Hkv = len(prefixes), topo.num_nodes, 32, 8
+    B, T = len(prefixes), topo.num_nodes
     pos = (plen[:, None] + torch.as_tensor(topo.depths, device=dev)[None]).to(torch.int32)
     ncb = nsa_lib.num_cmp_blocks(S, FULL_NSA)
     p_slc = torch.rand((B, T, Hkv, nsa_lib.num_sel_blocks(S, FULL_NSA)), generator=g, device=dev)
@@ -468,6 +470,50 @@ def test_verify_kernel_rows_do_not_depend_on_batch(cuda, Dh, C, mode, full):
     torch.cuda.synchronize()
     assert torch.equal(out, again)
     for b in range(3):
+        assert torch.equal(out[b:b + 1], single[b])
+    _close(out, want, torch.bfloat16)
+
+
+# the zoo's query-head groups: (Dh, Hq, Hkv) of qwen3-moe (Gq 16), granite
+# (48, MQA), mixtral (6) and musicgen (1)
+ZOO_HEADS = [(64, 64, 4), (128, 48, 1), (128, 48, 8), (64, 24, 24)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Dh,Hq,Hkv", ZOO_HEADS, ids=["gq16", "gq48", "gq6", "gq1"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_routing_kernel_any_head_group(cuda, Dh, Hq, Hkv, dtype):
+    """Routing past 16 heads per kv head (Gq 48: three 16-head slabs per
+    query, their GQA sums added in the last CTA) and at Gq 16, 6 and 1:
+    two rows against the plain version with the same Top-n indices, each
+    row bitwise equal to its own B=1 launch."""
+    S = 8192
+    x = _full_inputs(cuda, dtype, Dh, (4096, 3001), S, seed=Hq + Hkv, Hq=Hq, Hkv=Hkv)
+    (o, p), (o_r, p_r) = _routing_pair(x, FULL_NSA, S)
+    single = [rops.routing_fused(x["q"][b:b + 1], x["k_cmp"][b:b + 1], x["v_cmp"][b:b + 1],
+                                 x["pos"][b:b + 1], x["ncb_valid"][b:b + 1], FULL_NSA, S)
+              for b in range(2)]
+    torch.cuda.synchronize()
+    _close(o, o_r, dtype)
+    _close(p, p_r, dtype)
+    _same_topn(p, p_r, x, FULL_NSA)
+    for b in range(2):
+        assert torch.equal(o[b:b + 1], single[b][0]) and torch.equal(p[b:b + 1], single[b][1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Dh,Hq,Hkv", ZOO_HEADS, ids=["gq16", "gq48", "gq6", "gq1"])
+@pytest.mark.parametrize("C,mode,full", [(2, "exact", False), (4, "approx", True)])
+def test_verify_kernel_row_tiles(cuda, Dh, Hq, Hkv, C, mode, full):
+    """Groups above 16 rows in 16-row tiles (24, 32, 64, 96 and 192 rows
+    here): two rows of mixed lengths against the plain version, each row
+    bitwise equal to its own B=1 launch (bf16 K/V)."""
+    x = _full_inputs(cuda, torch.bfloat16, Dh, (1500, 2017), 2048, seed=Hq + C, Hq=Hq, Hkv=Hkv)
+    out = _full_fused(x, C, mode, full)
+    single = [_full_fused(x, C, mode, full, rows=slice(b, b + 1)) for b in range(2)]
+    want = _full_fused(x, C, mode, full, plain=True)
+    torch.cuda.synchronize()
+    for b in range(2):
         assert torch.equal(out[b:b + 1], single[b])
     _close(out, want, torch.bfloat16)
 
@@ -738,6 +784,57 @@ def test_start_empty_keeps_graphs_at_the_same_slot_count(cuda):
     assert eng.step_cache.misses == 3 and first == second
     eng.start_empty(2)
     assert eng.step_cache.size == 0 and eng._graph_pool is None
+
+
+@pytest.mark.gpu
+def test_moe_group_steps_capture_at_four_slots_and_t129(cuda):
+    """qwen3-moe's NSA variant with its MoE FFN at full width (d 4096, 64 /
+    4 heads, 128 experts of 1536, top-8, dispatch group 256; 1 layer, vocab
+    512, float32) in group steps captured as CUDA graphs at 4 slots under
+    D4/k2 (T = 31) and D6/k10/budget 128 (T = 129): every group size
+    captures (a host sync in the MoE FFN would raise inside the capture),
+    and the replays give the eager group steps' tokens, counts and caches
+    bitwise."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.config import ServeConfig, SSVConfig
+    from repro_torch.core import draft as draft_lib, engine as engine_lib, planner
+    full = configs.get_config("qwen3-moe-235b-a22b")
+    cfg = dataclasses.replace(configs.nsa_variant(full), num_layers=1, vocab_size=512,
+                              dtype="float32")
+    dcfg = draft_lib.draft_config(cfg, num_layers=1)
+    g = torch.Generator(cuda)
+    g.manual_seed(12)
+    tp, dp = init_params(cfg, g, cuda), init_params(dcfg, g, cuda)
+    prompts = [torch.randint(0, 512, (n,), generator=g, device=cuda).cpu().numpy()
+               for n in (150, 171, 133, 160)]
+    small = SSVConfig(tree_depth=4, tree_width=2)
+    wide = next(s for s in planner.candidate_strategies("Strict", 1)
+                if (s.tree_depth, s.tree_width, s.tree_budget, s.traversal) == (6, 10, 128, "bfs"))
+    assert engine_lib._plan_of({}, wide, cuda).tree.mask.shape[-1] == 129
+    runs = {}
+    for graphs in (True, False):
+        eng = engine_lib.BatchedSSVEngine(tp, cfg, dp, dcfg, ServeConfig(
+            max_new_tokens=8, max_context=1024, ssv=small, use_planner=False), device=cuda,
+            cuda_graphs=graphs)
+        eng.start_empty(4)
+        if graphs:
+            assert eng.warmup(strategies=[small, wide]) == 2 * len(eng._padded_group_sizes())
+            assert all(e.graph is not None for e in eng.step_cache._exe.values())
+        for s, p in enumerate(prompts):
+            eng.admit(s, p, max_new_tokens=8)
+        out = []
+        for rows, ssv in (([0, 1, 2, 3], wide), ([0, 1, 2, 3], small), ([1, 3], wide),
+                          ([0, 1, 2, 3], wide)):
+            toks, n = eng.step_group(rows, ssv)
+            out.append((toks.tolist(), n.tolist()))
+        out.append([t.clone() for t in _cache_tensors(eng)])
+        runs[graphs] = out
+        if graphs:
+            assert eng.step_cache.misses == 2 * len(eng._padded_group_sizes())
+    assert runs[True][:-1] == runs[False][:-1]
+    for a, b in zip(runs[True][-1], runs[False][-1]):
+        assert torch.equal(a, b)
 
 
 # ---- training on the card (reduced ssv-nsa-1b, float32; TF32 off)

@@ -79,8 +79,9 @@ def test_registry_string_imports_stay_in_port():
     assert '"repro_torch.configs."' in src
     assert get_config("ssv-nsa-1b").num_heads == 32
     assert get_config("ssv-nsa-8b").head_dim == 128
-    with pytest.raises(KeyError, match="not ported"):
-        get_config("qwen3-8b")
+    assert get_config("qwen3-8b").qk_norm
+    with pytest.raises(KeyError, match="not ported yet: it waits for"):
+        get_config("smollm-360m")
 
 
 def test_serve_cli_on_cpu(capsys):

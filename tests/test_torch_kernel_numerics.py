@@ -12,8 +12,9 @@ the partials merge in chunk order (``ops.split_plan``; routing:
 ``ops.routing_plan``, with the chunk-local selection scores rescaled by
 the same merge scales as o_cmp).
 The emulation below repeats exactly that, at the full-width head dims and
-head counts, with inputs drawn as ``chip_smoke.py``'s ``verify_inputs``
-draws them.
+head counts and at the zoo's query-head groups (routing's 16-head slabs at
+Gq 16 and 48; nsa_verify's 16-row tiles at 24 and 96 rows), with inputs
+drawn as ``chip_smoke.py``'s ``verify_inputs`` draws them.
 
 Tolerance: rtol 2e-4, atol 2e-5, the f32 tolerance ``chip_smoke.py``'s
 ``TOL`` holds the kernels to. The split leaves a residual of about 2^-16 of
@@ -94,6 +95,16 @@ def _merge(parts):
     for i, p in enumerate(parts):
         out = out + sc[i][..., None] * p[2]
     return out
+
+
+def _walk_tiles(q, k, v, mask):
+    """A group's rows in tiles of 16, each tile walking the chunk as its own
+    CTA (``vops.row_tiles``); rows are independent, so the tiles' partials
+    side by side are the group's."""
+    R = q.shape[1]
+    assert -(-R // 16) == vops.row_tiles(1, R)
+    outs = [_walk(q[:, i:i + 16], k, v, mask[:, i:i + 16]) for i in range(0, R, 16)]
+    return tuple(torch.cat([o[j] for o in outs], 1) for j in range(3))
 
 
 def _pad(k, v, mask):
@@ -233,7 +244,7 @@ def _emulate_verify(a, o_cmp_in, include_cmp):
         padded = [_pad(*c) for c in chunk if c[0].shape[1]]
         k, v = (torch.cat([c[i] for c in padded], 1) for i in (0, 1))
         m = torch.cat([c[2] for c in padded], 2)
-        parts[br].append(_walk(qg, k, v, m))
+        parts[br].append(_walk_tiles(qg, k, v, m))
     o = {br: _merge(ps) if ps else torch.zeros_like(qg) for br, ps in parts.items()}
     if not include_cmp:
         oc = o_cmp_in.reshape(B, T, Hkv, Gq, Dh)[:, qmap].permute(0, 1, 3, 2, 4, 5)
@@ -255,6 +266,25 @@ def test_verify_arithmetic_matches_plain(Dh, C, mode, include_cmp, prefixes):
     a 40-token prefix is shorter than one chunk."""
     x = _verify_inputs(Dh, prefixes, 4096, seed=Dh + C)
     a = _verify_args(x, C, mode)
+    got = _emulate_verify(a, x["o_cmp"], include_cmp)
+    want = vref.verify_groups_plain(
+        **a, o_cmp_in=None if include_cmp else x["o_cmp"], sel_block=NSA.sel_block,
+        cmp_block=NSA.cmp_block, cmp_stride=NSA.cmp_stride, window=NSA.window,
+        include_cmp=include_cmp)
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("Hq,Hkv,C,mode,include_cmp",
+                         [(48, 8, 4, "approx", True),     # mixtral approx C=4: 24 rows, 2 tiles
+                          (48, 1, 2, "exact", False)],    # granite exact C=2: 96 rows, 6 tiles
+                         ids=["rows24", "rows96"])
+def test_verify_row_tiles_arithmetic_matches_plain(Hq, Hkv, C, mode, include_cmp):
+    """Groups above 16 rows: each 16-row tile walks the group's whole work
+    list as its own CTA and merges its own rows (Dh 128, a 4096-key
+    cache, prefixes 3000 and 700)."""
+    x = _verify_inputs(128, (3000, 700), 4096, seed=C + Hkv, Hq=Hq, Hkv=Hkv)
+    a = _verify_args(x, C, mode)
+    assert C * Hq // Hkv > 16
     got = _emulate_verify(a, x["o_cmp"], include_cmp)
     want = vref.verify_groups_plain(
         **a, o_cmp_in=None if include_cmp else x["o_cmp"], sel_block=NSA.sel_block,
@@ -353,60 +383,70 @@ def test_split_plan_covers_the_work_list_once(M, NCB, W, T, sel_block, include_c
 
 
 def _emulate_routing(q, k_cmp, v_cmp, pos, ncb_valid, kv_len):
-    """The routing kernel's arithmetic: per (row, query group, kv head) a
-    CTA of Q queries x Gq heads (``rops.query_groups``) walks each chunk of
+    """The routing kernel's arithmetic: per (row, query group, kv head,
+    head slab) a CTA of Q queries x up to 16 heads (``rops.query_groups``;
+    above 16 heads a query's heads are cut into slabs) walks each chunk of
     ``rops.routing_plan`` with the hook keeping its raw logits; the chunk's
     scores sum_n exp(s - m) ov(n, j) / cmp_block of its visible blocks
-    cover ``span`` selection blocks from its first; the last CTA scales
-    o_cmp's partials and each chunk's scores by exp(m_x - M) / L, sums
-    chunks, then the Gq rows of each query."""
+    cover ``span`` selection blocks from its first; the last CTA, slab by
+    slab, scales o_cmp's partials and each chunk's scores by exp(m_x - M) /
+    L, sums chunks, then the slab's rows of each query, and adds the slab's
+    sum to the earlier slabs'."""
     B, T, Hq, Dh = q.shape
     NCB, Hkv = k_cmp.shape[1], k_cmp.shape[2]
     Gq, RT = Hq // Hkv, rops.ROWS_PER_CTA
-    Q, G = rops.query_groups(T, Gq)
+    Q, G, HS = rops.query_groups(T, Gq)
+    gs = min(Gq, RT)
     n_cmp, keys, span = rops.routing_plan(NCB, NSA)
     NSB = nsa_lib.num_sel_blocks(kv_len, NSA)
     ov = nsa_lib.overlap_tensor(n_cmp * keys, NSB, NSA, "cpu")   # (blocks, NSB)
     P = B * G * Hkv
-    r = torch.arange(RT)
-    t = torch.arange(G)[:, None] * Q + r // Gq                     # (G, RT) query of row r
-    real = (r < Q * Gq) & (t < T)
-    tc = t.clamp(max=T - 1)
-    head = torch.arange(Hkv)[:, None] * Gq + r % Gq                 # (Hkv, RT)
-    qr = q[:, tc[None, :, :], head[:, None, :]]                     # (B, Hkv, G, RT, Dh)
-    qr = (qr.permute(0, 2, 1, 3, 4) * real[None, :, None, :, None]).reshape(P, RT, Dh)
-    rpos = pos.long()[:, tc].reshape(B, G, 1, RT).expand(B, G, Hkv, RT).reshape(P, RT)
-    rreal = real[None, :, None].expand(B, G, Hkv, RT).reshape(P, RT)
+    o_out = torch.zeros(B, T, Hq, Dh)
+    p_out = torch.zeros(B, G * Q, Hkv, NSB)
     nv = ncb_valid.reshape(-1).long().expand(B)[:, None, None].expand(B, G, Hkv)
     nv = nv.reshape(P)[:, None, None]
     kk = k_cmp.permute(0, 2, 1, 3)[:, None].expand(B, G, Hkv, NCB, Dh).reshape(P, NCB, Dh)
     vv = v_cmp.permute(0, 2, 1, 3)[:, None].expand(B, G, Hkv, NCB, Dh).reshape(P, NCB, Dh)
-    parts, scores = [], []
-    for x in range(n_cmp):
-        n = torch.arange(x * keys, min(x * keys + keys, NCB))
-        mask = ((n < nv) & (n * NSA.cmp_stride + NSA.cmp_block - 1 <= rpos[..., None]) &
-                rreal[..., None])
-        units = []
-        part = _walk(qr, *_pad(kk[:, n].float(), vv[:, n].float(), mask), logits=units)
-        s = torch.cat(units, 2)[:, :, :len(n)]
-        live = part[1] > 0
-        e = torch.where(mask & live[..., None], torch.exp(s - part[0][..., None]),
-                        torch.zeros(()))
-        sc = e @ ov[n]                                              # (P, RT, NSB)
-        j0 = x * keys * NSA.cmp_stride // NSA.sel_block
-        outside = torch.ones(NSB, dtype=torch.bool)
-        outside[j0:j0 + span] = False
-        assert not sc[..., outside].any()                           # span covers the chunk
-        parts.append(part)
-        scores.append(sc)
-    scale = _scales(parts)                                          # (n_cmp, P, RT)
-    o = sum(scale[i][..., None] * parts[i][2] for i in range(n_cmp))
-    p_row = sum(scale[i][..., None] * scores[i] for i in range(n_cmp))
-    o = o.reshape(B, G, Hkv, RT, Dh)[:, :, :, :Q * Gq].reshape(B, G, Hkv, Q, Gq, Dh)
-    o = o.permute(0, 1, 3, 2, 4, 5).reshape(B, G * Q, Hq, Dh)[:, :T]
-    p = p_row.reshape(B, G, Hkv, RT, NSB)[:, :, :, :Q * Gq].reshape(B, G, Hkv, Q, Gq, NSB)
-    p = p.sum(4).permute(0, 1, 3, 2, 4).reshape(B, G * Q, Hkv, NSB)[:, :T]
-    return o, p
+    for sl in range(HS):
+        nh = min(gs, Gq - sl * gs)                                  # heads of this slab
+        r = torch.arange(RT)
+        t = torch.arange(G)[:, None] * Q + r // nh                  # (G, RT) query of row r
+        real = (r < Q * nh) & (t < T)
+        tc = t.clamp(max=T - 1)
+        head = torch.arange(Hkv)[:, None] * Gq + sl * gs + r % nh   # (Hkv, RT)
+        qr = q[:, tc[None, :, :], head[:, None, :]]                 # (B, Hkv, G, RT, Dh)
+        qr = (qr.permute(0, 2, 1, 3, 4) * real[None, :, None, :, None]).reshape(P, RT, Dh)
+        rpos = pos.long()[:, tc].reshape(B, G, 1, RT).expand(B, G, Hkv, RT).reshape(P, RT)
+        rreal = real[None, :, None].expand(B, G, Hkv, RT).reshape(P, RT)
+        parts, scores = [], []
+        for x in range(n_cmp):
+            n = torch.arange(x * keys, min(x * keys + keys, NCB))
+            mask = ((n < nv) & (n * NSA.cmp_stride + NSA.cmp_block - 1 <= rpos[..., None]) &
+                    rreal[..., None])
+            units = []
+            part = _walk(qr, *_pad(kk[:, n].float(), vv[:, n].float(), mask), logits=units)
+            s = torch.cat(units, 2)[:, :, :len(n)]
+            live = part[1] > 0
+            e = torch.where(mask & live[..., None], torch.exp(s - part[0][..., None]),
+                            torch.zeros(()))
+            sc = e @ ov[n]                                          # (P, RT, NSB)
+            j0 = x * keys * NSA.cmp_stride // NSA.sel_block
+            outside = torch.ones(NSB, dtype=torch.bool)
+            outside[j0:j0 + span] = False
+            assert not sc[..., outside].any()                       # span covers the chunk
+            parts.append(part)
+            scores.append(sc)
+        scale = _scales(parts)                                      # (n_cmp, P, RT)
+        o = sum(scale[i][..., None] * parts[i][2] for i in range(n_cmp))
+        p_row = sum(scale[i][..., None] * scores[i] for i in range(n_cmp))
+        o = o.reshape(B, G, Hkv, RT, Dh)
+        m = real[None, :, None, :].expand(B, G, Hkv, RT)
+        bi = torch.arange(B)[:, None, None, None].expand_as(m)
+        o_out[bi[m], tc[None, :, None, :].expand_as(m)[m],
+              head[None, None].expand_as(m)[m]] = o[m]
+        p = p_row.reshape(B, G, Hkv, RT, NSB)[:, :, :, :Q * nh].reshape(B, G, Hkv, Q, nh, NSB)
+        p_out += p.sum(4).permute(0, 1, 3, 2, 4).reshape(B, G * Q, Hkv, NSB)
+    return o_out, p_out[:, :T]
 
 
 @pytest.mark.parametrize("Dh", [64, 128])
@@ -432,12 +472,35 @@ def test_routing_arithmetic_matches_plain(Dh, prefixes):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("Dh,Hq,Hkv", [(64, 64, 4), (128, 48, 1)], ids=["gq16", "gq48"])
+def test_routing_head_slabs_arithmetic_matches_plain(Dh, Hq, Hkv):
+    """The emulated routing kernel at qwen3-moe's Gq 16 (one query per CTA)
+    and granite's Gq 48 (three 16-head slabs per query, their GQA sums
+    added slab by slab) against ref_routing over an 8192-token cache, two
+    rows; Top-n picks the same blocks from both."""
+    x = _verify_inputs(Dh, (4096, 3001), 8192, seed=Hq, Hq=Hq, Hkv=Hkv)
+    k_cmp = torch.cat([x["k_cmp"], x["k_cmp"][:, :1]], 1)          # padded to 512 blocks
+    v_cmp = torch.cat([x["v_cmp"], x["v_cmp"][:, :1]], 1)
+    nv = x["ncb_valid"].reshape(-1)
+    assert rops.query_groups(31, Hq // Hkv)[2] == (3 if Hq // Hkv == 48 else 1)
+    got_o, got_p = _emulate_routing(x["q"], k_cmp, v_cmp, x["pos"], nv, 8192)
+    M = nsa_lib.overlap_tensor(k_cmp.shape[1], nsa_lib.num_sel_blocks(8192, NSA), NSA, "cpu")
+    want_o, want_p = rref.ref_routing(x["q"], k_cmp, v_cmp, M, x["pos"], nv,
+                                      cmp_block=NSA.cmp_block, cmp_stride=NSA.cmp_stride)
+    torch.testing.assert_close(got_o, want_o, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(got_p, want_p, rtol=RTOL, atol=ATOL)
+    for a, b in zip(nsa_lib.select_topn(got_p, x["pos"], x["plen"], NSA),
+                    nsa_lib.select_topn(want_p, x["pos"], x["plen"], NSA)):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("NCB", [1, 8, 100, 512, 4096, 32768])
 def test_routing_plan_covers_the_cmp_list_once(NCB):
     """The chunks of ``routing_plan`` cover the cmp blocks once, within the
     kernel's limits (16-block units, at most MAX_KEYS blocks and
     MAX_CHUNKS chunks), and ``span`` holds every selection block a chunk
-    overlaps; query groups hold at most 16 rows and cover T once. At
+    overlaps; query groups hold at most 16 rows (a query's heads cut into
+    16-head slabs above 16 heads) and cover T once. At
     max_context 65536 (4096 blocks) the scratch of B=4 rows stays below
     nsa_verify's part_acc (exact C=2, full fusion) at the same shapes."""
     n_cmp, keys, span = rops.routing_plan(NCB, NSA)
@@ -449,10 +512,11 @@ def test_routing_plan_covers_the_cmp_list_once(NCB):
             j0 = x * keys * NSA.cmp_stride // NSA.sel_block
             j1 = ((c[-1]) * NSA.cmp_stride + NSA.cmp_block - 1) // NSA.sel_block
             assert j1 - j0 + 1 <= span
-    for Gq in range(1, 9):
+    for Gq in (*range(1, 17), 24, 48, 96):
         for T in (1, 7, 31):
-            Q, G = rops.query_groups(T, Gq)
-            assert Q * Gq <= rops.ROWS_PER_CTA and (G - 1) * Q < T <= G * Q
+            Q, G, HS = rops.query_groups(T, Gq)
+            assert Q * min(Gq, 16) <= rops.ROWS_PER_CTA and (G - 1) * Q < T <= G * Q
+            assert HS * 16 >= Gq > (HS - 1) * 16 and (HS == 1 or Q == 1)
     if NCB == 4096:
         G_r = rops.query_groups(31, 4)[1]
         routing = G_r * n_cmp * 16 * (2 + 64 + span)
