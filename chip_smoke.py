@@ -6,8 +6,9 @@
 Phases (every phase always runs; any failure exits non-zero):
   1. build the three CUDA kernels from ``src/repro_torch/csrc`` (one nvcc
      per source, in parallel) and print each template instance's registers,
-     spill bytes, stack and dynamic shared memory (fails on a spill); print
-     the card's name and power limit;
+     spill bytes, stack and dynamic shared memory (fails on a spill; head
+     dims 64 to 256, f32 and bf16 K/V); print the card's name and power
+     limit;
   2. hold each kernel against its plain PyTorch version, in float32 and
      bfloat16 K/V, at the full-width shapes: routing (one row, and two
      rows of prefixes 4096 and 3001 with per-row ncb_valid; Top-n indices
@@ -89,7 +90,7 @@ Phases (every phase always runs; any failure exits non-zero):
  10. the model zoo: qwen3-8b, granite-20b, musicgen-medium,
      mixtral-8x22b and qwen3-moe-235b-a22b, each as its NSA variant
      (``configs.nsa_variant``) with its ``draft_config`` draft, at full
-     width (the two MoE archs cut to 4 layers), bf16, random weights from
+     width (cut to 4 layers each), bf16, random weights from
      a seed, one at a time: a 4097-token prompt, max_context 8192, D4/k2,
      16 new tokens, Strict and Approx+Reuse through ``SSVEngine`` with
      exact launch counts, a 3-step profile (one device-to-host copy per
@@ -104,8 +105,22 @@ Phases (every phase always runs; any failure exits non-zero):
      both MoE archs (experts, top-k, dispatch group and heads kept, width
      cut) card tokens and accepted counts == the CPU plain path's and
      batched == single stream; the serve CLI with ``--arch qwen3-8b``.
-     Phase 2 holds the kernels at the zoo's shapes too (Gq 16, 48, 6, 1;
-     flash at Gq 48 and windowed at mixtral's), and phase 8 times them;
+     Then the last five archs the same way: smollm-360m (Gq 3, a
+     head-dim-80 draft), pixtral-12b (Dh 160), recurrentgemma-9b (RG-LRU
+     + NSA, Dh 256, Gq 16) and xlstm-125m (mLSTM / sLSTM, a head-dim-96
+     draft) at full depth, nemotron-4-340b (Dh 192, Gq 12) at 4 of its 96
+     layers (~47 GB of bf16), each prefill timed (xLSTM's target prefill
+     also with its sLSTM chunks replayed and stepped eagerly); recurrentgemma and xlstm also at 2 slots dense
+     and paged (paged == dense), xlstm bucketed at 4 slots (the recurrent
+     state replay inside captured group steps); float32: Strict == AR on
+     smollm (full depth) and pixtral (4 layers), and card == CPU and
+     batched == single stream on nemotron (Dh 192, Gq 12 kept), one
+     (rglru, rglru, attn) period of recurrentgemma (Dh 256, Gq 16 kept)
+     and one (mlstm, slstm) period of xlstm (full width, vocab 4096); the
+     serve CLI with ``--arch recurrentgemma-9b``. Phase 2 holds the
+     kernels at the zoo's shapes too (Gq 16, 48, 6, 1, 3; Dh 160 Gq 4, Dh
+     192 Gq 12, Dh 256 Gq 16; flash at Gq 48, windowed at mixtral's, and
+     at the drafts' Dh 80, 96, 160, 192, 256), and phase 8 times them;
  11. the summary lines: a ``kernels`` JSON line (every kernel x head dim,
      and x query-head group for the zoo's), the card line, and the
      ``{"ok": true, "device": ...}`` line last.
@@ -127,6 +142,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import os
 import shutil
 import statistics
@@ -777,6 +793,7 @@ def main(argv=None) -> int:
     t0 = time.time()
     zoo = zoo_phase(ctx)
     serve_cli("qwen3-8b")
+    serve_cli("recurrentgemma-9b")
     log(f"[10 zoo] {time.time() - t0:.1f}s")
     idle = [r["name"] for r in rows if ctx["launches"].get(r["name"], 0) == 0]
     if idle:
@@ -895,33 +912,45 @@ def check_kernel_shapes(cfg, note, tag=""):
 
 
 # The attention shapes of the zoo's NSA variants (label, Dh, Hq, Hkv): the
-# query-head groups the kernels take beyond the 1B / 8B targets' Gq 4
+# query-head groups and head dims the kernels take beyond the 1B / 8B
+# targets' (Gq 4 at Dh 64 and 128)
 ZOO_SHAPES = [("qwen3-moe", 64, 64, 4), ("granite", 128, 48, 1), ("mixtral", 128, 48, 8),
-              ("musicgen", 64, 24, 24)]
+              ("musicgen", 64, 24, 24), ("smollm", 64, 15, 5), ("pixtral", 160, 32, 8),
+              ("nemotron", 192, 96, 8), ("recurrentgemma", 256, 16, 1)]
+# The zoo drafts' flash shapes beyond the 1B / 8B drafts' (label, Hq, Hkv,
+# Dh): ``draft_config`` of each arch (heads = kv heads)
+DRAFT_FLASH_CASES = [("smollm draft", 3, 3, 80), ("xlstm draft", 2, 2, 96),
+                     ("pixtral draft", 8, 8, 160), ("nemotron draft", 24, 24, 192),
+                     ("recurrentgemma draft", 4, 4, 256)]
 
 
 def zoo_kernel_cfg(cfgs, Dh, Hq, Hkv):
-    """The 1B / 8B config of head dim Dh with the zoo's head counts (the
-    kernels see only heads, head dim and the NSA geometry, which is the
-    same default NSAConfig)."""
-    return dataclasses.replace(cfgs[Dh], num_heads=Hq, num_kv_heads=Hkv, head_dim=Dh,
-                               d_model=Hq * Dh)
+    """The 1B / 8B config (of head dim Dh, else the 8B's) with the zoo's
+    head counts and head dim (the kernels see only heads, head dim and the
+    NSA geometry, which is the same default NSAConfig)."""
+    return dataclasses.replace(cfgs.get(Dh, cfgs[128]), num_heads=Hq, num_kv_heads=Hkv,
+                               head_dim=Dh, d_model=Hq * Dh)
 
 
 def check_zoo_kernels(cfgs, note):
     """Phase 2 at the zoo's shapes: routing and nsa_verify at Gq 16 (one
     query per routing CTA; 32 / 64 verify rows in 2 / 4 row tiles), 48
     (three routing head slabs; 96 / 192 rows in 6 / 12 row tiles), 6 (24
-    rows at approx C=4: two row tiles) and 1; flash at Gq 48 and windowed
-    (4096) at mixtral's shapes."""
+    rows at approx C=4: two row tiles), 1 and 3 (smollm), and at head dims
+    160 (pixtral, Gq 4), 192 (nemotron, Gq 12) and 256 (recurrentgemma, Gq
+    16); flash at Gq 48, windowed (4096) at mixtral's shapes, and at the
+    drafts' head dims 80, 96, 160, 192 and 256."""
     for label, Dh, Hq, Hkv in ZOO_SHAPES:
         gq = Hq // Hkv
+        sfx = "" if gq == 4 else f"_gq{gq}"          # the rows' keys (launch_key)
         check_kernel_shapes(zoo_kernel_cfg(cfgs, Dh, Hq, Hkv),
-                            lambda k, e, gq=gq: note(k + f"_gq{gq}", e), f"{label} Gq {gq} ")
+                            lambda k, e, sfx=sfx: note(k + sfx, e), f"{label} Gq {gq} ")
     for dt_name in DTYPES:
         check_flash("granite target Gq 48", 48, 1, 128, dt_name, note, seed=5)
         check_flash("mixtral target, window 4096", 48, 8, 128, dt_name, note, seed=6,
                     prefix=6000, window=4096)
+        for label, Hq, Hkv, Dh in DRAFT_FLASH_CASES:
+            check_flash(label, Hq, Hkv, Dh, dt_name, note, seed=Hq + Dh)
 
 
 def launch_key(counter, Dh, gq=4):
@@ -931,11 +960,12 @@ def launch_key(counter, Dh, gq=4):
     return f"{counter}_dh{Dh}" + ("" if gq == 4 or counter == "flash_verify" else f"_gq{gq}")
 
 
-def counted_path(ctx, name, Dh, fn, want_of, gq=4):
+def counted_path(ctx, name, Dh, fn, want_of, gq=4, flash_dh=None):
     """Run one main path with every counter at 0, read the counts after it
     and check them against ``want_of(result)`` ({counter: count}, the rest
     must stay 0). Adds the counts to the launches of head dim Dh (and the
-    target's query-head group ``gq``)."""
+    target's query-head group ``gq``); flash's to ``flash_dh`` (the
+    draft's head dim) when given."""
     for c in ctx["counters"]:
         c.reset()
     res = fn()
@@ -947,7 +977,7 @@ def counted_path(ctx, name, Dh, fn, want_of, gq=4):
         fail(f"{name}: launch counts {counts}, expected {want}")
     ctx["paths"][name] = counts
     for k, v in counts.items():
-        key = launch_key(k, Dh, gq)
+        key = launch_key(k, flash_dh if flash_dh and k == "flash_verify" else Dh, gq)
         ctx["launches"][key] = ctx["launches"].get(key, 0) + v
     log(f"  [{name}] launches {counts}")
     return res
@@ -1005,17 +1035,20 @@ def draft_passes(ssv):
 def expected_launches(cfg, dcfg, ssv, steps, paged=False):
     """Launches per counted serving path: one per NSA layer and step
     (routing + partial fusion on refresh layers, full fusion on reuse
-    layers; every one of them ``nsa_verify_paged`` on the paged store), 2
-    draft layers x (tree levels + 1) passes of flash per step."""
-    refresh = cfg.num_layers - len([i for i in ssv.refresh_schedule if 0 < i < cfg.num_layers])
+    layers; every one of them ``nsa_verify_paged`` on the paged store;
+    recurrent layers launch none), 2 draft layers x (tree levels + 1)
+    passes of flash per step."""
+    nsa = [i for i, k in enumerate(cfg.layer_kinds()) if k not in ("rglru", "mlstm", "slstm")]
+    reuse = set(ssv.refresh_schedule) - {0}
+    refresh = len([i for i in nsa if i not in reuse])
     want = {"routing": refresh * steps,
             "flash_verify": dcfg.num_layers * draft_passes(ssv) * steps}
     if paged:
-        want["nsa_verify_paged"] = cfg.num_layers * steps
+        want["nsa_verify_paged"] = len(nsa) * steps
     else:
         want.update(nsa_verify_partial=refresh * steps,
-                    nsa_verify_full=(cfg.num_layers - refresh) * steps)
-    return want
+                    nsa_verify_full=(len(nsa) - refresh) * steps)
+    return {k: v for k, v in want.items() if v}
 
 
 def serve_e2e(cfg, Dh, weights, ctx):
@@ -1087,7 +1120,8 @@ def serve_batched(cfg, Dh, weights, ctx, slots=4, n_req=6, classes=("Strict", "A
             torch.cuda.reset_peak_memory_stats()
             name = f"{cfg.name} {backend} {pc} generate_batch x{slots}"
             res = counted_path(ctx, name, Dh, lambda: eng.generate_batch(prompts[:slots], 16),
-                               lambda r: expected_launches(cfg, dcfg, ssv, r.steps, paged), gq)
+                               lambda r: expected_launches(cfg, dcfg, ssv, r.steps, paged), gq,
+                               dcfg.head_dim)
             check(name, res)
             rec = dict(batch_tokens=res.total_tokens, batch_steps=res.steps,
                        batch_wall_s=res.wall_s, batch_tok_s=res.aggregate_throughput,
@@ -1100,7 +1134,8 @@ def serve_batched(cfg, Dh, weights, ctx, slots=4, n_req=6, classes=("Strict", "A
                 cres = counted_path(
                     ctx, name, Dh,
                     lambda: eng.serve_continuous(reqs, num_slots=slots, max_new_tokens=16),
-                    lambda r: expected_launches(cfg, dcfg, ssv, r.steps, paged))
+                    lambda r: expected_launches(cfg, dcfg, ssv, r.steps, paged), gq,
+                    dcfg.head_dim)
                 check(name, cres)
                 rec.update(cont_tokens=cres.total_tokens, cont_steps=cres.steps,
                            cont_wall_s=cres.wall_s, cont_tok_s=cres.aggregate_throughput,
@@ -1243,7 +1278,8 @@ def serve_bucketed(cfg, Dh, weights, ctx, slots=4, n_req=6, gq=4):
             return want
 
         res = counted_path(ctx, name, Dh, lambda: eng.serve_continuous(
-            reqs, num_slots=slots, max_new_tokens=16, warmup=True), replay_counts, gq)
+            reqs, num_slots=slots, max_new_tokens=16, warmup=True), replay_counts, gq,
+            dcfg.head_dim)
         if eng.step_cache.misses != misses:
             fail(f"{tag} {backend}: {eng.step_cache.misses - misses} group steps were "
                  "built during the serve")
@@ -1596,16 +1632,30 @@ def dense_baseline(cfg, ctx):
 
 
 # ---------------------------------------------------------------- 10. the zoo
-# The JAX package's attention archs that the kernels' head dims take, each
-# served as its NSA variant (``configs.nsa_variant``, as the serve CLIs do)
-# at full width with its ``draft_config`` draft. The MoE archs keep 4 of
-# their layers: one card holds ~5 GB of bf16 experts per layer, so 56 and
-# 94 layers (~282 and ~463 GB) do not fit.
-ZOO = ("qwen3-8b", "granite-20b", "musicgen-medium", "mixtral-8x22b", "qwen3-moe-235b-a22b")
-ZOO_LAYERS = {"mixtral-8x22b": 4, "qwen3-moe-235b-a22b": 4}
-ZOO_PAGED = ("qwen3-8b", "qwen3-moe-235b-a22b")      # generate_batch, paged == dense
-ZOO_F32_AR = ("qwen3-8b", "granite-20b", "musicgen-medium")
+# Every arch of the JAX package besides the 1B / 8B ones, each served as its
+# NSA variant (``configs.nsa_variant``, as the serve CLIs do; attention-free
+# xlstm as it is) at full width with its ``draft_config`` draft. The MoE
+# archs keep 4 of their layers: one card holds ~5 GB of bf16 experts per
+# layer, so 56 and 94 layers (~282 and ~463 GB) do not fit; nemotron keeps
+# 4 of its 96 (~7 GB of bf16 a layer: 96 are ~680 GB; 4 plus the 256k-vocab
+# embedding and head are ~47 GB). qwen3-8b, granite-20b and musicgen-medium
+# keep 4 layers too, for the 1,200 s the script must finish in: with all
+# three at full depth (36-52 layers) a run took 1,217 s, and with qwen3-8b
+# alone at full depth 1,175 s on a slower host (every step is
+# launch-bound, so time follows layers; their kernels' shapes do not
+# depend on depth).
+ZOO = ("qwen3-8b", "granite-20b", "musicgen-medium", "mixtral-8x22b", "qwen3-moe-235b-a22b",
+       "smollm-360m", "pixtral-12b", "nemotron-4-340b", "recurrentgemma-9b", "xlstm-125m")
+ZOO_LAYERS = {"qwen3-8b": 4, "granite-20b": 4, "musicgen-medium": 4, "mixtral-8x22b": 4,
+              "qwen3-moe-235b-a22b": 4, "nemotron-4-340b": 4}
+# generate_batch at 2 slots, paged == dense
+ZOO_PAGED = ("qwen3-8b", "qwen3-moe-235b-a22b", "recurrentgemma-9b", "xlstm-125m")
+ZOO_BUCKETED = ("qwen3-moe-235b-a22b", "xlstm-125m")  # 4 slots, captured group steps
+# float32 Strict == AR, at these depths (None: full depth)
+ZOO_F32_AR = {"qwen3-8b": 4, "granite-20b": 4, "musicgen-medium": 4, "smollm-360m": None,
+              "pixtral-12b": 4}
 ZOO_MOE = ("mixtral-8x22b", "qwen3-moe-235b-a22b")
+ZOO_F32_CPU = ("nemotron-4-340b", "recurrentgemma-9b", "xlstm-125m")
 
 
 def zoo_config(arch, layers=None):
@@ -1621,11 +1671,12 @@ def serve_zoo(arch, ctx, n_tok=16):
     then per precision class (Strict, then Approx+Reuse, each step under
     its strategy): ``n_tok`` D4/k2 steps as a counted path, then a 3-step
     profile (wall, device busy, idle share, launches, host copies: exactly
-    one device-to-host copy per step); tok/s and peak memory. qwen3-8b and
-    qwen3-moe then serve 2 slots through ``generate_batch`` on the dense
-    and the paged store (paged tokens == dense tokens); qwen3-moe also
-    serves bucketed at 4 slots with captured group steps (phase 4's
-    ``serve_bucketed``)."""
+    one device-to-host copy per step); tok/s, peak memory and the prefill's
+    time (an xLSTM layer steps its cell once per prompt position). The
+    ``ZOO_PAGED`` archs then serve 2 slots through ``generate_batch`` on
+    the dense and the paged store (paged tokens == dense tokens); the
+    ``ZOO_BUCKETED`` ones serve bucketed at 4 slots with captured group
+    steps (phase 4's ``serve_bucketed``)."""
     from repro_torch.config import ServeConfig
     from repro_torch.core import engine as engine_lib
     cfg = zoo_config(arch)
@@ -1633,12 +1684,21 @@ def serve_zoo(arch, ctx, n_tok=16):
     weights = load_weights(cfg, seed=0)
     tp, dcfg, dp = weights
     prompt = ctx["corpus"].batch(0, 1, 4097)[0] % cfg.vocab_size
-    out = {"layers": cfg.num_layers, "params": cfg.param_count(), "gq": gq, "head_dim": Dh}
+    out = {"layers": cfg.num_layers, "params": cfg.param_count(), "gq": gq, "head_dim": Dh,
+           "draft_head_dim": dcfg.head_dim}
     eng = engine_lib.SSVEngine(tp, cfg, dp, dcfg, ServeConfig(
         max_new_tokens=n_tok, temperature=0.0, max_context=8192, use_planner=False),
         device=DEV)
     torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     eng.start(prompt)
+    torch.cuda.synchronize()
+    out["prefill_s"] = time.perf_counter() - t0
+    log(f"[10 zoo {cfg.name}] prefill of both models over 4096 tokens: "
+        f"{out['prefill_s']:.2f} s ({ctx['card']})")
+    if eng.slstm_graphs is not None:
+        out["slstm_prefill"] = slstm_prefill_times(cfg, tp, prompt, eng.slstm_graphs, ctx)
 
     def serve(ssv):
         toks, lat, acc = [], [], []
@@ -1656,14 +1716,15 @@ def serve_zoo(arch, ctx, n_tok=16):
         ssv = strategy(cfg, pc)
         name = f"{cfg.name} {pc}"
         res = counted_path(ctx, name, Dh, lambda: serve(ssv),
-                           lambda r: expected_launches(cfg, dcfg, ssv, r["steps"]), gq)
+                           lambda r: expected_launches(cfg, dcfg, ssv, r["steps"]), gq,
+                           dcfg.head_dim)
         prof = step_profile(lambda: eng.step(ssv), 3)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         if prof["dtoh_per_step"] != 1:
             fail(f"{name}: {prof['dtoh_per_step']} device-to-host copies per step, expected 1")
         out[pc] = dict(res, peak_gib=peak, launches=ctx["paths"][name], profile=prof)
         log(f"[10 zoo {name}] {ctx['kind']} ({ctx['card']}): {cfg.num_layers} layers, "
-            f"Gq {gq}, Dh {Dh}: {res['tokens']} tokens in {res['steps']} steps, "
+            f"Gq {gq}, Dh {Dh} (draft {dcfg.head_dim}): {res['tokens']} tokens in {res['steps']} steps, "
             f"{res['tokens_per_s']:.2f} tok/s (decode steps only), mean accepted/step "
             f"{res['mean_accepted']:.3f}, peak memory {peak:.2f} GiB; profile: step "
             f"{prof['step_wall_ms']:.2f} ms wall, device busy {prof['device_busy_ms']:.2f} ms, "
@@ -1677,12 +1738,37 @@ def serve_zoo(arch, ctx, n_tok=16):
         out["batched"] = serve_batched(cfg, Dh, weights, ctx, slots=2, n_req=2,
                                        classes=("Strict",), continuous=False, sweep=(), gq=gq,
                                        prompt_len=2049)
-    if arch == "qwen3-moe-235b-a22b":
-        # 4 slots of T = 129 and of D4/k2 trees: MoE group steps as graphs
+    if arch in ZOO_BUCKETED:
+        # 4 slots of T = 129 and of D4/k2 trees: MoE group steps and the
+        # recurrent state replay as graphs
         out["bucketed"] = serve_bucketed(cfg, Dh, weights, ctx, slots=4, n_req=4, gq=gq)
+    if arch == "qwen3-moe-235b-a22b":
         out["moe_odd_prefill"] = moe_odd_prefill(cfg, tp, ctx)
     del weights, tp, dp
     free()
+    return out
+
+
+def slstm_prefill_times(cfg, tp, prompt, graphs, ctx):
+    """The target's prefill over the 4096-token prompt twice, its sLSTM
+    scans replaying the engine's chunks (captured by ``start``) and
+    stepping eagerly: the time of each, and the largest difference of the
+    two final hidden states."""
+    from repro_torch.models import model
+    toks = torch.as_tensor(prompt[:-1], dtype=torch.long, device=DEV)[None]
+    out, hidden = {}, {}
+    for name, g in (("captured", graphs), ("eager", None)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hidden[name], _ = model.prefill(tp, cfg, toks, 8192, slstm_graphs=g)
+        torch.cuda.synchronize()
+        out[f"{name}_s"] = time.perf_counter() - t0
+    out["max_abs_diff"] = float((hidden["captured"].float() - hidden["eager"].float()).abs().max())
+    if not math.isfinite(out["max_abs_diff"]):
+        fail(f"{cfg.name}: the prefill's hidden states are not finite")
+    log(f"[10 zoo {cfg.name}] target prefill over 4096 tokens: sLSTM chunks replayed "
+        f"{out['captured_s']:.3f} s, stepped eagerly {out['eager_s']:.3f} s, max |diff| "
+        f"{out['max_abs_diff']:.3g} ({ctx['card']})")
     return out
 
 
@@ -1712,23 +1798,43 @@ def moe_odd_prefill(cfg, tp, ctx):
     return dict(ms=dt * 1e3, peak_added_gib=added)
 
 
-def zoo_moe_f32(arch, ctx, n_tok=8):
-    """Phase 10, float32: a MoE arch with its experts, top-k, dispatch group
-    and heads kept (the draft's width too) and the target cut to 2 layers,
-    d_model 1024 and d_expert 256 so the CPU can follow: card tokens and
-    accepted counts == the CPU plain path's on the same weights, and
-    batched ``generate_batch`` (2 rows) == single stream. Not held to AR:
-    the reference's verify drops over-capacity assignments that a
-    one-token decode never drops."""
+def f32_cut(arch):
+    """The float32 config of a ``zoo_f32_card_cpu`` arch, cut so the CPU can
+    follow (vocab 4096): MoE archs keep experts, top-k, dispatch group and
+    heads (2 layers, d_model 1024, d_expert 256); nemotron keeps Dh 192 and
+    Gq 12 (24 / 2 heads; 2 layers, d_model 2304, d_ff 4096);
+    recurrentgemma keeps Dh 256 and Gq 16 over one (rglru, rglru, attn)
+    period (d_model 1024, d_ff 2048); xlstm keeps its width over one
+    (mlstm, slstm) period."""
+    full = zoo_config(arch)
+    cut = dict(num_layers=2, d_model=1024, d_ff=256, vocab_size=4096, dtype="float32",
+               head_dim=full.head_dim)
+    if full.moe is not None:
+        cut["moe"] = dataclasses.replace(full.moe, d_expert=256)
+    if arch == "nemotron-4-340b":
+        cut.update(d_model=2304, d_ff=4096, num_heads=24, num_kv_heads=2)
+    if arch == "recurrentgemma-9b":
+        cut.update(num_layers=len(full.block_pattern), d_ff=2048)
+    if arch == "xlstm-125m":
+        cut.update(d_model=full.d_model, d_ff=0)
+    return dataclasses.replace(full, **cut)
+
+
+def zoo_f32_card_cpu(arch, ctx, n_tok=8):
+    """Phase 10, float32, on ``f32_cut(arch)`` (the draft keeps the
+    arch's draft head dim): card tokens and accepted counts == the CPU
+    plain path's on the same weights, and batched ``generate_batch`` (2
+    rows) == single stream. The MoE archs are not held to AR: the
+    reference's verify drops over-capacity assignments that a one-token
+    decode never drops."""
     from repro_torch.bridge import init_params
     from repro_torch.config import ServeConfig, SSVConfig
     from repro_torch.core import draft as draft_lib, engine as engine_lib
     from repro_torch.optim.adamw import tree_map
     full = zoo_config(arch)
-    cfg = dataclasses.replace(full, num_layers=2, d_model=1024, d_ff=256, vocab_size=4096,
-                              moe=dataclasses.replace(full.moe, d_expert=256),
-                              dtype="float32")
-    dcfg = draft_lib.draft_config(cfg, d_model=full.head_dim * max(2, full.num_heads // 4))
+    cfg = f32_cut(arch)
+    dcfg = draft_lib.draft_config(cfg, d_model=draft_lib.draft_config(full).head_dim
+                                  * max(2, cfg.num_heads // 4))
     gen = torch.Generator()
     gen.manual_seed(11)
     cpu = (init_params(cfg, gen, "cpu"), init_params(dcfg, gen, "cpu"))
@@ -1745,7 +1851,9 @@ def zoo_moe_f32(arch, ctx, n_tok=8):
     batch = engine_lib.BatchedSSVEngine(card[0], cfg, card[1], dcfg, serve, device=DEV) \
         .generate_batch(prompts, n_tok)
     got = [r.tokens.tolist() for r in batch.results]
-    tag = f"[10 zoo f32 {cfg.name} (2 layers, d 1024, E {cfg.moe.num_experts}, K {cfg.moe.top_k})]"
+    tag = (f"[10 zoo f32 {cfg.name} ({cfg.num_layers} layers, d {cfg.d_model}, Dh "
+           f"{cfg.head_dim}, Gq {cfg.num_heads // cfg.num_kv_heads}, draft Dh {dcfg.head_dim}"
+           + (f", E {cfg.moe.num_experts}, K {cfg.moe.top_k}" if cfg.moe else "") + ")]")
     log(f"{tag} card {runs[DEV]}")
     log(f"{tag} cpu  {runs['cpu']}")
     if runs[DEV] != runs["cpu"]:
@@ -1764,11 +1872,11 @@ def zoo_phase(ctx):
         t0 = time.time()
         out[arch] = serve_zoo(arch, ctx)
         log(f"[10 zoo] {arch} in {time.time() - t0:.1f}s")
-    for arch in ZOO_F32_AR:
-        strict_equals_ar(zoo_config(arch), 4, 16, ctx, prompt_len=1025, tag="10")
+    for arch, layers in ZOO_F32_AR.items():
+        strict_equals_ar(zoo_config(arch), layers, 16, ctx, prompt_len=1025, tag="10")
         free()
-    for arch in ZOO_MOE:
-        out[f"{arch} f32"] = zoo_moe_f32(arch, ctx)
+    for arch in ZOO_MOE + ZOO_F32_CPU:
+        out[f"{arch} f32"] = zoo_f32_card_cpu(arch, ctx)
         free()
     return out
 
@@ -2414,10 +2522,11 @@ def kernel_times(cfgs, launches, max_err, kind, card, zoo=True):
 
 
 def zoo_kernel_times(cfgs, launches, max_err, bounds, sig):
-    """Phase 8 at the zoo's query-head groups (bf16, prefix 4096, S 8192,
-    T 31): routing and nsa_verify (exact C=2 and approx C=4, full and
-    partial; the paged refresh case where a zoo path runs paged). Rows:
-    routing, exact C=2 full / partial and, at Gq 16, paged partial."""
+    """Phase 8 at the zoo's query-head groups and head dims (bf16, prefix
+    4096, S 8192, T 31): routing and nsa_verify (exact C=2 and approx C=4,
+    full and partial; the paged refresh case where a zoo path runs paged).
+    Rows: routing, exact C=2 full / partial and, at Gq 16, paged partial;
+    then flash at the drafts' head dims (beside SDPA)."""
     rows = []
     verify_src = "src/repro_torch/csrc/nsa_verify.cu"
     for label, Dh, Hq, Hkv in ZOO_SHAPES:
@@ -2457,6 +2566,19 @@ def zoo_kernel_times(cfgs, launches, max_err, bounds, sig):
                                        max_err, ms, plain, bnd, gq=gq))
         del inp, cases
         free()
+    for label, Hq, Hkv, Dh in DRAFT_FLASH_CASES:
+        inp = flash_inputs(Hq, Hkv, Dh, torch.bfloat16, seed=5)
+        ms, src, ev = time_kernel(lambda: run_flash(inp, False), "flash_verify_kernel")
+        plain = time_events(lambda: run_flash(inp, True), 10)
+        lib = time_events(sdpa_call(inp), 20)
+        bnd = flash_bound(inp)
+        bounds[f"flash {label} dh{Dh}"] = bnd
+        log(f"[8 time] flash {label} Dh {Dh}: {ms:.4f} ms ({src}; {ev:.4f} ms by CUDA "
+            f"events), plain {plain:.4f} ms, {bound_text(bnd)}, library "
+            f"(scaled_dot_product_attention) {lib:.4f} ms {sig}")
+        rows.append(kernel_row("flash_verify", Dh, "src/repro_torch/csrc/flash_verify.cu",
+                               "src/repro/kernels/flash/kernel.py:69", launches, max_err,
+                               ms, plain, bnd, lib))
     return rows
 
 

@@ -13,7 +13,9 @@ package loads in the other.
 
 ``init_params`` draws the same distributions as the JAX ``model.init``
 (not the same numbers: the generators differ), so a machine without JAX
-can build a full-width model from a seed.
+can build a full-width model from a seed. Every leaf keeps its JAX dtype:
+the recurrent blocks' ``lam``, ``wi``, ``wf``, ``bf``, ``w_h`` and ``b``
+are float32 in a bf16 model, as there.
 """
 from __future__ import annotations
 
@@ -26,7 +28,8 @@ import torch
 from repro_torch.config import ModelConfig
 from repro_torch.device import dtype_of, resolve_device
 from repro_torch.models.layers import GATED
-from repro_torch.models.model import check_supported, segments
+from repro_torch.models.model import RECURRENT_KINDS, check_supported, segments
+from repro_torch.models.recurrent import RGLRU_C, mlstm_heads, rglru_dims
 from repro_torch.optim.adamw import tree_map
 
 
@@ -103,7 +106,8 @@ def to_jax(params: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, device=None) -> Dict[str, Any]:
     """Random parameters with the JAX ``model.init`` distributions (the MoE
-    leaves with ``moe_init``'s, the router in float32 as there), drawn from
+    leaves with ``moe_init``'s, the router in float32 as there; the
+    recurrent blocks with those of the JAX ``recurrent.INITS``), drawn from
     ``generator`` (which must live on ``device``)."""
     check_supported(cfg)
     dev = resolve_device(device)
@@ -145,8 +149,40 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None) -> Di
     params["final_norm"] = ones(d)
     if cfg.modality != "text" and cfg.frontend_dim:
         params["frontend_proj"] = {"w": linear(cfg.frontend_dim, d)}
+
+    def rglru():
+        sd, cw = rglru_dims(cfg)
+        # a = sigmoid(lam)^c in (0.9, 0.999) (Griffin appendix)
+        u = torch.rand((sd,), generator=generator, device=dev) * (0.999 - 0.9) + 0.9
+        r = u ** (1.0 / RGLRU_C)
+        return {"w_in": linear(d, sd), "w_gate_branch": linear(d, sd),
+                "conv": normal(cw, sd, scale=0.02).to(dtype),
+                "w_a": linear(sd, sd), "w_x": linear(sd, sd),
+                "lam": torch.log(r / (1 - r)), "w_out": linear(sd, d)}
+
+    def mlstm():
+        H = mlstm_heads(cfg)
+        return {"wq": linear(d, d), "wk": linear(d, d), "wv": linear(d, d),
+                "wi": normal(d, H, scale=0.02), "wf": normal(d, H, scale=0.02),
+                "bf": torch.full((H,), 3.0, device=dev),   # remember by default
+                "wo_gate": linear(d, d), "w_out": linear(d, d)}
+
+    def slstm():
+        return {"w_x": linear(d, 4 * d), "w_h": normal(d, 4 * d, scale=0.02),
+                "b": torch.cat([torch.zeros((2 * d,), device=dev),
+                                torch.full((d,), 3.0, device=dev),
+                                torch.zeros((d,), device=dev)]),
+                "w_out": linear(d, d)}
+
+    recurrent_mix = {"rglru": rglru, "mlstm": mlstm, "slstm": slstm}
     layers = []
     for kind in cfg.layer_kinds():
+        if kind in RECURRENT_KINDS:
+            block = {"norm1": ones(d), "norm2": ones(d), "mix": recurrent_mix[kind]()}
+            if cfg.d_ff:
+                block["ffn"] = ffn(cfg.d_ff)
+            layers.append(block)
+            continue
         mix = {"wq": linear(d, hq * hd), "wk": linear(d, hkv * hd),
                "wv": linear(d, hkv * hd), "wo": linear(hq * hd, d)}
         if cfg.qk_norm:

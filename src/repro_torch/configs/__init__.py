@@ -1,8 +1,7 @@
 """Architecture registry: ``--arch <id>`` resolution.
 
-The port carries the architectures whose serving path it runs, each module
-a copy of the JAX package's (CONFIG, and DRYRUN / FRONTEND_LEN where it has
-them); the JAX package's other ids raise, naming what they wait for.
+The port carries every architecture of the JAX package, each module a copy
+of the JAX package's (CONFIG, and DRYRUN / FRONTEND_LEN where it has them).
 ``reduced()`` builds the CI-scale variant and ``nsa_variant()`` the
 SSV-serving variant exactly as ``repro.configs`` does.
 """
@@ -14,23 +13,14 @@ from typing import Dict, Optional
 
 from repro_torch.config import ModelConfig, MoEConfig, NSAConfig
 
-ARCH_IDS = ("qwen3-8b", "granite-20b", "mixtral-8x22b", "qwen3-moe-235b-a22b",
-            "musicgen-medium", "ssv-nsa-1b", "ssv-nsa-8b")
-
-# The JAX package's other ids and what the port still needs for each
-NOT_PORTED = {
-    "smollm-360m": "the kernels' head-dim-80 instances (its draft's head dim)",
-    "pixtral-12b": "the kernels' head-dim-160 instances",
-    "nemotron-4-340b": "the kernels' head-dim-192 instances",
-    "recurrentgemma-9b": "models/recurrent.py (RG-LRU blocks) and head-dim-256 instances",
-    "xlstm-125m": "models/recurrent.py (mLSTM / sLSTM blocks) and a head-dim-96 draft",
-}
+ARCH_IDS = (
+    "recurrentgemma-9b", "nemotron-4-340b", "smollm-360m", "granite-20b",
+    "qwen3-8b", "mixtral-8x22b", "qwen3-moe-235b-a22b", "xlstm-125m",
+    "musicgen-medium", "pixtral-12b", "ssv-nsa-1b", "ssv-nsa-8b",
+)
 
 
 def _module(arch_id: str):
-    if arch_id in NOT_PORTED:
-        raise KeyError(f"arch {arch_id!r} is not ported yet: it waits for "
-                       f"{NOT_PORTED[arch_id]}; ported: {ARCH_IDS}")
     if arch_id not in ARCH_IDS:
         raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
     return importlib.import_module(

@@ -51,9 +51,9 @@ from repro_torch.core import kvstore
 from repro_torch.core import overlap as overlap_lib
 from repro_torch.core import schedule as schedule_lib
 from repro_torch.core.tree import TreeTopology, build_topology, children_matrix
-from repro_torch.device import resolve_device
+from repro_torch.device import gc_paused, resolve_device
 from repro_torch.kernels import LaunchCounter, build
-from repro_torch.models import model
+from repro_torch.models import model, recurrent
 
 
 def _resolve_store(serve_cfg: ServeConfig, target_cfg: ModelConfig) -> kvstore.KVStoreConfig:
@@ -65,6 +65,10 @@ def _resolve_store(serve_cfg: ServeConfig, target_cfg: ModelConfig) -> kvstore.K
     if store.is_paged:
         store = dataclasses.replace(store, page_size=store.resolved_page_size(target_cfg))
     return store
+
+
+def _has_slstm(*cfgs: ModelConfig) -> bool:
+    return any("slstm" in cfg.layer_kinds() for cfg in cfgs)
 
 
 def max_draft_gamma(serve_cfg: ServeConfig, planner=None) -> int:
@@ -206,8 +210,8 @@ def verify_accept(params, cfg: ModelConfig, caches, tokens, plan: StepPlan,
     # each row is its own request: MoE dispatch groups per row, as the JAX
     # batched step's per-row vmap has them
     logits, updates = model.verify_step(params, cfg, caches, tokens, positions,
-                                        plan.tree.mask[None].expand(B, T, T), None, ssv,
-                                        moe_per_row=True)
+                                        plan.tree.mask[None].expand(B, T, T),
+                                        plan.topo.parents, ssv, moe_per_row=True)
     if node_q is None:
         path, out_tokens, _, n_acc = accept_lib.greedy_tree_accept_device(
             plan.child_mat, plan.max_depth, tokens, logits)
@@ -262,6 +266,10 @@ class SSVEngine:
             self._page_size = self.store.page_size
             self._max_pages = self.store.logical_pages(serve_cfg.max_context,
                                                        self._page_size)
+        # a prompt's sLSTM scan replays captured chunks of steps on the card
+        self.slstm_graphs = None
+        if self.device.type == "cuda" and _has_slstm(target_cfg, draft_cfg):
+            self.slstm_graphs = recurrent.SlstmGraphs(self.device)
 
     def start(self, prompt_tokens: np.ndarray, max_new_tokens: int = 0):
         """Prefill both models on all but the last prompt token, which
@@ -278,8 +286,10 @@ class SSVEngine:
         toks = torch.as_tensor(prompt_tokens[:-1], dtype=torch.long,
                                device=self.device)[None]
         max_len = self.serve.max_context
-        _, self.t_caches = model.prefill(self.tp, self.tcfg, toks, max_len)
-        _, self.d_caches = model.prefill(self.dp, self.dcfg, toks, max_len)
+        _, self.t_caches = model.prefill(self.tp, self.tcfg, toks, max_len,
+                                         slstm_graphs=self.slstm_graphs)
+        _, self.d_caches = model.prefill(self.dp, self.dcfg, toks, max_len,
+                                         slstm_graphs=self.slstm_graphs)
         self.capacity = max_len
         if self.store.is_paged:
             need = request_pages(self.serve, self.planner, self._page_size,
@@ -327,7 +337,8 @@ class SSVEngine:
                                            _uniforms(plan, self.rng, 1, self.device)))
 
         def dverify(caches, tk, pos, tm):
-            return model.verify_step(self.dp, self.dcfg, caches, tk, pos, tm)
+            return model.verify_step(self.dp, self.dcfg, caches, tk, pos, tm,
+                                     plan.topo.parents)
 
         tokens, node_q, d_updates = draft_lib.expand_tree(
             dverify, self.d_caches, plan.tree, pending,
@@ -484,10 +495,14 @@ IDX, SRC, DST, ACTIVE, ADMIT, ADMIT_LEN, ADMIT_PENDING, PENDING = range(8)
 
 def _row_leaves(caches, paged: bool) -> List[torch.Tensor]:
     """A model's row-batched cache tensors (row axis 0): dense K/V, the
-    compressed cache and the lengths. The paged pool is shared by every
-    row, and the page table is gathered but never written back."""
+    compressed cache, recurrent states and the lengths. The paged pool is
+    shared by every row, and the page table is gathered but never written
+    back."""
     out = []
     for layer in caches["layers"]:
+        if "state" in layer:
+            out += list(layer["state"].values())
+            continue
         if not paged:
             out += [layer["kv"]["k"], layer["kv"]["v"]]
         if "cmp" in layer:
@@ -496,13 +511,17 @@ def _row_leaves(caches, paged: bool) -> List[torch.Tensor]:
 
 
 def _alloc_group_buffers(caches, g: int, paged: bool, pages=None):
-    """g-row buffers shaped like ``caches``' rows: the paged pool is the
-    batch pool itself (by reference); ``pages`` shares a page table."""
+    """g-row buffers shaped like ``caches``' rows (recurrent states too):
+    the paged pool is the batch pool itself (by reference); ``pages``
+    shares a page table."""
     def rows(t):
         return t.new_zeros((g,) + tuple(t.shape[1:]))
 
     layers = []
     for layer in caches["layers"]:
+        if "state" in layer:
+            layers.append({"state": {n: rows(t) for n, t in layer["state"].items()}})
+            continue
         out = {"kv": layer["kv"] if paged else {n: rows(t) for n, t in layer["kv"].items()}}
         if "cmp" in layer:
             out["cmp"] = {n: rows(t) for n, t in layer["cmp"].items()}
@@ -615,8 +634,8 @@ class GroupStep:
         snap = LaunchCounter.snapshot()
         graph = torch.cuda.CUDAGraph()
         try:
-            with torch.cuda.graph(graph, pool=eng._capture_pool(),
-                                  stream=eng._capture_stream()):
+            with gc_paused(), torch.cuda.graph(graph, pool=eng._capture_pool(),
+                                               stream=eng._capture_stream()):
                 self.out = self._body()
         finally:
             self.counts = LaunchCounter.since(snap)
@@ -711,6 +730,11 @@ class BatchedSSVEngine:
         self._group_bufs: Dict[int, Tuple] = {}
         self._graph_pool = None
         self._graph_stream = None
+        # a prompt's sLSTM scan replays captured chunks (this engine's pool)
+        self.slstm_graphs = None
+        if self.graphs and _has_slstm(target_cfg, draft_cfg):
+            self.slstm_graphs = recurrent.SlstmGraphs(self.device, self._capture_pool,
+                                                      self._capture_stream)
 
     # -------------------------------------------------------------- setup
     def _planner_begin(self, context_len: int):
@@ -796,11 +820,8 @@ class BatchedSSVEngine:
             raise ValueError(f"num_slots must be >= 1, got {num_slots}")
         max_len, dev = self.serve.max_context, self.device
         if self.t_caches is not None and num_slots == self.batch:
-            for caches in (self.t_caches, self.d_caches):
-                for t in _row_leaves(caches, False):
-                    t.zero_()
-            if self.store.is_paged:
-                self.t_caches["pages"].fill_(-1)
+            model.clear_caches(self.tcfg, self.t_caches)
+            model.clear_caches(self.dcfg, self.d_caches)    # its page table is the target's
             self._pending_dev.zero_()
         else:
             self.step_cache = StepCompileCache()
@@ -839,8 +860,8 @@ class BatchedSSVEngine:
         self._check_prompt(prompt)
         max_len = self.serve.max_context
         toks = torch.as_tensor(prompt[:-1], dtype=torch.long, device=self.device)[None]
-        _, tc = model.prefill(self.tp, self.tcfg, toks, max_len)
-        _, dc = model.prefill(self.dp, self.dcfg, toks, max_len)
+        _, tc = model.prefill(self.tp, self.tcfg, toks, max_len, slstm_graphs=self.slstm_graphs)
+        _, dc = model.prefill(self.dp, self.dcfg, toks, max_len, slstm_graphs=self.slstm_graphs)
         if self.store.is_paged:
             self._free_slot_pages(slot)      # stale mapping of a past tenant
             need = self.pages_for(len(prompt), max_new_tokens)
@@ -910,7 +931,8 @@ class BatchedSSVEngine:
         greedy = self.serve.temperature == 0.0
 
         def dverify(caches, tk, pos, tm):
-            return model.verify_step(self.dp, self.dcfg, caches, tk, pos, tm)
+            return model.verify_step(self.dp, self.dcfg, caches, tk, pos, tm,
+                                     plan.topo.parents)
 
         tokens, node_q, d_updates = draft_lib.expand_tree(
             dverify, d_caches, plan.tree, pending, temperature=self.serve.temperature)

@@ -268,9 +268,10 @@ def empty_page_table(batch: int, max_pages: int, device):
 
 
 def kv_cache_bytes(caches) -> int:
-    """Raw-KV footprint of a model's caches (pool or dense leaves)."""
+    """Raw-KV footprint of a model's caches (pool or dense leaves; a
+    recurrent layer's state is not K/V and is not counted)."""
     return sum(t.numel() * t.element_size()
-               for c in caches["layers"] for t in c["kv"].values())
+               for c in caches["layers"] if "kv" in c for t in c["kv"].values())
 
 
 # ------------------------------------------------------------------ admission
@@ -278,7 +279,8 @@ def kv_cache_bytes(caches) -> int:
 def admit_row_dense(batch_caches, row_caches, row: int) -> None:
     """Land a freshly prefilled single-request cache (batch 1) into row
     ``row`` of dense batch caches, in place (the JAX
-    ``admit_row_segments``); other rows are untouched."""
+    ``admit_row_segments``): K/V, the compressed cache and recurrent
+    states; other rows are untouched."""
     for bc, rc in zip(batch_caches["layers"], row_caches["layers"]):
         for part in bc:
             for name, t in bc[part].items():
@@ -292,12 +294,16 @@ def admit_row_paged(batch_caches, row_caches, row: int, pages_row) -> None:
     JAX ``admit_row_paged``. Each layer's dense K/V is re-blocked into
     logical pages and copied into the pool at the row's physical pages
     (``pages_row`` (max_pages,) host int array, -1 entries dropped); the
-    compressed cache is copied into row ``row``. Pool pages of other rows
-    are untouched (the allocator never double-assigns). The page table
-    itself is the engine's to update."""
+    compressed cache and recurrent states are copied into row ``row``. Pool
+    pages of other rows are untouched (the allocator never double-assigns).
+    The page table itself is the engine's to update."""
     pages_row = np.asarray(pages_row).reshape(-1)
     keep = np.nonzero(pages_row >= 0)[0]
     for bc, rc in zip(batch_caches["layers"], row_caches["layers"]):
+        if "state" in bc:
+            for name, t in bc["state"].items():
+                t[row].copy_(rc["state"][name][0])
+            continue
         pool_k = bc["kv"]["k"]
         ps = pool_k.shape[1]
         dev = pool_k.device

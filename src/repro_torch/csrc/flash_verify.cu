@@ -188,11 +188,14 @@ int launch(const void* const* p, const int* n, cudaStream_t stream) {
 
 }  // namespace
 
+// the head dims with template instances
+#define HEAD_DIMS(X) X(64) X(80) X(96) X(128) X(160) X(192) X(256)
+
 // ptrs: q, k_cache, v_cache, k_draft, v_draft, positions, prefix_len, dmask,
 //       part_ml, part_acc, tickets, out                       (12 pointers)
 // ints: B, T, S, Hkv, Gq, window, DH, KS                      (8 ints)
-// kv_dtype: 0 = float32, 1 = bfloat16. DH: 64 or 128. Scratch sizes (from
-// NS = ceil(S/KS), NX = NS + 1, NRT = ceil(T*Gq/16)): part_ml
+// kv_dtype: 0 = float32, 1 = bfloat16. DH: 64, 80, 96, 128, 160, 192 or
+// 256 (the drafts' head dims). Scratch sizes (from NS = ceil(S/KS), NX = NS + 1, NRT = ceil(T*Gq/16)): part_ml
 // B*Hkv*NRT*NX*16*2 floats, part_acc B*Hkv*NRT*NX*16*DH floats, tickets
 // B*Hkv*NRT ints, zero before the first call. Returns the cudaError_t of
 // the launch.
@@ -202,18 +205,20 @@ extern "C" int flash_verify_launch(const void* const* ptrs, const int* ints,
   if (ints[0] < 1 || ints[1] < 1 || ints[2] < 1 || ints[4] < 1 || ints[7] < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (kv_dtype == 0 && DH == 64) return launch<float, 64>(ptrs, ints, s);
-  if (kv_dtype == 0 && DH == 128) return launch<float, 128>(ptrs, ints, s);
-  if (kv_dtype == 1 && DH == 64) return launch<__nv_bfloat16, 64>(ptrs, ints, s);
-  if (kv_dtype == 1 && DH == 128) return launch<__nv_bfloat16, 128>(ptrs, ints, s);
+#define X(D)                                                           \
+  if (kv_dtype == 0 && DH == D) return launch<float, D>(ptrs, ints, s); \
+  if (kv_dtype == 1 && DH == D) return launch<__nv_bfloat16, D>(ptrs, ints, s);
+  HEAD_DIMS(X)
+#undef X
   return (int)cudaErrorInvalidValue;
 }
 
 // Dynamic shared memory of one CTA of the instance (kv_dtype, DH), or -1.
 extern "C" int flash_verify_smem_bytes(int kv_dtype, int DH) {
-  if (kv_dtype == 0 && DH == 64) return (int)sizeof(Smem<float, 64>);
-  if (kv_dtype == 0 && DH == 128) return (int)sizeof(Smem<float, 128>);
-  if (kv_dtype == 1 && DH == 64) return (int)sizeof(Smem<__nv_bfloat16, 64>);
-  if (kv_dtype == 1 && DH == 128) return (int)sizeof(Smem<__nv_bfloat16, 128>);
+#define X(D)                                                             \
+  if (kv_dtype == 0 && DH == D) return (int)sizeof(Smem<float, D>);       \
+  if (kv_dtype == 1 && DH == D) return (int)sizeof(Smem<__nv_bfloat16, D>);
+  HEAD_DIMS(X)
+#undef X
   return -1;
 }

@@ -10,7 +10,7 @@
 // (combine=False, driven by ops.py:286 nsa_verify_vanilla_layer) is the
 // same kernel with branch = 1 (slc only) or 2 (win + draft only): one
 // branch is walked and written without gates, the Fig. 6(a) baseline.
-// Head dim 64 and 128 are template instances.
+// Head dims 64, 128, 160, 192 and 256 are template instances (HEAD_DIMS).
 //
 // Paged mode (the TPU kernel's paged=True, kernel.py:193-210 with the page
 // table as its sixth scalar-prefetch operand, :236): with a non-null page
@@ -97,9 +97,17 @@ struct Smem {
 
 // Launch bounds set ptxas' register budget (without a minimum it spilled a
 // few bytes in some instances): one row tile fits five CTAs per SM (bf16)
-// or four (f32) without spills; two row tiles take what they need.
+// or four (f32) without spills up to head dim 128; above it the
+// accumulator (DH / 16 x 4 floats a thread) needs the budget of three
+// (170 registers), and f32 at head dim 256 that of two (255: its CUDA-core
+// dots hold q and K in registers too); two row tiles take what they need.
+template <typename KV, int DH>
+constexpr int min_ctas_one_tile() {
+  return DH > 192 && sizeof(KV) == 4 ? 2 : DH > 128 ? 3 : sizeof(KV) == 2 ? 5 : 4;
+}
+
 template <typename KV, int DH, int NTL>
-__global__ void __launch_bounds__(NT, NTL == 2 ? 1 : sizeof(KV) == 2 ? 5 : 4)
+__global__ void __launch_bounds__(NT, NTL == 2 ? 1 : min_ctas_one_tile<KV, DH>())
     nsa_verify_kernel(
     const float* __restrict__ q,          // (B,T,Hq,DH) pre-scaled
     const KV* __restrict__ kcache, const KV* __restrict__ vcache,  // (B,S,Hkv,DH)
@@ -347,6 +355,9 @@ int launch(const void* const* p, const int* n, cudaStream_t stream) {
 
 }  // namespace
 
+// the head dims with template instances
+#define HEAD_DIMS(X) X(64) X(128) X(160) X(192) X(256)
+
 // ptrs: q, k_cache, v_cache, k_cmp, v_cmp, k_draft, v_draft, merged, mvalid,
 //       own, qmap, positions, prefix_len, ncb_valid, win_start, dmask,
 //       gates, o_cmp_in (may be null), out, page_table (null = dense),
@@ -358,7 +369,7 @@ int launch(const void* const* p, const int* n, cudaStream_t stream) {
 //       plan, ops.py:split_plan; NRT = ceil(C * Gq / 16) row tiles)
 // branch: 0 = gated combine of all branches, 1 = slc only, 2 = win + draft
 // only (vanilla; needs include_cmp = 0, no o_cmp_in). kv_dtype: 0 =
-// float32, 1 = bfloat16. DH: 64 or 128. Scratch (NX = n_cmp + n_slc +
+// float32, 1 = bfloat16. DH: 64, 128, 160, 192 or 256. Scratch (NX = n_cmp + n_slc +
 // n_win): part_ml B*G*Hkv*NRT*NX*16*2 floats, part_acc
 // B*G*Hkv*NRT*NX*16*DH floats, tickets B*G*Hkv*NRT ints, zero before the
 // first call. Returns the cudaError_t of the launch.
@@ -374,18 +385,20 @@ extern "C" int nsa_verify_launch(const void* const* ptrs, const int* ints,
        ints[2] != ints[17] * ints[18]))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (kv_dtype == 0 && DH == 64) return launch<float, 64>(ptrs, ints, s);
-  if (kv_dtype == 0 && DH == 128) return launch<float, 128>(ptrs, ints, s);
-  if (kv_dtype == 1 && DH == 64) return launch<__nv_bfloat16, 64>(ptrs, ints, s);
-  if (kv_dtype == 1 && DH == 128) return launch<__nv_bfloat16, 128>(ptrs, ints, s);
+#define X(D)                                                           \
+  if (kv_dtype == 0 && DH == D) return launch<float, D>(ptrs, ints, s); \
+  if (kv_dtype == 1 && DH == D) return launch<__nv_bfloat16, D>(ptrs, ints, s);
+  HEAD_DIMS(X)
+#undef X
   return (int)cudaErrorInvalidValue;
 }
 
 // Dynamic shared memory of one CTA of the instance (kv_dtype, DH), or -1.
 extern "C" int nsa_verify_smem_bytes(int kv_dtype, int DH) {
-  if (kv_dtype == 0 && DH == 64) return (int)sizeof(Smem<float, 64>);
-  if (kv_dtype == 0 && DH == 128) return (int)sizeof(Smem<float, 128>);
-  if (kv_dtype == 1 && DH == 64) return (int)sizeof(Smem<__nv_bfloat16, 64>);
-  if (kv_dtype == 1 && DH == 128) return (int)sizeof(Smem<__nv_bfloat16, 128>);
+#define X(D)                                                             \
+  if (kv_dtype == 0 && DH == D) return (int)sizeof(Smem<float, D>);       \
+  if (kv_dtype == 1 && DH == D) return (int)sizeof(Smem<__nv_bfloat16, D>);
+  HEAD_DIMS(X)
+#undef X
   return -1;
 }

@@ -9,7 +9,8 @@
 // warp copies its next unit's K/V rows into its own two-stage ring in
 // shared memory with 16-byte cp.async copies while it computes the current
 // one (one source row per key: a gathered selected block, a paged window
-// row and a dense row cost the same). At the end the four warp states are
+// row and a dense row cost the same; f32 K/V above head dim 128 use a
+// one-stage ring, see stages()). At the end the four warp states are
 // merged in warp order (cta_partial) into one partial (m, l, acc) per row,
 // which the kernel merges across CTAs.
 //
@@ -53,7 +54,6 @@ constexpr int NT = 128;                // threads per CTA
 constexpr int NW = NT / 32;
 constexpr int UK = 16;                 // keys per unit (one m16 tile)
 constexpr int RT = 16;                 // query rows per CTA (two n8 tiles)
-constexpr int STAGES = 2;              // per-warp K/V ring
 constexpr float NEG = -1e30f;          // initial running max
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -126,14 +126,22 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo_elem, float hi_elem) {
 
 // ---------------------------------------------------------------- storage
 // Row pitch of a K/V unit in shared memory: 16 bytes of padding, so the
-// 8 row addresses of one ldmatrix phase fall in distinct banks.
+// 8 row addresses of one ldmatrix phase fall in distinct banks (at every
+// head dim that is a multiple of 16: 64 to 256).
 template <typename KV, int DH>
 constexpr int pitch() { return DH + 16 / (int)sizeof(KV); }
 
+// Stages of a warp's K/V ring: two (the next unit's copy overlaps the
+// current unit's dots), except f32 K/V above head dim 128, whose two-stage
+// rings alone would take 200-266 KB of the 227 KB a CTA may hold; those
+// instances (float32 equality runs only) wait for each unit's copy.
+template <typename KV, int DH>
+__host__ __device__ constexpr int stages() { return sizeof(KV) == 4 && DH > 128 ? 1 : 2; }
+
 template <typename KV, int DH>
 struct WarpBuf {                       // one warp's K/V ring
-  KV k[STAGES][UK][pitch<KV, DH>()];
-  KV v[STAGES][UK][pitch<KV, DH>()];
+  KV k[stages<KV, DH>()][UK][pitch<KV, DH>()];
+  KV v[stages<KV, DH>()][UK][pitch<KV, DH>()];
 };
 
 // q of the CTA's rows: bf16 hi / lo terms (tensor cores) or f32 (CUDA
@@ -298,7 +306,10 @@ __device__ __forceinline__ void unit_step(State<DH, NTL>& st, QTile<float, DH>& 
   for (int n = 0; n < NTL; ++n)
 #pragma unroll
     for (int c = 0; c < 4; ++c) s[n][c] = 0.f;
-#pragma unroll 2
+  // unrolled twice, except above head dim 128 with two row tiles or above
+  // 192: there once, which keeps the (DH / 16 x NTL x 4)-float accumulator
+  // and the K / q loads in registers (ptxas spilled the other choices)
+#pragma unroll(DH > 128 && (NTL == 2 || DH > 192) ? 1 : 2)
   for (int d = 0; d < DH; d += 4) {
     const float4 k0 = *reinterpret_cast<const float4*>(&k[g][d]);
     const float4 k1 = *reinterpret_cast<const float4*>(&k[g + 8][d]);
@@ -382,23 +393,32 @@ __device__ __forceinline__ void walk(Walk<KV, DH>& sm, State<DH, NTL>& st, int n
       cp16(&buf.v[stage][kk][c], o >= 0 ? bs.v + o + c : nullptr, dummy);
     }
   };
+  constexpr int NS = stages<KV, DH>();
   int cur = next(warp), stage = 0;
   if (cur < n) issue(cur, 0);
   cp_commit();
   pre();
   while (cur < n) {
     const int nxt = next(cur + NW);
-    if (nxt < n) issue(nxt, stage ^ 1);
-    cp_commit();
-    cp_wait_1();
+    if constexpr (NS == 2) {
+      if (nxt < n) issue(nxt, stage ^ 1);
+      cp_commit();
+      cp_wait_1();
+    } else {
+      cp_wait_all();
+    }
     __syncwarp();
     const auto iu = info(cur);
     unit_step(st, sm.q, buf.k[stage], buf.v[stage], nk(iu), rows,
               [&](int r, int kk) { return mask(iu, r, kk); },
               [&](const float (&s)[NTL][4]) { hook(iu, s); });
     __syncwarp();
+    if constexpr (NS == 1) {           // the ring is free again: copy the next unit
+      if (nxt < n) issue(nxt, 0);
+      cp_commit();
+    }
     cur = nxt;
-    stage ^= 1;
+    stage = NS == 2 ? stage ^ 1 : 0;
   }
   cp_wait_all();
   __syncwarp();

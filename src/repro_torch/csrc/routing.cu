@@ -66,8 +66,8 @@
 //
 // Bound on this card: bytes for bf16 K/V (the visible cmp K/V of each head
 // once, q in, o_cmp and p_slc out), with the dots on tensor cores; f32
-// operations for f32 K/V (CUDA cores). Head dim 64 and 128 are template
-// instances.
+// operations for f32 K/V (CUDA cores). Head dims 64, 128, 160, 192 and
+// 256 are template instances (HEAD_DIMS).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -323,28 +323,33 @@ int launch(const void* const* p, const int* n, cudaStream_t stream) {
 
 }  // namespace
 
+// the head dims with template instances
+#define HEAD_DIMS(X) X(64) X(128) X(160) X(192) X(256)
+
 // ptrs: q, k_cmp, v_cmp, positions, ncb_valid, o_cmp, p_slc, part_ml,
 //       part_acc, part_sc, tickets                          (11 pointers)
 // ints: B, T, Hkv, Gq, Q, G, NCB, NSB, cmp_block, cmp_stride, sel_block,
 //       n_cmp, keys, span, HS  (15 ints; Q, G and HS are ops.py:query_groups,
 //       n_cmp, keys and span ops.py:routing_plan)
-// kv_dtype: 0 = float32, 1 = bfloat16. DH: 64 or 128. Tickets are zero
-// before the first call. Returns the cudaError_t of the launch.
+// kv_dtype: 0 = float32, 1 = bfloat16. DH: 64, 128, 160, 192 or 256.
+// Tickets are zero before the first call. Returns the cudaError_t of the launch.
 extern "C" int routing_launch(const void* const* ptrs, const int* ints, int kv_dtype, int DH,
                               void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (kv_dtype == 0 && DH == 64) return launch<float, 64>(ptrs, ints, s);
-  if (kv_dtype == 0 && DH == 128) return launch<float, 128>(ptrs, ints, s);
-  if (kv_dtype == 1 && DH == 64) return launch<__nv_bfloat16, 64>(ptrs, ints, s);
-  if (kv_dtype == 1 && DH == 128) return launch<__nv_bfloat16, 128>(ptrs, ints, s);
+#define X(D)                                                           \
+  if (kv_dtype == 0 && DH == D) return launch<float, D>(ptrs, ints, s); \
+  if (kv_dtype == 1 && DH == D) return launch<__nv_bfloat16, D>(ptrs, ints, s);
+  HEAD_DIMS(X)
+#undef X
   return (int)cudaErrorInvalidValue;
 }
 
 // Dynamic shared memory of one CTA of the instance (kv_dtype, DH), or -1.
 extern "C" int routing_smem_bytes(int kv_dtype, int DH) {
-  if (kv_dtype == 0 && DH == 64) return (int)sizeof(Smem<float, 64>);
-  if (kv_dtype == 0 && DH == 128) return (int)sizeof(Smem<float, 128>);
-  if (kv_dtype == 1 && DH == 64) return (int)sizeof(Smem<__nv_bfloat16, 64>);
-  if (kv_dtype == 1 && DH == 128) return (int)sizeof(Smem<__nv_bfloat16, 128>);
+#define X(D)                                                             \
+  if (kv_dtype == 0 && DH == D) return (int)sizeof(Smem<float, D>);       \
+  if (kv_dtype == 1 && DH == D) return (int)sizeof(Smem<__nv_bfloat16, D>);
+  HEAD_DIMS(X)
+#undef X
   return -1;
 }

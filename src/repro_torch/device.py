@@ -6,6 +6,8 @@ the CPU on its own.
 """
 from __future__ import annotations
 
+import contextlib
+import gc
 from typing import Optional, Union
 
 import torch
@@ -28,3 +30,18 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 
 def dtype_of(name: str) -> torch.dtype:
     return DTYPES[name]
+
+
+@contextlib.contextmanager
+def gc_paused():
+    """Python's cyclic garbage collector off for the block. Wraps each CUDA
+    graph capture: a collection inside it could free another graph held in
+    a dead reference cycle (a finished engine's group steps), which the
+    CUDA refuses while a stream captures, and the capture fails."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()

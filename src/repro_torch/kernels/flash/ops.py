@@ -17,7 +17,7 @@ from repro_torch.kernels import LaunchCounter, build, per_row
 from repro_torch.kernels.flash import ref
 
 LAUNCHES = LaunchCounter("flash_verify")
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 80, 96, 128, 160, 192, 256)   # csrc/flash_verify.cu HEAD_DIMS
 ROWS_PER_CTA = 16           # RT in the kernel
 KEYS_PER_SPLIT = 512        # cache keys per CTA (KS in the kernel)
 

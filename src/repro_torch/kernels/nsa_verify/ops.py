@@ -37,7 +37,7 @@ FULL_LAUNCHES = LaunchCounter("nsa_verify_full")
 PARTIAL_LAUNCHES = LaunchCounter("nsa_verify_partial")
 VANILLA_LAUNCHES = LaunchCounter("nsa_verify_vanilla")
 PAGED_LAUNCHES = LaunchCounter("nsa_verify_paged")
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 160, 192, 256)   # csrc/nsa_verify.cu HEAD_DIMS
 ROWS_PER_CTA = 16           # RT in the kernel: query rows per CTA (one row tile)
 BRANCHES = {"all": 0, "slc": 1, "win": 2}   # the kernel's ``branch`` flag
 KEYS_PER_CHUNK = 512        # keys per CTA at up to 8 rows (256 above: twice the dots)

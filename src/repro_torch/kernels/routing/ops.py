@@ -18,7 +18,7 @@ from repro_torch.kernels.routing import ref
 from repro_torch.models.nsa import num_sel_blocks, overlap_tensor
 
 LAUNCHES = LaunchCounter("routing")
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 160, 192, 256)   # csrc/routing.cu HEAD_DIMS
 ROWS_PER_CTA = 16           # RT in the kernel: query rows per CTA
 KEYS_PER_CHUNK = 128        # cmp blocks per CTA while the cache is short
 MAX_KEYS = 512              # KMAX in the kernel (its logit buffer)

@@ -10,6 +10,8 @@ store, optionally against the autoregressive baseline.
       --prompts 1 --tokens 8
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-235b-a22b \
       --reduced --device cpu --tokens 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b \
+      --prompts 1 --tokens 8
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
       --precision-class Approx+Reuse --baseline
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
@@ -20,9 +22,14 @@ store, optionally against the autoregressive baseline.
       --prompts 6 --batch 2 --continuous --bucketed --profile-json profile.json --warmup
 
 The flags are the JAX CLI's (``repro.launch.serve``) plus ``--device``
-(default ``cuda``). An ``--arch`` whose attention is not NSA (qwen3-8b,
-granite-20b, mixtral-8x22b, qwen3-moe-235b-a22b, musicgen-medium) is served
-as its ``configs.nsa_variant``, as the JAX CLI serves it. Weights are drawn from ``--seed`` with the JAX
+(default ``cuda``). ``--arch`` takes every id of ``configs.ARCH_IDS``
+(``--reduced`` for the CI-scale variant); one whose attention is not NSA
+(qwen3-8b, granite-20b, mixtral-8x22b, qwen3-moe-235b-a22b,
+musicgen-medium, smollm-360m, pixtral-12b, nemotron-4-340b and the
+attention layers of recurrentgemma-9b) is served as its
+``configs.nsa_variant``, as the JAX CLI serves it; the attention-free
+xlstm-125m is served as it is, its mLSTM / sLSTM states replayed over the
+draft tree. Weights are drawn from ``--seed`` with the JAX
 ``model.init`` distributions. ``--batch`` > 1 serves groups of prompts
 through ``BatchedSSVEngine.generate_batch``; ``--continuous`` serves every
 prompt over ``--batch`` slots with Poisson arrivals. ``--bucketed`` serves a

@@ -6,9 +6,11 @@ Parameters are plain dicts of tensors with the JAX names, but unstacked:
 package stacks each segment along a leading axis; ``repro_torch.bridge``
 unstacks). Caches are ``{"layers": [{"kv": {"k", "v"}, "cmp": {...}}, ...],
 "length": (B,) int32 device tensor[, "pages": (B, max_pages) int32]}``:
-one committed length per row. Under the paged KV store each layer's
-``kv`` is the shared page pool and ``"pages"`` the row page table (shared
-by the target and the draft); the compressed cache stays row-dense.
+one committed length per row; a recurrent layer's entry is
+``{"state": {...}}``, its (B, ...) state leaves. Under the paged KV store
+each layer's ``kv`` is the shared page pool and ``"pages"`` the row page
+table (shared by the target and the draft); the compressed cache and the
+recurrent states stay row-dense.
 
 Paths:
   * ``loss_fn`` / ``forward_train`` — full-sequence causal training forward
@@ -19,17 +21,20 @@ Paths:
   * ``verify_step`` — T tree-masked draft tokens; NSA layers run the
     refresh/reuse schedule and exact/approx grouping through the Hopper
     kernels (``kernels.nsa_verify.ops.nsa_verify_kernel_layer``); dense
-    layers run the flash kernel (``attention.attend_verify``);
+    layers run the flash kernel (``attention.attend_verify``); recurrent
+    layers replay their state over the tree (``recurrent.verify_states``);
   * ``commit``      — append each row's accepted path's K/V at its own
-    length, update the compressed cache, advance each length (all on the
+    length, update the compressed cache, take each recurrent layer's state
+    after the deepest accepted node, advance each length (all on the
     device);
   * ``decode_step`` — one autoregressive token (verify with T=1 + commit).
-Blocks are ``"attn"`` (attention + FFN) or ``"moe"`` (attention + the MoE
-FFN of ``models.moe``); attention is NSA, dense or sliding-window
-(``"swa"``: ``cfg.window`` reaches every attention call, as in JAX). A
-modality frontend (``cfg.frontend_dim``) projects precomputed frames in
-front of the tokens; tied embeddings unembed through the embedding table.
-Recurrent blocks are not ported.
+Blocks are ``"attn"`` (attention + FFN), ``"moe"`` (attention + the MoE
+FFN of ``models.moe``) or recurrent (``"rglru"``, ``"mlstm"``,
+``"slstm"``: ``models.recurrent``, with an FFN when ``cfg.d_ff``);
+attention is NSA, dense or sliding-window (``"swa"``: ``cfg.window``
+reaches every attention call, as in JAX). A modality frontend
+(``cfg.frontend_dim``) projects precomputed frames in front of the tokens;
+tied embeddings unembed through the embedding table.
 """
 from __future__ import annotations
 
@@ -43,6 +48,7 @@ from repro_torch.core import kvstore
 from repro_torch.device import dtype_of
 from repro_torch.kernels.nsa_verify import ops as nsa_ops
 from repro_torch.models import attention, layers, moe as moe_lib, nsa as nsa_lib
+from repro_torch.models import recurrent
 
 RECURRENT_KINDS = ("rglru", "mlstm", "slstm")
 
@@ -63,11 +69,9 @@ def segments(cfg: ModelConfig) -> List[Tuple[Tuple[str, ...], int]]:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    kinds = set(cfg.layer_kinds())
-    if kinds & set(RECURRENT_KINDS):
-        raise NotImplementedError(
-            f"{cfg.name}: recurrent blocks {sorted(kinds & set(RECURRENT_KINDS))} "
-            "are not ported yet")
+    kinds = set(cfg.layer_kinds()) - set(RECURRENT_KINDS) - {"attn", "moe"}
+    if kinds:
+        raise NotImplementedError(f"{cfg.name}: unknown block kinds {sorted(kinds)}")
     if cfg.attention not in ("nsa", "dense", "swa"):
         raise NotImplementedError(f"attention={cfg.attention!r} is not ported yet")
 
@@ -87,10 +91,13 @@ def _apply_ffn(bp, cfg: ModelConfig, kind: str, x, moe_per_row: bool = False,
     """Returns (y, aux): the MoE FFN and its load-balancing loss for a
     ``"moe"`` block (dispatch groups per row with ``moe_per_row``; experts
     one by one, reading counts on the host, with ``moe_by_expert``), else
-    the dense FFN and None (no loss term, and no launch for a zero)."""
+    the dense FFN and None (no loss term, and no launch for a zero). A
+    recurrent block without an FFN (``cfg.d_ff == 0``) adds zeros."""
     if kind == "moe":
         return moe_lib.moe_apply(bp["ffn"], cfg, x, per_row=moe_per_row,
                                  by_expert=moe_by_expert)
+    if "ffn" not in bp:
+        return torch.zeros_like(x), None
     return layers.ffn(bp["ffn"], x, cfg.activation), None
 
 
@@ -100,7 +107,9 @@ def block_apply_train(bp, cfg: ModelConfig, kind: str, x, positions, chunk: int)
     load-balancing loss of a ``"moe"`` block, else None."""
     h = layers.rmsnorm(bp["norm1"], x, cfg.norm_eps)
     window = _attn_window(cfg)
-    if cfg.attention == "nsa":
+    if kind in RECURRENT_KINDS:
+        mix = recurrent.TRAIN[kind](bp["mix"], cfg, h)
+    elif cfg.attention == "nsa":
         mix, _ = nsa_lib.attend_train_nsa(bp["mix"], cfg, h, positions, chunk=chunk)
     elif cfg.attention_impl == "flash":
         mix, _ = attention.attend_train_flash(bp["mix"], cfg, h, positions, window=window)
@@ -177,12 +186,16 @@ def loss_fn(params, cfg: ModelConfig, tokens, frontend=None, remat: bool = True,
 # ------------------------------------------------------------------ caches
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, device,
                 store: kvstore.KVStoreConfig = kvstore.DENSE):
-    """Zeroed caches for ``batch`` rows, lengths 0. Paged: raw K/V are the
-    shared page pool and ``"pages"`` an empty (batch, max_pages) table; the
-    engine maps pages at admission and may share one table between models."""
+    """Zeroed caches for ``batch`` rows, lengths 0, recurrent states at
+    their initial values. Paged: raw K/V are the shared page pool and
+    ``"pages"`` an empty (batch, max_pages) table; the engine maps pages at
+    admission and may share one table between models."""
     dtype = dtype_of(cfg.dtype)
     out = []
-    for _ in range(cfg.num_layers):
+    for kind in cfg.layer_kinds():
+        if kind in RECURRENT_KINDS:
+            out.append({"state": recurrent.STATE_INITS[kind](cfg, batch, device)})
+            continue
         c = {"kv": attention.init_cache(cfg, batch, max_len, dtype, device, store)}
         if cfg.attention == "nsa":
             c["cmp"] = nsa_lib.init_cmp_cache(cfg, batch, max_len, dtype, device)
@@ -195,14 +208,37 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, device,
     return caches
 
 
+@torch.no_grad()
+def clear_caches(cfg: ModelConfig, caches) -> None:
+    """Reset ``caches`` in place to ``init_caches``' values: K/V, the
+    compressed cache and the lengths to 0, recurrent states to their
+    initial values, a page table to unmapped (CUDA graphs that read these
+    tensors stay valid)."""
+    for kind, layer in zip(cfg.layer_kinds(), caches["layers"]):
+        if "state" in layer:
+            init = recurrent.STATE_INITS[kind](cfg, 1, "cpu")
+            for name, t in layer["state"].items():
+                t.copy_(init[name].expand_as(t))
+            continue
+        for part in layer.values():
+            for t in part.values():
+                t.zero_()
+    caches["length"].zero_()
+    if "pages" in caches:
+        caches["pages"].fill_(-1)
+
+
 # ------------------------------------------------------------------ prefill
 @torch.no_grad()
 def prefill(params, cfg: ModelConfig, tokens, max_len: int, frontend=None,
-            attn_chunk: int = 512):
+            attn_chunk: int = 512, slstm_graphs: Optional[recurrent.SlstmGraphs] = None):
     """Run the full prompt (after the frontend's frames, if any) and build
     the caches. tokens (B, S) on the model's device; MoE experts run one
     by one over their kept tokens (a host sync per MoE layer: a prefill is
-    never captured). Returns (hidden (B, S_total, d), caches)."""
+    never captured); an RG-LRU layer scans the prompt in log2(S) doubling
+    steps, an mLSTM runs its parallel form and an sLSTM steps once per
+    position (replaying the caller's captured chunks with
+    ``slstm_graphs``). Returns (hidden (B, S_total, d), caches)."""
     check_supported(cfg)
     dev = tokens.device
     x, positions, _ = embed_inputs(params, cfg, tokens, frontend)
@@ -213,6 +249,16 @@ def prefill(params, cfg: ModelConfig, tokens, max_len: int, frontend=None,
     window = _attn_window(cfg)
     for bp, cache, kind in zip(params["layers"], caches["layers"], cfg.layer_kinds()):
         hn = layers.rmsnorm(bp["norm1"], x, cfg.norm_eps)
+        if kind in RECURRENT_KINDS:
+            if kind == "slstm":
+                mix, state = recurrent.slstm_prefill(bp["mix"], cfg, hn, slstm_graphs)
+            else:
+                mix, state = recurrent.PREFILL[kind](bp["mix"], cfg, hn)
+            for name, t in cache["state"].items():
+                t.copy_(state[name])
+            x = x + mix
+            x = x + _apply_ffn(bp, cfg, kind, layers.rmsnorm(bp["norm2"], x, cfg.norm_eps))[0]
+            continue
         if cfg.attention == "nsa":
             mix, (k, v) = nsa_lib.attend_train_nsa(bp["mix"], cfg, hn, positions,
                                                    chunk=attn_chunk)
@@ -258,12 +304,16 @@ def _grouping(ssv: Optional[SSVConfig]) -> Tuple[int, str]:
     return max(1, ssv.group_size), ssv.group_mode
 
 
-def _mix_verify(bp, cfg: ModelConfig, h, cache, prefix_len, positions,
-                tree_mask, carry_idx, reuse: bool, ssv: Optional[SSVConfig],
+def _mix_verify(bp, cfg: ModelConfig, kind: str, h, cache, prefix_len, positions,
+                tree_mask, parents, carry_idx, reuse: bool, ssv: Optional[SSVConfig],
                 pages=None):
     """Sequence-mix one block in verify mode; ``pages`` is the paged
     store's page table (None = dense). Returns (mix_out, {"k_new",
-    "v_new"}, new_carry_idx)."""
+    "v_new"} or a recurrent layer's {"state_buf"}, new_carry_idx)."""
+    if kind in RECURRENT_KINDS:
+        outs, buf = recurrent.verify_states(kind, bp["mix"], cfg, h, parents,
+                                            cache["state"])
+        return outs, {"state_buf": buf}, carry_idx
     kv = kvstore.as_view(cache["kv"], pages)
     if cfg.attention == "nsa":
         C, mode = _grouping(ssv)
@@ -286,14 +336,16 @@ def verify_step(params, cfg: ModelConfig, caches, draft_tokens, positions,
     """Verify T draft tokens against the committed caches.
 
     draft_tokens (B, T); positions (B, T) absolute; tree_mask (B, T, T);
-    each row verifies against its own committed length. ``parents`` is
-    accepted for signature parity (recurrent blocks use it; none are
-    ported). ``moe_per_row`` cuts MoE dispatch groups from each row's T
-    tokens, as the JAX batched engine's per-row ``vmap`` does; without it
+    each row verifies against its own committed length. ``parents`` (T,)
+    host ints, the tree's (-1: the root hangs off the committed prefix),
+    drive the recurrent layers' state replay; None means a chain (node i's
+    parent is i - 1). ``moe_per_row`` cuts MoE dispatch groups from each
+    row's T tokens, as the JAX batched engine's per-row ``vmap`` does; without it
     the B*T tokens are flattened, as a direct JAX call does. MoE experts
     run all at once with no host sync, so a step can be captured in a CUDA
     graph. Returns (logits (B, T, V), per-layer updates)."""
-    del parents
+    if parents is None:
+        parents = range(-1, draft_tokens.shape[1] - 1)
     prefix_len = caches["length"]
     pages = caches.get("pages")
     x = layers.embed(params["embed"], draft_tokens)
@@ -303,8 +355,8 @@ def verify_step(params, cfg: ModelConfig, caches, draft_tokens, positions,
     for li, (bp, cache, kind) in enumerate(zip(params["layers"], caches["layers"],
                                                cfg.layer_kinds())):
         hn = layers.rmsnorm(bp["norm1"], x, cfg.norm_eps)
-        mix, up, carry = _mix_verify(bp, cfg, hn, cache, prefix_len, positions,
-                                     tree_mask, carry, bool(flags[li]), ssv, pages)
+        mix, up, carry = _mix_verify(bp, cfg, kind, hn, cache, prefix_len, positions,
+                                     tree_mask, parents, carry, bool(flags[li]), ssv, pages)
         x = x + mix
         x = x + _apply_ffn(bp, cfg, kind, layers.rmsnorm(bp["norm2"], x, cfg.norm_eps),
                            moe_per_row)[0]
@@ -328,12 +380,14 @@ def commit(params, cfg: ModelConfig, caches, updates, accepted, n_accepted):
     entry); n_accepted (B,) how many are real. Row b's K/V are written in
     place at its own old length (the padded tail lands past its new length
     and is masked by it), compressed blocks the commit completes are added,
-    and its length advances by n_accepted[b]. A row with n_accepted == 0 is
-    a no-op that leaves every byte of its caches as it was: its length
-    stays frozen (batched serving freezes finished rows and steps rows
-    outside an execution group this way). The dense store writes such a
-    row's current K/V back in place of the path (at a start clamped into
-    the row, so a finished row near the end of its cache writes in range).
+    a recurrent layer takes the state after the row's deepest accepted node
+    (``recurrent.pick_state``), and its length advances by n_accepted[b].
+    A row with n_accepted == 0 is a no-op that leaves every byte of its
+    caches as it was: its length stays frozen (batched serving freezes
+    finished rows and steps rows outside an execution group this way). The
+    dense store writes such a row's current K/V back in place of the path
+    (at a start clamped into the row, so a finished row near the end of its
+    cache writes in range).
 
     Paged caches (``"pages"`` present): the K/V go into the row's pages
     through the page table, and a row with n_accepted == 0 writes nothing
@@ -356,14 +410,18 @@ def commit(params, cfg: ModelConfig, caches, updates, accepted, n_accepted):
     row_mask = live if pages is not None else None
     max_new_cmp = T_acc // cfg.nsa.cmp_stride + 2
     start = old_len
-    if pages is None:
+    kv_layers = [c for c in caches["layers"] if "kv" in c]
+    if pages is None and kv_layers:
         # the same (row, position) pairs in every layer
-        S = caches["layers"][0]["kv"]["k"].shape[1]
+        S = kv_layers[0]["kv"]["k"].shape[1]
         start = torch.where(live, old_len, old_len.clamp(max=S - T_acc))
         rows = torch.arange(B, device=old_len.device)[:, None]
         pos = start.long()[:, None] + torch.arange(T_acc, device=old_len.device)
         keep = live[:, None, None, None]
     for bp, cache, up in zip(params["layers"], caches["layers"], updates):
+        if "state" in cache:
+            recurrent.pick_state(cache["state"], up["state_buf"], accepted, n_accepted)
+            continue
         k_acc, v_acc = _gather_accepted(up, accepted)
         view = kvstore.as_view(cache["kv"], pages)
         if pages is None:
@@ -388,7 +446,7 @@ def decode_step(params, cfg: ModelConfig, caches, tokens, ssv: Optional[SSVConfi
     positions = caches["length"].reshape(-1, 1).expand(B, 1).to(torch.int32)
     tree_mask = torch.ones((B, 1, 1), dtype=torch.bool, device=dev)
     logits, updates = verify_step(params, cfg, caches, tokens, positions, tree_mask,
-                                  None, ssv)
+                                  [-1], ssv)
     caches = commit(params, cfg, caches, updates,
                     accepted=torch.zeros((B, 1), dtype=torch.long, device=dev),
                     n_accepted=torch.ones((B,), dtype=torch.int32, device=dev))

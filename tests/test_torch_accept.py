@@ -17,6 +17,11 @@ from repro_torch.config import ModelConfig
 from repro_torch.core import accept, draft, tree
 from repro_torch.models import model
 
+# The tier-1 run gives each of six pytest workers a share of the cores; one
+# torch thread per worker keeps the many small CPU ops from oversubscribing
+# them (eight threads per worker spent most of the port's test time waiting).
+torch.set_num_threads(1)
+
 
 def _case(seed):
     rng = np.random.default_rng(seed)

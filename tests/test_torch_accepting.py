@@ -23,6 +23,11 @@ from repro_torch.bridge import init_params, to_jax
 from repro_torch.config import ServeConfig, SSVConfig
 from repro_torch.core import draft, engine, planner
 
+# The tier-1 run gives each of six pytest workers a share of the cores; one
+# torch thread per worker keeps the many small CPU ops from oversubscribing
+# them (eight threads per worker spent most of the port's test time waiting).
+torch.set_num_threads(1)
+
 PROMPT_LEN = 130          # > window (32) + n_selected (4) * sel_block (16)
 MAX_CTX = 256
 DEPTH = 3

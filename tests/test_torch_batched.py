@@ -23,6 +23,11 @@ from repro_torch.bridge import from_jax
 from repro_torch.config import ServeConfig, SSVConfig
 from repro_torch.core import draft, engine, planner, schedule
 
+# The tier-1 run gives each of six pytest workers a share of the cores; one
+# torch thread per worker keeps the many small CPU ops from oversubscribing
+# them (eight threads per worker spent most of the port's test time waiting).
+torch.set_num_threads(1)
+
 MAX_NEW = 8
 MAX_CTX = 256
 LENS = (110, 123, 97, 131, 104, 117)

@@ -29,6 +29,11 @@ from repro_torch.kernels.nsa_verify import ops
 from repro_torch.launch import serve
 from repro_torch.models import nsa
 
+# The tier-1 run gives each of six pytest workers a share of the cores; one
+# torch thread per worker keeps the many small CPU ops from oversubscribing
+# them (eight threads per worker spent most of the port's test time waiting).
+torch.set_num_threads(1)
+
 LAYER_TOL = dict(rtol=1e-4, atol=1e-5)
 NSA_KW = dict(cmp_block=8, cmp_stride=4, sel_block=16, n_selected=4, window=32)
 init = jax.jit(jmodel.init, static_argnums=1)

@@ -23,6 +23,11 @@ from repro_torch.bridge import from_jax
 from repro_torch.config import ServeConfig, SSVConfig
 from repro_torch.core import draft, engine, planner
 
+# The tier-1 run gives each of six pytest workers a share of the cores; one
+# torch thread per worker keeps the many small CPU ops from oversubscribing
+# them (eight threads per worker spent most of the port's test time waiting).
+torch.set_num_threads(1)
+
 PROMPT_LEN = 130          # > window (32) + n_selected (4) * sel_block (16)
 MAX_CTX = 256
 
@@ -62,14 +67,24 @@ def test_generate_token_equal_to_jax(pair, pc):
                for s in tr.steps)
 
 
-@pytest.mark.parametrize("pc", ["Strict", "Approx+Reuse"])
-def test_verify_step_logits_match_jax(pair, pc):
+@pytest.fixture(scope="module")
+def prefilled(pair):
+    """The prompt (but its last token) prefilled by both packages, once for
+    both strategies below (the verify steps do not write the caches)."""
     jc, tc, jd, td, jtp, jdp, ttp, tdp, prompt = pair
-    kw = strategy(pc)
     toks = prompt[None, :-1]
     _, jcache = jmodel.prefill(jtp, jc, jnp.asarray(toks), MAX_CTX)
     from repro_torch.models import model as tmodel
     _, tcache = tmodel.prefill(ttp, tc, torch.from_numpy(np.array(toks)), MAX_CTX)
+    return jcache, tcache
+
+
+@pytest.mark.parametrize("pc", ["Strict", "Approx+Reuse"])
+def test_verify_step_logits_match_jax(pair, prefilled, pc):
+    jc, tc, jd, td, jtp, jdp, ttp, tdp, prompt = pair
+    kw = strategy(pc)
+    jcache, tcache = prefilled
+    from repro_torch.models import model as tmodel
     topo = build_topology(3, 2, "bfs")
     T = topo.num_nodes
     draft_toks = np.random.default_rng(1).integers(0, tc.vocab_size, (1, T))

@@ -31,6 +31,11 @@ from repro_torch.core.tree import build_topology
 from repro_torch.kernels.flash import ops as fops
 from repro_torch.models import attention
 
+# The tier-1 run gives each of six pytest workers a share of the cores; one
+# torch thread per worker keeps the many small CPU ops from oversubscribing
+# them (eight threads per worker spent most of the port's test time waiting).
+torch.set_num_threads(1)
+
 F32_TOL = dict(rtol=2e-4, atol=2e-5)
 BF16_TOL = dict(rtol=3e-2, atol=3e-2)
 jax_ref = jax.jit(jfref.ref_flash_verify, static_argnames=("window",))

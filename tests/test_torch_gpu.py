@@ -9,15 +9,17 @@ giving zeros, Top-n indices equal to the plain version's; the zoo's
 query-head groups: routing's head slabs past 16 heads, nsa_verify's row
 tiles past 16 rows), and flash
 tree-verify (up to 124
-query rows, window 0 and 16, and on two streams at once); the wrappers
-reject head dims other than 64 and 128 and K/V that are not 16-byte
-aligned; the paged mode of nsa_verify (a shuffled pool with holes inside
+query rows, window 0 and 16, and on two streams at once); the head-dim
+instances of the last archs (routing and nsa_verify at 160, 192 and 256,
+flash at 80, 96, 160, 192 and 256); the wrappers reject head dims without
+an instance and K/V that are not 16-byte aligned; the paged mode of nsa_verify (a shuffled pool with holes inside
 and outside the window, page size 1 and 2 x sel_block, bit-equal to the
 dense launch when every page is mapped), batched paged serving against
 dense serving, and the bucketed group steps as captured CUDA graphs (replay
 bitwise equal to the eager group steps with the launch counters advancing
 alike, the merge-ticket buffers kept across captures, ``start_empty``
-keeping or dropping the graphs), and training on the card (one train
+keeping or dropping the graphs; a target with RG-LRU, mLSTM and sLSTM
+blocks replaying its state over the tree inside the graphs), and training on the card (one train
 step's loss and gradients equal to the CPU's, AdamW's float32 moments
 under bf16 params, the ``AsyncCheckpointer`` round trip from device
 tensors). Whether a card is present is decided in a fixture, so every worker
@@ -228,7 +230,7 @@ def test_wrappers_reject_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError):
         rops.launch(x["q"], x["k_cmp"][:, ::2], x["v_cmp"][:, ::2], x["pos"],
                     x["ncb_valid"], NSA, 16)
-    for Dh in (32, 96, 256):
+    for Dh in (32, 112, 320):
         y = _inputs(cuda, torch.float32, Dh=Dh)
         with pytest.raises(ValueError, match="head_dim"):
             rops.routing_fused(y["q"], y["k_cmp"], y["v_cmp"], y["pos"], y["ncb_valid"], NSA, 256)
@@ -255,6 +257,58 @@ def test_wrappers_reject_what_the_kernel_does_not_take(cuda):
     kc_off.copy_(x["k_cmp"])
     with pytest.raises(ValueError, match="aligned"):
         rops.routing_fused(x["q"], kc_off, x["v_cmp"], x["pos"], x["ncb_valid"], NSA, 256)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Dh,Hq,Hkv", [(160, 8, 2), (192, 24, 2), (256, 16, 1)],
+                         ids=["dh160", "dh192-gq12", "dh256-gq16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_new_head_dim_instances_match_plain(cuda, dtype, Dh, Hq, Hkv):
+    """Routing and nsa_verify (exact C=2 partial, approx C=4 full) at head
+    dims 160, 192 and 256 (f32 K/V above 128 walk one-stage rings), with
+    the query-head groups of pixtral, nemotron and recurrentgemma."""
+    x = _inputs(cuda, dtype, Hq=Hq, Hkv=Hkv, Dh=Dh, seed=Dh)
+    nsb = nsa_lib.num_sel_blocks(256, NSA)
+    o, p = rops.routing_fused(x["q"], x["k_cmp"], x["v_cmp"], x["pos"], x["ncb_valid"], NSA, 256)
+    M = nsa_lib.overlap_tensor(x["k_cmp"].shape[1], nsb, NSA, cuda)
+    o_r, p_r = rref.ref_routing(x["q"], x["k_cmp"], x["v_cmp"], M, x["pos"],
+                                x["ncb_valid"], cmp_block=8, cmp_stride=4)
+    torch.cuda.synchronize()
+    _close(o, o_r, dtype)
+    _close(p, p_r, dtype)
+    args = (x["q"], x["k_cache"], x["v_cache"], x["k_cmp"], x["v_cmp"], x["k_draft"],
+            x["v_draft"], x["sel"], x["val"], x["pos"], x["plen"], x["ncb_valid"],
+            x["tree"], x["gates"], NSA)
+    cpu = [a.cpu() if torch.is_tensor(a) else a for a in args]
+    for C, mode, full in ((2, "exact", False), (4, "approx", True)):
+        oc = None if full else x["o_cmp"]
+        got = vops.nsa_verify_fused(*args, C=C, mode=mode, include_cmp=full, o_cmp_in=oc)
+        want = vops.nsa_verify_fused(*cpu, C=C, mode=mode, include_cmp=full,
+                                     o_cmp_in=None if oc is None else oc.cpu())
+        torch.cuda.synchronize()
+        _close(got.cpu(), want, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Dh,H", [(80, 3), (96, 2), (160, 8), (192, 24), (256, 4)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_draft_head_dims_match_plain(cuda, dtype, Dh, H):
+    """Flash at the zoo drafts' head dims and heads (D4/k2, two rows of
+    different prefixes over a 1100-key cache: three splits)."""
+    g = torch.Generator(cuda)
+    g.manual_seed(Dh)
+    r = lambda *s, dt=dtype: torch.randn(s, generator=g, device=cuda).to(dt)
+    topo = build_topology(4, 2, "bfs")
+    T, S = topo.num_nodes, 1100
+    plen = torch.tensor([1050, 300], dtype=torch.int32, device=cuda)
+    pos = (plen[:, None] + torch.as_tensor(topo.depths, device=cuda)[None]).to(torch.int32)
+    tm = torch.as_tensor(topo.mask, device=cuda)[None].expand(2, T, T)
+    args = (r(2, T, H, Dh, dt=torch.float32) / Dh ** 0.5, r(2, S, H, Dh), r(2, S, H, Dh),
+            r(2, T, H, Dh), r(2, T, H, Dh), pos, plen, tm, 0)
+    got = fops.flash_verify(*args)
+    want = fref.ref_flash_verify(*args)
+    torch.cuda.synchronize()
+    _close(got, want, dtype)
 
 
 def _paged_inputs(dev, dtype, Dh, page_mult, hole, seed=0):
@@ -740,6 +794,40 @@ def test_graph_replay_equals_eager_group_steps(cuda, backend, temperature):
         assert torch.equal(a, b)
     assert counts[True] == counts[False] and counts[True].get("routing", 0) > 0
     assert counts[True].get("flash_verify", 0) > 0
+
+
+@pytest.mark.gpu
+def test_recurrent_graph_replay_equals_eager_group_steps(cuda):
+    """A target of RG-LRU, mLSTM, sLSTM and NSA blocks (float32): captured
+    group steps replay each row's state over the tree and commit the
+    accepted node's state; tokens, counts and every cache tensor (the
+    recurrent states too) equal the eager group steps'."""
+    from repro_torch.config import RecurrentConfig
+    from repro_torch.core import draft as draft_lib
+    cfg = ModelConfig(name="r", num_layers=4, d_model=512, num_heads=4, num_kv_heads=2,
+                      d_ff=256, vocab_size=97, dtype="float32", attention="nsa", nsa=NSA,
+                      block_pattern=("rglru", "mlstm", "slstm", "attn"),
+                      recurrent=RecurrentConfig(kind="rglru", num_heads=4))
+    dcfg = draft_lib.draft_config(cfg, num_layers=1)
+    g = torch.Generator(cuda)
+    g.manual_seed(12)
+    tp, dp = init_params(cfg, g, cuda), init_params(dcfg, g, cuda)
+    prompts = [torch.randint(0, 97, (n,), generator=g, device=cuda).cpu().numpy()
+               for n in (150, 171, 133, 160)]
+    pair = (cfg, dcfg, tp, dp, prompts)
+    runs = {}
+    for graphs in (True, False):
+        eng = _graph_engine(cuda, pair, "dense", graphs)
+        if graphs:
+            from repro_torch.config import SSVConfig
+            eng.start_empty(3)
+            assert eng.warmup(strategies=[SSVConfig(**s) for s in GRAPH_SHAPES]) == 6
+        runs[graphs] = _drive_groups(eng, pair, GRAPH_SCRIPT)
+        torch.cuda.synchronize()
+        runs[graphs].append([t.clone() for t in _cache_tensors(eng)])
+    assert runs[True][:-1] == runs[False][:-1]
+    for a, b in zip(runs[True][-1], runs[False][-1]):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.gpu

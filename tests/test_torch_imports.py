@@ -63,7 +63,8 @@ def test_scan_covers_the_training_modules():
     for rel in ("optim/adamw.py", "optim/compress.py", "ckpt/checkpoint.py",
                 "data/pipeline.py", "data/synthetic.py", "runtime/fault.py",
                 "runtime/straggler.py", "runtime/trainer.py", "launch/train.py",
-                "bridge.py", "models/model.py", "models/attention.py"):
+                "bridge.py", "models/model.py", "models/attention.py",
+                "models/recurrent.py"):
         assert f"src/repro_torch/{rel}" in scanned
 
 
@@ -80,8 +81,9 @@ def test_registry_string_imports_stay_in_port():
     assert get_config("ssv-nsa-1b").num_heads == 32
     assert get_config("ssv-nsa-8b").head_dim == 128
     assert get_config("qwen3-8b").qk_norm
-    with pytest.raises(KeyError, match="not ported yet: it waits for"):
-        get_config("smollm-360m")
+    assert get_config("smollm-360m").num_heads == 15
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("llama-7b")
 
 
 def test_serve_cli_on_cpu(capsys):

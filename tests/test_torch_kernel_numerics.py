@@ -33,6 +33,11 @@ from repro_torch.kernels.nsa_verify import ops as vops, ref as vref
 from repro_torch.kernels.routing import ops as rops, ref as rref
 from repro_torch.models import nsa as nsa_lib
 
+# The tier-1 run gives each of six pytest workers a share of the cores; one
+# torch thread per worker keeps the many small CPU ops from oversubscribing
+# them (eight threads per worker spent most of the port's test time waiting).
+torch.set_num_threads(1)
+
 NSA = NSAConfig(cmp_block=32, cmp_stride=16, sel_block=64, n_selected=16, window=512)
 RTOL, ATOL = 2e-4, 2e-5
 NEG, UK, NW = -1e30, 16, 4
@@ -280,11 +285,32 @@ def test_verify_arithmetic_matches_plain(Dh, C, mode, include_cmp, prefixes):
                          ids=["rows24", "rows96"])
 def test_verify_row_tiles_arithmetic_matches_plain(Hq, Hkv, C, mode, include_cmp):
     """Groups above 16 rows: each 16-row tile walks the group's whole work
-    list as its own CTA and merges its own rows (Dh 128, a 4096-key
-    cache, prefixes 3000 and 700)."""
-    x = _verify_inputs(128, (3000, 700), 4096, seed=C + Hkv, Hq=Hq, Hkv=Hkv)
+    list as its own CTA and merges its own rows (Dh 128, a 2048-key
+    cache, prefixes 1800 and 700: the merged blocks and the window each in
+    more than one chunk)."""
+    x = _verify_inputs(128, (1800, 700), 2048, seed=C + Hkv, Hq=Hq, Hkv=Hkv)
     a = _verify_args(x, C, mode)
     assert C * Hq // Hkv > 16
+    got = _emulate_verify(a, x["o_cmp"], include_cmp)
+    want = vref.verify_groups_plain(
+        **a, o_cmp_in=None if include_cmp else x["o_cmp"], sel_block=NSA.sel_block,
+        cmp_block=NSA.cmp_block, cmp_stride=NSA.cmp_stride, window=NSA.window,
+        include_cmp=include_cmp)
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("Dh,Hq,Hkv,C,mode,include_cmp",
+                         [(160, 32, 8, 2, "exact", False),     # pixtral: 8 rows
+                          (192, 96, 8, 4, "approx", True),     # nemotron: 48 rows, 3 tiles
+                          (256, 16, 1, 2, "exact", True)],     # recurrentgemma: 32 rows, 2 tiles
+                         ids=["dh160", "dh192-gq12", "dh256-gq16"])
+def test_verify_new_head_dims_arithmetic_matches_plain(Dh, Hq, Hkv, C, mode, include_cmp):
+    """The emulated kernel at the head dims of pixtral, nemotron and
+    recurrentgemma (their query-head groups too) against
+    verify_groups_plain over a 1024-key cache (two merged-block chunks and
+    two window chunks at 16+ rows), prefix 900."""
+    x = _verify_inputs(Dh, (900,), 1024, seed=Dh, Hq=Hq, Hkv=Hkv)
+    a = _verify_args(x, C, mode)
     got = _emulate_verify(a, x["o_cmp"], include_cmp)
     want = vref.verify_groups_plain(
         **a, o_cmp_in=None if include_cmp else x["o_cmp"], sel_block=NSA.sel_block,
@@ -349,6 +375,27 @@ def test_flash_arithmetic_matches_plain(Dh, Hq, window):
     r = lambda *s: torch.randn(s, generator=g).to(torch.bfloat16)
     args = (torch.randn((2, T, Hq, Dh), generator=g) / Dh ** 0.5, r(2, S, Hkv, Dh),
             r(2, S, Hkv, Dh), r(2, T, Hkv, Dh), r(2, T, Hkv, Dh), pos, plen, tree, window)
+    torch.testing.assert_close(_emulate_flash(*args), fref.ref_flash_verify(*args),
+                               rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("Dh,H", [(80, 3), (96, 2), (160, 8), (192, 24), (256, 4)],
+                         ids=["smollm", "xlstm", "pixtral", "nemotron", "recurrentgemma"])
+def test_flash_draft_head_dims_arithmetic_matches_plain(Dh, H):
+    """The emulated flash kernel at the zoo drafts' head dims and heads
+    (draft_config: as many kv heads as query heads) against
+    ref_flash_verify over a 1024-key cache (two splits), prefixes 700 and
+    77."""
+    g = torch.Generator().manual_seed(Dh)
+    topo = build_topology(4, 2, "bfs")
+    T, S = topo.num_nodes, 1024
+    plen = torch.tensor([700, 77], dtype=torch.int32)
+    pos = (plen[:, None] + torch.as_tensor(topo.depths)[None]).to(torch.int32)
+    tree = torch.as_tensor(topo.mask)[None].expand(2, T, T)
+    r = lambda *s: torch.randn(s, generator=g).to(torch.bfloat16)
+    args = (torch.randn((2, T, H, Dh), generator=g) / Dh ** 0.5, r(2, S, H, Dh),
+            r(2, S, H, Dh), r(2, T, H, Dh), r(2, T, H, Dh), pos, plen, tree, 0)
+    assert Dh in fops.HEAD_DIMS
     torch.testing.assert_close(_emulate_flash(*args), fref.ref_flash_verify(*args),
                                rtol=RTOL, atol=ATOL)
 
@@ -476,15 +523,38 @@ def test_routing_arithmetic_matches_plain(Dh, prefixes):
 def test_routing_head_slabs_arithmetic_matches_plain(Dh, Hq, Hkv):
     """The emulated routing kernel at qwen3-moe's Gq 16 (one query per CTA)
     and granite's Gq 48 (three 16-head slabs per query, their GQA sums
-    added slab by slab) against ref_routing over an 8192-token cache, two
-    rows; Top-n picks the same blocks from both."""
-    x = _verify_inputs(Dh, (4096, 3001), 8192, seed=Hq, Hq=Hq, Hkv=Hkv)
-    k_cmp = torch.cat([x["k_cmp"], x["k_cmp"][:, :1]], 1)          # padded to 512 blocks
+    added slab by slab) against ref_routing over a 4096-token cache (two
+    chunks), two rows; Top-n picks the same blocks from both."""
+    x = _verify_inputs(Dh, (3500, 2001), 4096, seed=Hq, Hq=Hq, Hkv=Hkv)
+    k_cmp = torch.cat([x["k_cmp"], x["k_cmp"][:, :1]], 1)          # padded to 256 blocks
     v_cmp = torch.cat([x["v_cmp"], x["v_cmp"][:, :1]], 1)
     nv = x["ncb_valid"].reshape(-1)
     assert rops.query_groups(31, Hq // Hkv)[2] == (3 if Hq // Hkv == 48 else 1)
-    got_o, got_p = _emulate_routing(x["q"], k_cmp, v_cmp, x["pos"], nv, 8192)
-    M = nsa_lib.overlap_tensor(k_cmp.shape[1], nsa_lib.num_sel_blocks(8192, NSA), NSA, "cpu")
+    assert rops.routing_plan(k_cmp.shape[1], NSA)[0] == 2
+    got_o, got_p = _emulate_routing(x["q"], k_cmp, v_cmp, x["pos"], nv, 4096)
+    M = nsa_lib.overlap_tensor(k_cmp.shape[1], nsa_lib.num_sel_blocks(4096, NSA), NSA, "cpu")
+    want_o, want_p = rref.ref_routing(x["q"], k_cmp, v_cmp, M, x["pos"], nv,
+                                      cmp_block=NSA.cmp_block, cmp_stride=NSA.cmp_stride)
+    torch.testing.assert_close(got_o, want_o, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(got_p, want_p, rtol=RTOL, atol=ATOL)
+    for a, b in zip(nsa_lib.select_topn(got_p, x["pos"], x["plen"], NSA),
+                    nsa_lib.select_topn(want_p, x["pos"], x["plen"], NSA)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("Dh,Hq,Hkv", [(160, 32, 8), (192, 96, 8), (256, 16, 1)],
+                         ids=["dh160", "dh192-gq12", "dh256-gq16"])
+def test_routing_new_head_dims_arithmetic_matches_plain(Dh, Hq, Hkv):
+    """The emulated routing kernel at the head dims (and query-head groups)
+    of pixtral, nemotron and recurrentgemma against ref_routing over a
+    4096-token cache (two chunks), one row; Top-n picks the same blocks."""
+    x = _verify_inputs(Dh, (3000,), 4096, seed=Dh, Hq=Hq, Hkv=Hkv)
+    nv = x["ncb_valid"].reshape(-1)
+    k_cmp = torch.cat([x["k_cmp"], x["k_cmp"][:, :1]], 1)          # padded to 256 blocks
+    v_cmp = torch.cat([x["v_cmp"], x["v_cmp"][:, :1]], 1)
+    assert rops.routing_plan(k_cmp.shape[1], NSA)[0] == 2 and Dh in rops.HEAD_DIMS
+    got_o, got_p = _emulate_routing(x["q"], k_cmp, v_cmp, x["pos"], nv, 4096)
+    M = nsa_lib.overlap_tensor(k_cmp.shape[1], nsa_lib.num_sel_blocks(4096, NSA), NSA, "cpu")
     want_o, want_p = rref.ref_routing(x["q"], k_cmp, v_cmp, M, x["pos"], nv,
                                       cmp_block=NSA.cmp_block, cmp_stride=NSA.cmp_stride)
     torch.testing.assert_close(got_o, want_o, rtol=RTOL, atol=ATOL)

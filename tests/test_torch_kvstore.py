@@ -23,6 +23,11 @@ from repro_torch.bridge import from_jax
 from repro_torch.core import kvstore as KS
 from repro_torch.models import model
 
+# The tier-1 run gives each of six pytest workers a share of the cores; one
+# torch thread per worker keeps the many small CPU ops from oversubscribing
+# them (eight threads per worker spent most of the port's test time waiting).
+torch.set_num_threads(1)
+
 
 def _twin(seed, B=2, S=64, H=2, D=8, ps=16, extra=3, holes=()):
     """The same shuffled page pool and page table as a JAX and a torch

@@ -19,6 +19,11 @@ from repro_torch.config import ModelConfig, NSAConfig
 from repro_torch.core import kvstore
 from repro_torch.models import attention, layers, nsa
 
+# The tier-1 run gives each of six pytest workers a share of the cores; one
+# torch thread per worker keeps the many small CPU ops from oversubscribing
+# them (eight threads per worker spent most of the port's test time waiting).
+torch.set_num_threads(1)
+
 RTOL, ATOL = 2e-4, 2e-5
 NSA_KW = dict(cmp_block=8, cmp_stride=4, sel_block=16, n_selected=4, window=32)
 CFG_KW = dict(name="t", num_layers=2, d_model=256, num_heads=4, num_kv_heads=2,

@@ -25,6 +25,11 @@ from repro_torch.bridge import from_jax, init_params, to_jax
 from repro_torch.ckpt import checkpoint as ckpt
 from repro_torch.models import layers, moe
 
+# The tier-1 run gives each of six pytest workers a share of the cores; one
+# torch thread per worker keeps the many small CPU ops from oversubscribing
+# them (eight threads per worker spent most of the port's test time waiting).
+torch.set_num_threads(1)
+
 RTOL, ATOL = 2e-4, 2e-5
 
 

@@ -13,6 +13,11 @@ from repro.kernels.nsa_verify import ops as jops, ref as jref
 from repro_torch.config import NSAConfig
 from repro_torch.kernels.nsa_verify import ops
 
+# The tier-1 run gives each of six pytest workers a share of the cores; one
+# torch thread per worker keeps the many small CPU ops from oversubscribing
+# them (eight threads per worker spent most of the port's test time waiting).
+torch.set_num_threads(1)
+
 NSA_KW = dict(cmp_block=8, cmp_stride=4, sel_block=16, n_selected=4, window=32)
 NSA, JNSA = NSAConfig(**NSA_KW), JNSAConfig(**NSA_KW)
 

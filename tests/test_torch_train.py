@@ -35,6 +35,11 @@ from repro_torch.core import draft as tdraft
 from repro_torch.models import attention, model
 from repro_torch.optim import adamw, compress, tree_leaves
 
+# The tier-1 run gives each of six pytest workers a share of the cores; one
+# torch thread per worker keeps the many small CPU ops from oversubscribing
+# them (eight threads per worker spent most of the port's test time waiting).
+torch.set_num_threads(1)
+
 RTOL, ATOL = 2e-4, 2e-5          # forward and loss
 GRTOL, GATOL = 1e-3, 1e-6        # gradients
 S, ATTN_CHUNK = 96, 32           # 3 query chunks in every chunked attention

@@ -42,6 +42,11 @@ from repro_torch.runtime.fault import FailureInjector, InjectedFailure, run_with
 from repro_torch.runtime.straggler import StragglerWatchdog
 from repro_torch.runtime.trainer import Trainer, make_train_step
 
+# The tier-1 run gives each of six pytest workers a share of the cores; one
+# torch thread per worker keeps the many small CPU ops from oversubscribing
+# them (eight threads per worker spent most of the port's test time waiting).
+torch.set_num_threads(1)
+
 TRAIN = dict(steps=4, checkpoint_every=2, learning_rate=1e-3, warmup_steps=2, seed=3)
 DATA = dict(batch_size=2, seq_len=32)
 

@@ -1,15 +1,18 @@
 """The attention model zoo in the port, held against the JAX package on
 bridged weights (the reduced variants of ``configs``): qwen3-8b (qk-norm),
 granite-20b (MQA, gelu), mixtral-8x22b (MoE 8 / top-2, sliding window),
-qwen3-moe-235b-a22b (MoE, qk-norm) and musicgen-medium (audio frontend,
-gelu), each as its NSA variant (``configs.nsa_variant``, as the serve CLIs
-serve it), plus mixtral with its own ``attention="swa"``: prefill,
-``verify_step`` and ``commit`` (hidden states, logits and the committed
-caches within rtol 2e-4 / atol 2e-5, argmax tokens equal); the frontend
-through ``prefill`` and ``loss_fn``; tied embeddings; the registry; and the
-engines' tokens equal to the JAX engines' for reduced qwen3-moe and for
-granite with its query heads raised to 16 over 1 kv head (single stream
-and batched, accepted counts too)."""
+qwen3-moe-235b-a22b (MoE, qk-norm), musicgen-medium (audio frontend,
+gelu), smollm-360m (Gq 3), pixtral-12b (vision frontend) and
+nemotron-4-340b (squared ReLU), each as its NSA variant
+(``configs.nsa_variant``, as the serve CLIs serve it), plus mixtral with
+its own ``attention="swa"``: prefill, ``verify_step`` and ``commit``
+(hidden states, logits and the committed caches within rtol 2e-4 / atol
+2e-5, argmax tokens equal); the audio and vision frontends through
+``prefill`` and ``loss_fn``; tied embeddings; the registry (all twelve JAX
+ids; the recurrent archs' models are in ``test_torch_recurrent.py``); and
+the engines' tokens equal to the JAX engines' for reduced qwen3-moe and
+for granite with its query heads raised to 16 over 1 kv head (single
+stream and batched, accepted counts too)."""
 import dataclasses
 
 import jax
@@ -30,8 +33,15 @@ from repro_torch.core import draft, engine
 from repro_torch.launch import serve
 from repro_torch.models import model
 
+# The tier-1 run gives each of six pytest workers a share of the cores; one
+# torch thread per worker keeps the many small CPU ops from oversubscribing
+# them (eight threads per worker spent most of the port's test time waiting).
+torch.set_num_threads(1)
+
 RTOL, ATOL = 2e-4, 2e-5
-ZOO = ("qwen3-8b", "granite-20b", "mixtral-8x22b", "qwen3-moe-235b-a22b", "musicgen-medium")
+ZOO = ("qwen3-8b", "granite-20b", "mixtral-8x22b", "qwen3-moe-235b-a22b", "musicgen-medium",
+       "smollm-360m", "pixtral-12b", "nemotron-4-340b")
+RECURRENT = ("recurrentgemma-9b", "xlstm-125m")   # their models: test_torch_recurrent.py
 PROMPT = 110              # > window (32) + n_selected (4) * sel_block (16)
 MAX_CTX = 160
 
@@ -50,7 +60,7 @@ def pair_of(arch, nsa=True, **over):
     return jc, tc, jp, from_jax(jax.tree.map(np.asarray, jp), tc, "cpu")
 
 
-@pytest.mark.parametrize("arch", ZOO)
+@pytest.mark.parametrize("arch", ZOO + RECURRENT)
 def test_registry_matches_jax(arch):
     """Each config, its DRYRUN / FRONTEND_LEN, its NSA variant and its
     reduced variant are the JAX package's."""
@@ -63,11 +73,13 @@ def test_registry_matches_jax(arch):
     assert asdict(configs.reduced(arch)) == asdict(jconfigs.reduced(arch))
 
 
-@pytest.mark.parametrize("arch", ("smollm-360m", "pixtral-12b", "nemotron-4-340b",
-                                  "recurrentgemma-9b", "xlstm-125m"))
-def test_later_slices_raise_naming_what_they_wait_for(arch):
-    with pytest.raises(KeyError, match="waits for"):
-        configs.get_config(arch)
+def test_registry_holds_every_jax_arch():
+    """The port's registry is the JAX package's, in its order, and the
+    model takes every arch (and every arch's NSA variant)."""
+    assert configs.ARCH_IDS == jconfigs.ARCH_IDS
+    for arch in configs.ARCH_IDS:
+        model.check_supported(configs.get_config(arch))
+        model.check_supported(configs.nsa_variant(configs.get_config(arch)))
 
 
 @pytest.mark.parametrize("arch", ZOO + ("mixtral-8x22b-swa",))
@@ -116,14 +128,16 @@ def test_prefill_verify_commit_match_jax(arch):
                 close(jl_["cmp"]["k_cmp"][:ncb], layer["cmp"]["k_cmp"][b, :ncb])
 
 
-def test_frontend_prefill_and_loss_match_jax():
-    """musicgen's audio frontend: projected frames ahead of the tokens in
-    ``prefill`` (hidden states and caches) and in ``loss_fn`` (the tokens'
-    next-token loss, counted after the frames)."""
-    jc, tc, jp, tp = pair_of("musicgen-medium")
-    assert "frontend_proj" in tp and tc.modality == "audio"
+@pytest.mark.parametrize("arch,modality", [("musicgen-medium", "audio"),
+                                           ("pixtral-12b", "vision")])
+def test_frontend_prefill_and_loss_match_jax(arch, modality):
+    """musicgen's audio and pixtral's vision frontends: projected frames
+    ahead of the tokens in ``prefill`` (hidden states and caches) and in
+    ``loss_fn`` (the tokens' next-token loss, counted after the frames)."""
+    jc, tc, jp, tp = pair_of(arch)
+    assert "frontend_proj" in tp and tc.modality == modality
     rng = np.random.default_rng(2)
-    n_front = configs.frontend_len("musicgen-medium")
+    n_front = min(configs.frontend_len(arch), 64)
     front = rng.normal(size=(2, n_front, tc.frontend_dim)).astype(np.float32)
     toks = rng.integers(0, tc.vocab_size, (2, 48))
     jh, jcache = jmodel.prefill(jp, jc, jnp.asarray(toks), MAX_CTX, frontend=jnp.asarray(front))
