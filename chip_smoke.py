@@ -71,9 +71,10 @@ Phases (every phase always runs; any failure exits non-zero):
      ``ssv-nsa-1b`` (bf16, remat) and then its full-width draft train 3
      steps each on 1 x 4096-token ``SyntheticCorpus`` batches (finite
      losses and grad norms, every matrix moved; step ms, tokens/s, peak
-     GiB and the share of 989 TFLOP/s that the model FLOPs reach: 6 x
-     non-embedding params x tokens plus 3 x the attention forward FLOPs
-     the function needs, causal and sparse); the draft's train state round-trips bitwise
+     GiB and the share of 989 TFLOP/s that the model FLOPs reach:
+     ``analysis.roofline.model_flops``, the JAX formula, printed beside the
+     needed-FLOPs formula, 6 x non-embedding params x tokens plus 3 x the
+     attention forward FLOPs the function needs, causal and sparse); the draft's train state round-trips bitwise
      through an ``AsyncCheckpointer`` checkpoint; one reduced float32
      train step on the card equals the CPU's (loss rtol 2e-4 / atol 2e-5,
      every gradient leaf rtol 1e-3 / atol 1e-6); a restart after an
@@ -106,14 +107,15 @@ Phases (every phase always runs; any failure exits non-zero):
      cut) card tokens and accepted counts == the CPU plain path's and
      batched == single stream; the serve CLI with ``--arch qwen3-8b``.
      Then the last five archs the same way: smollm-360m (Gq 3, a
-     head-dim-80 draft), pixtral-12b (Dh 160), recurrentgemma-9b (RG-LRU
-     + NSA, Dh 256, Gq 16) and xlstm-125m (mLSTM / sLSTM, a head-dim-96
-     draft) at full depth, nemotron-4-340b (Dh 192, Gq 12) at 4 of its 96
-     layers (~47 GB of bf16), each prefill timed (xLSTM's target prefill
+     head-dim-80 draft) and pixtral-12b (Dh 160) cut to 8 layers,
+     recurrentgemma-9b (RG-LRU + NSA, Dh 256, Gq 16) to 9 (three periods),
+     xlstm-125m (mLSTM / sLSTM, a head-dim-96 draft) at full depth,
+     nemotron-4-340b (Dh 192, Gq 12) at 4 of its 96 layers (~47 GB of
+     bf16), each prefill timed (xLSTM's target prefill
      also with its sLSTM chunks replayed and stepped eagerly); recurrentgemma and xlstm also at 2 slots dense
      and paged (paged == dense), xlstm bucketed at 4 slots (the recurrent
      state replay inside captured group steps); float32: Strict == AR on
-     smollm (full depth) and pixtral (4 layers), and card == CPU and
+     smollm (8 layers) and pixtral (4 layers), and card == CPU and
      batched == single stream on nemotron (Dh 192, Gq 12 kept), one
      (rglru, rglru, attn) period of recurrentgemma (Dh 256, Gq 16 kept)
      and one (mlstm, slstm) period of xlstm (full width, vocab 4096); the
@@ -121,19 +123,37 @@ Phases (every phase always runs; any failure exits non-zero):
      kernels at the zoo's shapes too (Gq 16, 48, 6, 1, 3; Dh 160 Gq 4, Dh
      192 Gq 12, Dh 256 Gq 16; flash at Gq 48, windowed at mixtral's, and
      at the drafts' Dh 80, 96, 160, 192, 256), and phase 8 times them;
- 11. the summary lines: a ``kernels`` JSON line (every kernel x head dim,
-     and x query-head group for the zoo's), the card line, and the
-     ``{"ok": true, "device": ...}`` line last.
+ 11. the dry run's long-context cells (``repro_torch.launch.dryrun``'s
+     ``run_cell`` with ``run=True``, as ``--run`` calls it): ssv-nsa-1b at
+     32,768 and 524,288 tokens and ssv-nsa-8b at 32,768, batch 1, full
+     width, bf16, both caches full to the cell's length with seeded random
+     K/V rows (compressed blocks ``compress_kv`` of them): a Strict and an
+     Approx+Reuse verify of a D4/k2 tree, the draft's tree expansion and
+     ``decode_step``, each with exact launch counts, wall and busy time,
+     peak memory and the ``Roofline`` row; Strict's root logits == the
+     decode's (rtol = atol = 3e-2) on the cell built again in float32 (in
+     bf16 the two passes round apart: printed); layer 0's routing, nsa_verify
+     (exact C=2, full and partial fusion) and the draft's flash against
+     their plain versions at the cell's inputs (phase 2's tolerances; the
+     plain flash one kv head at a time), timed beside plain, bound and, for
+     flash, SDPA;
+ 12. the summary lines: a ``kernels`` JSON line (every kernel x head dim,
+     and x query-head group for the zoo's, and x cell for phase 11's), the
+     card line, and the ``{"ok": true, "device": ...}`` line last.
 
 ``--times-only`` stops after phases 1 and 8 (no ok line), ``--serve-only``
 after phases 1 and 3 (no ok line; the served tokens go to
-``chip_smoke_serve.json``); with ``--src`` either times or serves another
-checkout's package by the same method (the parent's, in the same call, for
-a comparison on one card).
+``chip_smoke_serve.json``), ``--cells-only`` after phases 1 and 11 (no ok
+line; ``chip_smoke_cells.json``); with ``--src`` either times or serves
+another checkout's package by the same method (the parent's, in the same
+call, for a comparison on one card; one that has
+``repro_torch.analysis``, since the bounds come from there).
 
 Each counted path sets every launch counter to 0 just before it runs and
 reads them just after; a kernel row's ``launches`` sums the paths at its
-head dim. Imports nothing of JAX and nothing of the JAX package. TF32 is
+head dim. The card's rates and every bound come from
+``repro_torch.analysis.roofline``. Imports nothing of JAX and nothing of
+the JAX package. TF32 is
 disabled for float32 matmuls and convolutions so the float32 references
 are full float32.
 """
@@ -159,9 +179,6 @@ import torch  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent
 DEV = "cuda"
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (data sheet)
-F32_FLOPS_PER_S = 67e12         # H100 SXM float32, CUDA cores (data sheet)
-BF16_FLOPS_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense (data sheet)
 # The pre-redesign kernels: before the Hopper redesign (commit 787ff43;
 # routing's code stayed the same until f780c1a). Their times (profiler
 # device ms per launch, bf16 K/V, this script's phase 8 on NVIDIA H100 80GB
@@ -500,108 +517,6 @@ def check_close(name, got, want, dtype_name, against="its plain version"):
     return max_err
 
 
-# ---------------------------------------------------------------- bounds
-def bound(nbytes, flops, flops_per_s=F32_FLOPS_PER_S):
-    """(ms, "bytes" or "operations", bytes-alone ms). The flops count at
-    ``flops_per_s``: the bf16 tensor-core rate for a kernel whose dots run
-    there (bf16 K/V, so their bytes set the bound), the float32 CUDA-core
-    rate otherwise (float32 K/V)."""
-    t_bytes, t_flops = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
-    return (max(t_bytes, t_flops) * 1e3, ("bytes" if t_bytes >= t_flops else "operations"),
-            t_bytes * 1e3)
-
-
-def dot_rate(kv_dtype):
-    """The rate of a redesigned kernel's dots: tensor cores for bf16 K/V,
-    CUDA cores for float32 K/V."""
-    return BF16_FLOPS_PER_S if kv_dtype == torch.bfloat16 else F32_FLOPS_PER_S
-
-
-def verify_bound(cfg, inp, args, include_cmp, branch="all"):
-    """Least time for one verify launch: bytes each input/output moves once
-    (the union of selected blocks per head, the visible window, cmp and
-    draft K/V of the branches it computes; the page table when paged) vs
-    the f32 flops the visible (row, key) pairs need."""
-    nsa = cfg.nsa
-    es = inp["k_cache"].element_size()
-    T, Hq, Dh = inp["q"].shape[1:]
-    Hkv = inp["k_cache"].shape[2]
-    Gq = Hq // Hkv
-    prefix = int(inp["prefix_len"][0])
-    pos = inp["positions"][0].long()
-    do_slc, do_win = branch in ("all", "slc"), branch in ("all", "win")
-    merged, mvalid = args["merged"][0].long(), args["mvalid"][0]
-    slc_blocks = 0                  # selected blocks summed over the kv heads
-    for h in range(Hkv if do_slc else 0):
-        blocks = merged[:, h][(mvalid[:, h] > 0) & (merged[:, h] >= 0)]
-        blocks = blocks[blocks * nsa.sel_block < prefix]
-        slc_blocks += int(torch.unique(blocks).numel())
-    W = min(nsa.window, inp["k_cache"].shape[1])
-    win_keys = max(0, prefix - int(args["win_start"][0])) if do_win else 0
-    ncbv = int(args["ncb_valid"][0])
-    nvis = ((pos - nsa.cmp_block + 1).clamp_min(-1) // nsa.cmp_stride + 1).clamp(0, ncbv)
-    keys_per_head = win_keys + (T if do_win else 0) + (int(nvis.max()) if include_cmp else 0)
-    nbytes = (slc_blocks * nsa.sel_block + keys_per_head * Hkv) * Dh * 2 * es
-    nbytes += inp["q"].numel() * 4 * 2                               # q, out
-    if branch == "all":
-        nbytes += inp["gates"].numel() * 4
-        nbytes += 0 if include_cmp else inp["q"].numel() * 4          # o_cmp_in
-    nbytes += sum(args[k].numel() * 4 for k in ("merged", "mvalid", "own", "dmask", "positions"))
-    if "page_table" in args:
-        nbytes += args["page_table"].numel() * 4
-    # visible (query row, key) pairs: slc keys per query = its own selected
-    # tokens below prefix and at/below its position
-    slc = win = draft = 0
-    if do_slc:
-        tok = inp["sel_idx"][0].long()[..., None] * nsa.sel_block + \
-            torch.arange(nsa.sel_block, device=DEV)
-        slc = ((tok < prefix) & (tok <= pos[:, None, None, None]) &
-               inp["sel_valid"][0][..., None]).sum()
-    if do_win:
-        kp = torch.arange(W, device=DEV) + int(args["win_start"][0])
-        win = ((kp[None] < prefix) & (kp[None] > pos[:, None] - nsa.window) &
-               (kp[None] <= pos[:, None])).sum() * Hkv
-        draft = args["dmask"][0].sum() * Hkv
-    cmpk = nvis.sum() * Hkv if include_cmp else 0
-    return bound(nbytes, int(slc + win + draft + cmpk) * Gq * 4 * Dh,
-                 dot_rate(inp["k_cache"].dtype))
-
-
-def routing_bound(cfg, inp):
-    """Bytes: the visible cmp K/V of each kv head once, q, o_cmp, p_slc,
-    positions; flops: 4*Dh per visible (query row, cmp block) pair, at the
-    rate of the kernel's dots."""
-    nsa = cfg.nsa
-    es = inp["k_cmp"].element_size()
-    B, T, Hq, Dh = inp["q"].shape
-    Hkv = inp["k_cmp"].shape[2]
-    pos = inp["positions"][0].long()
-    ncbv = int(inp["ncb_valid"].reshape(-1)[0])
-    nvis = ((pos - nsa.cmp_block + 1).clamp_min(-1) // nsa.cmp_stride + 1).clamp(0, ncbv)
-    NSB = -(-inp["k_cache"].shape[1] // nsa.sel_block)
-    nbytes = int(nvis.max()) * Hkv * Dh * 2 * es + inp["q"].numel() * 4 * 2 \
-        + T * Hkv * NSB * 4 + T * 4
-    return bound(nbytes, int(nvis.sum()) * Hq * 4 * Dh, dot_rate(inp["k_cmp"].dtype))
-
-
-def flash_bound(inp):
-    """Bytes: the visible prefix keys and the draft K/V of each kv head
-    once, q, out, positions, the (T*Gq, T) mask; flops: 4*Dh per visible
-    (query row, key) pair."""
-    es = inp["k_cache"].element_size()
-    B, T, Hq, Dh = inp["q"].shape
-    Hkv = inp["k_cache"].shape[2]
-    prefix = int(inp["prefix_len"][0])
-    pos = inp["positions"][0].long()
-    prefix_keys = (torch.clamp(pos + 1, max=prefix)).clamp_min(0)      # per query
-    dist = pos[:, None] - pos[None]
-    draft_keys = (inp["tree_mask"][0] & (dist >= 0)).sum(-1)
-    nbytes = (min(prefix, int(pos.max()) + 1) + T) * Hkv * Dh * 2 * es \
-        + inp["q"].numel() * 4 * 2 + T * 4 + T * (Hq // Hkv) * T * 4 + 4
-    return bound(nbytes, int((prefix_keys + draft_keys).sum()) * Hq * 4 * Dh,
-                 dot_rate(inp["k_cache"].dtype))
-
-
 # ---------------------------------------------------------------- timing
 def time_events(fn, iters: int, warmup: int = 3) -> float:
     for _ in range(warmup):
@@ -650,6 +565,10 @@ def main(argv=None) -> int:
     ap.add_argument("--serve-only", action="store_true",
                     help="build and serve the 1B / 8B cells of phase 3 (bf16 single stream, "
                          "Strict and Approx+Reuse, launch counts, profile) and stop; prints "
+                         "no ok line")
+    ap.add_argument("--cells-only", action="store_true",
+                    help="build and run phase 11 (the dry run's long-context cells on full "
+                         "caches, their kernels against the plain versions) and stop; prints "
                          "no ok line")
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="the directory that holds repro_torch (default: this checkout's); "
@@ -713,6 +632,19 @@ def main(argv=None) -> int:
     ctx = dict(counters=counters, kind=kind, card=card,
                corpus=SyntheticCorpus(SyntheticConfig(vocab_size=cfgs[128].vocab_size)),
                launches={}, paths={})
+    if args.cells_only:
+        cell_err = {}
+        t0 = time.time()
+        cells, cell_rows = cells_phase(ctx, out_dir / "dryrun", cell_err)
+        log(f"[11 cells] {time.time() - t0:.1f}s")
+        for row in cell_rows:
+            row.update(launches=ctx["launches"].get(row["name"], 0),
+                       max_abs_err=cell_err.get(row["name"]))
+        (out_dir / "chip_smoke_cells.json").write_text(json.dumps(
+            {"card": card, "kind": kind, "cells": cells, "kernels": cell_rows,
+             "launches": ctx["launches"]}, indent=1, default=str))
+        print(card)
+        return 0
     if args.serve_only:
         e2e = {}
         for Dh in (64, 128):
@@ -795,6 +727,12 @@ def main(argv=None) -> int:
     serve_cli("qwen3-8b")
     serve_cli("recurrentgemma-9b")
     log(f"[10 zoo] {time.time() - t0:.1f}s")
+
+    # ---- 11. the dry run's long-context cells on full caches
+    t0 = time.time()
+    cells, cell_rows = cells_phase(ctx, out_dir / "dryrun", max_err)
+    rows += cell_rows
+    log(f"[11 cells] {time.time() - t0:.1f}s")
     idle = [r["name"] for r in rows if ctx["launches"].get(r["name"], 0) == 0]
     if idle:
         fail(f"the main paths never launched {idle}")
@@ -804,10 +742,10 @@ def main(argv=None) -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "kind": kind, "e2e": e2e, "batched": batched, "paths": ctx["paths"],
          "ptxas": instances, "kernels": rows, "layer_times": layer_times, "train": train,
-         "zoo": zoo, "seconds": time.time() - t_start}, indent=1))
+         "zoo": zoo, "cells": cells, "seconds": time.time() - t_start}, indent=1, default=str))
 
-    # ---- 11. summary
-    log(f"[11 done] {time.time() - t_start:.1f}s")
+    # ---- 12. summary
+    log(f"[12 done] {time.time() - t_start:.1f}s")
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -1643,15 +1581,18 @@ def dense_baseline(cfg, ctx):
 # three at full depth (36-52 layers) a run took 1,217 s, and with qwen3-8b
 # alone at full depth 1,175 s on a slower host (every step is
 # launch-bound, so time follows layers; their kernels' shapes do not
-# depend on depth).
+# depend on depth). smollm-360m, pixtral-12b and recurrentgemma-9b keep 8,
+# 8 and 9 layers since phase 11 joined: with them at full depth the script
+# took 1,085.6 s on one H100 80GB HBM3 at 700 W, 90% of its limit.
 ZOO = ("qwen3-8b", "granite-20b", "musicgen-medium", "mixtral-8x22b", "qwen3-moe-235b-a22b",
        "smollm-360m", "pixtral-12b", "nemotron-4-340b", "recurrentgemma-9b", "xlstm-125m")
 ZOO_LAYERS = {"qwen3-8b": 4, "granite-20b": 4, "musicgen-medium": 4, "mixtral-8x22b": 4,
-              "qwen3-moe-235b-a22b": 4, "nemotron-4-340b": 4}
+              "qwen3-moe-235b-a22b": 4, "nemotron-4-340b": 4, "smollm-360m": 8,
+              "pixtral-12b": 8, "recurrentgemma-9b": 9}
 # generate_batch at 2 slots, paged == dense
 ZOO_PAGED = ("qwen3-8b", "qwen3-moe-235b-a22b", "recurrentgemma-9b", "xlstm-125m")
 ZOO_BUCKETED = ("qwen3-moe-235b-a22b", "xlstm-125m")  # 4 slots, captured group steps
-# float32 Strict == AR, at these depths (None: full depth)
+# float32 Strict == AR, at these depths (None: the served depth)
 ZOO_F32_AR = {"qwen3-8b": 4, "granite-20b": 4, "musicgen-medium": 4, "smollm-360m": None,
               "pixtral-12b": 4}
 ZOO_MOE = ("mixtral-8x22b", "qwen3-moe-235b-a22b")
@@ -1887,6 +1828,227 @@ def zoo_phase(ctx):
 # 1-layer draft of d 128, 2 heads of 64), trained in rounds until the
 # target has learned the corpus past its unigram statistics and a greedy
 # serve of the held-out prompt accepts draft tokens in float32 and bf16.
+# ---------------------------------------------------------------- 11. cells
+# Cells of the dry run's matrix served from full caches (``python -m
+# repro_torch.launch.dryrun --run``): the 1B at 32,768 and 524,288 tokens,
+# the 8B at 32,768 (its cache at 524,288 tokens alone is 73 GB)
+CELLS = (("ssv-nsa-1b", "decode_32k"), ("ssv-nsa-1b", "long_500k"),
+         ("ssv-nsa-8b", "decode_32k"))
+LOGITS_TOL = 3e-2          # the bf16 tolerance of tests/test_kernels_nsa_verify.py
+
+
+def cells_phase(ctx, out_dir, max_err):
+    """Phase 11: ``dryrun.run_cell(..., run=True)`` for each of ``CELLS``
+    (its steps counted with every counter at 0 before it), then on the
+    measured cell ``cell_checks``. Returns ({cell: record}, kernel rows)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.models import nsa as nsa_lib
+    out, rows = {}, []
+    for arch, shape in CELLS:
+        for c in ctx["counters"]:
+            c.reset()
+        rec = dryrun.run_cell(arch, shape, out_dir, force=True, run=True,
+                              inspect=lambda cell, rec, outputs: cell_checks(
+                                  cell, rec, outputs, ctx, max_err, rows))
+        nsa_lib.overlap_matrix.cache_clear()          # the plain routing's (NCB, NSB) matrix
+        nsa_lib._overlap_tensor.cache_clear()
+        free()
+        rec["checks"]["f32_strict_vs_decode_max_abs_err"] = strict_root_equals_decode(
+            arch, shape, ctx)
+        r = rec["roofline"]
+        log(f"[11 cell {arch} {shape}] {ctx['kind']} ({ctx['card']}): built in "
+            f"{rec['build_s']:.1f}s; " + "; ".join(
+                f"{k} {v['wall_ms']:.2f} ms wall, {v['device_busy_ms']:.2f} ms busy"
+                for k, v in rec["steps"].items()) +
+            f"; peak {rec['peak_bytes'] / 2 ** 30:.2f} GiB of "
+            f"{rec['capacity_bytes'] / 2 ** 30:.2f}; Roofline row {json.dumps(r)}; decode "
+            f"bound {rec['decode_bound_ms']:.4f} ms, model-FLOPs share of the decode "
+            f"{100 * rec['decode_model_flops_share']:.4f}%")
+        for k, v in rec["steps"].items():
+            log(f"    {k}: {v['device_kernels']} device kernels; top " + "; ".join(
+                f"{t['ms']:.3f} ms x{t['launches']} {t['name'][:48]}" for t in v["top"][:4]))
+        out[f"{arch} {shape}"] = rec
+    return out, rows
+
+
+def strict_root_equals_decode(arch, shape, ctx):
+    """The cell built again in float32 (same seed and construction, both
+    caches full): a Strict verify's root logits equal ``decode_step``'s at
+    the same cache within LOGITS_TOL. Both verify the root alone over the
+    committed prefix (one-node semantics, ``models/model.py:decode_step``);
+    float32 keeps the comparison free of the bf16 rounding that a 31-row and
+    a 1-row pass through the same layers round differently. Returns the
+    max abs error."""
+    from repro_torch.launch import dryrun
+    tag = f"[11 cell {arch} {shape}]"
+    t0 = time.time()
+    cell = dryrun.FullCell(arch, shape, seed=0, dtype="float32")
+    strict = cell.verify(dryrun.strict_ssv())[0][:, :1]
+    dec = cell.decode()
+    torch.cuda.synchronize()
+    err = float((strict - dec).abs().max())
+    ok = bool(torch.isfinite(strict).all()) and torch.allclose(strict, dec, rtol=LOGITS_TOL,
+                                                               atol=LOGITS_TOL)
+    same_top = bool(torch.equal(strict.argmax(-1), dec.argmax(-1)))
+    del cell, strict, dec
+    free()
+    if not ok:
+        fail(f"{tag} float32: Strict root logits differ from decode_step's: max abs err "
+             f"{err:.3e}")
+    log(f"  {tag} float32: Strict root logits == decode_step logits: max abs err {err:.3e} "
+        f"(rtol = atol = {LOGITS_TOL}), argmax {'equal' if same_top else 'differs'} "
+        f"({time.time() - t0:.1f}s)")
+    return err
+
+
+def cell_checks(cell, rec, outputs, ctx, max_err, rows):
+    """On a measured cell: the launches of its steps, exact (each step ran
+    three times: warm, timed, profiled); the bf16 Strict root logits beside
+    the first decode's (printed; ``strict_root_equals_decode`` checks the
+    equality in float32); layer 0's
+    routing, nsa_verify (exact C=2, full and partial fusion) and the draft's
+    flash against their plain versions at the cell's inputs, to phase 2's
+    tolerances, each timed beside its plain version, its bound and (flash)
+    SDPA. Appends the kernel rows to ``rows``."""
+    from repro_torch.analysis import roofline as rl
+    from repro_torch.kernels.flash import ops as fops, ref as fref
+    from repro_torch.kernels.nsa_verify import ops as vops
+    from repro_torch.kernels.routing import ops as rops
+    from repro_torch.launch import dryrun
+    from repro_torch.models import attention as attn_lib, layers, nsa as nsa_lib
+    cfg, dcfg, shape = cell.cfg, cell.dcfg, cell.shape.name
+    tag = f"[11 cell {cell.arch} {shape}]"
+    counts = {c.name: c.count for c in ctx["counters"]}
+    steps = {"verify Strict": dryrun.strict_ssv(),
+             "verify Approx+Reuse": dryrun.approx_reuse_ssv(cfg.num_layers)}
+    want_steps = {k: {n: v for n, v in expected_launches(cfg, dcfg, ssv, 1).items()
+                      if n != "flash_verify"} for k, ssv in steps.items()}
+    want_steps["draft expand_tree"] = {"flash_verify": dcfg.num_layers * draft_passes(
+        dryrun.strict_ssv())}
+    want_steps["decode_step"] = {"routing": cfg.num_layers, "nsa_verify_partial": cfg.num_layers}
+    want = {c.name: 0 for c in ctx["counters"]}
+    for name, w in want_steps.items():
+        if rec["steps"][name]["launches"] != w:
+            fail(f"{tag} {name}: launches {rec['steps'][name]['launches']}, expected {w}")
+        for k, v in w.items():
+            want[k] += 3 * v
+    if counts != want:
+        fail(f"{tag} launch counts {counts}, expected {want}")
+    Dh = cfg.head_dim
+    for k, v in counts.items():
+        if v:
+            key = f"{launch_key(k, dcfg.head_dim if k == 'flash_verify' else Dh)}@{shape}"
+            ctx["launches"][key] = ctx["launches"].get(key, 0) + v
+    ctx["paths"][f"{cfg.name} {shape} dryrun --run"] = counts
+    log(f"  {tag} launches {counts} (per step {want_steps}; each step 3 times)")
+
+    strict = outputs["verify Strict"][:, :1]
+    dec = outputs["decode_step"]
+    if not (torch.isfinite(outputs["verify Strict"]).all() and torch.isfinite(dec).all()):
+        fail(f"{tag} logits are not finite")
+    err = float((strict - dec).abs().max())
+    same_top = bool(torch.equal(strict.argmax(-1), dec.argmax(-1)))
+    log(f"  {tag} bf16: Strict root logits vs decode_step's max abs err {err:.3e}, "
+        f"argmax {'equal' if same_top else 'differs'} (observed; the equality is checked "
+        "in float32, strict_root_equals_decode)")
+
+    # ---- layer 0's kernels at the cell: the target's q, gates and draft K/V
+    # of the tree, its full caches, positions at the committed length
+    lp, c = cell.params["layers"][0], cell.caches["layers"][0]
+    plen = cell.caches["length"]
+    pos = (cell.tree.depths[None] + plen.reshape(-1, 1)).to(torch.int32)
+    hn = layers.rmsnorm(lp["norm1"], layers.embed(cell.params["embed"], cell.tokens), cfg.norm_eps)
+    q_s, k_new, v_new, g_all, plen, ncb_valid = vops._layer_inputs(lp["mix"], cfg, hn, plen, pos)
+    S = c["kv"]["k"].shape[1]
+    o_cmp, p_slc = rops.routing_fused(q_s, c["cmp"]["k_cmp"], c["cmp"]["v_cmp"], pos,
+                                      ncb_valid, cfg.nsa, kv_len=S)
+    sel_idx, sel_valid = nsa_lib.select_topn(p_slc, pos, plen, cfg.nsa)
+    inp = dict(q=q_s, k_cache=c["kv"]["k"], v_cache=c["kv"]["v"], k_cmp=c["cmp"]["k_cmp"],
+               v_cmp=c["cmp"]["v_cmp"], k_draft=k_new.contiguous(), v_draft=v_new.contiguous(),
+               sel_idx=sel_idx, sel_valid=sel_valid, positions=pos,
+               prefix_len=plen.to(torch.int32), ncb_valid=ncb_valid.to(torch.int32),
+               tree_mask=cell.tree_mask, gates=g_all, o_cmp_in=o_cmp)
+    sfx = f"@{shape}"
+
+    def note(key, e):
+        max_err[key + sfx] = max(max_err.get(key + sfx, 0.0), e)
+
+    check_routing(cfg, inp, "bfloat16", lambda e: note(f"routing_dh{Dh}", e), f"{shape} ")
+    check_verify_cases(cfg, inp, "bfloat16", note, f"{shape} ", cases=VERIFY_CASES[:2])
+    sig = f"— {ctx['kind']} ({ctx['card']})"
+    times = {}
+    ms, src, ev = time_kernel(lambda: run_routing(cfg, inp, False), "routing_kernel", iters=20)
+    plain = time_events(lambda: run_routing(cfg, inp, True), 3, warmup=1)
+    bnd = rl.routing_bound(cfg, inp)
+    times[f"routing_dh{Dh}"] = (ms, plain, bnd, None)
+    log(f"[11 time] routing Dh {Dh} {shape} (NCB {inp['k_cmp'].shape[1]}, "
+        f"{rops.routing_plan(inp['k_cmp'].shape[1], cfg.nsa)[0]} chunks): {ms:.4f} ms ({src}; "
+        f"{ev:.4f} ms by CUDA events), plain {plain:.4f} ms, {bound_text(bnd)} {sig}")
+    for label, C, mode, full, branch in VERIFY_CASES[:2]:
+        args = verify_layouts(cfg, inp, C, mode)
+        oc = None if full else inp["o_cmp_in"]
+        ms, src, ev = time_kernel(lambda: run_verify(cfg, args, full, oc, False),
+                                  "nsa_verify_kernel", iters=20)
+        plain = time_events(lambda: run_verify(cfg, args, full, oc, True), 3, warmup=1)
+        bnd = rl.verify_bound(cfg, inp, args, full)
+        times[f"{case_kernel(full, branch)}_dh{Dh}"] = (ms, plain, bnd, None)
+        log(f"[11 time] nsa_verify {label} Dh {Dh} {shape}: {ms:.4f} ms ({src}; {ev:.4f} ms "
+            f"by CUDA events), plain {plain:.4f} ms, {bound_text(bnd)} {sig}")
+    del args
+
+    # ---- the draft's flash at layer 0 (its cache is not committed by the steps)
+    dl, dc = cell.dparams["layers"][0], cell.dcaches["layers"][0]
+    hd = layers.rmsnorm(dl["norm1"], layers.embed(cell.dparams["embed"], cell.tokens),
+                        dcfg.norm_eps)
+    q, kd, vd = attn_lib.qkv(dl["mix"], dcfg, hd, cell.positions)
+    finp = dict(q=(q.float() / dcfg.head_dim ** 0.5).contiguous(), k_cache=dc["kv"]["k"],
+                v_cache=dc["kv"]["v"], k_draft=kd.contiguous(), v_draft=vd.contiguous(),
+                positions=cell.positions, prefix_len=cell.dcaches["length"].to(torch.int32),
+                tree_mask=cell.tree_mask)
+    Hkv, Gq = dcfg.num_kv_heads, dcfg.num_heads // dcfg.num_kv_heads
+
+    def flash_plain():
+        """The plain flash one kv head at a time (at 524,288 keys the
+        whole score tensor would take gigabytes)."""
+        return torch.cat([fref.ref_flash_verify(
+            finp["q"][:, :, h * Gq:(h + 1) * Gq], finp["k_cache"][:, :, h:h + 1],
+            finp["v_cache"][:, :, h:h + 1], finp["k_draft"][:, :, h:h + 1],
+            finp["v_draft"][:, :, h:h + 1], finp["positions"], finp["prefix_len"],
+            finp["tree_mask"]) for h in range(Hkv)], dim=2)
+
+    got = fops.flash_verify(**finp)
+    want_f = flash_plain()
+    torch.cuda.synchronize()
+    fkey = f"flash_verify_dh{dcfg.head_dim}"
+    note(fkey, check_close(f"{shape} flash draft layer 0 (S {finp['k_cache'].shape[1]}, "
+                           f"KS {fops.split_keys(finp['k_cache'].shape[1])})",
+                           got, want_f, "bfloat16"))
+    del got, want_f
+    ms, src, ev = time_kernel(lambda: fops.flash_verify(**finp), "flash_verify_kernel", iters=20)
+    plain = time_events(flash_plain, 2, warmup=1)
+    sdpa = sdpa_call(finp)
+    lib = time_events(sdpa, 5, warmup=1)
+    del sdpa
+    bnd = rl.flash_bound(finp)
+    times[fkey] = (ms, plain, bnd, lib)
+    log(f"[11 time] flash draft Dh {dcfg.head_dim} {shape}: {ms:.4f} ms ({src}; {ev:.4f} ms "
+        f"by CUDA events), plain {plain:.4f} ms, {bound_text(bnd)}, library "
+        f"(scaled_dot_product_attention) {lib:.4f} ms {sig}")
+    source = {"routing": ("routing.cu", "routing/kernel.py:70"),
+              "nsa": ("nsa_verify.cu", "nsa_verify/kernel.py:156"),
+              "flash": ("flash_verify.cu", "flash/kernel.py:69")}
+    for key, (ms, plain, bnd, lib) in times.items():
+        src, tpu = source[key.split("_")[0]]
+        src, tpu = "src/repro_torch/csrc/" + src, "src/repro/kernels/" + tpu
+        rows.append(dict(name=key + sfx, route="cuda", source=src, replaces=tpu, launches=0,
+                         max_abs_err=None, ms=ms, plain_ms=plain, bound_ms=bnd[0],
+                         bound_by=bnd[1], library_ms=lib))
+    return {"bf16_strict_vs_decode_max_abs_err": err, "bf16_same_argmax": same_top,
+            "launches": counts,
+            "kernels": {k: dict(ms=v[0], plain_ms=v[1], bound_ms=v[2][0], bound_by=v[2][1],
+                                library_ms=v[3]) for k, v in times.items()}}
+
+
 PAIR = dict(vocab=256, data_seed=11, batch=8, seq=1024, lr=3e-3, per_round=100,
             max_rounds=8, prompt_step=10_000, prompt_len=1024, tokens=16,
             loss_margin=0.1, min_distinct=4)
@@ -1897,31 +2059,12 @@ def leaves_of(tree):
     return tree_leaves(tree)
 
 
-def attention_flops(cfg, B, S):
-    """Forward FLOPs the train attention needs per step (all layers): 2 x
-    Dh for the logit and 2 x Dh for the value product of each (query, key)
-    pair a query attends, per query head. A query at position p attends
-    p + 1 keys in the dense causal attention; under NSA it attends the
-    num_cmp_blocks(p) compressed blocks of its prefix, at most min(n_selected
-    x sel_block, p) selected keys and min(window, p + 1) window keys. The
-    masked products the plain NSA version computes are not counted."""
-    import numpy as np
-    from repro_torch.models import nsa as nsa_lib
-    p = np.arange(S, dtype=np.float64)
-    if cfg.attention == "nsa":
-        nsa = cfg.nsa
-        ncb = np.array([nsa_lib.num_cmp_blocks(int(x), nsa) for x in p])
-        keys = ncb + np.minimum(nsa.n_selected * nsa.sel_block, p) + np.minimum(nsa.window, p + 1)
-    else:
-        keys = p + 1
-    return 4 * cfg.head_dim * cfg.num_heads * B * float(keys.sum()) * cfg.num_layers
-
-
 def train_full_width(cfg, ctx, steps=3, B=1, S=4096):
     """``steps`` Trainer steps of full-width ``cfg`` from ``init_params``;
     returns (numbers, trainer)."""
+    from repro_torch.analysis import roofline as rl
     from repro_torch.bridge import init_params
-    from repro_torch.config import TrainConfig
+    from repro_torch.config import ShapeConfig, TrainConfig
     from repro_torch.data.synthetic import SyntheticConfig
     from repro_torch.runtime.trainer import Trainer
     gen = torch.Generator(DEV)
@@ -1951,22 +2094,26 @@ def train_full_width(cfg, ctx, steps=3, B=1, S=4096):
     n_params = sum(p.numel() for p in leaves_of(tr.state.params))
     n_matmul = n_params - tr.state.params["embed"]["table"].numel()   # the lookup is no product
     step_s = statistics.median(x["time_s"] for x in m[1:])          # the first step warms up
-    # model FLOPs: forward + backward (3 x forward) of what the function
-    # needs; remat's recomputed forward and masked products not counted
-    flops = 6 * n_matmul * B * S + 3 * attention_flops(cfg, B, S)
+    # the share: roofline.model_flops (6 x active params x tokens + the
+    # causal / NSA attention term, the JAX formula) over the step time at
+    # 989 TFLOP/s; beside it the needed-FLOPs formula
+    flops = rl.model_flops(cfg, ShapeConfig("train", S, B, "train"))
+    needed = rl.train_flops_needed(cfg, n_matmul, B, S)
     res = dict(steps=steps, batch=B, seq=S, params=n_params, losses=[x["loss"] for x in m],
                grad_norms=[x["grad_norm"] for x in m], step_ms=[x["time_s"] * 1e3 for x in m],
                median_step_ms=step_s * 1e3, tokens_per_s=B * S / step_s, peak_gib=peak,
-               model_flops=flops, flops_share=flops / step_s / BF16_FLOPS_PER_S,
+               model_flops=flops, flops_share=rl.flops_share(flops, step_s),
+               needed_flops=needed, needed_flops_share=rl.flops_share(needed, step_s),
                leaves_moved=moved, leaves=len(leaves_of(tr.state.params)))
     log(f"{tag} {ctx['kind']} ({ctx['card']}): {n_params / 1e9:.3f}e9 params, {B} x {S} "
         f"tokens/step; losses {[round(x, 4) for x in res['losses']]}; grad norms "
         f"{[round(x, 3) for x in res['grad_norms']]}; step ms "
         f"{[round(x, 1) for x in res['step_ms']]} (median after the first "
         f"{res['median_step_ms']:.1f}); {res['tokens_per_s']:.0f} trained tokens/s; peak "
-        f"{peak:.2f} GiB; model FLOPs (6 x non-embedding params x tokens + needed attention) "
-        f"{flops / 1e12:.2f} TFLOP/step, "
-        f"{100 * res['flops_share']:.2f}% of 989 TFLOP/s; {moved}/{res['leaves']} leaves moved")
+        f"{peak:.2f} GiB; model FLOPs (roofline.model_flops) {flops / 1e12:.2f} TFLOP/step, "
+        f"{100 * res['flops_share']:.2f}% of 989 TFLOP/s (the needed-FLOPs formula, 6 x "
+        f"non-embedding params x tokens + needed attention: {needed / 1e12:.2f} TFLOP/step, "
+        f"{100 * res['needed_flops_share']:.2f}%); {moved}/{res['leaves']} leaves moved")
     return res, tr
 
 
@@ -2420,6 +2567,7 @@ def pre_redesign_text(key, ms):
 
 
 def kernel_times(cfgs, launches, max_err, kind, card, zoo=True):
+    from repro_torch.analysis import roofline as rl
     from repro_torch.kernels.nsa_verify import ops as vops
     rows = []
     bounds = {}
@@ -2429,7 +2577,7 @@ def kernel_times(cfgs, launches, max_err, kind, card, zoo=True):
         inp = verify_inputs(cfg, torch.bfloat16, seed=2)
         r_ms, r_src, r_ev = time_kernel(lambda: run_routing(cfg, inp, False), "routing_kernel")
         r_plain = time_events(lambda: run_routing(cfg, inp, True), 10)
-        r_bound = routing_bound(cfg, inp)
+        r_bound = rl.routing_bound(cfg, inp)
         bounds[f"routing_dh{Dh}"] = r_bound
         log(f"[8 time] routing Dh {Dh}: {r_ms:.4f} ms ({r_src}; {r_ev:.4f} ms by CUDA events; "
             f"{pre_redesign_text(f'routing dh{Dh}', r_ms)}), plain {r_plain:.4f} ms, "
@@ -2444,7 +2592,7 @@ def kernel_times(cfgs, launches, max_err, kind, card, zoo=True):
             ms, src, ev = time_kernel(lambda: run_verify(cfg, args, full, oc, False, branch),
                                       "nsa_verify_kernel")
             plain = time_events(lambda: run_verify(cfg, args, full, oc, True, branch), 5)
-            bnd = verify_bound(cfg, inp, args, full, branch)
+            bnd = rl.verify_bound(cfg, inp, args, full, branch)
             times[label] = (ms, plain, bnd)
             bounds[f"nsa_verify {label} dh{Dh}"] = bnd
             log(f"[8 time] nsa_verify {label} Dh {Dh}: {ms:.4f} ms ({src}; {ev:.4f} ms by "
@@ -2465,7 +2613,7 @@ def kernel_times(cfgs, launches, max_err, kind, card, zoo=True):
             ms, src, ev = time_kernel(lambda: run_verify(cfg, args, full, oc, False),
                                       "nsa_verify_kernel")
             plain = time_events(lambda: run_verify(cfg, args, full, oc, True), 5)
-            bnd = verify_bound(cfg, inp, args, full)
+            bnd = rl.verify_bound(cfg, inp, args, full)
             bounds[f"nsa_verify paged {label} dh{Dh}"] = bnd
             log(f"[8 time] nsa_verify paged {label} Dh {Dh}: {ms:.4f} ms ({src}; {ev:.4f} ms "
                 f"by CUDA events; dense {times[label][0]:.4f} ms; "
@@ -2504,7 +2652,7 @@ def kernel_times(cfgs, launches, max_err, kind, card, zoo=True):
         ms, src, ev = time_kernel(lambda: run_flash(inp, False), "flash_verify_kernel")
         plain = time_events(lambda: run_flash(inp, True), 10)
         lib = time_events(sdpa_call(inp), 20)
-        bnd = flash_bound(inp)
+        bnd = rl.flash_bound(inp)
         bounds[f"flash {label} dh{Dh}"] = bnd
         log(f"[8 time] flash {label} Dh {Dh}: {ms:.4f} ms ({src}; {ev:.4f} ms by CUDA "
             f"events; {pre_redesign_text(f'flash {label} dh{Dh}', ms)}), plain {plain:.4f} ms, "
@@ -2527,6 +2675,7 @@ def zoo_kernel_times(cfgs, launches, max_err, bounds, sig):
     full and partial; the paged refresh case where a zoo path runs paged).
     Rows: routing, exact C=2 full / partial and, at Gq 16, paged partial;
     then flash at the drafts' head dims (beside SDPA)."""
+    from repro_torch.analysis import roofline as rl
     rows = []
     verify_src = "src/repro_torch/csrc/nsa_verify.cu"
     for label, Dh, Hq, Hkv in ZOO_SHAPES:
@@ -2536,7 +2685,7 @@ def zoo_kernel_times(cfgs, launches, max_err, bounds, sig):
         tag = f"{label} Gq {gq} Dh {Dh}"
         ms, src, ev = time_kernel(lambda: run_routing(cfg, inp, False), "routing_kernel")
         plain = time_events(lambda: run_routing(cfg, inp, True), 5)
-        bnd = routing_bound(cfg, inp)
+        bnd = rl.routing_bound(cfg, inp)
         bounds[f"routing dh{Dh} gq{gq}"] = bnd
         log(f"[8 time] routing {tag}: {ms:.4f} ms ({src}; {ev:.4f} ms by CUDA events), plain "
             f"{plain:.4f} ms, {bound_text(bnd)}, library call: none {sig}")
@@ -2552,7 +2701,7 @@ def zoo_kernel_times(cfgs, launches, max_err, bounds, sig):
             ms, src, ev = time_kernel(lambda: run_verify(cfg, args, full, oc, False),
                                       "nsa_verify_kernel")
             plain = time_events(lambda: run_verify(cfg, args, full, oc, True), 3)
-            bnd = verify_bound(cfg, inp, args, full)
+            bnd = rl.verify_bound(cfg, inp, args, full)
             what = ("paged " if pool else "") + case
             bounds[f"nsa_verify {what} dh{Dh} gq{gq}"] = bnd
             log(f"[8 time] nsa_verify {what} {tag} ({C * gq} rows, "
@@ -2571,7 +2720,7 @@ def zoo_kernel_times(cfgs, launches, max_err, bounds, sig):
         ms, src, ev = time_kernel(lambda: run_flash(inp, False), "flash_verify_kernel")
         plain = time_events(lambda: run_flash(inp, True), 10)
         lib = time_events(sdpa_call(inp), 20)
-        bnd = flash_bound(inp)
+        bnd = rl.flash_bound(inp)
         bounds[f"flash {label} dh{Dh}"] = bnd
         log(f"[8 time] flash {label} Dh {Dh}: {ms:.4f} ms ({src}; {ev:.4f} ms by CUDA "
             f"events), plain {plain:.4f} ms, {bound_text(bnd)}, library "
@@ -2586,6 +2735,7 @@ def float32_times(cfgs, sig):
     """The redesigned kernels with float32 K/V (the float32 equality runs):
     device time per launch (profiler; CUDA events beside) at the bf16 rows'
     shapes, bound at the float32 CUDA-core rate. {case: numbers}."""
+    from repro_torch.analysis import roofline as rl
     out = {}
 
     def record(key, fn, name, bnd):
@@ -2597,24 +2747,24 @@ def float32_times(cfgs, sig):
     for Dh, cfg in cfgs.items():
         inp = verify_inputs(cfg, torch.float32, seed=2)
         record(f"routing dh{Dh}", lambda: run_routing(cfg, inp, False), "routing_kernel",
-               routing_bound(cfg, inp))
+               rl.routing_bound(cfg, inp))
         for label, C, mode, full, branch in VERIFY_CASES:
             args = verify_layouts(cfg, inp, C, mode)
             oc = inp["o_cmp_in"] if (not full and branch == "all") else None
             record(f"nsa_verify {label} dh{Dh}",
                    lambda: run_verify(cfg, args, full, oc, False, branch), "nsa_verify_kernel",
-                   verify_bound(cfg, inp, args, full, branch))
+                   rl.verify_bound(cfg, inp, args, full, branch))
         pool = paged_pool(cfg, inp, 1, holes=False, seed=3)
         args = verify_layouts(cfg, inp, 2, "exact", pool)
         record(f"nsa_verify paged exact C=2 partial dh{Dh}",
                lambda: run_verify(cfg, args, False, inp["o_cmp_in"], False), "nsa_verify_kernel",
-               verify_bound(cfg, inp, args, False))
+               rl.verify_bound(cfg, inp, args, False))
         del inp, pool
         free()
     for label, Hq, Hkv, Dh in FLASH_CASES:
         inp = flash_inputs(Hq, Hkv, Dh, torch.float32, seed=5)
         record(f"flash {label} dh{Dh}", lambda: run_flash(inp, False), "flash_verify_kernel",
-               flash_bound(inp))
+               rl.flash_bound(inp))
     return out
 
 

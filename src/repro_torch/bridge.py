@@ -13,7 +13,9 @@ package loads in the other.
 
 ``init_params`` draws the same distributions as the JAX ``model.init``
 (not the same numbers: the generators differ), so a machine without JAX
-can build a full-width model from a seed. Every leaf keeps its JAX dtype:
+can build a full-width model from a seed. On ``device="meta"`` (a CPU
+generator) it builds the tree's shapes and dtypes only, the counterpart of
+``jax.eval_shape(model.init)``. Every leaf keeps its JAX dtype:
 the recurrent blocks' ``lam``, ``wi``, ``wf``, ``bf``, ``w_h`` and ``b``
 are float32 in a bf16 model, as there.
 """
@@ -108,9 +110,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None) -> Di
     """Random parameters with the JAX ``model.init`` distributions (the MoE
     leaves with ``moe_init``'s, the router in float32 as there; the
     recurrent blocks with those of the JAX ``recurrent.INITS``), drawn from
-    ``generator`` (which must live on ``device``)."""
+    ``generator`` (which must live on ``device``; a CPU generator for
+    ``device="meta"``, which gives shapes and dtypes without storage)."""
     check_supported(cfg)
-    dev = resolve_device(device)
+    dev = resolve_device(device, shapes_only=True)
     dtype = dtype_of(cfg.dtype)
     d, hd = cfg.d_model, cfg.head_dim
     hq, hkv = cfg.num_heads, cfg.num_kv_heads

@@ -3,7 +3,9 @@ from repro_torch.config.base import (
     MoEConfig,
     NSAConfig,
     RecurrentConfig,
+    SHAPES,
     ServeConfig,
+    ShapeConfig,
     SSVConfig,
     TrainConfig,
 )
@@ -13,7 +15,9 @@ __all__ = [
     "MoEConfig",
     "NSAConfig",
     "RecurrentConfig",
+    "SHAPES",
     "ServeConfig",
+    "ShapeConfig",
     "SSVConfig",
     "TrainConfig",
 ]

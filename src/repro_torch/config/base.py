@@ -6,8 +6,8 @@ compare, and serialize trivially (msgpack/json via ``asdict``).
 
 A copy of ``repro.config.base`` (stdlib only) with the same fields and
 defaults for the configs the port serves with, kept in the PyTorch package
-so it imports nothing of the JAX one (the shape and mesh configs come with
-their slices).
+so it imports nothing of the JAX one. ``ShapeConfig`` and ``SHAPES`` are the
+dry run's cell shapes; the mesh config has no single-card counterpart.
 """
 from __future__ import annotations
 
@@ -193,6 +193,24 @@ class ModelConfig:
 
     def to_json(self) -> str:
         return json.dumps(dataclasses.asdict(self), indent=2, default=str)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One (input-shape) cell: training or serving shapes."""
+
+    name: str = "train_4k"
+    seq_len: int = 4096
+    global_batch: int = 256
+    kind: str = "train"  # train | prefill | decode
+
+
+SHAPES: Tuple[ShapeConfig, ...] = (
+    ShapeConfig("train_4k", 4096, 256, "train"),
+    ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    ShapeConfig("decode_32k", 32768, 128, "decode"),
+    ShapeConfig("long_500k", 524288, 1, "decode"),
+)
 
 
 @dataclass(frozen=True)

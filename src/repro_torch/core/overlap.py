@@ -1,6 +1,9 @@
-"""Cross-query grouping layouts (paper §4) — the PyTorch counterparts of
-``repro.core.overlap``'s serving pieces:
+"""Cross-query overlap machinery (paper §4) — the PyTorch counterparts of
+``repro.core.overlap``:
 
+  * overlap statistics — the Fig. 2 / Fig. 4 profiling quantities
+    (``overlap_ratio``, ``adjacent_overlap``,
+    ``pairwise_overlap_by_distance``), with set semantics;
   * ``group_queries`` — static grouping of the flattened tree into groups of
     C adjacent queries (host numpy, memoized);
   * ``merged_schedule`` (exact variant) — per-group sorted union of the
@@ -23,6 +26,53 @@ SENTINEL = 2 ** 30
 
 def pad_to_groups(T: int, C: int) -> int:
     return -(-T // C)
+
+
+def _dedupe(idx, valid):
+    """Sort and keep only first occurrences (set semantics for ratio math):
+    (sorted keys with SENTINEL for invalid entries, first-occurrence mask)."""
+    key = torch.where(valid, idx.to(torch.int64), torch.full((), SENTINEL, dtype=torch.int64,
+                                                              device=idx.device))
+    s, _ = torch.sort(key, dim=-1, stable=True)
+    first = torch.cat([torch.ones(s.shape[:-1] + (1,), dtype=torch.bool, device=s.device),
+                       s[..., 1:] != s[..., :-1]], dim=-1)
+    return s, first & (s < SENTINEL)
+
+
+def overlap_ratio(idx_a, valid_a, idx_b, valid_b):
+    """|I_a ∩ I_b| / |I_a ∪ I_b| (set semantics) for two index sets (..., n);
+    1.0 where both sets are empty. float32."""
+    ia, va = _dedupe(idx_a, valid_a)
+    ib, vb = _dedupe(idx_b, valid_b)
+    eq = (ia[..., :, None] == ib[..., None, :]) & va[..., :, None] & vb[..., None, :]
+    inter = eq.any(-1).sum(-1).to(torch.float32)
+    na = va.sum(-1).to(torch.float32)
+    nb = vb.sum(-1).to(torch.float32)
+    union = na + nb - inter
+    return torch.where(union > 0, inter / union.clamp_min(1), torch.ones_like(union))
+
+
+def adjacent_overlap(sel_idx, sel_valid):
+    """Mean selected-block overlap between adjacent verifier queries
+    (Fig. 2). sel_idx: (B, T, Hkv, n). Returns (T-1,) per-adjacency means."""
+    r = overlap_ratio(sel_idx[:, :-1], sel_valid[:, :-1], sel_idx[:, 1:], sel_valid[:, 1:])
+    return r.mean(dim=(0, 2))
+
+
+def pairwise_overlap_by_distance(sel_idx, sel_valid, positions, max_delta: int = 16):
+    """Fig. 4: overlap ratio vs |token-position distance|. Returns
+    (deltas (max_delta,) numpy, mean overlap (max_delta,), NaN where no pair
+    lies at that distance)."""
+    r = overlap_ratio(sel_idx[:, :, None], sel_valid[:, :, None],
+                      sel_idx[:, None, :], sel_valid[:, None, :])     # (B,T,T,H)
+    d = (positions[:, :, None] - positions[:, None, :]).abs()        # (B,T,T)
+    out = []
+    for delta in range(1, max_delta + 1):
+        m = (d == delta)[..., None].expand(r.shape)
+        cnt = m.sum()
+        tot = torch.where(m, r, torch.zeros((), device=r.device)).sum()
+        out.append(tot / cnt if cnt > 0 else torch.tensor(float("nan"), device=r.device))
+    return np.arange(1, max_delta + 1), torch.stack(out)
 
 
 @functools.lru_cache(maxsize=4096)

@@ -20,7 +20,8 @@
 // sequential grid dimension; here that would be B*Hkv = 8 CTAs on 132 SMs.
 // So the work is split three ways: grid.z = (b, kv head), grid.y = tiles
 // of RT = 16 query rows (R = T*Gq rows: 31 for the draft, 124 for a Gq-4
-// target), grid.x = splits of KS cache keys plus one split for the draft
+// target), grid.x = splits of KS cache keys (512; more past 255 splits,
+// ops.py:split_keys, so the merge table fits) plus one split for the draft
 // tokens. A split holds the keys below prefix_len, at or below the deepest
 // row and inside the shallowest row's window; a split with none (past the
 // prefix, before the window) exits at once. The others walk their keys in

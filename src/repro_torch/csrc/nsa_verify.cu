@@ -81,7 +81,8 @@ namespace {
 using namespace online_softmax;
 
 constexpr int MBMAX = 32;              // merged blocks per slc chunk
-constexpr int NXMAX = 64;              // chunks per (b, g, h)
+constexpr int NXMAX = 256;             // chunks per (b, g, h): the merge table 2 x NXMAX x RT
+                                       // floats fits every instance's ring scratch
 
 template <typename KV, int DH>
 struct Smem {

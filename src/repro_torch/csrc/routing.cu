@@ -27,7 +27,9 @@
 // - Split. The cmp list (capacity NCB, never the visible length: no host
 //   sync) is cut into n_cmp chunks of `keys` blocks (ops.py:routing_plan,
 //   shapes only: `keys` grows with NCB up to KMAX so that a long cache
-//   keeps few chunks); grid (G * HS * n_cmp, Hkv, B). Visibility is a prefix of
+//   keeps few chunks, and past SPLITS x KMAX blocks the chunks grow in
+//   number, up to NXMAX: 65 at 524,800 tokens); grid (G * HS * n_cmp,
+//   Hkv, B). Visibility is a prefix of
 //   the blocks (block ends grow with the index), so a chunk walks its blocks
 //   below the deepest row's visible prefix; a chunk past it walks none and
 //   still takes its ticket, as do rows with ncb_valid 0.
@@ -80,7 +82,8 @@ namespace {
 using namespace online_softmax;
 
 constexpr int KMAX = 512;              // cmp blocks per chunk (the logit buffer)
-constexpr int NXMAX = 64;              // chunks per (b, group, kv head)
+constexpr int NXMAX = 256;             // chunks per (b, group, kv head): the merge table
+                                       // 2 x NXMAX x RT floats fits every instance's scratch
 
 template <typename KV, int DH>
 struct Smem {

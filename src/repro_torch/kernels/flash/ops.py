@@ -19,7 +19,11 @@ from repro_torch.kernels.flash import ref
 LAUNCHES = LaunchCounter("flash_verify")
 HEAD_DIMS = (64, 80, 96, 128, 160, 192, 256)   # csrc/flash_verify.cu HEAD_DIMS
 ROWS_PER_CTA = 16           # RT in the kernel
-KEYS_PER_SPLIT = 512        # cache keys per CTA (KS in the kernel)
+KEYS_PER_SPLIT = 512        # cache keys per CTA (KS in the kernel) up to MAX_SPLITS splits
+# cache splits per (row, kv head, row tile): the last CTA's merge table, 2 x
+# (splits + 1) x 16 floats, must fit the ring scratch of every instance
+# (9,216 floats at bf16 Dh 64; the kernel refuses a launch past it)
+MAX_SPLITS = 255
 
 _tickets: Dict[Tuple[torch.device, int], torch.Tensor] = {}
 # buffers that a larger request replaced: a captured CUDA graph may still
@@ -51,6 +55,16 @@ def _ticket_buffer(n: int, dev, stream: int) -> torch.Tensor:
             _retired.append(t)
         t = _tickets[key] = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
     return t
+
+
+def split_keys(S: int) -> int:
+    """Cache keys per split (KS) for a cache of S keys: ``KEYS_PER_SPLIT``
+    while that gives at most ``MAX_SPLITS`` splits, else the fewest keys
+    (a multiple of the 16-key unit) that keep ``MAX_SPLITS`` (2,064 at a
+    524,800-key cache, 255 splits)."""
+    if -(-S // KEYS_PER_SPLIT) <= MAX_SPLITS:
+        return KEYS_PER_SPLIT
+    return 16 * -(-S // (16 * MAX_SPLITS))
 
 
 def draft_mask(tree_mask, positions, Gq: int, window: int = 0):
@@ -127,7 +141,8 @@ def launch(q, k_cache, v_cache, k_draft, v_draft, positions, prefix_len, dmask,
             raise ValueError(f"{name} must be 16-byte aligned (16-byte K/V loads)")
         if shapes[name][0].numel() >= 2 ** 31:
             raise ValueError(f"{name} must hold fewer than 2^31 elements (32-bit offsets)")
-    NX = -(-S // KEYS_PER_SPLIT) + 1
+    KS = split_keys(S)
+    NX = -(-S // KS) + 1
     NRT = -(-T * Gq // ROWS_PER_CTA)
     slabs = B * Hkv * NRT * NX * ROWS_PER_CTA
     part_ml = torch.empty(slabs * 2, dtype=torch.float32, device=dev)
@@ -137,7 +152,7 @@ def launch(q, k_cache, v_cache, k_draft, v_draft, positions, prefix_len, dmask,
     out = torch.empty((B, T, Hq, Dh), dtype=torch.float32, device=dev)
     ptrs = [t.data_ptr() for t in (q, k_cache, v_cache, k_draft, v_draft, positions,
                                    prefix_len, dmask, part_ml, part_acc, tickets, out)]
-    ints = [B, T, S, Hkv, Gq, window, Dh, KEYS_PER_SPLIT]
+    ints = [B, T, S, Hkv, Gq, window, Dh, KS]
     err = _lib()((ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_int * len(ints))(*ints),
                  0 if kv_t == torch.float32 else 1, stream)
     if err != 0:

@@ -42,7 +42,7 @@ ROWS_PER_CTA = 16           # RT in the kernel: query rows per CTA (one row tile
 BRANCHES = {"all": 0, "slc": 1, "win": 2}   # the kernel's ``branch`` flag
 KEYS_PER_CHUNK = 512        # keys per CTA at up to 8 rows (256 above: twice the dots)
 MAX_BLOCKS_PER_CHUNK = 32   # MBMAX in the kernel
-MAX_CHUNKS = 64             # NXMAX in the kernel
+MAX_CHUNKS = 256            # NXMAX in the kernel (136 in full fusion at 524,800 tokens)
 
 
 def split_plan(M: int, NCB: int, W: int, sel_block: int, include_cmp: bool,

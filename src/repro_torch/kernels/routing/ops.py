@@ -23,7 +23,7 @@ ROWS_PER_CTA = 16           # RT in the kernel: query rows per CTA
 KEYS_PER_CHUNK = 128        # cmp blocks per CTA while the cache is short
 MAX_KEYS = 512              # KMAX in the kernel (its logit buffer)
 SPLITS = 8                  # chunks per work list up to NCB = SPLITS * MAX_KEYS
-MAX_CHUNKS = 64             # NXMAX in the kernel
+MAX_CHUNKS = 256            # NXMAX in the kernel (65 chunks at 524,800 tokens)
 
 
 def query_groups(T: int, Gq: int):
@@ -41,8 +41,10 @@ def routing_plan(NCB: int, nsa: NSAConfig):
     CTAs, from shapes only: (n_cmp, keys, span). Chunks of ``keys`` blocks
     (``KEYS_PER_CHUNK``, grown in units of 16 up to ``MAX_KEYS`` so that a
     long list keeps at most ``SPLITS`` chunks); ``span`` bounds the
-    selection blocks one chunk overlaps (its chunk-local scores). A list
-    has at least one chunk, possibly empty."""
+    selection blocks one chunk overlaps (its chunk-local scores). Past
+    ``SPLITS`` x ``MAX_KEYS`` blocks the chunks stay at ``MAX_KEYS`` and
+    grow in number (65 at 33,280 blocks, a 524,800-token cache). A list has
+    at least one chunk, possibly empty."""
     keys = min(MAX_KEYS, max(KEYS_PER_CHUNK, 16 * -(-NCB // (16 * SPLITS))))
     n_cmp = max(1, -(-NCB // keys))
     span = ((keys - 1) * nsa.cmp_stride + nsa.cmp_block + nsa.sel_block - 2) \

@@ -1,0 +1,340 @@
+"""Dry run of the cell matrix on one card — the counterpart of
+``repro.launch.dryrun``, which lowers and compiles every (architecture x
+input shape x mesh) cell on placeholder devices.
+
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --list
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch ssv-nsa-1b --shape decode_32k
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch ssv-nsa-1b \
+      --shape decode_32k,long_500k --run          # on the card
+  ... --force     re-write cells whose record already exists
+
+One card has no mesh and no placeholder compile. ``--list`` prints the 12 x
+4 matrix with each cell's static bytes (``launch.specs.cell_bytes``, on the
+``meta`` device, so it runs on the CPU), the largest batch that fits one
+80 GiB card and its analytic ``Roofline`` row (``analysis.roofline``). With
+no ``--run`` each selected cell's record (the same numbers) is written to
+``<--out>/static/<arch>__<shape>.json``.
+
+``--run`` is for the card only (without one it raises; it never falls back
+to the CPU), and only for decode cells whose static bytes fit the card at
+batch 1. It builds the cell at full width from ``--seed`` (target and its
+``draft_config`` draft), fills both caches to ``seq_len`` — the JAX dry
+run's semantics, the cache is FULL — with seeded random K/V rows, the
+target's compressed blocks being ``nsa.compress_kv`` of those rows (in
+chunks), and then runs, on the D4/k2 tree (T = 31) at positions ``seq_len
+...``: one Strict and one Approx+Reuse ``model.verify_step``, the draft's
+tree expansion (its ``verify_step`` passes through the flash kernel) and
+``model.decode_step``. Each step runs once to warm up, once timed on the
+host clock (synchronised) and once under the profiler (device busy time);
+the record holds wall and busy time per step, the port's kernel launches
+per step, peak device memory, and the cell's ``Roofline`` row at batch 1,
+checked against the card's ``total_memory``. It goes to
+``<--out>/run/<arch>__<shape>.json``.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import time
+from pathlib import Path
+from typing import Callable, Dict, List, Optional
+
+import torch
+
+from repro_torch import configs as cfglib
+from repro_torch.analysis import roofline as rl
+from repro_torch.bridge import init_params
+from repro_torch.config import SHAPES, SSVConfig
+from repro_torch.core import draft as draft_lib
+from repro_torch.core import planner as planner_lib
+from repro_torch.core.tree import build_topology
+from repro_torch.device import resolve_device
+from repro_torch.kernels import LaunchCounter
+from repro_torch.launch import specs
+from repro_torch.models import model
+from repro_torch.models import nsa as nsa_lib
+
+ART_DIR = Path(__file__).resolve().parents[3] / "build" / "dryrun"
+MESH = "card"                 # one card, no mesh
+CMP_CHUNK = 4096              # compressed blocks built per compress_kv call
+
+
+# ---------------------------------------------------------------- static cells
+def static_record(arch_id: str, shape_name: str,
+                  capacity: float = rl.HBM_PER_CARD) -> Dict:
+    """The cell's static bytes at batch 1, the largest batch that fits
+    ``capacity`` and the analytic ``Roofline`` row at that batch (at batch 1
+    when none fits)."""
+    shape = specs.SHAPE_BY_NAME[shape_name]
+    cfg, over = specs.cell_config(arch_id, shape_name)
+    fit = specs.fit_batch(arch_id, shape_name, capacity)
+    b = max(fit, 1)
+    at = specs.cell_bytes(arch_id, shape_name, b)
+    cost = rl.step_cost(cfg, shape, batch=b, weight_bytes=specs.param_bytes(cfg))
+    roof = rl.build(arch_id, dataclasses.replace(shape, global_batch=b), MESH, 1, cfg, cost,
+                    at["total"], capacity)
+    return {"arch": arch_id, "shape": shape_name, "kind": shape.kind, "seq_len": shape.seq_len,
+            "global_batch": shape.global_batch, "config_name": cfg.name, "overrides": over,
+            "params": cfg.param_count(), "active_params": cfg.active_param_count(),
+            "bytes_batch1": specs.cell_bytes(arch_id, shape_name, 1), "fit_batch": fit,
+            "batch": b, "bytes": at, "roofline": roof.row(), "capacity_bytes": capacity}
+
+
+def list_cells(archs: List[str], shapes: List[str]) -> List[Dict]:
+    """Print the cell matrix with its fit table; returns the records."""
+    gb = 1e9
+    print(f"{'arch':22s} {'shape':12s} {'kind':8s} {'weights GB':>10s} {'cache GB':>9s} "
+          f"{'B=1 GB':>8s} {'fit B':>6s} {'of':>4s} {'bottleneck':>10s} {'step ms':>9s}")
+    recs = []
+    for a in archs:
+        for s in shapes:
+            r = static_record(a, s)
+            one = r["bytes_batch1"]
+            cache = one.get("target_cache", 0) + one.get("draft_cache", 0)
+            roof = r["roofline"]
+            step_ms = 1e3 * max(roof["compute_s"], roof["memory_s"], roof["collective_s"])
+            print(f"{a:22s} {s:12s} {r['kind']:8s} {one['weights'] / gb:10.2f} "
+                  f"{cache / gb:9.2f} {one['total'] / gb:8.2f} {r['fit_batch']:6d} "
+                  f"{r['global_batch']:4d} {roof['bottleneck']:>10s} {step_ms:9.3f}")
+            recs.append(r)
+    print(f"{len(recs)} cells; {sum(r['fit_batch'] > 0 for r in recs)} fit one card "
+          f"({rl.HBM_PER_CARD / 2 ** 30:.0f} GiB) at batch >= 1; activations not reckoned")
+    return recs
+
+
+# ---------------------------------------------------------------- full cells on the card
+def strict_ssv() -> SSVConfig:
+    return SSVConfig(tree_depth=4, tree_width=2)
+
+
+def approx_reuse_ssv(num_layers: int) -> SSVConfig:
+    return SSVConfig(tree_depth=4, tree_width=2, group_size=4, group_mode="approx",
+                     refresh_schedule=planner_lib.default_schedule(num_layers),
+                     precision_class="Approx+Reuse")
+
+
+@torch.no_grad()
+def fill_caches(params, cfg, caches, seq_len: int, g: torch.Generator) -> None:
+    """Fill ``caches`` to ``seq_len`` committed tokens: K/V rows drawn from
+    ``g`` (standard normal, the cache dtype), each NSA layer's compressed
+    blocks ``nsa.compress_kv`` of its rows, ``CMP_CHUNK`` blocks at a time.
+    Recurrent states keep their initial values."""
+    nsa = cfg.nsa
+    for lp, c in zip(params["layers"], caches["layers"]):
+        if "kv" not in c:
+            continue
+        k, v = c["kv"]["k"], c["kv"]["v"]
+        k[:, :seq_len].normal_(generator=g)
+        v[:, :seq_len].normal_(generator=g)
+        if "cmp" not in c:
+            continue
+        ncb = nsa_lib.num_cmp_blocks(seq_len, nsa)
+        for n0 in range(0, ncb, CMP_CHUNK):
+            n1 = min(ncb, n0 + CMP_CHUNK)
+            a, b = n0 * nsa.cmp_stride, (n1 - 1) * nsa.cmp_stride + nsa.cmp_block
+            kc, vc = nsa_lib.compress_kv(lp["mix"], k[:, a:b], v[:, a:b], nsa)
+            c["cmp"]["k_cmp"][:, n0:n1] = kc
+            c["cmp"]["v_cmp"][:, n0:n1] = vc
+    caches["length"].fill_(seq_len)
+
+
+class FullCell:
+    """A decode cell at full width on the card, batch 1: target and draft
+    weights from ``seed``, both caches full to ``seq_len`` (``CACHE_SLACK``
+    more slots), a D4/k2 tree of seeded tokens at positions ``seq_len +
+    depth``. ``verify``, ``draft`` and ``decode`` are the steps ``--run``
+    measures; ``decode`` commits one token each call. ``dtype`` replaces
+    the config's (both models), e.g. "float32" for an equality check
+    free of bf16 rounding."""
+
+    def __init__(self, arch_id: str, shape_name: str, seed: int = 0, device=None,
+                 dtype: Optional[str] = None):
+        dev = resolve_device(device)
+        if dev.type != "cuda":
+            raise RuntimeError("dryrun --run measures a cell on the card; it has no CPU mode")
+        shape = specs.SHAPE_BY_NAME[shape_name]
+        if shape.kind != "decode":
+            raise ValueError(f"--run drives decode cells; {shape_name} is a {shape.kind} cell")
+        capacity = torch.cuda.get_device_properties(dev).total_memory
+        cfg = specs.cell_config(arch_id, shape_name)[0]
+        if dtype is not None:
+            cfg = dataclasses.replace(cfg, dtype=dtype)
+        if specs.config_bytes(cfg, shape, 1)["total"] > capacity:
+            raise ValueError(f"{arch_id} x {shape_name} ({cfg.dtype}) does not fit one card "
+                             "at batch 1")
+        self._build(arch_id, cfg, shape, seed, dev, capacity)
+
+    def _build(self, arch_id: str, cfg, shape, seed: int, dev, capacity: float) -> None:
+        """Weights, filled caches and the tree on ``dev`` (the CPU tests
+        build a reduced cell this way; ``--run`` only ever on the card)."""
+        self.arch, self.shape, self.device, self.capacity = arch_id, shape, dev, capacity
+        self.cfg = cfg
+        self.dcfg = draft_lib.draft_config(self.cfg)
+        g = torch.Generator(dev)
+        g.manual_seed(seed)
+        self.params = init_params(self.cfg, g, dev)
+        self.dparams = init_params(self.dcfg, g, dev)
+        max_len = shape.seq_len + specs.CACHE_SLACK
+        self.caches = model.init_caches(self.cfg, 1, max_len, dev)
+        self.dcaches = model.init_caches(self.dcfg, 1, max_len, dev)
+        fill_caches(self.params, self.cfg, self.caches, shape.seq_len, g)
+        fill_caches(self.dparams, self.dcfg, self.dcaches, shape.seq_len, g)
+        self.topo = build_topology(4, 2, "bfs")
+        self.tree = draft_lib.TreeTensors(self.topo, dev)
+        T = self.topo.num_nodes
+        self.tokens = torch.randint(0, self.cfg.vocab_size, (1, T), generator=g, device=dev)
+        self.positions = (self.tree.depths[None] + shape.seq_len).to(torch.int32)
+        self.tree_mask = self.tree.mask[None]
+
+    def verify(self, ssv: SSVConfig):
+        """The target's tree verify: (logits (1, T, V), updates)."""
+        return model.verify_step(self.params, self.cfg, self.caches, self.tokens,
+                                 self.positions, self.tree_mask, self.topo.parents, ssv)
+
+    def draft(self):
+        """The draft's tree expansion from the root token: levels + 1
+        verify passes (the engine's draft work per step)."""
+        def dverify(caches, tk, pos, tm):
+            return model.verify_step(self.dparams, self.dcfg, caches, tk, pos, tm,
+                                     self.topo.parents)
+        return draft_lib.expand_tree(dverify, self.dcaches, self.tree, self.tokens[:, 0])
+
+    def decode(self):
+        """One ``decode_step`` of the root token; commits it. Its logits."""
+        logits, self.caches = model.decode_step(self.params, self.cfg, self.caches,
+                                                self.tokens[:, :1])
+        return logits
+
+
+def _profile(fn, top: int = 6) -> Dict:
+    """One call of ``fn`` under the profiler: device busy time (every
+    kernel and copy), device kernels, and the ``top`` kernels by time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kern = sorted(((getattr(ev, "self_device_time_total", 0.0) or
+                    getattr(ev, "self_cuda_time_total", 0.0)) / 1e3, ev.count, ev.key[:80])
+                  for ev in prof.key_averages()
+                  if getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA)
+    return {"device_busy_ms": sum(k[0] for k in kern),
+            "device_kernels": sum(k[1] for k in kern),
+            "top": [{"ms": ms, "launches": n, "name": name} for ms, n, name in kern[::-1][:top]]}
+
+
+def measure(cell: FullCell, outputs: Optional[Dict] = None) -> Dict:
+    """Run ``cell``'s steps (each warm, timed, profiled; the decode last, as
+    it commits) and return the record; ``outputs`` (a dict) receives the
+    first Strict verify's logits and the first decode's, at the same cache."""
+    steps = [("verify Strict", lambda: cell.verify(strict_ssv())),
+             ("verify Approx+Reuse", lambda: cell.verify(approx_reuse_ssv(cell.cfg.num_layers))),
+             ("draft expand_tree", cell.draft),
+             ("decode_step", cell.decode)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rec = {}
+    for name, fn in steps:
+        snap = LaunchCounter.snapshot()
+        first = fn()
+        torch.cuda.synchronize()
+        launches = {c.name: n for c, n in LaunchCounter.since(snap).items()}
+        if outputs is not None and name in ("verify Strict", "decode_step"):
+            outputs[name] = (first[0] if isinstance(first, tuple) else first).float()
+        del first
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        rec[name] = {"wall_ms": wall, **_profile(fn), "launches": launches}
+    peak = torch.cuda.max_memory_allocated()
+    shape1 = dataclasses.replace(cell.shape, global_batch=1)
+    cost = rl.step_cost(cell.cfg, shape1, batch=1,
+                        weight_bytes=specs.param_bytes(cell.cfg))
+    roof = rl.build(cell.arch, shape1, MESH, 1, cell.cfg, cost, peak, cell.capacity)
+    dec_s = rec["decode_step"]["wall_ms"] / 1e3
+    return {"arch": cell.arch, "shape": cell.shape.name, "seq_len": cell.shape.seq_len,
+            "batch": 1, "config_name": cell.cfg.name, "draft_config": cell.dcfg.name,
+            "device": torch.cuda.get_device_name(cell.device), "steps": rec,
+            "peak_bytes": peak, "capacity_bytes": cell.capacity,
+            "static_bytes": specs.cell_bytes(cell.arch, cell.shape.name, 1),
+            "roofline": roof.row(), "decode_bound_ms": roof.step_time_s * 1e3,
+            "decode_model_flops_share": rl.flops_share(rl.model_flops(cell.cfg, shape1), dec_s)}
+
+
+def run_cell(arch_id: str, shape_name: str, out_dir: Path, force: bool = False,
+             run: bool = False, seed: int = 0, inspect: Optional[Callable] = None) -> Dict:
+    """One cell's record: static (no ``run``) or measured on the card
+    (``run``). Reads an existing record unless ``force``; writes it as
+    JSON under ``out_dir``. ``inspect(cell, record, outputs)``, called on a
+    measured cell before it is freed, returns what goes under the record's
+    ``"checks"`` (``outputs``: the first Strict verify's and decode's
+    logits)."""
+    path = Path(out_dir) / ("run" if run else "static") / f"{arch_id}__{shape_name}.json"
+    if path.exists() and not force:
+        return json.loads(path.read_text())
+    t0 = time.time()
+    if run:
+        cell = FullCell(arch_id, shape_name, seed)
+        build_s = time.time() - t0
+        outputs = {}
+        rec = {"build_s": build_s, **measure(cell, outputs)}
+        if inspect is not None:
+            rec["checks"] = inspect(cell, rec, outputs)
+        del cell, outputs
+        torch.cuda.empty_cache()
+    else:
+        rec = static_record(arch_id, shape_name)
+    rec["wall_s"] = time.time() - t0
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps(rec, indent=1, default=str))
+    return rec
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", default="all", help="comma-separated ids, or all")
+    ap.add_argument("--shape", default="all", help="comma-separated shape names, or all")
+    ap.add_argument("--force", action="store_true", help="re-write existing records")
+    ap.add_argument("--list", action="store_true", help="print the cell matrix and exit")
+    ap.add_argument("--run", action="store_true",
+                    help="measure the selected decode cells that fit at batch 1 on the card")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default=str(ART_DIR))
+    args = ap.parse_args(argv)
+    archs = list(cfglib.ARCH_IDS) if args.arch == "all" else args.arch.split(",")
+    shapes = [s.name for s in SHAPES] if args.shape == "all" else args.shape.split(",")
+    for s in shapes:
+        if s not in specs.SHAPE_BY_NAME:
+            raise KeyError(f"unknown shape {s!r}; known: {tuple(specs.SHAPE_BY_NAME)}")
+    if args.list:
+        list_cells(archs, shapes)
+        return 0
+    if args.run:
+        dev = resolve_device("cuda")          # raises without a card
+        capacity = torch.cuda.get_device_properties(dev).total_memory
+    for a in archs:
+        for s in shapes:
+            if args.run and (specs.SHAPE_BY_NAME[s].kind != "decode" or
+                             specs.fit_batch(a, s, capacity) < 1):
+                print(f"[SKIP] {a:22s} {s:12s} (--run takes decode cells that fit at batch 1)")
+                continue
+            rec = run_cell(a, s, Path(args.out), args.force, args.run, args.seed)
+            r = rec["roofline"]
+            if args.run:
+                st = rec["steps"]
+                print(f"[RUN]  {a:22s} {s:12s} " + ", ".join(
+                    f"{k} {v['wall_ms']:.2f} ms (busy {v['device_busy_ms']:.2f})"
+                    for k, v in st.items()) +
+                    f"; peak {rec['peak_bytes'] / 2 ** 30:.2f} GiB; decode bound "
+                    f"{rec['decode_bound_ms']:.4f} ms ({r['bottleneck']})", flush=True)
+            else:
+                step = max(r["compute_s"], r["memory_s"], r["collective_s"])
+                print(f"[OK]   {a:22s} {s:12s} fit batch {rec['fit_batch']:4d} "
+                      f"bottleneck={r['bottleneck']:10s} step={step:.4f}s "
+                      f"bytes/card={rec['bytes']['total'] / 2 ** 30:.2f}GiB", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,157 @@
+"""The dry run's cell matrix on one card (``repro_torch.launch.specs`` /
+``dryrun``): the ``meta`` parameter and cache trees hold the bytes of
+``jax.eval_shape(model.init)`` / ``init_caches`` for every arch, reduced
+variants too; the cell configs are the JAX dry run's; ``cell_bytes`` and
+``fit_batch`` reckon the long-context cells as ``ROADMAP.md`` does;
+``--list`` prints the 48 cells on the CPU; ``--run`` raises without a card
+(no CPU fallback); ``fill_caches`` fills a cache to its length with the
+compressed blocks of its rows; and a reduced cell built on the CPU gives
+Strict verify root logits equal to ``decode_step``'s at the full cache."""
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as jcfg
+from repro.models import model as jmodel
+from repro_torch import configs
+from repro_torch.analysis import roofline as rl
+from repro_torch.config import ShapeConfig
+from repro_torch.launch import dryrun, specs
+from repro_torch.models import nsa as nsa_lib
+
+torch.set_num_threads(1)
+
+
+def _jax_bytes(tree):
+    return sum(int(np.prod(x.shape)) * x.dtype.itemsize for x in jax.tree.leaves(tree))
+
+
+def _variants(arch):
+    return [("full", configs.get_config(arch), jcfg.get_config(arch)),
+            ("reduced", configs.reduced(arch), jcfg.reduced(arch))]
+
+
+@pytest.mark.parametrize("arch", configs.ARCH_IDS)
+def test_meta_bytes_equal_jax_eval_shape(arch):
+    for label, cfg, jc in _variants(arch):
+        jp = jax.eval_shape(lambda: jmodel.init(jax.random.PRNGKey(0), jc))
+        assert specs.param_bytes(cfg) == _jax_bytes(jp), label
+        assert rl.tree_numel(rl.param_tree(cfg)) == sum(
+            int(np.prod(x.shape)) for x in jax.tree.leaves(jp)), label
+        for max_len in (8192 + specs.CACHE_SLACK, 33280):
+            jcache = jax.eval_shape(lambda: jmodel.init_caches(jc, 1, max_len))
+            assert specs.cache_bytes(cfg, 1, max_len) == _jax_bytes(jcache), (label, max_len)
+
+
+@pytest.mark.parametrize("arch", configs.ARCH_IDS)
+def test_cell_configs_are_the_jax_dry_runs(arch):
+    for shape in specs.SHAPE_BY_NAME:
+        cfg, over = specs.cell_config(arch, shape)
+        jc = jcfg.get_config(arch)
+        if jcfg.dryrun_overrides(arch).get(shape, {}).get("nsa"):
+            jc = jcfg.nsa_variant(jc)
+        assert cfg.name == jc.name and cfg.attention == jc.attention
+        assert over == jcfg.dryrun_overrides(arch).get(shape, {})
+
+
+def test_cell_bytes_of_the_long_context_cells():
+    """ssv-nsa-1b at 524,288 + 512 tokens: 16 layers of K/V (8 heads x 64,
+    bf16) and compressed blocks padded to 512, the draft's 2 layers, all
+    at batch 1; it fits one card only at batch 1. ssv-nsa-8b at 524,288
+    does not fit; at 32,768 it does, at 13 rows."""
+    b = specs.cell_bytes("ssv-nsa-1b", "long_500k", 1)
+    S = 524288 + 512
+    ncb = -(-((S - 32) // 16 + 1) // 512) * 512
+    assert b["target_cache"] == 16 * (S + ncb) * 8 * 64 * 2 * 2 + 4
+    assert b["draft_cache"] == 2 * S * 8 * 64 * 2 * 2 + 4
+    assert b["total"] == b["weights"] + b["target_cache"] + b["draft_weights"] + b["draft_cache"]
+    assert round(b["target_cache"] / 1e9, 2) == 18.29 and round(b["draft_cache"] / 1e9, 2) == 2.15
+    assert specs.fit_batch("ssv-nsa-1b", "long_500k") == 1
+    assert specs.fit_batch("ssv-nsa-8b", "long_500k") == 0
+    assert specs.fit_batch("ssv-nsa-8b", "decode_32k") == 13
+    assert specs.fit_batch("ssv-nsa-1b", "train_4k") == 256        # activations not reckoned
+    t = specs.cell_bytes("ssv-nsa-8b", "train_4k", 256)
+    assert t["grads"] == t["weights"] and t["adam_moments"] == 8 * rl.tree_numel(
+        rl.param_tree(configs.get_config("ssv-nsa-8b")))
+    two = specs.cell_bytes("ssv-nsa-8b", "decode_32k", 2)
+    one = specs.cell_bytes("ssv-nsa-8b", "decode_32k", 1)
+    assert two["target_cache"] == 2 * one["target_cache"] and two["weights"] == one["weights"]
+
+
+def test_list_prints_the_48_cells(capsys):
+    assert dryrun.main(["--list"]) == 0
+    out = capsys.readouterr().out.splitlines()
+    rows = [ln for ln in out if ln.split() and ln.split()[0] in configs.ARCH_IDS]
+    assert len(rows) == 48
+    assert {(r.split()[0], r.split()[1]) for r in rows} == \
+        {(a, s) for a in configs.ARCH_IDS for s in specs.SHAPE_BY_NAME}
+    assert out[-1].startswith("48 cells")
+
+
+def test_static_records_are_written(tmp_path, capsys):
+    assert dryrun.main(["--arch", "ssv-nsa-1b", "--shape", "long_500k,decode_32k",
+                        "--out", str(tmp_path)]) == 0
+    rec = dryrun.run_cell("ssv-nsa-1b", "long_500k", tmp_path)        # read back
+    assert rec["fit_batch"] == 1 and rec["roofline"]["bottleneck"] == "memory"
+    assert (tmp_path / "static" / "ssv-nsa-1b__decode_32k.json").exists()
+    assert "[OK]" in capsys.readouterr().out
+
+
+def test_run_raises_without_a_card(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dryrun.main(["--arch", "ssv-nsa-1b", "--shape", "decode_32k", "--run",
+                     "--out", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dryrun.FullCell("ssv-nsa-1b", "decode_32k")
+    with pytest.raises(RuntimeError, match="no CPU mode"):
+        dryrun.FullCell("ssv-nsa-1b", "decode_32k", device="cpu")
+    assert not (tmp_path / "run").exists()
+
+
+def test_fill_caches_compresses_the_rows(monkeypatch):
+    """Chunked ``compress_kv`` equals one call over all the rows; K/V rows
+    past the length stay zero; the length is set."""
+    monkeypatch.setattr(dryrun, "CMP_CHUNK", 7)
+    cfg = configs.reduced("ssv-nsa-1b")
+    g = torch.Generator()
+    g.manual_seed(0)
+    from repro_torch.bridge import init_params
+    from repro_torch.models import model
+    params = init_params(cfg, g, "cpu")
+    caches = model.init_caches(cfg, 1, 300, "cpu")
+    dryrun.fill_caches(params, cfg, caches, 250, g)
+    assert caches["length"].tolist() == [250]
+    for lp, c in zip(params["layers"], caches["layers"]):
+        k, v = c["kv"]["k"], c["kv"]["v"]
+        assert k[:, 250:].abs().sum() == 0 and k[:, :250].abs().sum() > 0
+        kc, vc = nsa_lib.compress_kv(lp["mix"], k[:, :250], v[:, :250], cfg.nsa)
+        n = kc.shape[1]
+        assert n == nsa_lib.num_cmp_blocks(250, cfg.nsa)
+        torch.testing.assert_close(c["cmp"]["k_cmp"][:, :n], kc, rtol=0, atol=0)
+        torch.testing.assert_close(c["cmp"]["v_cmp"][:, :n], vc, rtol=0, atol=0)
+        assert c["cmp"]["k_cmp"][:, n:].abs().sum() == 0
+
+
+@pytest.mark.parametrize("arch", ["ssv-nsa-1b", "ssv-nsa-8b"])
+def test_strict_root_logits_equal_decode_on_a_full_cache(arch):
+    """A reduced cell (f32, CPU, plain versions) built as ``--run`` builds
+    it: the root of a Strict verify sees what a one-token decode sees, so
+    their logits agree to the f32 tolerance; the Approx+Reuse verify and
+    the draft's expansion give finite outputs; decode commits one token."""
+    cfg = configs.reduced(arch)
+    cell = dryrun.FullCell.__new__(dryrun.FullCell)
+    cell._build(arch, cfg, ShapeConfig("decode_32k", 300, 1, "decode"), 0,
+                torch.device("cpu"), rl.HBM_PER_CARD)
+    strict, _ = cell.verify(dryrun.strict_ssv())
+    approx, _ = cell.verify(dryrun.approx_reuse_ssv(cfg.num_layers))
+    tokens, node_q, _ = cell.draft()
+    assert tokens.shape == (1, 31) and tokens[0, 0] == cell.tokens[0, 0]
+    assert torch.isfinite(approx).all() and torch.isfinite(node_q).all()
+    dec = cell.decode()
+    torch.testing.assert_close(strict[:, :1], dec, rtol=2e-4, atol=2e-5)
+    assert cell.caches["length"].tolist() == [301]
+    assert dataclasses.asdict(cell.shape)["seq_len"] == 300

@@ -1,6 +1,8 @@
 """The PyTorch port stands alone: nothing under ``src/repro_torch`` and
 nothing in ``chip_smoke.py`` imports JAX or the JAX package ``repro``
-(checked on the source, by AST; the training modules too). Also drives the port's serve CLI on the
+(checked on the source, by AST; the training, analysis and dry-run modules
+too), and ``chip_smoke.py`` takes the card's rates and the kernels' bounds
+from ``repro_torch.analysis.roofline`` instead of keeping a copy. Also drives the port's serve CLI on the
 CPU (single stream; batched, continuous and paged serving) and checks that
 the bucketed flags refuse what the JAX CLI refuses."""
 import ast
@@ -66,6 +68,32 @@ def test_scan_covers_the_training_modules():
                 "bridge.py", "models/model.py", "models/attention.py",
                 "models/recurrent.py"):
         assert f"src/repro_torch/{rel}" in scanned
+
+
+def test_scan_covers_the_analysis_and_launch_modules():
+    """The analysis layer and the dry run's modules are scanned."""
+    scanned = {str(p.relative_to(ROOT)) for p in _port_files()}
+    for rel in ("analysis/__init__.py", "analysis/roofline.py", "launch/specs.py",
+                "launch/dryrun.py", "launch/__init__.py", "core/overlap.py",
+                "config/base.py", "device.py"):
+        assert f"src/repro_torch/{rel}" in scanned
+
+
+def test_chip_smoke_keeps_no_copy_of_the_roofline():
+    """The card's rates and the kernel bounds live in
+    ``analysis/roofline.py`` only: ``chip_smoke.py`` defines none of the
+    moved functions and writes none of the rates as a number."""
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    defined = {n.name for n in ast.walk(tree) if isinstance(n, ast.FunctionDef)}
+    moved = {"bound", "dot_rate", "verify_bound", "routing_bound", "flash_bound",
+             "attention_flops", "flops_share", "model_flops"}
+    assert not defined & moved
+    rates = {3.35e12, 989e12, 67e12}
+    numbers = {n.value for n in ast.walk(tree) if isinstance(n, ast.Constant)
+               and isinstance(n.value, float)}
+    assert not numbers & rates
+    src = (ROOT / "chip_smoke.py").read_text()
+    assert "from repro_torch.analysis import roofline as rl" in src
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))

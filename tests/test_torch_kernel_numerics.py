@@ -41,6 +41,10 @@ torch.set_num_threads(1)
 NSA = NSAConfig(cmp_block=32, cmp_stride=16, sel_block=64, n_selected=16, window=512)
 RTOL, ATOL = 2e-4, 2e-5
 NEG, UK, NW = -1e30, 16, 4
+# floats of the smallest instance's ring scratch (online_softmax.cuh
+# Walk::SCRATCH at bf16, Dh 64: 4 warps x 2 stages x 16 keys x (64 + 8) x 2
+# tensors x 2 bytes), which holds the last CTA's merge table
+SCRATCH_MIN = 4 * 2 * 16 * (64 + 8) * 2 * 2 // 4
 
 
 def _split(x):
@@ -321,11 +325,11 @@ def test_verify_new_head_dims_arithmetic_matches_plain(Dh, Hq, Hkv, C, mode, inc
 
 def _emulate_flash(q, kc, vc, kd, vd, pos, plen, tree, window):
     """The flash kernel's arithmetic: per (row, kv head, tile of 16 query
-    rows) the cache in splits of KEYS_PER_SPLIT keys plus the draft split,
+    rows) the cache in splits of ``split_keys(S)`` keys plus the draft split,
     each walked as a CTA, merged in split order."""
     B, T, Hq, Dh = q.shape
     S, Hkv = kc.shape[1], kc.shape[2]
-    Gq, R, KS = Hq // Hkv, T * Hq // Hkv, fops.KEYS_PER_SPLIT
+    Gq, R, KS = Hq // Hkv, T * Hq // Hkv, fops.split_keys(S)
     Rp = -(-R // 16) * 16                                        # row tiles of 16
     qr = q.reshape(B, T, Hkv, Gq, Dh).permute(0, 2, 1, 3, 4).reshape(B, Hkv, R, Dh)
     qr = torch.cat([qr, qr.new_zeros(B, Hkv, Rp - R, Dh)], 2).reshape(B * Hkv * (Rp // 16), 16, Dh)
@@ -405,7 +409,9 @@ def test_flash_draft_head_dims_arithmetic_matches_plain(Dh, H):
                           (16, 511, 512, 31, 64, True, "all", 16),    # approx C=4 reuse
                           (13, 0, 0, 7, 16, True, "all", 8),          # empty cmp and window
                           (45, 100, 32, 7, 16, False, "slc", 4),      # M padded past a chunk
-                          (16, 60, 700, 31, 64, False, "win", 4)])
+                          (16, 60, 700, 31, 64, False, "win", 4),
+                          (32, 33280, 512, 31, 64, True, "all", 8),   # 524,800 tokens
+                          (16, 33280, 512, 31, 64, True, "all", 16)])
 def test_split_plan_covers_the_work_list_once(M, NCB, W, T, sel_block, include_cmp,
                                               branch, rows):
     """Every cmp block, merged slot, window key and draft token of a
@@ -564,7 +570,7 @@ def test_routing_new_head_dims_arithmetic_matches_plain(Dh, Hq, Hkv):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("NCB", [1, 8, 100, 512, 4096, 32768])
+@pytest.mark.parametrize("NCB", [1, 8, 100, 512, 4096, 32768, 33280])
 def test_routing_plan_covers_the_cmp_list_once(NCB):
     """The chunks of ``routing_plan`` cover the cmp blocks once, within the
     kernel's limits (16-block units, at most MAX_KEYS blocks and
@@ -575,6 +581,9 @@ def test_routing_plan_covers_the_cmp_list_once(NCB):
     nsa_verify's part_acc (exact C=2, full fusion) at the same shapes."""
     n_cmp, keys, span = rops.routing_plan(NCB, NSA)
     assert keys % 16 == 0 and 16 <= keys <= rops.MAX_KEYS and n_cmp <= rops.MAX_CHUNKS
+    # the last CTA's merge table (m and l per chunk and row) fits the
+    # smallest instance's ring scratch (bf16, Dh 64: 9,216 floats)
+    assert 2 * rops.MAX_CHUNKS * 16 <= SCRATCH_MIN and 2 * vops.MAX_CHUNKS * 16 <= SCRATCH_MIN
     chunks = [range(x * keys, min(x * keys + keys, NCB)) for x in range(n_cmp)]
     assert [n for c in chunks for n in c] == list(range(NCB))
     for x, c in enumerate(chunks):
@@ -592,3 +601,37 @@ def test_routing_plan_covers_the_cmp_list_once(NCB):
         routing = G_r * n_cmp * 16 * (2 + 64 + span)
         nx = sum(vops.split_plan(32, NCB, 512, NSA.sel_block, True, "all", 8)[:3])
         assert routing <= 16 * nx * 16 * 64
+
+
+@pytest.mark.parametrize("S", [1, 512, 8192, 33280, 130560, 131072, 524800, 2 ** 21])
+def test_flash_splits_cover_the_cache_within_the_merge_table(S):
+    """Flash cuts the cache into splits of ``split_keys(S)`` keys (512 up
+    to 255 splits, then more per split, in 16-key units): the splits cover
+    S once, and the last CTA's merge table, 2 x (splits + 1) x 16 floats,
+    fits the smallest instance's ring scratch, as the kernel requires."""
+    KS = fops.split_keys(S)
+    NS = -(-S // KS)
+    assert KS % 16 == 0 and NS <= fops.MAX_SPLITS and (NS - 1) * KS < S <= NS * KS
+    assert 2 * (NS + 1) * 16 <= SCRATCH_MIN
+    if S <= fops.KEYS_PER_SPLIT * fops.MAX_SPLITS:
+        assert KS == fops.KEYS_PER_SPLIT
+
+
+def test_flash_emulation_with_grown_splits(monkeypatch):
+    """The kernel's arithmetic with splits grown past 512 keys (a cap of 3
+    splits stands for 255): equal to the plain version."""
+    monkeypatch.setattr(fops, "MAX_SPLITS", 3)
+    topo = build_topology(3, 2, "bfs")
+    g = torch.Generator()
+    g.manual_seed(7)
+    T, S, Hq, Hkv, Dh = topo.num_nodes, 2000, 4, 2, 64
+    assert fops.split_keys(S) == 672
+    q = torch.randn(1, T, Hq, Dh, generator=g) / Dh ** 0.5
+    kc, vc, kd, vd = (torch.randn(1, n, Hkv, Dh, generator=g).to(torch.bfloat16)
+                      for n in (S, S, T, T))
+    pos = (torch.as_tensor(topo.depths)[None] + 1900).to(torch.int32)
+    plen = torch.tensor([1900], dtype=torch.int32)
+    tree = torch.as_tensor(topo.mask)[None]
+    got = _emulate_flash(q, kc, vc, kd, vd, pos, plen, tree, 0)
+    want = fref.ref_flash_verify(q, kc, vc, kd, vd, pos, plen, tree)
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
