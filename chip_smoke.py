@@ -58,7 +58,7 @@ Phases (every phase always runs; any failure exits non-zero):
   7. the serve CLI (``python -m repro_torch.launch.serve``) for both archs,
      and batched-paged, continuous and bucketed (``--continuous --bucketed
      --profile-json --warmup``, a profile this script writes) runs of
-     ``ssv-nsa-1b``;
+     ``ssv-nsa-1b``, the five processes at once on the card;
   8. kernel times (profiler device time and CUDA events) beside the
      pre-redesign kernels' (before the Hopper redesign, commit 787ff43;
      routing's code was the same until commit f780c1a), the plain
@@ -137,14 +137,25 @@ Phases (every phase always runs; any failure exits non-zero):
      their plain versions at the cell's inputs (phase 2's tolerances; the
      plain flash one kv head at a time), timed beside plain, bound and, for
      flash, SDPA;
- 12. the summary lines: a ``kernels`` JSON line (every kernel x head dim,
+ 12. the sequence-sharded decode across ranks (``launch.dryrun.run_sharded``:
+     ``models.nsa_sharded.decode_step_sharded`` in spawned ranks, each
+     filling only its slice of the cache as phase 11 fills the whole):
+     (a) one rank over NCCL, ssv-nsa-1b x decode_32k in float32; (b) four
+     ranks sharing the card over gloo with CUDA tensors, the same cell and
+     ssv-nsa-1b x long_500k in float32, and long_500k in bf16; each held
+     against phase 11's ``decode_step`` on the same fill (float32: logits
+     and every layer's written K/V row within rtol 2e-4 / atol 2e-5, the
+     same argmax; bf16: the same argmax and layer 0's written row bitwise,
+     the largest differences printed), every rank's logits equal; wall and busy per token,
+     collectives per token and per-rank peak memory printed;
+ 13. the summary lines: a ``kernels`` JSON line (every kernel x head dim,
      and x query-head group for the zoo's, and x cell for phase 11's), the
      card line, and the ``{"ok": true, "device": ...}`` line last.
 
 ``--times-only`` stops after phases 1 and 8 (no ok line), ``--serve-only``
 after phases 1 and 3 (no ok line; the served tokens go to
-``chip_smoke_serve.json``), ``--cells-only`` after phases 1 and 11 (no ok
-line; ``chip_smoke_cells.json``); with ``--src`` either times or serves
+``chip_smoke_serve.json``), ``--cells-only`` after phases 1, 11 and 12 (no
+ok line; ``chip_smoke_cells.json``); with ``--src`` either times or serves
 another checkout's package by the same method (the parent's, in the same
 call, for a comparison on one card; one that has
 ``repro_torch.analysis``, since the bounds come from there).
@@ -567,9 +578,9 @@ def main(argv=None) -> int:
                          "Strict and Approx+Reuse, launch counts, profile) and stop; prints "
                          "no ok line")
     ap.add_argument("--cells-only", action="store_true",
-                    help="build and run phase 11 (the dry run's long-context cells on full "
-                         "caches, their kernels against the plain versions) and stop; prints "
-                         "no ok line")
+                    help="build and run phases 11 and 12 (the dry run's long-context cells "
+                         "on full caches, their kernels against the plain versions, and the "
+                         "sequence-sharded decode across ranks) and stop; prints no ok line")
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="the directory that holds repro_torch (default: this checkout's); "
                          "with --times-only or --serve-only, another checkout's package is "
@@ -637,12 +648,15 @@ def main(argv=None) -> int:
         t0 = time.time()
         cells, cell_rows = cells_phase(ctx, out_dir / "dryrun", cell_err)
         log(f"[11 cells] {time.time() - t0:.1f}s")
+        t0 = time.time()
+        sharded = sharded_phase(ctx, out_dir / "sharded")
+        log(f"[12 ranks] {time.time() - t0:.1f}s")
         for row in cell_rows:
             row.update(launches=ctx["launches"].get(row["name"], 0),
                        max_abs_err=cell_err.get(row["name"]))
         (out_dir / "chip_smoke_cells.json").write_text(json.dumps(
             {"card": card, "kind": kind, "cells": cells, "kernels": cell_rows,
-             "launches": ctx["launches"]}, indent=1, default=str))
+             "launches": ctx["launches"], "sharded": sharded}, indent=1, default=str))
         print(card)
         return 0
     if args.serve_only:
@@ -692,18 +706,18 @@ def main(argv=None) -> int:
     e2e[cfgs[64].name + "-dense"] = dense_baseline(cfgs[64], ctx)
     free()
 
-    # ---- 7. serve CLI
-    for cfg in cfgs.values():
-        serve_cli(cfg.name)
-    serve_cli(cfgs[64].name, ["--prompts", "2", "--batch", "2", "--kv-backend", "paged"],
-              "batch[0:2]: 16 tokens")
-    serve_cli(cfgs[64].name, ["--prompts", "3", "--batch", "2", "--continuous",
-                              "--arrival-rate", "0.5"], "continuous over 2 slots: 24 tokens")
+    # ---- 7. serve CLI (the five runs at once)
     cli_profile = out_dir / "bucket_profile.json"
     cli_profile.write_text(cli_bucket_profile().to_json())
-    serve_cli(cfgs[64].name, ["--prompts", "3", "--batch", "2", "--continuous", "--bucketed",
-                              "--profile-json", str(cli_profile), "--warmup"],
-              ("continuous over 2 slots: 24 tokens", "bucketed: ", "/ 4 misses"))
+    one = (("--prompts", "1"), "prompt 0: 8 tokens")
+    serve_clis([(cfg.name, *one) for cfg in cfgs.values()] + [
+        (cfgs[64].name, ["--prompts", "2", "--batch", "2", "--kv-backend", "paged"],
+         "batch[0:2]: 16 tokens"),
+        (cfgs[64].name, ["--prompts", "3", "--batch", "2", "--continuous", "--arrival-rate",
+                         "0.5"], "continuous over 2 slots: 24 tokens"),
+        (cfgs[64].name, ["--prompts", "3", "--batch", "2", "--continuous", "--bucketed",
+                         "--profile-json", str(cli_profile), "--warmup"],
+         ("continuous over 2 slots: 24 tokens", "bucketed: ", "/ 4 misses"))])
 
     idle = [k for k, n in ctx["launches"].items() if n == 0]
     if idle:
@@ -724,8 +738,7 @@ def main(argv=None) -> int:
     # ---- 10. the model zoo
     t0 = time.time()
     zoo = zoo_phase(ctx)
-    serve_cli("qwen3-8b")
-    serve_cli("recurrentgemma-9b")
+    serve_clis([("qwen3-8b", *one), ("recurrentgemma-9b", *one)])
     log(f"[10 zoo] {time.time() - t0:.1f}s")
 
     # ---- 11. the dry run's long-context cells on full caches
@@ -736,16 +749,22 @@ def main(argv=None) -> int:
     idle = [r["name"] for r in rows if ctx["launches"].get(r["name"], 0) == 0]
     if idle:
         fail(f"the main paths never launched {idle}")
+
+    # ---- 12. the sequence-sharded decode across ranks
+    t0 = time.time()
+    sharded = sharded_phase(ctx, out_dir / "sharded")
+    log(f"[12 ranks] {time.time() - t0:.1f}s")
     for row in rows:        # the trained pair's and the zoo's serves launched the kernels too
         row["launches"] = ctx["launches"].get(row["name"], 0)
         row["max_abs_err"] = max_err.get(row["name"])
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "kind": kind, "e2e": e2e, "batched": batched, "paths": ctx["paths"],
          "ptxas": instances, "kernels": rows, "layer_times": layer_times, "train": train,
-         "zoo": zoo, "cells": cells, "seconds": time.time() - t_start}, indent=1, default=str))
+         "zoo": zoo, "cells": cells, "sharded": sharded, "seconds": time.time() - t_start},
+        indent=1, default=str))
 
-    # ---- 12. summary
-    log(f"[12 done] {time.time() - t_start:.1f}s")
+    # ---- 13. summary
+    log(f"[13 done] {time.time() - t_start:.1f}s")
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -1847,9 +1866,10 @@ def cells_phase(ctx, out_dir, max_err):
     for arch, shape in CELLS:
         for c in ctx["counters"]:
             c.reset()
-        rec = dryrun.run_cell(arch, shape, out_dir, force=True, run=True,
-                              inspect=lambda cell, rec, outputs: cell_checks(
-                                  cell, rec, outputs, ctx, max_err, rows))
+        def inspect(cell, rec, outputs):
+            keep_decode_ref(ctx, cell, outputs["decode_step"])
+            return cell_checks(cell, rec, outputs, ctx, max_err, rows)
+        rec = dryrun.run_cell(arch, shape, out_dir, force=True, run=True, inspect=inspect)
         nsa_lib.overlap_matrix.cache_clear()          # the plain routing's (NCB, NSB) matrix
         nsa_lib._overlap_tensor.cache_clear()
         free()
@@ -1886,6 +1906,7 @@ def strict_root_equals_decode(arch, shape, ctx):
     strict = cell.verify(dryrun.strict_ssv())[0][:, :1]
     dec = cell.decode()
     torch.cuda.synchronize()
+    keep_decode_ref(ctx, cell, dec)
     err = float((strict - dec).abs().max())
     ok = bool(torch.isfinite(strict).all()) and torch.allclose(strict, dec, rtol=LOGITS_TOL,
                                                                atol=LOGITS_TOL)
@@ -1899,6 +1920,93 @@ def strict_root_equals_decode(arch, shape, ctx):
         f"(rtol = atol = {LOGITS_TOL}), argmax {'equal' if same_top else 'differs'} "
         f"({time.time() - t0:.1f}s)")
     return err
+
+
+def keep_decode_ref(ctx, cell, logits):
+    """Keep a cell's first ``decode_step`` (its logits and each layer's K/V
+    row at the cell's length, on the host) for phase 12's cells."""
+    key = (cell.arch, cell.shape.name, cell.cfg.dtype)
+    if key not in {(a, s, d) for _, _, _, a, s, d in SHARDED}:
+        return
+    p = cell.shape.seq_len
+    ctx.setdefault("decode_refs", {})[key] = (
+        logits.float().cpu(), [(c["kv"]["k"][0, p].float().cpu(), c["kv"]["v"][0, p].float().cpu())
+                               for c in cell.caches["layers"]])
+
+
+# Phase 12: (part, world, backend, arch, shape, dtype). Four ranks share the
+# one card over gloo with CUDA tensors (NCCL takes one card per rank). The
+# float32 runs hold the logits and every layer's row; in bf16 the deeper
+# rows and the logits round apart after the plain and the kernel attention.
+SHARDED = (("a", 1, "nccl", "ssv-nsa-1b", "decode_32k", "float32"),
+           ("b", 4, "gloo", "ssv-nsa-1b", "decode_32k", "float32"),
+           ("b", 4, "gloo", "ssv-nsa-1b", "long_500k", "float32"),
+           ("b", 4, "gloo", "ssv-nsa-1b", "long_500k", "bfloat16"))
+
+
+def sharded_phase(ctx, out_dir):
+    """Phase 12: ``dryrun.run_sharded`` (``decode_step_sharded`` across
+    spawned ranks, each filling only its slice of the cache) for each of
+    ``SHARDED``, held against phase 11's ``decode_step`` on the same fill:
+    float32 logits within TOL["float32"], the same argmax and written K/V
+    rows (layer 0 bitwise, every layer within the float32 tolerance); bf16
+    the same argmax and layer 0's row bitwise (the row that depends on the
+    token alone), the largest logit and row differences printed (the
+    float32 run of the same cell holds the rest). Every rank's logits are
+    equal.
+    Returns the records."""
+    from repro_torch.launch import dryrun, specs
+    out = {}
+    for part, world, backend, arch, shape, dtype in SHARDED:
+        tag = f"[12{part} {arch} {shape} {dtype} world {world} {backend}]"
+        t0 = time.time()
+        run_dir = out_dir / f"{arch}__{shape}__{dtype}__{world}{backend}"
+        cfg = dataclasses.replace(specs.cell_config(arch, shape)[0], dtype=dtype)
+        recs = dryrun.run_sharded(arch, shape, world, backend, run_dir, seed=0, cfg=cfg,
+                                  timeout=400)
+        wall = time.time() - t0
+        got = [torch.load(run_dir / f"rank{r}.pt") for r in range(world)]
+        logits = got[0]["logits"]
+        if not all(torch.equal(g["logits"], logits) for g in got):
+            fail(f"{tag} the ranks' logits differ")
+        if not torch.isfinite(logits).all():
+            fail(f"{tag} logits are not finite")
+        ref_logits, ref_rows = ctx["decode_refs"][(arch, shape, dtype)]
+        rows = next(g["written"] for g in got if g["written"] is not None)
+        err = float((logits - ref_logits).abs().max())
+        same_top = bool(torch.equal(logits.argmax(-1), ref_logits.argmax(-1)))
+        row_err = max(float((a - b).abs().max()) for r, q in zip(rows, ref_rows)
+                      for a, b in zip(r, q))
+        row0 = all(torch.equal(a, b) for a, b in zip(rows[0], ref_rows[0]))
+        f32 = dtype == "float32"
+        rtol, atol = TOL["float32"]
+        rows_ok = not f32 or all(torch.allclose(a, b, rtol=rtol, atol=atol)
+                                 for r, q in zip(rows, ref_rows) for a, b in zip(r, q))
+        if f32 and not torch.allclose(logits, ref_logits, rtol=rtol, atol=atol):
+            fail(f"{tag} logits differ from decode_step's: max abs err {err:.3e}")
+        if not same_top:
+            fail(f"{tag} argmax differs from decode_step's (max abs logit err {err:.3e})")
+        if not row0 or not rows_ok:
+            fail(f"{tag} written K/V rows differ from decode_step's: layer 0 bitwise {row0}, "
+                 f"max abs err {row_err:.3e}")
+        log(f"  {tag} {ctx['kind']} ({ctx['card']}): logits vs decode_step max abs err "
+            f"{err:.3e}, argmax equal, written K/V row of layer 0 bitwise equal, every "
+            f"layer's max abs err {row_err:.3e}" + ("" if f32 else " (observed, not held: in "
+            "bf16 a layer's input rounds apart after the plain and the kernel attention; the "
+            "float32 run of this cell holds every row)") +
+            f"; {wall:.1f}s with the ranks' start and fill")
+        for r in recs:
+            log(f"    rank {r['rank']} {r['device']} rows {r['rows']}: built in "
+                f"{r['build_s']:.1f}s; first token {r['first_wall_ms']:.2f} ms; wall per token "
+                + ", ".join(f"{w:.2f}" for w in r["wall_ms"]) +
+                f" ms; busy {r['device_busy_ms']:.3f} ms in {r['device_kernels']} device "
+                f"kernels ({r['collective_ms']:.3f} ms of it in NCCL kernels); "
+                f"{r['collectives_per_token']} collectives per token; peak "
+                f"{r['peak_bytes'] / 2 ** 30:.2f} GiB")
+        out[f"{part} {arch} {shape} {dtype} world {world} {backend}"] = {
+            "ranks": recs, "max_abs_err": err, "row_max_abs_err": row_err, "seconds": wall}
+        free()
+    return out
 
 
 def cell_checks(cell, rec, outputs, ctx, max_err, rows):
@@ -2533,19 +2641,35 @@ def train_phase(cfg, ctx, workdir):
     return out
 
 
-def serve_cli(arch, flags=("--prompts", "1"), expect="prompt 0: 8 tokens"):
+def serve_clis(runs):
+    """Run the serve CLI (``python -m repro_torch.launch.serve``) once per
+    (arch, flags, expected output) of ``runs``, all at once: each is a
+    process of its own on the shared card, bound by its host's launches,
+    so together they take little more than the longest. Fails unless each
+    exits 0 and prints what it should; stops every process it started."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     t0 = time.time()
-    cli = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", "--arch",
-                          arch, "--tokens", "8", *flags],
-                         cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
-    tag = f"[7 serve {arch} {' '.join(flags)}]"
-    for line in (cli.stdout + cli.stderr).strip().splitlines()[-5:]:
-        log(f"{tag} {line}")
-    expect = (expect,) if isinstance(expect, str) else expect
-    if cli.returncode != 0 or not all(e in cli.stdout for e in expect):
-        fail(f"serve CLI --arch {arch} {' '.join(flags)} exited {cli.returncode}")
-    log(f"{tag} {time.time() - t0:.1f}s")
+    procs = []
+    try:
+        for arch, flags, expect in runs:
+            procs.append((arch, flags, expect, subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch, "--tokens",
+                 "8", *flags], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)))
+        for arch, flags, expect, p in procs:
+            out, err = p.communicate(timeout=max(1.0, 600 - (time.time() - t0)))
+            tag = f"[7 serve {arch} {' '.join(flags)}]"
+            for line in (out + err).strip().splitlines()[-5:]:
+                log(f"{tag} {line}")
+            expect = (expect,) if isinstance(expect, str) else expect
+            if p.returncode != 0 or not all(e in out for e in expect):
+                fail(f"serve CLI --arch {arch} {' '.join(flags)} exited {p.returncode}")
+            log(f"{tag} done at {time.time() - t0:.1f}s")
+    finally:
+        for *_, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
 
 
 def kernel_row(name, Dh, source, replaces, launches, max_err, ms, plain, bnd, library=None,

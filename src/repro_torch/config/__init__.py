@@ -1,4 +1,5 @@
 from repro_torch.config.base import (
+    MeshConfig,
     ModelConfig,
     MoEConfig,
     NSAConfig,
@@ -11,6 +12,7 @@ from repro_torch.config.base import (
 )
 
 __all__ = [
+    "MeshConfig",
     "ModelConfig",
     "MoEConfig",
     "NSAConfig",

@@ -214,6 +214,26 @@ SHAPES: Tuple[ShapeConfig, ...] = (
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """A device mesh's shape and axis names (a copy of the JAX
+    ``MeshConfig``); ``launch.mesh`` builds it over torch ranks."""
+
+    shape: Tuple[int, ...] = (16, 16)
+    axes: Tuple[str, ...] = ("data", "model")
+
+    def __post_init__(self):
+        object.__setattr__(self, "shape", _freeze(self.shape))
+        object.__setattr__(self, "axes", _freeze(self.axes))
+
+    @property
+    def num_devices(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
+
+
+@dataclass(frozen=True)
 class SSVConfig:
     """Sparse speculative verification strategy tuple (θ_d, θ_s) + class P."""
 

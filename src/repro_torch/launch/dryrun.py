@@ -30,6 +30,21 @@ the record holds wall and busy time per step, the port's kernel launches
 per step, peak device memory, and the cell's ``Roofline`` row at batch 1,
 checked against the card's ``total_memory``. It goes to
 ``<--out>/run/<arch>__<shape>.json``.
+
+Across ranks (the JAX dry run's sequence-sharded decode of batch-1 cells):
+``--list --world N`` prints each decode cell's static bytes per rank
+(``rank_bytes``: the target's weights whole, its cache split by sequence
+under ``sharding.cache_specs(shard_sequence=True)``) and the cells that fit
+N cards but not one. ``--run --world N --backend {nccl,gloo}`` spawns N
+ranks (``run_sharded``) that each fill only their slice of the target's
+cache, as ``fill_caches`` fills the whole, and serve one
+``nsa_sharded.decode_step_sharded`` token, then three timed and one
+profiled; each rank's record (wall, busy, NCCL time, peak, all-reduces per
+token) goes to ``<--out>/world/<arch>__<shape>__<N><backend>/``.
+
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --list --world 4
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --run --world 4 \
+      --backend nccl --arch ssv-nsa-8b --shape long_500k   # four cards
 """
 from __future__ import annotations
 
@@ -45,13 +60,13 @@ import torch
 from repro_torch import configs as cfglib
 from repro_torch.analysis import roofline as rl
 from repro_torch.bridge import init_params
-from repro_torch.config import SHAPES, SSVConfig
+from repro_torch.config import SHAPES, MeshConfig, ModelConfig, SSVConfig
 from repro_torch.core import draft as draft_lib
 from repro_torch.core import planner as planner_lib
 from repro_torch.core.tree import build_topology
 from repro_torch.device import resolve_device
 from repro_torch.kernels import LaunchCounter
-from repro_torch.launch import specs
+from repro_torch.launch import sharding, specs
 from repro_torch.models import model
 from repro_torch.models import nsa as nsa_lib
 
@@ -114,29 +129,81 @@ def approx_reuse_ssv(num_layers: int) -> SSVConfig:
                      precision_class="Approx+Reuse")
 
 
+FILL_CHUNK = 8192             # K/V rows drawn from one seeded generator
+DRAFT_FILL = 7919             # the draft's fill seed, past the target's
+
+
+def _chunk_seed(seed: int, layer: int, chunk: int) -> int:
+    return ((seed * 1_000_003 + layer) * 1_000_033 + chunk) % 2 ** 62
+
+
+def draw_rows(like, seed: int, layer: int, a: int, b: int):
+    """Global K/V rows ``a .. b`` of ``layer`` (standard normal, ``like``'s
+    dtype and device): each ``FILL_CHUNK`` rows come from a generator of
+    their own, seeded by (seed, layer, chunk) and always drawn whole, so a
+    row is the same whichever slice of the cache asks for it."""
+    B, _, H, Dh = like.shape
+    ks, vs = [], []
+    for c in range(a // FILL_CHUNK, (b - 1) // FILL_CHUNK + 1):
+        g = torch.Generator(like.device)
+        g.manual_seed(_chunk_seed(seed, layer, c))
+        shape = (B, FILL_CHUNK, H, Dh)
+        kc = torch.randn(shape, generator=g, device=like.device, dtype=like.dtype)
+        vc = torch.randn(shape, generator=g, device=like.device, dtype=like.dtype)
+        base = c * FILL_CHUNK
+        lo, hi = max(a, base) - base, min(b, base + FILL_CHUNK) - base
+        ks.append(kc[:, lo:hi])
+        vs.append(vc[:, lo:hi])
+    return torch.cat(ks, 1), torch.cat(vs, 1)
+
+
 @torch.no_grad()
-def fill_caches(params, cfg, caches, seq_len: int, g: torch.Generator) -> None:
-    """Fill ``caches`` to ``seq_len`` committed tokens: K/V rows drawn from
-    ``g`` (standard normal, the cache dtype), each NSA layer's compressed
-    blocks ``nsa.compress_kv`` of its rows, ``CMP_CHUNK`` blocks at a time.
-    Recurrent states keep their initial values."""
+def fill_caches(params, cfg, caches, seq_len: int, seed: int) -> None:
+    """Fill ``caches`` to ``seq_len`` committed tokens: K/V rows from
+    ``draw_rows`` (seeded per (layer, chunk)), each NSA layer's compressed
+    blocks ``nsa.compress_kv`` of its rows, ``CMP_CHUNK`` blocks per call at
+    fixed block boundaries. Recurrent states keep their initial values.
+
+    ``caches`` may hold a slice of each layer: ``caches["global_rows"]``
+    (``nsa_sharded.init_local_caches``) gives the K/V and compressed rows it
+    holds. A slice fills only its own rows, each equal to the same row of a
+    whole cache's fill: a compressed chunk whose tokens leave the slice
+    draws those rows again."""
     nsa = cfg.nsa
-    for lp, c in zip(params["layers"], caches["layers"]):
+    rows = caches.get("global_rows")
+    for li, (lp, c) in enumerate(zip(params["layers"], caches["layers"])):
         if "kv" not in c:
             continue
         k, v = c["kv"]["k"], c["kv"]["v"]
-        k[:, :seq_len].normal_(generator=g)
-        v[:, :seq_len].normal_(generator=g)
+        r0, r1 = rows["kv"] if rows else (0, k.shape[1])
+        top = min(r1, seq_len)
+        for ch in range(r0 // FILL_CHUNK, (top - 1) // FILL_CHUNK + 1) if top > r0 else ():
+            a, b = max(r0, ch * FILL_CHUNK), min(top, (ch + 1) * FILL_CHUNK)
+            k[:, a - r0:b - r0], v[:, a - r0:b - r0] = draw_rows(k, seed, li, a, b)
         if "cmp" not in c:
             continue
+        c0, c1 = rows["cmp"] if rows else (0, c["cmp"]["k_cmp"].shape[1])
         ncb = nsa_lib.num_cmp_blocks(seq_len, nsa)
-        for n0 in range(0, ncb, CMP_CHUNK):
-            n1 = min(ncb, n0 + CMP_CHUNK)
+        last = min(c1, ncb)
+        for j in range(c0 // CMP_CHUNK, (last - 1) // CMP_CHUNK + 1) if last > c0 else ():
+            n0, n1 = j * CMP_CHUNK, min(ncb, (j + 1) * CMP_CHUNK)
             a, b = n0 * nsa.cmp_stride, (n1 - 1) * nsa.cmp_stride + nsa.cmp_block
-            kc, vc = nsa_lib.compress_kv(lp["mix"], k[:, a:b], v[:, a:b], nsa)
-            c["cmp"]["k_cmp"][:, n0:n1] = kc
-            c["cmp"]["v_cmp"][:, n0:n1] = vc
+            if r0 <= a and b <= top:
+                kk, vv = k[:, a - r0:b - r0], v[:, a - r0:b - r0]
+            else:
+                kk, vv = draw_rows(k, seed, li, a, b)
+            kc, vc = nsa_lib.compress_kv(lp["mix"], kk, vv, nsa)
+            lo, hi = max(n0, c0), min(n1, c1)
+            c["cmp"]["k_cmp"][:, lo - c0:hi - c0] = kc[:, lo - n0:hi - n0]
+            c["cmp"]["v_cmp"][:, lo - c0:hi - c0] = vc[:, lo - n0:hi - n0]
     caches["length"].fill_(seq_len)
+
+
+def cell_tokens(cfg, T: int, seed: int, device) -> torch.Tensor:
+    """The cell's (1, T) tree tokens, from a generator of their own."""
+    g = torch.Generator(device)
+    g.manual_seed(seed + 1)
+    return torch.randint(0, cfg.vocab_size, (1, T), generator=g, device=device)
 
 
 class FullCell:
@@ -178,12 +245,11 @@ class FullCell:
         max_len = shape.seq_len + specs.CACHE_SLACK
         self.caches = model.init_caches(self.cfg, 1, max_len, dev)
         self.dcaches = model.init_caches(self.dcfg, 1, max_len, dev)
-        fill_caches(self.params, self.cfg, self.caches, shape.seq_len, g)
-        fill_caches(self.dparams, self.dcfg, self.dcaches, shape.seq_len, g)
+        fill_caches(self.params, self.cfg, self.caches, shape.seq_len, seed)
+        fill_caches(self.dparams, self.dcfg, self.dcaches, shape.seq_len, seed + DRAFT_FILL)
         self.topo = build_topology(4, 2, "bfs")
         self.tree = draft_lib.TreeTensors(self.topo, dev)
-        T = self.topo.num_nodes
-        self.tokens = torch.randint(0, self.cfg.vocab_size, (1, T), generator=g, device=dev)
+        self.tokens = cell_tokens(self.cfg, self.topo.num_nodes, seed, dev)
         self.positions = (self.tree.depths[None] + shape.seq_len).to(torch.int32)
         self.tree_mask = self.tree.mask[None]
 
@@ -209,7 +275,9 @@ class FullCell:
 
 def _profile(fn, top: int = 6) -> Dict:
     """One call of ``fn`` under the profiler: device busy time (every
-    kernel and copy), device kernels, and the ``top`` kernels by time."""
+    kernel and copy), device kernels, the time in NCCL's collective
+    kernels (part of the busy time, their wait for the other ranks
+    included), and the ``top`` kernels by time."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
@@ -220,6 +288,8 @@ def _profile(fn, top: int = 6) -> Dict:
                   if getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA)
     return {"device_busy_ms": sum(k[0] for k in kern),
             "device_kernels": sum(k[1] for k in kern),
+            # NCCL's kernels spin on the device until every rank arrives
+            "collective_ms": sum(k[0] for k in kern if k[2].startswith("nccl")),
             "top": [{"ms": ms, "launches": n, "name": name} for ms, n, name in kern[::-1][:top]]}
 
 
@@ -291,6 +361,192 @@ def run_cell(arch_id: str, shape_name: str, out_dir: Path, force: bool = False,
     return rec
 
 
+# ---------------------------------------------------------------- across ranks
+def world_mesh(world: int) -> MeshConfig:
+    """The mesh of ``--world N``: (N, 1) over (data, model); the decode
+    splits the sequence over both axes, as the JAX dry run does."""
+    return MeshConfig(shape=(world, 1), axes=("data", "model"))
+
+
+def sharded_decode_ok(cfg) -> bool:
+    """Whether ``nsa_sharded.decode_step_sharded`` takes ``cfg``."""
+    return cfg.attention == "nsa" and set(cfg.layer_kinds()) <= {"attn", "moe"}
+
+
+def rank_bytes(arch_id: str, shape_name: str, world: int) -> Dict:
+    """A decode cell's static bytes on each of ``world`` ranks at batch 1
+    under ``sharding.cache_specs(shard_sequence=True)``: the target's
+    weights whole, its cache split by sequence (``cache_split``, bytes per
+    rank) apart from the leaves every rank holds whole
+    (``cache_replicated``: the length, recurrent states). No draft: the
+    sequence-sharded decode runs the target alone. ``divides`` says whether
+    every split leaf divides by ``world``."""
+    cfg = specs.cell_config(arch_id, shape_name)[0]
+    shape = specs.SHAPE_BY_NAME[shape_name]
+    tree = rl.cache_tree(cfg, 1, shape.seq_len + specs.CACHE_SLACK)
+    mc = world_mesh(world)
+    split = repl = 0
+    divides = True
+    sizes = dict(zip(mc.axes, mc.shape))
+    for key, leaf in sharding.flatten(tree).items():
+        sp = sharding.cache_spec(key, tuple(leaf.shape), mc, shard_sequence=True)
+        n = 1
+        for e in sp:
+            for a in ((e,) if isinstance(e, str) else (e or ())):
+                n *= sizes[a]
+        if n == 1:
+            repl += leaf.nbytes
+        else:
+            divides &= leaf.nbytes % n == 0
+            split += leaf.nbytes // n
+    w = specs.param_bytes(cfg)
+    return {"world": world, "weights": w, "cache_split": split, "cache_replicated": repl,
+            "target_cache": split + repl, "total": w + split + repl, "divides": divides,
+            "sharded_decode": sharded_decode_ok(cfg)}
+
+
+def list_world(archs: List[str], shapes: List[str], world: int) -> List[Dict]:
+    """Print each decode cell's bytes per rank across ``world`` ranks, and
+    which of the cells that do not fit one card fit ``world`` cards."""
+    gb = 1e9
+    print(f"{'arch':22s} {'shape':12s} {'weights GB':>10s} {'cache/rank GB':>13s} "
+          f"{'rank GB':>8s} {'1 card':>7s} {f'{world} cards':>8s} {'sharded decode':>14s}")
+    recs = []
+    for a in archs:
+        for s in shapes:
+            if specs.SHAPE_BY_NAME[s].kind != "decode":
+                continue
+            r = {"arch": a, "shape": s, **rank_bytes(a, s, world),
+                 "fits_one": specs.fit_batch(a, s) > 0}
+            r["fits_world"] = r["divides"] and r["total"] <= rl.HBM_PER_CARD
+            print(f"{a:22s} {s:12s} {r['weights'] / gb:10.2f} {r['target_cache'] / gb:13.2f} "
+                  f"{r['total'] / gb:8.2f} {'yes' if r['fits_one'] else 'no':>7s} "
+                  f"{'yes' if r['fits_world'] else 'no':>8s} "
+                  f"{'yes' if r['sharded_decode'] else 'no':>14s}")
+            recs.append(r)
+    gained = [f"{r['arch']} x {r['shape']}" for r in recs
+              if not r["fits_one"] and r["fits_world"]]
+    print(f"decode cells that do not fit one card but fit {world} "
+          f"({rl.HBM_PER_CARD / 2 ** 30:.0f} GiB each, weights whole, target cache split by "
+          f"sequence): {', '.join(gained) or 'none'}")
+    return recs
+
+
+def sharded_rank(rank: int, world: int, dev, arch_id: str, shape_name: str, seed: int,
+                 cfg: Optional[ModelConfig], out_dir: str, timed: int = 3) -> Dict:
+    """One rank of ``--run --world N``: the cell's target at full width
+    (``cfg`` in place of the cell's config when given; weights from
+    ``seed``, whole), this rank's slices of its cache filled
+    as ``FullCell`` fills the whole cache, and ``decode_step_sharded`` of
+    the cell's root token. The first token's logits and the K/V rows it
+    wrote (on the owning rank) go to ``<out_dir>/rank<r>.pt``; then
+    ``timed`` tokens on the host clock and one under the profiler.
+    Returns the rank's record (also ``<out_dir>/rank<r>.json``)."""
+    import torch.distributed as dist
+    from repro_torch.models import nsa_sharded
+    from repro_torch.runtime.elastic import build_mesh
+    shape = specs.SHAPE_BY_NAME[shape_name]
+    cfg = cfg or specs.cell_config(arch_id, shape_name)[0]
+    if not sharded_decode_ok(cfg):
+        raise ValueError(f"{arch_id} x {shape_name}: the sharded decode takes NSA attn / moe "
+                         "stacks")
+    mc = world_mesh(world)
+    mesh = build_mesh(mc, dev.type)
+    t0 = time.time()
+    g = torch.Generator(dev)
+    g.manual_seed(seed)
+    params = init_params(cfg, g, dev)
+    caches = nsa_sharded.init_local_caches(cfg, 1, shape.seq_len + specs.CACHE_SLACK, mesh,
+                                           mc.axes, dev)
+    fill_caches(params, cfg, caches, shape.seq_len, seed)
+    token = cell_tokens(cfg, build_topology(4, 2, "bfs").num_nodes, seed, dev)[:, :1]
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sync()
+    dist.barrier()
+    build_s = time.time() - t0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    def step():
+        return nsa_sharded.decode_step_sharded(params, cfg, mesh, caches, token, mc.axes)[0]
+
+    nsa_sharded.reset_collectives()
+    t0 = time.perf_counter()
+    logits = step()
+    sync()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    collectives = nsa_sharded.collectives()
+    r0, r1 = caches["global_rows"]["kv"]
+    owner = r0 <= shape.seq_len < r1
+    written = [(c["kv"]["k"][0, shape.seq_len - r0].float().cpu(),
+                c["kv"]["v"][0, shape.seq_len - r0].float().cpu())
+               for c in caches["layers"]] if owner else None
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    torch.save({"logits": logits.float().cpu(), "written": written}, out / f"rank{rank}.pt")
+    walls = []
+    for _ in range(timed):
+        dist.barrier()
+        t0 = time.perf_counter()
+        step()
+        sync()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    rec = {"rank": rank, "world": world, "backend": dist.get_backend(), "device": str(dev),
+           "arch": arch_id, "shape": shape_name, "dtype": cfg.dtype, "seq_len": shape.seq_len,
+           "rows": [r0, r1], "cmp_rows": list(caches["global_rows"]["cmp"]),
+           "owner": owner, "build_s": build_s, "first_wall_ms": first_ms,
+           "wall_ms": walls, "collectives_per_token": collectives}
+    if dev.type == "cuda":
+        dist.barrier()
+        rec.update(_profile(step))
+        rec["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+        rec["card"] = torch.cuda.get_device_name(dev)
+    (out / f"rank{rank}.json").write_text(json.dumps(rec, indent=1))
+    return rec
+
+
+def run_sharded(arch_id: str, shape_name: str, world: int, backend: str, out_dir: Path,
+                seed: int = 0, cfg: Optional[ModelConfig] = None, device_type: str = "cuda",
+                timeout: float = 900.0, timed: int = 3,
+                threads: Optional[int] = None) -> List[Dict]:
+    """``sharded_rank`` on ``world`` spawned ranks (``launch.ranks``);
+    ``cfg`` replaces the cell's config (e.g. in float32). Returns every
+    rank's record."""
+    from repro_torch.launch import ranks
+    args = (arch_id, shape_name, seed, cfg, str(out_dir), timed)
+    ranks.spawn(sharded_rank, world, backend, device_type, args=args, timeout=timeout,
+                threads=threads)
+    return [json.loads((Path(out_dir) / f"rank{r}.json").read_text()) for r in range(world)]
+
+
+def run_world(archs: List[str], shapes: List[str], args) -> int:
+    """``--run --world N``: ``run_sharded`` for each selected decode cell
+    that the sharded decode takes and whose ranks fit their cards."""
+    resolve_device("cuda")                    # raises without a card
+    cards = torch.cuda.device_count()
+    capacity = torch.cuda.get_device_properties(0).total_memory
+    per_card = -(-args.world // cards)
+    for a in archs:
+        for s in shapes:
+            rb = rank_bytes(a, s, args.world) if specs.SHAPE_BY_NAME[s].kind == "decode" else None
+            if rb is None or not rb["sharded_decode"] or not rb["divides"] or \
+                    rb["total"] * per_card > capacity:
+                print(f"[SKIP] {a:22s} {s:12s} (--run --world takes NSA decode cells whose "
+                      f"ranks fit {cards} card(s))")
+                continue
+            out = Path(args.out) / "world" / f"{a}__{s}__{args.world}{args.backend}"
+            recs = run_sharded(a, s, args.world, args.backend, out, args.seed)
+            for r in recs:
+                print(f"[RUN]  {a:22s} {s:12s} rank {r['rank']}/{r['world']} "
+                      f"({r['backend']}, {r['device']}): {r['collectives_per_token']} "
+                      f"collectives per token, wall per token " +
+                      ", ".join(f"{w:.2f}" for w in r["wall_ms"]) +
+                      f" ms, busy {r.get('device_busy_ms', float('nan')):.2f} ms (of it "
+                      f"{r.get('collective_ms', float('nan')):.2f} in NCCL kernels), peak "
+                      f"{r.get('peak_bytes', 0) / 2 ** 30:.2f} GiB", flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="all", help="comma-separated ids, or all")
@@ -301,6 +557,11 @@ def main(argv=None) -> int:
                     help="measure the selected decode cells that fit at batch 1 on the card")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=str(ART_DIR))
+    ap.add_argument("--world", type=int, default=0,
+                    help="ranks for the sequence-sharded decode: --list gives each decode "
+                         "cell's bytes per rank, --run serves one token across the ranks")
+    ap.add_argument("--backend", choices=("nccl", "gloo"), default="nccl",
+                    help="collective backend of --run --world (gloo shares the cards)")
     args = ap.parse_args(argv)
     archs = list(cfglib.ARCH_IDS) if args.arch == "all" else args.arch.split(",")
     shapes = [s.name for s in SHAPES] if args.shape == "all" else args.shape.split(",")
@@ -308,8 +569,13 @@ def main(argv=None) -> int:
         if s not in specs.SHAPE_BY_NAME:
             raise KeyError(f"unknown shape {s!r}; known: {tuple(specs.SHAPE_BY_NAME)}")
     if args.list:
-        list_cells(archs, shapes)
+        if args.world:
+            list_world(archs, shapes, args.world)
+        else:
+            list_cells(archs, shapes)
         return 0
+    if args.run and args.world:
+        return run_world(archs, shapes, args)
     if args.run:
         dev = resolve_device("cuda")          # raises without a card
         capacity = torch.cuda.get_device_properties(dev).total_memory

@@ -1,0 +1,316 @@
+"""Sequence-sharded NSA decode over torch ranks — the counterpart of
+``repro.models.nsa_sharded`` (the split-KV path of batch-1 long-context
+serving), with ``torch.distributed`` all-reduces in place of ``shard_map``'s
+``pmax`` / ``psum``.
+
+Each rank owns a contiguous slice of the raw and of the compressed cache
+(``launch.sharding.cache_specs(shard_sequence=True)``: the sequence split
+over the ``seq_axes`` of the mesh, row-major) and computes over its slice
+only:
+
+  1. local routing: q . K_cmp over the rank's compressed blocks -> the cmp
+     branch's online-softmax state (m, l, acc) and the partial selection
+     mass of each query head;
+  2. all-reduces that give every rank the same global Top-n
+     (``nsa.select_topn``, mandatory blocks included): the max logit and
+     the softmax sum of each head (they are also the cmp branch's merge),
+     then the sum of the (B, Hkv, NSB) selection scores;
+  3. the slc branch by token-granular ownership (a selected block may
+     straddle two slices), the rank's segment of the sliding window, and
+     the new token itself on the rank of index 0 only;
+  4. log-sum-exp merges of the slc and win states and the gated sum.
+
+Five all-reduces per layer and token: MAX and SUM for the cmp branch, SUM
+of the selection scores, MAX and SUM for the slc and win branches
+(``collectives`` counts them). The new K/V row is written on the rank that
+owns position ``prefix_len``. As in the reference the compressed cache is
+read-only here: a compressed block that this token completes is not
+written (the serving engine's commit owns that update).
+
+Where the reference differs from itself, the port takes the single-device
+side. ``repro.models.nsa_sharded`` sums ``exp(l - m)`` over the query heads
+of a kv group without dividing by each head's softmax sum, so with more
+than one query head per kv head it can rank the selection blocks unlike
+``nsa.routing``, which sums each head's normalised probabilities. Here each
+head's mass is divided by its all-reduced sum before the group sum, so the
+Top-n equals ``routing`` + ``select_topn`` on one device, and the output
+equals ``nsa.nsa_verify_ref`` at T = 1 up to reduction order.
+
+The per-rank compute is plain PyTorch, as the reference's is plain
+``jnp``: no TPU kernel lies on this path. Each rank builds only its rows of
+the cmp -> selection-block overlap matrix, and of those only the band of
+columns they reach.
+"""
+from __future__ import annotations
+
+import functools
+import math
+from typing import Dict, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch.config import ModelConfig
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.models import layers
+from repro_torch.models.attention import NEG_INF, qkv
+from repro_torch.models.nsa import dyn_num_cmp_blocks, gates, num_sel_blocks, select_topn
+
+_COUNT = [0]
+
+
+def collectives() -> int:
+    """All-reduces issued since the last ``reset_collectives``."""
+    return _COUNT[0]
+
+
+def reset_collectives() -> None:
+    _COUNT[0] = 0
+
+
+def _all_reduce(t: torch.Tensor, op, group) -> torch.Tensor:
+    _COUNT[0] += 1
+    dist.all_reduce(t, op=op, group=group)
+    return t
+
+
+# ---------------------------------------------------------------- geometry
+_GROUPS: Dict[Tuple[int, Tuple[str, ...]], Tuple] = {}
+
+
+def shard_of(mesh, seq_axes: Sequence[str]) -> Tuple[object, int, int]:
+    """(process group, this rank's index, shard count) of ``seq_axes``;
+    the group is made once per mesh (every rank makes it alike)."""
+    key = (id(mesh), tuple(seq_axes))
+    if key not in _GROUPS:
+        idx, n = mesh_lib.axes_index(mesh, seq_axes)
+        _GROUPS[key] = (mesh, mesh_lib.axes_group(mesh, seq_axes), idx, n)
+    _, group, idx, n = _GROUPS[key]
+    return group, idx, n
+
+
+def check_shards(S: int, NCB: int, nshards: int) -> None:
+    """Raises unless the raw slots ``S`` and the compressed blocks ``NCB``
+    both divide by the shard count, naming the one that does not."""
+    bad = [f"{name} = {v}" for name, v in (("S", S), ("NCB", NCB)) if v % nshards]
+    if bad:
+        raise ValueError(f"{' and '.join(bad)} do not divide by {nshards} shards"
+                         if len(bad) > 1 else f"{bad[0]} does not divide by {nshards} shards")
+
+
+def overlap_band(row0: int, nrows: int, nsb: int, l: int, d: int,
+                 lp: int) -> Tuple[int, np.ndarray]:
+    """Rows ``row0 .. row0 + nrows`` of ``nsa.overlap_matrix`` restricted to
+    the columns they reach: (first column, the (nrows, ncols) block). The
+    same arithmetic as the full matrix, so each value is the same."""
+    c0 = min(row0 * d // lp, nsb)
+    c1 = min(nsb, ((row0 + nrows - 1) * d + l - 1) // lp + 1) if nrows else c0
+    i = np.arange(row0, row0 + nrows)[:, None]
+    j = np.arange(c0, c1)[None, :]
+    lo = np.maximum(i * d, j * lp)
+    hi = np.minimum(i * d + l, (j + 1) * lp)
+    return c0, (np.maximum(0, hi - lo) / float(l)).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=16)
+def _band_tensor(row0: int, nrows: int, nsb: int, l: int, d: int, lp: int, device: str):
+    c0, m = overlap_band(row0, nrows, nsb, l, d, lp)
+    return c0, torch.from_numpy(m).to(device)
+
+
+def _state(logits, mask):
+    """Local softmax state of masked logits (B,Hkv,G,K): the max m
+    (B,Hkv,G) and exp(logits - m) where ``mask``, else 0."""
+    lm = torch.where(mask, logits, torch.full((), NEG_INF, device=logits.device))
+    m = lm.amax(-1)
+    p = torch.where(mask, torch.exp(lm - m[..., None]), torch.zeros((), device=logits.device))
+    return m, p
+
+
+def _merge(m, l, acc, group):
+    """LSE-merge per-rank states (m (…), l (…), acc (…, Dh)) across the
+    group: two all-reduces. Returns the merged, normalised output."""
+    m_max = _all_reduce(m.clone(), dist.ReduceOp.MAX, group)
+    s = torch.exp(m - m_max)
+    buf = torch.cat([(l * s)[..., None], acc * s[..., None]], dim=-1)
+    _all_reduce(buf, dist.ReduceOp.SUM, group)
+    l_g, acc_g = buf[..., 0], buf[..., 1:]
+    return torch.where(l_g[..., None] > 0, acc_g / l_g.clamp(min=1e-30)[..., None],
+                       torch.zeros((), device=acc.device))
+
+
+# ---------------------------------------------------------------- one layer
+@torch.no_grad()
+def nsa_attend_decode_sharded(params, cfg: ModelConfig, mesh, x, cache_local, cmp_local,
+                              prefix_len, seq_axes: Sequence[str], return_sel: bool = False):
+    """One-token NSA attention + raw K/V commit over a sequence-sharded cache.
+
+    x: (B, 1, D), the same on every rank. ``cache_local`` {"k", "v"}: this
+    rank's (B, S / n, Hkv, Dh) slice; ``cmp_local`` {"k_cmp", "v_cmp"}:
+    its (B, NCB / n, Hkv, Dh) slice (n = the shard count of ``seq_axes``).
+    ``prefix_len``: an int or a 0-d / (B,) tensor, the same on every rank.
+    Returns (out (B, 1, D), cache_local with the new row written in place
+    on the owning rank, cmp_local unchanged), and with ``return_sel`` the
+    global Top-n (sel_idx, sel_valid), each (B, Hkv, n)."""
+    nsa = cfg.nsa
+    group, idx, nshards = shard_of(mesh, seq_axes)
+    B, dev = x.shape[0], x.device
+    Hq, Hkv, G, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.q_per_kv, cfg.head_dim
+    k_c, v_c = cache_local["k"], cache_local["v"]
+    k_cm, v_cm = cmp_local["k_cmp"], cmp_local["v_cmp"]
+    S_loc, NCB_loc = k_c.shape[1], k_cm.shape[1]
+    S = S_loc * nshards
+    NSB = num_sel_blocks(S, nsa)
+    off, cmp_off = idx * S_loc, idx * NCB_loc
+    neg = torch.full((), NEG_INF, device=dev)
+    zero = torch.zeros((), device=dev)
+
+    pos = torch.as_tensor(prefix_len, device=dev).to(torch.int32).reshape(-1).expand(B)
+    positions = pos[:, None]                                              # (B, 1)
+    q, k_new, v_new = qkv(params, cfg, x, positions)
+    g_all = gates(params, x, Hq)                                          # (B,1,3,Hq)
+    scale = 1.0 / math.sqrt(Dh)
+    ncb_valid = dyn_num_cmp_blocks(pos, nsa)                              # (B,)
+    qg = q.reshape(B, Hkv, G, Dh).float()
+
+    # ---- 1. local routing: the cmp branch's state and per-head mass
+    cmp_ids = cmp_off + torch.arange(NCB_loc, device=dev)
+    ends = cmp_ids * nsa.cmp_stride + nsa.cmp_block - 1
+    cvis = (ends[None] <= pos[:, None]) & (cmp_ids[None] < ncb_valid[:, None])  # (B, NCB_loc)
+    lc = torch.einsum("bhgd,bkhd->bhgk", qg, k_cm.float()) * scale
+    cmask = cvis[:, None, None, :]
+    lc = torch.where(cmask, lc, neg)
+    # ---- 2. each head's global max and softmax sum (also the cmp merge)
+    m_glob = _all_reduce(lc.amax(-1), dist.ReduceOp.MAX, group)
+    p_c = torch.where(cmask, torch.exp(lc - m_glob[..., None]), zero)     # exp(l - m_glob)
+    acc_c = torch.einsum("bhgk,bkhd->bhgd", p_c, v_cm.float())
+    buf = torch.cat([p_c.sum(-1)[..., None], acc_c], dim=-1)
+    _all_reduce(buf, dist.ReduceOp.SUM, group)
+    l_glob, acc_glob = buf[..., 0], buf[..., 1:]
+    o_cmp = torch.where(l_glob[..., None] > 0, acc_glob / l_glob.clamp(min=1e-30)[..., None],
+                        zero)
+    # each head's normalised probabilities, summed over the group's heads
+    pn = torch.where(l_glob[..., None] > 0, p_c / l_glob.clamp(min=1e-30)[..., None], zero)
+    pm = pn.sum(dim=2)                                                    # (B,Hkv,NCB_loc)
+    c0, band = _band_tensor(cmp_off, NCB_loc, max(NSB, 1), nsa.cmp_block, nsa.cmp_stride,
+                            nsa.sel_block, str(dev))
+    p_slc = torch.zeros((B, Hkv, max(NSB, 1)), dtype=torch.float32, device=dev)
+    p_slc[..., c0:c0 + band.shape[1]] = torch.einsum("bhk,ks->bhs", pm, band)
+    _all_reduce(p_slc, dist.ReduceOp.SUM, group)
+    sel_idx, sel_valid = select_topn(p_slc[:, None], positions, pos, nsa)
+    sel_idx, sel_valid = sel_idx[:, 0], sel_valid[:, 0]                  # (B,Hkv,n)
+
+    # ---- 3a. slc branch: the selected tokens this rank owns
+    lp = nsa.sel_block
+    n = sel_idx.shape[-1]
+    tok = (sel_idx[..., None].long() * lp + torch.arange(lp, device=dev)).reshape(B, Hkv, n * lp)
+    own = (tok >= off) & (tok < off + S_loc) & (tok < pos[:, None, None].long()) & \
+        sel_valid.repeat_interleave(lp, dim=-1)
+    loc = (tok - off).clamp(0, S_loc - 1)
+    bidx = torch.arange(B, device=dev)[:, None, None]
+    hidx = torch.arange(Hkv, device=dev)[None, :, None]
+    k_sel, v_sel = k_c[bidx, loc, hidx], v_c[bidx, loc, hidx]            # (B,Hkv,K,Dh)
+    ls = torch.einsum("bhgd,bhkd->bhgk", qg, k_sel.float()) * scale
+    m_s, p_s = _state(ls, own[:, :, None])
+    l_s = p_s.sum(-1)
+    acc_s = torch.einsum("bhgk,bhkd->bhgd", p_s, v_sel.float())
+
+    # ---- 3b. win branch: the rank's window segment, and the new token on rank 0
+    W = min(nsa.window, S_loc)
+    wstart = (pos.long() - nsa.window + 1).clamp(0, S - 1)                # (B,)
+    lstart = (wstart - off).clamp(0, max(S_loc - W, 0))
+    wl = lstart[:, None] + torch.arange(W, device=dev)                   # (B, W)
+    brow = torch.arange(B, device=dev)[:, None]
+    k_w, v_w = k_c[brow, wl], v_c[brow, wl]                              # (B,W,Hkv,Dh)
+    wpos = off + wl
+    wmask = (wpos < pos[:, None].long()) & (wpos >= wstart[:, None])
+    lw = torch.einsum("bhgd,bkhd->bhgk", qg, k_w.float()) * scale
+    lnew = torch.einsum("bhgd,bkhd->bhgk", qg, k_new.float()) * scale     # (B,Hkv,G,1)
+    lwin = torch.cat([lw, lnew], dim=-1)
+    mwin = torch.cat([wmask, torch.full((B, 1), idx == 0, device=dev)], dim=-1)
+    m_w, p_w = _state(lwin, mwin[:, None, None, :])
+    l_w = p_w.sum(-1)
+    acc_w = torch.einsum("bhgk,bkhd->bhgd", p_w[..., :W], v_w.float()) + \
+        torch.einsum("bhgk,bkhd->bhgd", p_w[..., W:], v_new.float())
+
+    # ---- 4. merges and gates
+    o_sw = _merge(torch.stack([m_s, m_w]), torch.stack([l_s, l_w]),
+                  torch.stack([acc_s, acc_w]), group)
+    o_slc, o_win = o_sw[0], o_sw[1]
+    g = g_all[:, 0].reshape(B, 3, Hkv, G)
+    o = (g[:, 0, :, :, None] * o_cmp + g[:, 1, :, :, None] * o_slc +
+         g[:, 2, :, :, None] * o_win).to(x.dtype)
+    out = o.reshape(B, 1, Hq * Dh) @ params["wo"]
+
+    # ---- the raw K/V row, on the rank that owns position prefix_len
+    in_range = ((pos >= off) & (pos < off + S_loc))[:, None, None]
+    wr = (pos.long() - off).clamp(0, S_loc - 1)
+    rows = torch.arange(B, device=dev)
+    k_c[rows, wr] = torch.where(in_range, k_new[:, 0].to(k_c.dtype), k_c[rows, wr])
+    v_c[rows, wr] = torch.where(in_range, v_new[:, 0].to(v_c.dtype), v_c[rows, wr])
+    if return_sel:
+        return out, cache_local, cmp_local, (sel_idx, sel_valid)
+    return out, cache_local, cmp_local
+
+
+# ---------------------------------------------------------------- full model
+@torch.no_grad()
+def decode_step_sharded(params, cfg: ModelConfig, mesh, caches, tokens,
+                        seq_axes: Sequence[str]):
+    """Full-model one-token decode with sequence-sharded NSA attention: the
+    semantics of ``model.decode_step`` for stacks of ``"attn"`` / ``"moe"``
+    blocks with ``cfg.attention == "nsa"`` (the long_500k serving
+    configuration), the compressed cache read-only.
+
+    ``caches``: this rank's slices (``init_local_caches``), with the
+    (B,) ``"length"`` the same on every rank; tokens (B, 1). Writes each
+    layer's new row on its owning rank and advances the length in place.
+    Returns (logits (B, 1, V), caches)."""
+    from repro_torch.models import model as model_lib
+    kinds = cfg.layer_kinds()
+    if cfg.attention != "nsa" or set(kinds) - {"attn", "moe"}:
+        raise NotImplementedError(f"{cfg.name}: the sharded decode takes NSA attn / moe stacks")
+    prefix_len = caches["length"]
+    x = layers.embed(params["embed"], tokens)
+    for bp, cache, kind in zip(params["layers"], caches["layers"], kinds):
+        hn = layers.rmsnorm(bp["norm1"], x, cfg.norm_eps)
+        mix, _, _ = nsa_attend_decode_sharded(bp["mix"], cfg, mesh, hn, cache["kv"],
+                                              cache["cmp"], prefix_len, seq_axes)
+        x = x + mix
+        x = x + model_lib._apply_ffn(bp, cfg, kind,
+                                     layers.rmsnorm(bp["norm2"], x, cfg.norm_eps))[0]
+    x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    logits = model_lib.logits_fn(params, cfg, x)
+    caches["length"].copy_(prefix_len + 1)
+    return logits, caches
+
+
+def init_local_caches(cfg: ModelConfig, batch: int, max_len: int, mesh,
+                      seq_axes: Sequence[str], device) -> Dict:
+    """This rank's zeroed slices of ``model.init_caches(cfg, batch,
+    max_len)`` under ``sharding.cache_specs(shard_sequence=True)``:
+    ``"global_rows"`` gives the rows of the whole cache that each holds
+    (K/V and compressed). Raises when S or NCB does not divide."""
+    from repro_torch.device import dtype_of
+    from repro_torch.launch import sharding
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.nsa import init_cmp_cache
+    _, idx, n = shard_of(mesh, seq_axes)
+    NCB = init_cmp_cache(cfg, 1, max_len, torch.float32, "meta")["k_cmp"].shape[1]
+    check_shards(max_len, NCB, n)
+    full = model_lib.init_caches(cfg, batch, max_len, "meta")
+    specs = sharding.cache_specs(full, mesh, shard_sequence=True)
+    seq = specs["layers"][0]["kv"]["k"][1]
+    if (seq if isinstance(seq, tuple) else (seq,)) != tuple(seq_axes):
+        raise ValueError(f"the cache splits its sequence over {seq}, not {tuple(seq_axes)}")
+    dtype = dtype_of(cfg.dtype)
+    out = []
+    for layer, lspec in zip(full["layers"], specs["layers"]):
+        out.append({part: {name: torch.zeros(
+            sharding.local_shape(t.shape, lspec[part][name], mesh_lib.mesh_shape(mesh)),
+            dtype=dtype, device=device) for name, t in leaves.items()}
+            for part, leaves in layer.items()})
+    return {"layers": out, "length": torch.zeros((batch,), dtype=torch.int32, device=device),
+            "global_rows": {"kv": (idx * max_len // n, (idx + 1) * max_len // n),
+                            "cmp": (idx * NCB // n, (idx + 1) * NCB // n)}}

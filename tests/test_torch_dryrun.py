@@ -123,7 +123,7 @@ def test_fill_caches_compresses_the_rows(monkeypatch):
     from repro_torch.models import model
     params = init_params(cfg, g, "cpu")
     caches = model.init_caches(cfg, 1, 300, "cpu")
-    dryrun.fill_caches(params, cfg, caches, 250, g)
+    dryrun.fill_caches(params, cfg, caches, 250, seed=0)
     assert caches["length"].tolist() == [250]
     for lp, c in zip(params["layers"], caches["layers"]):
         k, v = c["kv"]["k"], c["kv"]["v"]
@@ -155,3 +155,60 @@ def test_strict_root_logits_equal_decode_on_a_full_cache(arch):
     torch.testing.assert_close(strict[:, :1], dec, rtol=2e-4, atol=2e-5)
     assert cell.caches["length"].tolist() == [301]
     assert dataclasses.asdict(cell.shape)["seq_len"] == 300
+
+
+@pytest.mark.parametrize("world", [2, 4, 8])
+def test_list_world_splits_the_target_cache(world, capsys):
+    """``--list --world N``: for every decode cell the per-rank split cache
+    bytes x N plus the leaves each rank holds whole (the length, recurrent
+    states) equal the single card's target cache, the weights stay whole,
+    and the cells that fit N cards but not one are printed (at N = 4:
+    qwen3-8b, musicgen-medium, pixtral-12b and ssv-nsa-8b at long_500k)."""
+    assert dryrun.main(["--list", "--world", str(world)]) == 0
+    out = capsys.readouterr().out
+    decode = [s for s, sh in specs.SHAPE_BY_NAME.items() if sh.kind == "decode"]
+    for arch in configs.ARCH_IDS:
+        for shape in decode:
+            cfg = specs.cell_config(arch, shape)[0]
+            r = dryrun.rank_bytes(arch, shape, world)
+            single = specs.cell_bytes(arch, shape, 1)
+            assert r["divides"], (arch, shape)
+            assert r["cache_split"] * world + r["cache_replicated"] == single["target_cache"]
+            assert r["weights"] == single["weights"]
+            assert r["total"] == r["weights"] + r["target_cache"]
+            assert r["sharded_decode"] == (cfg.attention == "nsa" and
+                                           set(cfg.layer_kinds()) <= {"attn", "moe"})
+            if r["sharded_decode"] and not cfg.moe:
+                assert r["cache_replicated"] == 4                    # the (1,) length
+    rows = [ln for ln in out.splitlines() if ln.split() and ln.split()[0] in configs.ARCH_IDS]
+    assert len(rows) == len(configs.ARCH_IDS) * len(decode)
+    last = out.splitlines()[-1]
+    assert last.startswith(f"decode cells that do not fit one card but fit {world}")
+    if world == 4:
+        assert last.endswith("qwen3-8b x long_500k, musicgen-medium x long_500k, "
+                             "pixtral-12b x long_500k, ssv-nsa-8b x long_500k")
+        r = dryrun.rank_bytes("ssv-nsa-8b", "long_500k", 4)
+        assert round(r["total"] / 1e9, 2) == 34.37
+
+
+def test_run_world_on_cpu_ranks_equals_decode_step(tmp_path):
+    """``run_sharded`` (``--run --world``'s path) on two gloo ranks on the
+    CPU, reduced ssv-nsa-1b at 32,768 tokens: each rank fills only its
+    slice, yet the token's logits and written rows equal ``FullCell``'s
+    ``decode_step`` on the whole fill; 5 all-reduces per layer."""
+    cfg = dataclasses.replace(configs.reduced("ssv-nsa-1b"), dtype="float32")
+    recs = dryrun.run_sharded("ssv-nsa-1b", "decode_32k", 2, "gloo", tmp_path, cfg=cfg,
+                              device_type="cpu", timeout=240, timed=1, threads=1)
+    assert [r["rows"] for r in recs] == [[0, 16640], [16640, 33280]]
+    assert all(r["collectives_per_token"] == 5 * cfg.num_layers for r in recs)
+    got = [torch.load(tmp_path / f"rank{r}.pt") for r in range(2)]
+    assert got[0]["written"] is None and got[1]["written"] is not None
+    cell = dryrun.FullCell.__new__(dryrun.FullCell)
+    cell._build("ssv-nsa-1b", cfg, specs.SHAPE_BY_NAME["decode_32k"], 0, torch.device("cpu"),
+                rl.HBM_PER_CARD)
+    dec = cell.decode()
+    for g in got:
+        torch.testing.assert_close(g["logits"], dec, rtol=2e-4, atol=2e-5)
+    for (k, v), c in zip(got[1]["written"], cell.caches["layers"]):
+        torch.testing.assert_close(k, c["kv"]["k"][0, 32768], rtol=2e-4, atol=2e-5)
+        torch.testing.assert_close(v, c["kv"]["v"][0, 32768], rtol=2e-4, atol=2e-5)

@@ -1095,3 +1095,33 @@ def test_kernels_at_524288_tokens(cuda, C, mode, full):
     torch.cuda.synchronize()
     assert torch.equal(got, again)
     _close(got, want, torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("world,backend", [(1, "nccl"), (2, "gloo")])
+def test_sharded_decode_equals_decode_step_on_card(cuda, tmp_path, world, backend):
+    """``decode_step_sharded`` on a reduced ssv-nsa-1b cell at 32,768
+    tokens, spawned ranks on the card (one over NCCL; two sharing it over
+    gloo), equals ``decode_step`` through the kernels on the same fill:
+    float32 logits within rtol 2e-4 / atol 2e-5, the same argmax, the same
+    written K/V rows."""
+    import dataclasses
+    from repro_torch.analysis import roofline as rl
+    from repro_torch.configs import reduced
+    from repro_torch.launch import dryrun, specs
+    shape = specs.SHAPE_BY_NAME["decode_32k"]
+    cfg = dataclasses.replace(reduced("ssv-nsa-1b"), dtype="float32")
+    dryrun.run_sharded("ssv-nsa-1b", "decode_32k", world, backend, tmp_path, cfg=cfg,
+                       timeout=300, timed=1)
+    got = [torch.load(tmp_path / f"rank{r}.pt") for r in range(world)]
+    cell = dryrun.FullCell.__new__(dryrun.FullCell)
+    cell._build("ssv-nsa-1b", cfg, shape, 0, cuda, rl.HBM_PER_CARD)
+    dec = cell.decode().float().cpu()
+    torch.testing.assert_close(got[0]["logits"], dec, rtol=2e-4, atol=2e-5)
+    assert torch.equal(got[0]["logits"].argmax(-1), dec.argmax(-1))
+    rows = next(g["written"] for g in got if g["written"] is not None)
+    for (k, v), c in zip(rows, cell.caches["layers"]):
+        torch.testing.assert_close(k, c["kv"]["k"][0, shape.seq_len].float().cpu(),
+                                   rtol=2e-4, atol=2e-5)
+        torch.testing.assert_close(v, c["kv"]["v"][0, shape.seq_len].float().cpu(),
+                                   rtol=2e-4, atol=2e-5)

@@ -79,6 +79,17 @@ def test_scan_covers_the_analysis_and_launch_modules():
         assert f"src/repro_torch/{rel}" in scanned
 
 
+def test_scan_covers_the_decode_across_ranks_and_the_examples():
+    """The mesh, sharding, rank-launch and elastic modules, the sharded
+    decode and the four examples are scanned."""
+    scanned = {str(p.relative_to(ROOT)) for p in _port_files()}
+    for rel in ("launch/mesh.py", "launch/sharding.py", "launch/ranks.py",
+                "runtime/elastic.py", "models/nsa_sharded.py", "examples/__init__.py",
+                "examples/quickstart.py", "examples/serve_batched.py",
+                "examples/train_nsa_e2e.py", "examples/fault_tolerant_training.py"):
+        assert f"src/repro_torch/{rel}" in scanned
+
+
 def test_chip_smoke_keeps_no_copy_of_the_roofline():
     """The card's rates and the kernel bounds live in
     ``analysis/roofline.py`` only: ``chip_smoke.py`` defines none of the
