@@ -91,7 +91,7 @@ Phases (every phase always runs; any failure exits non-zero):
  10. the model zoo: qwen3-8b, granite-20b, musicgen-medium,
      mixtral-8x22b and qwen3-moe-235b-a22b, each as its NSA variant
      (``configs.nsa_variant``) with its ``draft_config`` draft, at full
-     width (cut to 4 layers each), bf16, random weights from
+     width (cut to 2 layers each), bf16, random weights from
      a seed, one at a time: a 4097-token prompt, max_context 8192, D4/k2,
      16 new tokens, Strict and Approx+Reuse through ``SSVEngine`` with
      exact launch counts, a 3-step profile (one device-to-host copy per
@@ -102,20 +102,20 @@ Phases (every phase always runs; any failure exits non-zero):
      counts exact under replay, paged == dense; one MoE FFN over an odd
      4097 tokens (its experts one by one, as a prefill runs them);
      float32: Strict == AR on qwen3-8b, granite-20b and musicgen-medium
-     cut to 4 layers, and for
+     at the served depth, and for
      both MoE archs (experts, top-k, dispatch group and heads kept, width
      cut) card tokens and accepted counts == the CPU plain path's and
      batched == single stream; the serve CLI with ``--arch qwen3-8b``.
      Then the last five archs the same way: smollm-360m (Gq 3, a
-     head-dim-80 draft) and pixtral-12b (Dh 160) cut to 8 layers,
-     recurrentgemma-9b (RG-LRU + NSA, Dh 256, Gq 16) to 9 (three periods),
-     xlstm-125m (mLSTM / sLSTM, a head-dim-96 draft) at full depth,
-     nemotron-4-340b (Dh 192, Gq 12) at 4 of its 96 layers (~47 GB of
+     head-dim-80 draft) and pixtral-12b (Dh 160) cut to 2 layers,
+     recurrentgemma-9b (RG-LRU + NSA, Dh 256, Gq 16) to 6 (two periods),
+     xlstm-125m (mLSTM / sLSTM, a head-dim-96 draft) to 2 of its 12,
+     nemotron-4-340b (Dh 192, Gq 12) at 2 of its 96 layers (~33 GB of
      bf16), each prefill timed (xLSTM's target prefill
      also with its sLSTM chunks replayed and stepped eagerly); recurrentgemma and xlstm also at 2 slots dense
      and paged (paged == dense), xlstm bucketed at 4 slots (the recurrent
      state replay inside captured group steps); float32: Strict == AR on
-     smollm (8 layers) and pixtral (4 layers), and card == CPU and
+     smollm and pixtral (2 layers), and card == CPU and
      batched == single stream on nemotron (Dh 192, Gq 12 kept), one
      (rglru, rglru, attn) period of recurrentgemma (Dh 256, Gq 16 kept)
      and one (mlstm, slstm) period of xlstm (full width, vocab 4096); the
@@ -148,14 +148,34 @@ Phases (every phase always runs; any failure exits non-zero):
      same argmax; bf16: the same argmax and layer 0's written row bitwise,
      the largest differences printed), every rank's logits equal; wall and busy per token,
      collectives per token and per-rank peak memory printed;
- 13. the summary lines: a ``kernels`` JSON line (every kernel x head dim,
+ 13. training across ranks (``make_train_step(cfg, tcfg, mesh)``, checked in
+     spawned ranks by ``launch.train_checks``): (a) four gloo ranks share
+     the card with CUDA tensors on a (data 2, model 2) mesh, full-width
+     ssv-nsa-1b cut to 2 layers in float32, 4 x 2049 tokens: the sharded
+     step equals ``make_train_step`` on one device on the card (loss rtol
+     1e-5; every block of params, both moments and the residual rtol 2e-4 /
+     atol 2e-5; an int8 rounding flip held one step off, its count to
+     ``train_checks.flips_bound`` of the count expected; an ill-conditioned
+     AdamW param to its own gradient's update), plain and with
+     int8 error-feedback compression over 2 micro-batches; the flips
+     between two single-device int8 steps that differ only in their
+     reduction order (2 and 4 micro-batches) printed beside them; the
+     plain step's checkpoint, saved from that world, restores onto a
+     (2, 1) world and onto one device bitwise; (b) beside the restores,
+     one NCCL rank on a (1, 1) mesh, full-width, full-depth ssv-nsa-1b in
+     bf16, 1 x 4096 tokens: one step equals the single-device step on the
+     same card (loss and every leaf within 3e-2, the largest differences
+     printed), one more step timed once the restores are done, alone on
+     the card, its ms and the peak printed beside phase 9's; collectives,
+     resident bytes, wall and peak per rank printed;
+ 14. the summary lines: a ``kernels`` JSON line (every kernel x head dim,
      and x query-head group for the zoo's, and x cell for phase 11's), the
      card line, and the ``{"ok": true, "device": ...}`` line last.
 
 ``--times-only`` stops after phases 1 and 8 (no ok line), ``--serve-only``
 after phases 1 and 3 (no ok line; the served tokens go to
-``chip_smoke_serve.json``), ``--cells-only`` after phases 1, 11 and 12 (no
-ok line; ``chip_smoke_cells.json``); with ``--src`` either times or serves
+``chip_smoke_serve.json``), ``--cells-only`` after phases 1, 11, 12 and 13
+(no ok line; ``chip_smoke_cells.json``); with ``--src`` either times or serves
 another checkout's package by the same method (the parent's, in the same
 call, for a comparison on one card; one that has
 ``repro_torch.analysis``, since the bounds come from there).
@@ -180,6 +200,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 # cuBLAS reads this when it first makes a handle; phase 9's restart check
@@ -578,9 +599,10 @@ def main(argv=None) -> int:
                          "Strict and Approx+Reuse, launch counts, profile) and stop; prints "
                          "no ok line")
     ap.add_argument("--cells-only", action="store_true",
-                    help="build and run phases 11 and 12 (the dry run's long-context cells "
-                         "on full caches, their kernels against the plain versions, and the "
-                         "sequence-sharded decode across ranks) and stop; prints no ok line")
+                    help="build and run phases 11, 12 and 13 (the dry run's long-context "
+                         "cells on full caches, their kernels against the plain versions, the "
+                         "sequence-sharded decode and training across ranks) and stop; prints "
+                         "no ok line")
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="the directory that holds repro_torch (default: this checkout's); "
                          "with --times-only or --serve-only, another checkout's package is "
@@ -651,12 +673,16 @@ def main(argv=None) -> int:
         t0 = time.time()
         sharded = sharded_phase(ctx, out_dir / "sharded")
         log(f"[12 ranks] {time.time() - t0:.1f}s")
+        t0 = time.time()
+        train_ranks = train_ranks_phase(ctx, out_dir / "train_ranks")
+        log(f"[13 train ranks] {time.time() - t0:.1f}s")
         for row in cell_rows:
             row.update(launches=ctx["launches"].get(row["name"], 0),
                        max_abs_err=cell_err.get(row["name"]))
         (out_dir / "chip_smoke_cells.json").write_text(json.dumps(
             {"card": card, "kind": kind, "cells": cells, "kernels": cell_rows,
-             "launches": ctx["launches"], "sharded": sharded}, indent=1, default=str))
+             "launches": ctx["launches"], "sharded": sharded, "train_ranks": train_ranks},
+            indent=1, default=str))
         print(card)
         return 0
     if args.serve_only:
@@ -754,17 +780,22 @@ def main(argv=None) -> int:
     t0 = time.time()
     sharded = sharded_phase(ctx, out_dir / "sharded")
     log(f"[12 ranks] {time.time() - t0:.1f}s")
+
+    # ---- 13. training across ranks
+    t0 = time.time()
+    train_ranks = train_ranks_phase(ctx, out_dir / "train_ranks", train["target"])
+    log(f"[13 train ranks] {time.time() - t0:.1f}s")
     for row in rows:        # the trained pair's and the zoo's serves launched the kernels too
         row["launches"] = ctx["launches"].get(row["name"], 0)
         row["max_abs_err"] = max_err.get(row["name"])
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "kind": kind, "e2e": e2e, "batched": batched, "paths": ctx["paths"],
          "ptxas": instances, "kernels": rows, "layer_times": layer_times, "train": train,
-         "zoo": zoo, "cells": cells, "sharded": sharded, "seconds": time.time() - t_start},
-        indent=1, default=str))
+         "zoo": zoo, "cells": cells, "sharded": sharded, "train_ranks": train_ranks,
+         "seconds": time.time() - t_start}, indent=1, default=str))
 
-    # ---- 13. summary
-    log(f"[13 done] {time.time() - t_start:.1f}s")
+    # ---- 14. summary
+    log(f"[14 done] {time.time() - t_start:.1f}s")
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -1592,28 +1623,39 @@ def dense_baseline(cfg, ctx):
 # Every arch of the JAX package besides the 1B / 8B ones, each served as its
 # NSA variant (``configs.nsa_variant``, as the serve CLIs do; attention-free
 # xlstm as it is) at full width with its ``draft_config`` draft. The MoE
-# archs keep 4 of their layers: one card holds ~5 GB of bf16 experts per
-# layer, so 56 and 94 layers (~282 and ~463 GB) do not fit; nemotron keeps
+# archs keep 4 of their layers (qwen3-moe 2 since phase 13 joined): one
+# card holds ~5 GB of bf16 experts per layer, so 56 and 94 layers (~282 and
+# ~463 GB) do not fit; nemotron keeps
 # 4 of its 96 (~7 GB of bf16 a layer: 96 are ~680 GB; 4 plus the 256k-vocab
 # embedding and head are ~47 GB). qwen3-8b, granite-20b and musicgen-medium
 # keep 4 layers too, for the 1,200 s the script must finish in: with all
 # three at full depth (36-52 layers) a run took 1,217 s, and with qwen3-8b
 # alone at full depth 1,175 s on a slower host (every step is
 # launch-bound, so time follows layers; their kernels' shapes do not
-# depend on depth). smollm-360m, pixtral-12b and recurrentgemma-9b keep 8,
-# 8 and 9 layers since phase 11 joined: with them at full depth the script
-# took 1,085.6 s on one H100 80GB HBM3 at 700 W, 90% of its limit.
+# depend on depth). smollm-360m, pixtral-12b and recurrentgemma-9b kept 8,
+# 8 and 9 layers since phase 11 joined (at full depth the script took
+# 1,085.6 s on one H100 80GB HBM3 at 700 W); since phase 13 joined they keep
+# 4, 4 and 6 and xlstm-125m 4 of its 12, qwen3-moe 2 (at 8 / 8 / 9 / 12 the
+# script took 1,156.1 s there, 96% of its limit; xlstm's 12 layers alone
+# took 54.0 s, at 6 29.4 s; with smollm / pixtral 4, recurrentgemma /
+# xlstm 6 and qwen3-moe 4 (25.2 s) it took 1,133.8 s). Since phase 13's
+# checks grew (the 2-against-4 micro-batch flips, (b) timed alone) every
+# arch keeps 2 layers (xlstm one (mlstm, slstm) period) but
+# recurrentgemma, which keeps 6: at 3 its one attention layer never
+# launched nsa_verify's full fusion at Dh 256 on the served paths. At 4
+# layers the script took 1,143.1 s on one H100 80GB HBM3 at 700 W; the
+# zoo at 2 layers took 198.2 s on a host 1.3x slower (212.6 s at 4).
 ZOO = ("qwen3-8b", "granite-20b", "musicgen-medium", "mixtral-8x22b", "qwen3-moe-235b-a22b",
        "smollm-360m", "pixtral-12b", "nemotron-4-340b", "recurrentgemma-9b", "xlstm-125m")
-ZOO_LAYERS = {"qwen3-8b": 4, "granite-20b": 4, "musicgen-medium": 4, "mixtral-8x22b": 4,
-              "qwen3-moe-235b-a22b": 4, "nemotron-4-340b": 4, "smollm-360m": 8,
-              "pixtral-12b": 8, "recurrentgemma-9b": 9}
+ZOO_LAYERS = {"qwen3-8b": 2, "granite-20b": 2, "musicgen-medium": 2, "mixtral-8x22b": 2,
+              "qwen3-moe-235b-a22b": 2, "nemotron-4-340b": 2, "smollm-360m": 2,
+              "pixtral-12b": 2, "recurrentgemma-9b": 6, "xlstm-125m": 2}
 # generate_batch at 2 slots, paged == dense
 ZOO_PAGED = ("qwen3-8b", "qwen3-moe-235b-a22b", "recurrentgemma-9b", "xlstm-125m")
 ZOO_BUCKETED = ("qwen3-moe-235b-a22b", "xlstm-125m")  # 4 slots, captured group steps
 # float32 Strict == AR, at these depths (None: the served depth)
-ZOO_F32_AR = {"qwen3-8b": 4, "granite-20b": 4, "musicgen-medium": 4, "smollm-360m": None,
-              "pixtral-12b": 4}
+ZOO_F32_AR = {"qwen3-8b": None, "granite-20b": None, "musicgen-medium": None,
+              "smollm-360m": None, "pixtral-12b": None}
 ZOO_MOE = ("mixtral-8x22b", "qwen3-moe-235b-a22b")
 ZOO_F32_CPU = ("nemotron-4-340b", "recurrentgemma-9b", "xlstm-125m")
 
@@ -2006,6 +2048,183 @@ def sharded_phase(ctx, out_dir):
         out[f"{part} {arch} {shape} {dtype} world {world} {backend}"] = {
             "ranks": recs, "max_abs_err": err, "row_max_abs_err": row_err, "seconds": wall}
         free()
+    return out
+
+
+# Phase 13 (a): full-width ssv-nsa-1b cut to TRAIN_RANKS_LAYERS layers in
+# float32 on four gloo ranks sharing the card, 4 x 2049 tokens (two
+# micro-batches of 2 x 2049 cut over 2 data ranks: with 2 x 2049 a
+# micro-batch's one row does not divide, which the port refuses where GSPMD
+# would pad); (b): the whole model in bf16 on one NCCL rank, at phase 9's
+# 1 x 4096 tokens.
+TRAIN_RANKS_LAYERS, TRAIN_RANKS_TOKENS = 2, (4, 2049)
+
+
+def rounding_flips_between(a, b, scales):
+    """The int8 rounding flips between two residual trees of a whole state
+    (``scales``: ``a``'s, in leaf order), counted as ``train_checks`` counts
+    them: {"flips", "expected" (the sum of |du|), "elements"}."""
+    from repro_torch.launch.train_checks import rounding_steps
+    out = {"flips": 0, "expected": 0.0, "elements": 0}
+    for x, y, s in zip(leaves_of(a), leaves_of(b), scales):
+        k, e = rounding_steps((x.to(DEV).float() - y.to(DEV).float()) / s)
+        out["flips"] += int((k != 0).sum())
+        out["expected"] += e
+        out["elements"] += k.numel()
+    return out
+
+
+def train_ranks_phase(ctx, out_dir, phase9=None):
+    """Phase 13 (see the module docstring). ``phase9``: phase 9's numbers of
+    the full-width 1B target (its step ms and peak are printed beside
+    13(b)'s). Returns the records."""
+    from repro_torch import configs
+    from repro_torch.ckpt import restore
+    from repro_torch.config import TrainConfig
+    from repro_torch.launch import train_checks
+    from repro_torch.optim import tree_map
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    note = f"{ctx['kind']} ({ctx['card']})"
+    base = configs.get_config("ssv-nsa-1b")
+    out = {}
+
+    # ---- (a) four gloo ranks on one card, float32
+    cfg = dataclasses.replace(base, num_layers=TRAIN_RANKS_LAYERS, dtype="float32")
+    case = {"seed": 0, "batch": TRAIN_RANKS_TOKENS[0], "seq": TRAIN_RANKS_TOKENS[1]}
+    whole = train_checks.load_case(case, cfg, torch.device(DEV))   # each rank draws the same
+    tcfgs = {"plain": TrainConfig(steps=1, learning_rate=1e-3),
+             "int8_ef, 2 micro-batches": TrainConfig(steps=1, learning_rate=1e-3,
+                                                     grad_compression="int8_ef",
+                                                     micro_batches=2)}
+    ck = out_dir / "ck_a"
+    jobs = []
+    for i, (name, tcfg) in enumerate(tcfgs.items()):
+        t0 = time.time()
+        ref = train_checks.single_device_reference(cfg, tcfg, whole["params"], whole["tokens"])
+        torch.save(ref, out_dir / f"ref_a{i}.pt")
+        log(f"  [13a single device {name}] {note}: loss {ref['loss']:.6f}, grad norm "
+            f"{ref['grad_norm']:.5f}, step {ref['wall_ms']:.1f} ms, peak "
+            f"{ref.get('peak_gib', math.nan):.2f} GiB; {time.time() - t0:.1f}s with its file")
+        jobs.append(dict(kind="step", name=name, cfg=cfg, tcfg=tcfg,
+                         mesh=((2, 2), ("data", "model")), case=case,
+                         refs={"single device": str(out_dir / f"ref_a{i}.pt")},
+                         tol=(2e-4, 2e-5, 1e-5), save=str(ck) if i == 0 else None))
+        if tcfg.grad_compression == "int8_ef":
+            # the same int8 step over 4 micro-batches: one device, another
+            # order of the float32 sums, no collective
+            other = train_checks.single_device_reference(
+                cfg, dataclasses.replace(tcfg, micro_batches=4), whole["params"],
+                whole["tokens"])
+            out["flips between single-device steps"] = flips = rounding_flips_between(
+                ref["residual"], other["residual"], ref["scales"])
+            log(f"  [13a single device {name} against 4 micro-batches] {note}: int8 rounding "
+                f"flips {flips['flips']} of {flips['elements']} elements "
+                f"({flips['flips'] / flips['elements']:.2e}), expected "
+                f"{flips['expected']:.1f} from the residuals")
+            del other
+        del ref
+    del whole
+    free()
+    t0 = time.time()
+    ranks_a = train_checks.run_checks(jobs, 4, "gloo", out_dir / "a", timeout=400)
+    out["a"] = {"ranks": ranks_a, "seconds": time.time() - t0}
+    log(f"  [13a] 4 ranks: {out['a']['seconds']:.1f}s with their start; the checkpoint "
+        f"{max(r['jobs'][0]['save_s'] for r in ranks_a):.1f}s")
+    for j, job in enumerate(jobs):
+        got = [r["jobs"][j] for r in ranks_a]
+        tag = f"[13a {cfg.name} x{cfg.num_layers} f32, {job['name']}, (2, 2) over 4 gloo ranks]"
+        if len({g["loss"] for g in got}) != 1 or len({g["grad_norm"] for g in got}) != 1:
+            fail(f"{tag} the ranks' loss or grad norm differ: {[g['loss'] for g in got]}")
+        bad = [g["refs"]["single device"] for g in got if not g["refs"]["single device"]["ok"]]
+        if bad:
+            fail(f"{tag} differs from the single-device step: {bad[0]}")
+        ref = got[0]["refs"]["single device"]
+        log(f"  {tag} {note}: loss {got[0]['loss']:.6f} (rel err {ref['loss_rel_err']:.2e}), "
+            f"grad norm rel err {ref['grad_norm_rel_err']:.2e}; max abs err over the ranks " +
+            ", ".join(f"{k} {max(g['refs']['single device']['max_abs_err'][k] for g in got):.3e}"
+                      for k in ref["max_abs_err"]) +
+            (f"; int8 rounding flips {[g['refs']['single device']['rounding_flips'] for g in got]}"
+             f" of {ref['elements']} elements a rank ({ref['rounding_flips'] / ref['elements']:.2e}"
+             f" on rank 0), expected "
+             f"{[round(g['refs']['single device']['flips_expected'], 1) for g in got]}"
+             if "rounding_flips" in ref else "") +
+            f"; params held to a moved update (a flip's or an ill-conditioned AdamW one's) "
+            f"{[g['refs']['single device']['moved'] for g in got]}, off the single device's "
+            f"tolerance {[g['refs']['single device']['moved_off_reference'] for g in got]}, by up "
+            f"to {max(g['refs']['single device']['moved_abs_err'] for g in got):.3e}"
+            f": equal within rtol 2e-4 / atol 2e-5 (loss 1e-5); {got[0]['gathers']} gathers and "
+            f"{got[0]['reductions']} reductions a step ({got[0]['bytes'] / 1e9:.3f} GB through "
+            f"them a rank); step wall {[round(g['wall_ms'], 1) for g in got]} ms; peak "
+            f"{[round(g.get('peak_gib', math.nan), 2) for g in got]} GiB; resident "
+            f"{[round(g['resident_bytes'] / 2 ** 30, 3) for g in got]} GiB a rank")
+    # the plain step's checkpoint onto (2, 1) and onto one device, side by
+    # side (both load on the host), beside (b)'s start, its first step and
+    # its single-device step: (b)'s timed step waits for the restores
+    t0 = time.time()
+    rjob = dict(kind="restore", name="(2, 2) checkpoint on (2, 1)", cfg=cfg, tcfg=tcfgs["plain"],
+                mesh=((2, 1), ("data", "model")), dir=str(ck), whole=str(ck / "whole.pt"))
+    restored = out_dir / "restored"
+    job_b = dict(kind="step", name="ssv-nsa-1b bf16", cfg=base,
+                 tcfg=TrainConfig(steps=3, learning_rate=3e-4, warmup_steps=1),
+                 mesh=((1, 1), ("data", "model")), case={"seed": 0, "batch": 1, "seq": 4096},
+                 refs={}, single_ref=True, tol=(3e-2, 3e-2, 3e-2), timed=1,
+                 timed_after=str(restored))
+
+    def one_device():
+        t1 = time.time()
+        template = tree_map(lambda t: t.to(DEV), torch.load(ck / "whole.pt", weights_only=False))
+        step, back = restore(str(ck), template, cfg)
+        same = step == 1 and all(a.dtype == b.dtype and b.device == a.device and torch.equal(a, b)
+                                 for a, b in zip(leaves_of(template), leaves_of(back)))
+        return same, time.time() - t1
+
+    def world_b():
+        t1 = time.time()
+        return train_checks.run_checks([job_b], 1, "nccl", out_dir / "b", timeout=400), \
+            time.time() - t1
+
+    with ThreadPoolExecutor(2) as pool:
+        second = pool.submit(world_b)
+        try:
+            first = pool.submit(one_device)
+            ranks_r = train_checks.run_checks([rjob], 2, "gloo", out_dir / "a21", timeout=300)
+            one, t1 = first.result()
+        finally:
+            restored.touch()                # (b) times its step alone on the card
+        ranks_b, t_b = second.result()
+    two = all(r["jobs"][0]["bitwise"] and r["jobs"][0]["step"] == 1 for r in ranks_r)
+    out["restore"] = {"ranks": ranks_r, "one_device": one}
+    log(f"  [13a checkpoint from (2, 2)] onto (2, 1) over 2 gloo ranks: "
+        f"{'bitwise equal' if two else 'DIFFERENT'} ({ranks_r[0]['jobs'][0]['leaves']} leaves a "
+        f"rank; restore {max(r['jobs'][0]['restore_s'] for r in ranks_r):.1f}s, held "
+        f"{max(r['jobs'][0]['held_s'] for r in ranks_r):.1f}s); onto one device: "
+        f"{'bitwise equal' if one else 'DIFFERENT'} ({t1:.1f}s)")
+    if not (one and two):
+        fail("[13a] the checkpoint saved from the (2, 2) world does not restore bitwise")
+    g = ranks_b[0]["jobs"][0]
+    ref = g["refs"]["single device"]
+    out["b"] = {"ranks": ranks_b, "seconds": t_b}
+    p9 = (f"phase 9: {phase9['median_step_ms']:.1f} ms a step (median after the first), "
+          f"peak {phase9['peak_gib']:.2f} GiB" if phase9 else "phase 9 did not run")
+    log(f"  [13b {base.name} bf16, (1, 1) over 1 NCCL rank] {note}: loss "
+        f"{g['loss']:.6f} (single device rel err {ref['loss_rel_err']:.2e}), grad norm rel err "
+        f"{ref['grad_norm_rel_err']:.2e}; largest differences "
+        + ", ".join(f"{k} {v:.3e}" for k, v in ref["max_abs_err"].items()) +
+        f" (held within 3e-2); sharded step {g['wall_ms']:.1f} ms first and single-device "
+        f"step {g['single_wall_ms']:.1f} ms (the restores may run beside both), then "
+        f"{[round(w, 1) for w in g['timed_wall_ms']]} ms after the restores, alone on the "
+        f"card; peak {g.get('peak_gib', math.nan):.2f} GiB sharded, "
+        f"{g.get('single_peak_gib') or math.nan:.2f} GiB single device; "
+        f"{p9}; {g['gathers']} "
+        f"gathers, {g['reductions']} reductions; {t_b:.1f}s with the rank's start")
+    if not ref["ok"]:
+        fail(f"[13b] the sharded bf16 step differs from the single-device step: {ref}")
+    log(f"  [13 restores and (b)] {time.time() - t0:.1f}s")
+    shutil.rmtree(ck)
+    for f in out_dir.glob("ref_a*.pt"):
+        f.unlink()
+    free()
     return out
 
 

@@ -6,4 +6,5 @@ from repro_torch.ckpt.checkpoint import (  # noqa: F401
     load,
     restore,
     save,
+    save_sharded,
 )

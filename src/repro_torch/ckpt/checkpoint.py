@@ -15,6 +15,12 @@ back through ``bridge.from_jax`` in ``restore``, cast to the template's
 dtypes on the template's device: a checkpoint written by either package
 resumes in the other. ``AsyncCheckpointer`` copies the device tensors to
 the host (blocking only for that copy) and writes in a background thread.
+
+Across ranks (``runtime.sharded``) the file is the same: ``save_sharded``
+gathers each leaf whole to rank 0's host, rank 0 writes and every rank waits;
+``restore(..., mesh=, specs=)`` has each rank read the file and cut its
+block of every leaf (the JAX ``restore(shardings=)``), so a checkpoint
+resumes on any mesh whose blocks divide, or on one device.
 """
 from __future__ import annotations
 
@@ -139,17 +145,23 @@ def load(directory: str, step: Optional[int] = None) -> Tuple[int, Any]:
     return step, _nest(flat)
 
 
-def _fill(template, node, cfg: ModelConfig, key: str):
+def _fill(template, node, cfg: ModelConfig, key: str, cut=None, specs=None):
+    """``node`` (the checkpoint's tree) in ``template``'s structure; with
+    ``cut(whole, spec)`` each leaf is first cut to this rank's block under
+    its spec in ``specs`` (a tree of ``template``'s structure)."""
+    sub = (lambda k: None) if specs is None else \
+        (lambda k: getattr(specs, k) if hasattr(specs, "_fields") else specs[k])
     if _is_params(template):
-        got = bridge.from_jax(node, cfg, device=template["embed"]["table"].device)
-        return _cast_like(template, got, key)
+        got = bridge.from_jax(node, cfg, device="cpu" if cut else
+                              template["embed"]["table"].device)
+        return _cast_like(template, got, key, cut, specs)
     if isinstance(template, tuple) and hasattr(template, "_fields"):
-        return type(template)(*(_fill(v, _child(node, f, key), cfg, f"{key}/{f}")
+        return type(template)(*(_fill(v, _child(node, f, key), cfg, f"{key}/{f}", cut, sub(f))
                                 for f, v in zip(template._fields, template)))
     if isinstance(template, dict):
-        return {k: _fill(v, _child(node, k, key), cfg, f"{key}/{k}")
+        return {k: _fill(v, _child(node, k, key), cfg, f"{key}/{k}", cut, sub(k))
                 for k, v in template.items()}
-    return _leaf_like(template, node, key)
+    return _leaf_like(template, node, key, cut, specs)
 
 
 def _child(node, k, key):
@@ -158,32 +170,67 @@ def _child(node, k, key):
     return node[k]
 
 
-def _cast_like(template, got, key):
+def _cast_like(template, got, key, cut=None, specs=None):
     """Port-layout ``got`` (tensors from ``from_jax``) cast leaf by leaf to
-    ``template``'s dtypes, shapes checked."""
+    ``template``'s dtypes, shapes checked (after ``cut``, as in ``_fill``)."""
     if isinstance(template, dict):
-        return {k: _cast_like(v, got[k], f"{key}/{k}") for k, v in template.items()}
+        return {k: _cast_like(v, got[k], f"{key}/{k}", cut, specs and specs[k])
+                for k, v in template.items()}
     if isinstance(template, list):
-        return [_cast_like(v, g, f"{key}/{i}") for i, (v, g) in enumerate(zip(template, got))]
-    return _leaf_like(template, got, key)
+        return [_cast_like(v, g, f"{key}/{i}", cut, specs and specs[i])
+                for i, (v, g) in enumerate(zip(template, got))]
+    return _leaf_like(template, got, key, cut, specs)
 
 
-def _leaf_like(template: torch.Tensor, value, key: str) -> torch.Tensor:
+def _leaf_like(template: torch.Tensor, value, key: str, cut=None, spec=None) -> torch.Tensor:
     t = value if isinstance(value, torch.Tensor) else torch.from_numpy(np.asarray(value))
+    if cut is not None:
+        try:
+            t = cut(t, spec)
+        except ValueError as e:
+            raise ValueError(f"{key.lstrip('/')}: {e}") from None
     if tuple(t.shape) != tuple(template.shape):
         raise ValueError(f"shape mismatch for {key.lstrip('/')}: ckpt {tuple(t.shape)} vs "
                          f"template {tuple(template.shape)}")
     return t.to(device=template.device, dtype=template.dtype)
 
 
-def restore(directory: str, template, cfg: ModelConfig,
-            step: Optional[int] = None) -> Tuple[int, Any]:
+def restore(directory: str, template, cfg: ModelConfig, step: Optional[int] = None,
+            mesh=None, specs=None) -> Tuple[int, Any]:
     """Load the checkpoint at ``step`` (default: the newest) into the
     structure of ``template`` (the port's layout): params-shaped subtrees
     map back through ``bridge.from_jax``; every leaf takes the template
-    leaf's dtype and device (bf16 stored as float32 comes back bitwise)."""
+    leaf's dtype and device (bf16 stored as float32 comes back bitwise).
+
+    With ``mesh`` (a ``DeviceMesh``) and ``specs`` (the spec tree of
+    ``template``, e.g. ``sharding.state_specs``) ``template`` holds this
+    rank's blocks, and each leaf of the file is cut to this rank's block
+    (``sharding.local_block``) before it moves to the device: the JAX
+    ``restore(shardings=)``. Raises, naming the leaf, when a block does not
+    divide."""
     step, tree = load(directory, step)
-    return step, _fill(template, tree, cfg, "")
+    if mesh is None:
+        return step, _fill(template, tree, cfg, "")
+    from repro_torch.launch import mesh as mesh_lib, sharding
+    shape, coords = mesh_lib.mesh_shape(mesh), mesh_lib.mesh_coords(mesh)
+    cut = lambda t, sp: sharding.local_block(t, sp, shape, coords)
+    return step, _fill(template, tree, cfg, "", cut, specs)
+
+
+def save_sharded(directory: str, step: int, tree, cfg: ModelConfig, mesh, specs):
+    """Save a train state held as blocks across the ranks of ``mesh``
+    (``specs``: its spec tree) as one checkpoint in the canonical
+    (unsharded, JAX) layout: each leaf is gathered whole to rank 0's host
+    alone (``runtime.sharded.gather_tree``), rank 0 writes, and every rank
+    waits for the write (a barrier). Returns, on rank 0, the whole tree it
+    wrote, in the port's layout; None on the other ranks."""
+    import torch.distributed as dist
+    from repro_torch.runtime.sharded import MeshLayout, gather_tree
+    whole = gather_tree(tree, specs, MeshLayout(mesh))
+    if whole is not None:
+        save(directory, step, jax_layout(whole, cfg))
+    dist.barrier()
+    return whole
 
 
 def gc_old(directory: str, keep: int = 3):

@@ -45,12 +45,32 @@ token) goes to ``<--out>/world/<arch>__<shape>__<N><backend>/``.
   PYTHONPATH=src python -m repro_torch.launch.dryrun --list --world 4
   PYTHONPATH=src python -m repro_torch.launch.dryrun --run --world 4 \
       --backend nccl --arch ssv-nsa-8b --shape long_500k   # four cards
+
+The ``train_4k`` cells across ranks (the JAX dry run lowers them on a mesh
+under ``param_specs``): ``--list --world N [--model M]`` also prints each
+train cell's bytes per rank (``train_rank_bytes``: the local shapes under
+``param_specs`` on ``elastic.plan_mesh(N, prefer_model=M)`` of the weights,
+their gradients and two float32 moments) and the train cells that fit N
+cards but not one. ``--run --world N`` also takes train cells
+(``run_train_sharded``): each rank builds its blocks of the state from
+``--seed`` one layer at a time (``runtime.sharded.init_state``) and runs
+``make_train_step(cfg, tcfg, mesh)`` once to warm up, three times timed
+and once profiled, on one 4,096-token sequence per data rank (the cell's
+global batch of 256 cut to the data ranks' count: ``reduced`` in the
+record). Each rank's record (loss, grad norm, step wall, busy time, NCCL
+time, peak, gathers and reductions per step, model-FLOPs share) goes to
+``<--out>/world/<arch>__train_4k__<N>x<M><backend>/``.
+
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --list --world 4 --model 2
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --run --world 4 --model 2 \
+      --backend nccl --arch ssv-nsa-8b --shape train_4k   # four cards
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import math
 import time
 from pathlib import Path
 from typing import Callable, Dict, List, Optional
@@ -60,7 +80,7 @@ import torch
 from repro_torch import configs as cfglib
 from repro_torch.analysis import roofline as rl
 from repro_torch.bridge import init_params
-from repro_torch.config import SHAPES, MeshConfig, ModelConfig, SSVConfig
+from repro_torch.config import SHAPES, MeshConfig, ModelConfig, ShapeConfig, SSVConfig, TrainConfig
 from repro_torch.core import draft as draft_lib
 from repro_torch.core import planner as planner_lib
 from repro_torch.core.tree import build_topology
@@ -405,13 +425,76 @@ def rank_bytes(arch_id: str, shape_name: str, world: int) -> Dict:
             "sharded_decode": sharded_decode_ok(cfg)}
 
 
-def list_world(archs: List[str], shapes: List[str], world: int) -> List[Dict]:
-    """Print each decode cell's bytes per rank across ``world`` ranks, and
-    which of the cells that do not fit one card fit ``world`` cards."""
+def train_rank_bytes(arch_id: str, shape_name: str, world: int, model_axis: int = 1) -> Dict:
+    """A train cell's static bytes on each of ``world`` ranks on
+    ``elastic.plan_mesh(world, prefer_model=model_axis)``: each leaf's local
+    shape under ``param_specs`` for the weights, their gradients (the
+    weights' dtype) and AdamW's two float32 moments. ``split``: the per-rank
+    bytes of the leaves split over every rank; ``partial``: of the rest
+    (replicated along some axis), whose whole bytes are ``partial_whole``
+    (so ``split * world + partial_whole`` is one card's). ``divides``:
+    whether every sharded dimension divides."""
+    from repro_torch.runtime.elastic import plan_mesh
+    cfg = specs.cell_config(arch_id, shape_name)[0]
+    mc = plan_mesh(world, prefer_model=model_axis)
+    sizes = dict(zip(mc.axes, mc.shape))
+    meta = rl.param_tree(cfg)
+    out = dict(weights=0, grads=0, adam_moments=0, split=0, partial=0, partial_whole=0)
+    divides = True
+
+    def count(key, leaf, sp):
+        nonlocal divides
+        n = 1
+        for a in sharding.split_axes(sp, mc.axes):
+            n *= sizes[a]
+        try:
+            numel = math.prod(sharding.local_shape(leaf.shape, sp, sizes))
+        except ValueError:
+            divides, numel = False, -(-leaf.numel() // n)
+        w = numel * leaf.element_size()
+        out["weights"] += w
+        out["grads"] += w
+        out["adam_moments"] += 8 * numel
+        if n == world:
+            out["split"] += 2 * w + 8 * numel
+        else:
+            out["partial"] += 2 * w + 8 * numel
+            out["partial_whole"] += 2 * leaf.nbytes + 8 * leaf.numel()
+    sharding.map_specs(count, meta, sharding.param_specs(meta, mc))
+    out["total"] = out["weights"] + out["grads"] + out["adam_moments"]
+    return dict(world=world, mesh=list(mc.shape), axes=list(mc.axes), divides=divides, **out)
+
+
+def list_world(archs: List[str], shapes: List[str], world: int,
+               model_axis: int = 1) -> List[Dict]:
+    """Print each train cell's state bytes per rank (``train_rank_bytes``)
+    and each decode cell's bytes per rank across ``world`` ranks, and which
+    of the cells that do not fit one card fit ``world`` cards."""
     gb = 1e9
+    train = [s for s in shapes if specs.SHAPE_BY_NAME[s].kind == "train"]
+    recs = []
+    if train:
+        print(f"{'arch':22s} {'shape':12s} {'mesh':>8s} {'weights/rank GB':>15s} "
+              f"{'state/rank GB':>13s} {'1 card':>7s} {f'{world} cards':>8s}")
+        for a in archs:
+            for s in train:
+                r = {"arch": a, "shape": s, **train_rank_bytes(a, s, world, model_axis),
+                     "fits_one": specs.fit_batch(a, s) > 0}
+                r["fits_world"] = r["divides"] and r["total"] <= rl.HBM_PER_CARD
+                mesh = "x".join(map(str, r["mesh"]))
+                print(f"{a:22s} {s:12s} {mesh:>8s} {r['weights'] / gb:15.2f} "
+                      f"{r['total'] / gb:13.2f} {'yes' if r['fits_one'] else 'no':>7s} "
+                      f"{'yes' if r['fits_world'] else 'no':>8s}")
+                recs.append(r)
+        gained = [f"{r['arch']} x {r['shape']}" for r in recs
+                  if not r["fits_one"] and r["fits_world"]]
+        print(f"train cells that do not fit one card but fit {world} "
+              f"({rl.HBM_PER_CARD / 2 ** 30:.0f} GiB each; weights, gradients and two float32 "
+              f"moments under param_specs, activations not reckoned): "
+              f"{', '.join(gained) or 'none'}")
     print(f"{'arch':22s} {'shape':12s} {'weights GB':>10s} {'cache/rank GB':>13s} "
           f"{'rank GB':>8s} {'1 card':>7s} {f'{world} cards':>8s} {'sharded decode':>14s}")
-    recs = []
+    decode = []
     for a in archs:
         for s in shapes:
             if specs.SHAPE_BY_NAME[s].kind != "decode":
@@ -423,13 +506,13 @@ def list_world(archs: List[str], shapes: List[str], world: int) -> List[Dict]:
                   f"{r['total'] / gb:8.2f} {'yes' if r['fits_one'] else 'no':>7s} "
                   f"{'yes' if r['fits_world'] else 'no':>8s} "
                   f"{'yes' if r['sharded_decode'] else 'no':>14s}")
-            recs.append(r)
-    gained = [f"{r['arch']} x {r['shape']}" for r in recs
+            decode.append(r)
+    gained = [f"{r['arch']} x {r['shape']}" for r in decode
               if not r["fits_one"] and r["fits_world"]]
     print(f"decode cells that do not fit one card but fit {world} "
           f"({rl.HBM_PER_CARD / 2 ** 30:.0f} GiB each, weights whole, target cache split by "
           f"sequence): {', '.join(gained) or 'none'}")
-    return recs
+    return recs + decode
 
 
 def sharded_rank(rank: int, world: int, dev, arch_id: str, shape_name: str, seed: int,
@@ -519,20 +602,131 @@ def run_sharded(arch_id: str, shape_name: str, world: int, backend: str, out_dir
     return [json.loads((Path(out_dir) / f"rank{r}.json").read_text()) for r in range(world)]
 
 
+TRAIN_TIMED = 3               # timed steps of a train cell across ranks
+
+
+def train_rank(rank: int, world: int, dev, arch_id: str, shape_name: str, model_axis: int,
+               seed: int, out_dir: str) -> Dict:
+    """One rank of ``--run --world N`` on a train cell: its blocks of the
+    state from ``seed`` (``sharded.init_state``), its data rank's row of a
+    batch of one ``seq_len`` sequence per data rank (``SyntheticCorpus``,
+    seeded), and ``make_train_step(cfg, tcfg, mesh)``: one step to warm
+    up, ``TRAIN_TIMED`` steps on the host clock, one under the profiler
+    (on a card). Returns the rank's record (also
+    ``<out_dir>/rank<r>.json``)."""
+    import torch.distributed as dist
+    from repro_torch.data.synthetic import SyntheticConfig, SyntheticCorpus
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.runtime import sharded
+    from repro_torch.runtime.elastic import build_mesh, plan_mesh
+    from repro_torch.runtime.trainer import make_train_step
+    shape = specs.SHAPE_BY_NAME[shape_name]
+    cfg = specs.cell_config(arch_id, shape_name)[0]
+    timed = TRAIN_TIMED
+    mc = plan_mesh(world, prefer_model=model_axis)
+    mesh = build_mesh(mc, dev.type)
+    tcfg = TrainConfig(steps=timed + 2, learning_rate=3e-4, warmup_steps=1, seed=seed)
+    step = make_train_step(cfg, tcfg, mesh)
+    layout = step.layout
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    t0 = time.time()
+    state = list(sharded.init_state(cfg, tcfg, seed, layout, step.specs, dev))
+    dp_index, n_dp = mesh_lib.axes_index(mesh, layout.dp)
+    corpus = SyntheticCorpus(SyntheticConfig(vocab_size=cfg.vocab_size, seed=seed))
+    batches = [torch.from_numpy(corpus.batch(i, n_dp, shape.seq_len, dp_index, n_dp)).to(dev)
+               for i in range(timed + 2)]
+    sync()
+    dist.barrier()
+    build_s = time.time() - t0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    steps = []
+
+    def one(i):
+        layout.reset_counts()
+        *state[:], m = step(*state, batches[i])
+        steps.append({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                      **layout.counts, "bytes": layout.bytes})
+
+    walls = []
+    for i in range(timed + 1):
+        dist.barrier()
+        t0 = time.perf_counter()
+        one(i)
+        sync()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    rec = {"rank": rank, "world": world, "mesh": list(mc.shape), "axes": list(mc.axes),
+           "coords": layout.coords, "backend": dist.get_backend(), "device": str(dev),
+           "arch": arch_id, "shape": shape_name, "dtype": cfg.dtype, "seq_len": shape.seq_len,
+           "reduced": {"global_batch": n_dp, "of": shape.global_batch,
+                       "why": "one sequence per data rank"},
+           "build_s": build_s, "first_wall_ms": walls[0], "wall_ms": walls[1:], "steps": steps}
+    if dev.type == "cuda":
+        dist.barrier()
+        rec.update(_profile(lambda: one(timed + 1)))
+        rec["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+        rec["card"] = torch.cuda.get_device_name(dev)
+    flops = rl.model_flops(cfg, ShapeConfig(shape_name, shape.seq_len, n_dp, "train"))
+    rec["model_flops"] = flops
+    rec["model_flops_share"] = rl.flops_share(flops, sorted(walls[1:])[len(walls[1:]) // 2] / 1e3,
+                                              world * rl.PEAK_FLOPS)
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    (out / f"rank{rank}.json").write_text(json.dumps(rec, indent=1))
+    return rec
+
+
+def run_train_sharded(arch_id: str, shape_name: str, world: int, backend: str, out_dir: Path,
+                      model_axis: int = 1, seed: int = 0) -> List[Dict]:
+    """``train_rank`` on ``world`` spawned ranks, one card each or sharing
+    the cards (gloo); every rank's record."""
+    from repro_torch.launch import ranks
+    args = (arch_id, shape_name, model_axis, seed, str(out_dir))
+    ranks.spawn(train_rank, world, backend, "cuda", args=args, timeout=900.0)
+    return [json.loads((Path(out_dir) / f"rank{r}.json").read_text()) for r in range(world)]
+
+
+def _run_world_train(a: str, s: str, args, capacity: float, per_card: int) -> None:
+    rb = train_rank_bytes(a, s, args.world, args.model)
+    if not rb["divides"] or rb["total"] * per_card > capacity:
+        print(f"[SKIP] {a:22s} {s:12s} (its blocks do not divide or do not fit the cards)")
+        return
+    out = Path(args.out) / "world" / f"{a}__{s}__{args.world}x{args.model}{args.backend}"
+    recs = run_train_sharded(a, s, args.world, args.backend, out, args.model, args.seed)
+    for r in recs:
+        st = r["steps"]
+        print(f"[RUN]  {a:22s} {s:12s} rank {r['rank']}/{r['world']} mesh {r['mesh']} "
+              f"({r['backend']}, {r['device']}): losses "
+              + ", ".join(f"{x['loss']:.6f}" for x in st) + "; grad norms "
+              + ", ".join(f"{x['grad_norm']:.4f}" for x in st) + "; step wall "
+              + ", ".join(f"{w:.1f}" for w in r["wall_ms"]) +
+              f" ms (first {r['first_wall_ms']:.1f}); busy "
+              f"{r.get('device_busy_ms', float('nan')):.1f} ms (of it "
+              f"{r.get('collective_ms', float('nan')):.1f} in NCCL kernels); "
+              f"{st[-1]['gathers']} gathers and {st[-1]['reductions']} reductions a step "
+              f"({st[-1]['bytes'] / 1e9:.2f} GB through them); peak "
+              f"{r.get('peak_bytes', 0) / 2 ** 30:.2f} GiB; model-FLOPs share "
+              f"{100 * r['model_flops_share']:.3f}% of {r['world']} x 989 TFLOP/s", flush=True)
+
+
 def run_world(archs: List[str], shapes: List[str], args) -> int:
-    """``--run --world N``: ``run_sharded`` for each selected decode cell
-    that the sharded decode takes and whose ranks fit their cards."""
+    """``--run --world N``: ``run_train_sharded`` for each selected train
+    cell and ``run_sharded`` for each selected decode cell that the sharded
+    decode takes, whose ranks fit their cards."""
     resolve_device("cuda")                    # raises without a card
     cards = torch.cuda.device_count()
     capacity = torch.cuda.get_device_properties(0).total_memory
     per_card = -(-args.world // cards)
     for a in archs:
         for s in shapes:
+            if specs.SHAPE_BY_NAME[s].kind == "train":
+                _run_world_train(a, s, args, capacity, per_card)
+                continue
             rb = rank_bytes(a, s, args.world) if specs.SHAPE_BY_NAME[s].kind == "decode" else None
             if rb is None or not rb["sharded_decode"] or not rb["divides"] or \
                     rb["total"] * per_card > capacity:
-                print(f"[SKIP] {a:22s} {s:12s} (--run --world takes NSA decode cells whose "
-                      f"ranks fit {cards} card(s))")
+                print(f"[SKIP] {a:22s} {s:12s} (--run --world takes train cells and NSA "
+                      f"decode cells whose ranks fit {cards} card(s))")
                 continue
             out = Path(args.out) / "world" / f"{a}__{s}__{args.world}{args.backend}"
             recs = run_sharded(a, s, args.world, args.backend, out, args.seed)
@@ -558,8 +752,12 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=str(ART_DIR))
     ap.add_argument("--world", type=int, default=0,
-                    help="ranks for the sequence-sharded decode: --list gives each decode "
-                         "cell's bytes per rank, --run serves one token across the ranks")
+                    help="ranks: --list gives each train and decode cell's bytes per rank, "
+                         "--run trains steps of a train cell or serves one token of a decode "
+                         "cell across the ranks")
+    ap.add_argument("--model", type=int, default=1,
+                    help="the model axis of a train cell's mesh (elastic.plan_mesh(world, "
+                         "prefer_model=M))")
     ap.add_argument("--backend", choices=("nccl", "gloo"), default="nccl",
                     help="collective backend of --run --world (gloo shares the cards)")
     args = ap.parse_args(argv)
@@ -570,7 +768,7 @@ def main(argv=None) -> int:
             raise KeyError(f"unknown shape {s!r}; known: {tuple(specs.SHAPE_BY_NAME)}")
     if args.list:
         if args.world:
-            list_world(archs, shapes, args.world)
+            list_world(archs, shapes, args.world, args.model)
         else:
             list_cells(archs, shapes)
         return 0

@@ -19,19 +19,27 @@ cover both parameter layouts: the port's ``params["layers"]`` (one block
 per layer) and the JAX ``segments`` layout that ``bridge.restack`` builds
 (leaves stacked along a leading layer dim, which is never sharded).
 
-What this slice applies: ``cache_specs(shard_sequence=True)`` and
-``local_block`` cut each rank's cache slice for the sequence-sharded decode
-(``models.nsa_sharded``). ``param_specs``, ``batch_spec`` and
-``activation_spec`` are the training slice's; the decode holds the weights
-whole on every rank. ``shardings_of`` maps a spec onto
-``torch.distributed.tensor`` placements for a ``DeviceMesh``.
+Who applies what: ``cache_specs(shard_sequence=True)`` and ``local_block``
+cut each rank's cache slice for the sequence-sharded decode
+(``models.nsa_sharded``), which holds the weights whole on every rank.
+Training across ranks (``runtime.sharded``) holds each rank's block of the
+train state under ``state_specs`` (``param_specs`` for the params, both
+AdamW moments and the error-feedback residual; the count and a 0-d residual
+replicated) and its batch rows under ``batch_spec``; ``shard_tree`` cuts the
+blocks from a whole tree (``runtime.sharded.gather_tree`` puts them back
+together).
+``activation_spec`` is the JAX residual-stream constraint, kept as data: the
+port's train step gathers each layer's weights whole and so never splits an
+activation. ``shardings_of`` maps a spec onto ``torch.distributed.tensor``
+placements for a ``DeviceMesh``.
 """
 from __future__ import annotations
 
 import re
 from typing import Any, Callable, Dict, Iterator, Sequence, Tuple
 
-from repro_torch.launch.mesh import axis_names, dp_axes
+from repro_torch.launch.mesh import axis_names, dp_axes, mesh_coords, mesh_shape
+from repro_torch.optim.adamw import AdamWState
 
 class Spec(tuple):
     """A spec: a tuple that tree walks take as a leaf."""
@@ -149,6 +157,75 @@ def param_specs(params_tree, mesh):
         key, tuple(leaf.shape), mesh, stacked=key.startswith("segments/")))
 
 
+def state_specs(params_tree, mesh, compression: bool = False) -> Dict[str, Any]:
+    """The train state's specs: ``{"params", "opt", "residual"}`` as the
+    JAX dry run lays them out (``opt_specs = AdamWState(mu=p_specs,
+    nu=p_specs, count=P())``); the residual is shaped like the params under
+    int8 error-feedback compression, else a replicated 0-d zero."""
+    p = param_specs(params_tree, mesh)
+    return {"params": p, "opt": AdamWState(mu=p, nu=p, count=spec()),
+            "residual": p if compression else spec()}
+
+
+def map_specs(fn: Callable[[str, Any, Spec], Any], tree, specs, prefix: str = ""):
+    """``fn(path key, leaf, spec)`` over ``tree`` and its spec tree in
+    parallel, the structure kept (dicts, lists, tuples, NamedTuples)."""
+    if isinstance(specs, Spec):
+        return fn(prefix[:-1], tree, specs)
+    if isinstance(tree, dict):
+        return {k: map_specs(fn, v, specs[k], f"{prefix}{k}/") for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(map_specs(fn, v, s, f"{prefix}{f}/")
+                            for f, v, s in zip(tree._fields, tree, specs)))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_specs(fn, v, s, f"{prefix}{i}/")
+                          for i, (v, s) in enumerate(zip(tree, specs)))
+    raise TypeError(f"{prefix[:-1]}: no spec for a leaf of type {type(tree).__name__}")
+
+
+def leaf_paths(tree, prefix: str = "") -> Iterator[Tuple[str, Any]]:
+    """(path key, leaf) in ``optim.tree_leaves`` order (insertion order;
+    NamedTuple fields by name; a ``Spec`` is a leaf)."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from leaf_paths(v, f"{prefix}{k}/")
+    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        for f, v in zip(tree._fields, tree):
+            yield from leaf_paths(v, f"{prefix}{f}/")
+    elif isinstance(tree, (list, tuple)) and not isinstance(tree, Spec):
+        for i, v in enumerate(tree):
+            yield from leaf_paths(v, f"{prefix}{i}/")
+    else:
+        yield prefix[:-1], tree
+
+
+def leaf_at(tree, key: str):
+    """The leaf of ``tree`` at a ``leaf_paths`` key ("params/layers/0/mix/wq")."""
+    for part in key.split("/") if key else ():
+        if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+            tree = getattr(tree, part)
+        elif isinstance(tree, (list, tuple)):
+            tree = tree[int(part)]
+        else:
+            tree = tree[part]
+    return tree
+
+
+def shard_tree(tree, specs, mesh):
+    """A whole tree -> this rank's blocks (owned copies) on ``mesh`` (a
+    ``DeviceMesh``). Raises, naming the leaf, the dimension and the axes,
+    when a sharded dimension does not divide."""
+    shape, coords = mesh_shape(mesh), mesh_coords(mesh)
+
+    def cut(key, leaf, sp):
+        try:
+            return local_block(leaf, sp, shape, coords).clone()
+        except ValueError as e:
+            raise ValueError(f"{key}: {e}") from None
+    return map_specs(cut, tree, specs)
+
+
+
 # ---------------------------------------------------------------- activations
 def batch_spec(mesh) -> Spec:
     return spec(dp_axes(mesh), None)
@@ -199,6 +276,13 @@ def _axes_of(entry) -> Tuple[str, ...]:
     if entry is None:
         return ()
     return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def split_axes(sp: Spec, names: Sequence[str]) -> Tuple[str, ...]:
+    """The axes that split a leaf of ``sp``, in mesh order (``names``): the
+    ranks that differ only along them hold its distinct blocks."""
+    used = {a for e in sp for a in _axes_of(e)}
+    return tuple(a for a in names if a in used)
 
 
 def local_slices(shape: Sequence[int], sp: Spec, mesh_shape: Dict[str, int],

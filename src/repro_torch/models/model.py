@@ -87,24 +87,30 @@ def _attn_window(cfg: ModelConfig) -> int:
 
 
 def _apply_ffn(bp, cfg: ModelConfig, kind: str, x, moe_per_row: bool = False,
-               moe_by_expert: bool = False):
+               moe_by_expert: bool = False, moe_stats=None):
     """Returns (y, aux): the MoE FFN and its load-balancing loss for a
     ``"moe"`` block (dispatch groups per row with ``moe_per_row``; experts
-    one by one, reading counts on the host, with ``moe_by_expert``), else
+    one by one, reading counts on the host, with ``moe_by_expert``; the
+    loss's statistics summed by ``moe_stats``, see ``moe.moe_apply``), else
     the dense FFN and None (no loss term, and no launch for a zero). A
     recurrent block without an FFN (``cfg.d_ff == 0``) adds zeros."""
     if kind == "moe":
         return moe_lib.moe_apply(bp["ffn"], cfg, x, per_row=moe_per_row,
-                                 by_expert=moe_by_expert)
+                                 by_expert=moe_by_expert, stats_sum=moe_stats)
     if "ffn" not in bp:
         return torch.zeros_like(x), None
     return layers.ffn(bp["ffn"], x, cfg.activation), None
 
 
 # ------------------------------------------------------------------ train fwd
-def block_apply_train(bp, cfg: ModelConfig, kind: str, x, positions, chunk: int):
-    """One block over the full sequence. Returns (y, aux): aux is the MoE
-    load-balancing loss of a ``"moe"`` block, else None."""
+def block_apply_train(bp, cfg: ModelConfig, kind: str, x, positions, chunk: int, i: int,
+                      layer_params, moe_stats):
+    """One block (layer ``i``) over the full sequence. Returns (y, aux): aux
+    is the MoE load-balancing loss of a ``"moe"`` block, else None. The
+    hooks are ``forward_train``'s; ``layer_params`` runs here, so under
+    ``remat`` it runs again in the recompute."""
+    if layer_params is not None:
+        bp = layer_params(i, bp)
     h = layers.rmsnorm(bp["norm1"], x, cfg.norm_eps)
     window = _attn_window(cfg)
     if kind in RECURRENT_KINDS:
@@ -120,7 +126,8 @@ def block_apply_train(bp, cfg: ModelConfig, kind: str, x, positions, chunk: int)
             bp["mix"], cfg, h, positions, window=window, chunk=chunk,
             remat_chunks=(cfg.attention_impl == "chunked_remat"))
     x = x + mix
-    y, aux = _apply_ffn(bp, cfg, kind, layers.rmsnorm(bp["norm2"], x, cfg.norm_eps))
+    y, aux = _apply_ffn(bp, cfg, kind, layers.rmsnorm(bp["norm2"], x, cfg.norm_eps),
+                        moe_stats=moe_stats)
     return x + y, aux
 
 
@@ -140,20 +147,27 @@ def embed_inputs(params, cfg: ModelConfig, tokens, frontend=None):
 
 
 def forward_train(params, cfg: ModelConfig, tokens, frontend=None, remat: bool = True,
-                  attn_chunk: int = 512):
+                  attn_chunk: int = 512, layer_params=None, moe_stats=None):
     """tokens (B, S) int64 -> (hidden (B, S_total, d), aux 0-d f32 (the MoE
     layers' load-balancing losses summed), n_prefix (frontend frames)).
     ``remat`` recomputes each layer in the backward pass
     (``torch.utils.checkpoint``, as the JAX package wraps each segment
-    body in ``jax.checkpoint``), so only the layers' inputs stay alive."""
+    body in ``jax.checkpoint``), so only the layers' inputs stay alive.
+
+    Training across ranks (``runtime.sharded``) passes two hooks, both None
+    on one device: ``layer_params(i, block)`` returns layer i's weights
+    whole from this rank's blocks, inside the layer's function (so a
+    recompute gathers again); ``moe_stats(t)`` sums the MoE load-balancing
+    statistics over the data ranks."""
     check_supported(cfg)
     x, positions, n_prefix = embed_inputs(params, cfg, tokens, frontend)
     aux_total = torch.zeros((), device=x.device)
-    for bp, kind in zip(params["layers"], cfg.layer_kinds()):
+    for i, (bp, kind) in enumerate(zip(params["layers"], cfg.layer_kinds())):
+        args = (bp, cfg, kind, x, positions, attn_chunk, i, layer_params, moe_stats)
         if remat:
-            x, aux = attention.remat(block_apply_train, bp, cfg, kind, x, positions, attn_chunk)
+            x, aux = attention.remat(block_apply_train, *args)
         else:
-            x, aux = block_apply_train(bp, cfg, kind, x, positions, attn_chunk)
+            x, aux = block_apply_train(*args)
         if aux is not None:
             aux_total = aux_total + aux
     x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
@@ -161,11 +175,14 @@ def forward_train(params, cfg: ModelConfig, tokens, frontend=None, remat: bool =
 
 
 def loss_fn(params, cfg: ModelConfig, tokens, frontend=None, remat: bool = True,
-            loss_chunk: int = 512, aux_weight: float = 0.01, attn_chunk: int = 512):
+            loss_chunk: int = 512, aux_weight: float = 0.01, attn_chunk: int = 512,
+            layer_params=None, moe_stats=None):
     """Next-token cross-entropy, chunked over the sequence so the (chunk, V)
     logits working set stays bounded. Logits come out in the parameter
-    dtype and are cast to float32 before the log-sum-exp, as in JAX."""
-    hidden, aux, n_prefix = forward_train(params, cfg, tokens, frontend, remat, attn_chunk)
+    dtype and are cast to float32 before the log-sum-exp, as in JAX.
+    ``layer_params`` / ``moe_stats``: ``forward_train``'s hooks."""
+    hidden, aux, n_prefix = forward_train(params, cfg, tokens, frontend, remat, attn_chunk,
+                                          layer_params, moe_stats)
     B, S_tok = tokens.shape
     h_pred = hidden[:, n_prefix:n_prefix + S_tok - 1]
     labels = tokens[:, 1:].long()

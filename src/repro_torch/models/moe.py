@@ -57,11 +57,21 @@ def router_probs(params, x, moe: MoEConfig):
     return probs, top_idx, top_w / top_w.sum(-1, keepdim=True).clamp_min(1e-9)
 
 
-def load_balance_loss(probs, topk_idx, num_experts: int):
-    """Switch-style auxiliary loss: E * sum_e f_e * p_e."""
+def load_balance_loss(probs, topk_idx, num_experts: int, stats_sum=None):
+    """Switch-style auxiliary loss: E * sum_e f_e * p_e.
+
+    ``stats_sum`` (training across ranks: a differentiable sum over the data
+    ranks) sums each expert's assignment count, its probability mass and
+    the token count over the ranks before the product, which is not linear
+    in the tokens: the loss is the single device's over the whole batch."""
     N = probs.shape[0]
     experts = torch.arange(num_experts, device=probs.device)
     counts = (topk_idx.reshape(-1, 1) == experts).sum(0).float()     # no host sync
+    if stats_sum is not None:
+        tot = stats_sum(torch.cat([counts, probs.sum(dim=0), probs.new_full((1,), N)]))
+        counts, mass, n = tot[:num_experts], tot[num_experts:-1], tot[-1]
+        f = counts / (n * topk_idx.shape[-1])
+        return num_experts * torch.sum(f * (mass / n))
     f = counts / max(1, N * topk_idx.shape[-1])
     return num_experts * torch.sum(f * probs.mean(dim=0))
 
@@ -142,12 +152,18 @@ def _expert_outputs_by_expert(params, cfg: ModelConfig, xf, topk_idx, keep):
     return out.reshape(N, K, d)
 
 
-def moe_apply(params, cfg: ModelConfig, x, per_row: bool = False, by_expert: bool = False):
+def moe_apply(params, cfg: ModelConfig, x, per_row: bool = False, by_expert: bool = False,
+              stats_sum=None):
     """x: (B, S, d) -> (out (B, S, d), aux_loss 0-d f32). Dispatch groups
     are cut from the B*S flattened tokens, or from each row's S tokens
     with ``per_row`` (the JAX batched engine's per-row ``vmap``). The
     experts run all at once with no host sync, or one by one with
-    ``by_expert`` (a prefill)."""
+    ``by_expert`` (a prefill). ``stats_sum``: see ``load_balance_loss``.
+
+    Across data ranks each rank cuts its groups from its own rows; they are
+    the single device's groups while the group size divides each rank's
+    B*S tokens (no group straddles two ranks' rows): the capacity drops are
+    then the single device's too."""
     moe = cfg.moe
     B, S, d = x.shape
     N = B * S
@@ -155,7 +171,7 @@ def moe_apply(params, cfg: ModelConfig, x, per_row: bool = False, by_expert: boo
     G = group_size(S if per_row else N, moe)
     C = capacity(G, moe)
     probs, topk_idx, topk_w = router_probs(params, xf, moe)
-    aux = load_balance_loss(probs, topk_idx, moe.num_experts)
+    aux = load_balance_loss(probs, topk_idx, moe.num_experts, stats_sum)
     pos, keep = dispatch(topk_idx, G, C, moe.num_experts)
     w = torch.where(keep, topk_w, torch.zeros((), device=x.device))
     y_k = (_expert_outputs_by_expert(params, cfg, xf, topk_idx, keep) if by_expert

@@ -85,19 +85,30 @@ def linear_schedule(cfg: TrainConfig) -> Callable:
 
 
 # ---------------------------------------------------------------- clipping
-def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(l.float())) for l in tree_leaves(tree)))
+def global_norm(tree, sum_of_squares: Optional[Callable] = None) -> torch.Tensor:
+    """The norm of every leaf together. ``sum_of_squares`` takes the list of
+    per-leaf sums of squares and returns their total: on blocks of leaves
+    split over ranks (``runtime.sharded``) it sums over the ranks, each
+    leaf counted once."""
+    if sum_of_squares is None:
+        return torch.sqrt(sum(torch.sum(torch.square(l.float())) for l in tree_leaves(tree)))
+    return torch.sqrt(sum_of_squares([torch.sum(torch.square(l.float()))
+                                      for l in tree_leaves(tree)]))
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, sum_of_squares: Optional[Callable] = None):
     """Returns (float32 grads scaled to at most ``max_norm``, the norm):
-    float32, as JAX promotes ``bf16 grad * f32 scale``."""
-    norm = global_norm(grads)
+    float32, as JAX promotes ``bf16 grad * f32 scale``. ``sum_of_squares``:
+    see ``global_norm``."""
+    norm = global_norm(grads, sum_of_squares)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return tree_map(lambda g: g.float() * scale, grads), norm
 
 
 # ---------------------------------------------------------------- AdamW
+EPS = 1e-8      # added to the update's denominator, as in the JAX update
+
+
 def adamw_init(params) -> AdamWState:
     zeros = lambda: tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                                    device=p.device), params)
@@ -130,7 +141,7 @@ def adamw_update(grads, state: AdamWState, params, cfg: TrainConfig,
     nu_hat_scale = 1.0 / (1 - torch.pow(b2, c))
 
     def upd(p, m, v, decay):
-        step = m * mu_hat_scale / (torch.sqrt(v * nu_hat_scale) + 1e-8)
+        step = m * mu_hat_scale / (torch.sqrt(v * nu_hat_scale) + EPS)
         if decay:
             step = step + cfg.weight_decay * p.float()
         return (p.float() - lr * step).to(p.dtype)

@@ -21,29 +21,47 @@ import torch
 from repro_torch.optim.adamw import tree_leaves, tree_map, tree_unflatten
 
 
-def _quantize(x, noise):
+def _quantize(x, noise, amax=None):
     """x any float tensor, noise U[0, 1) float32 of x's shape ->
-    (int8 q, f32 scale) with q = clip(round(x / scale + noise - 0.5))."""
+    (int8 q, f32 scale) with q = clip(round(x / scale + noise - 0.5)) and
+    scale = max |x| / 127 (``amax`` in place of max |x| when x is a block
+    of a larger leaf)."""
     xf = x.float()
-    scale = torch.clamp(xf.abs().max(), min=1e-12) / 127.0
+    scale = torch.clamp(xf.abs().max() if amax is None else amax, min=1e-12) / 127.0
     y = xf / scale
     q = torch.clamp(torch.round(y + (noise - 0.5)), -127, 127).to(torch.int8)
     return q, scale
 
 
-def noise_for(leaf: torch.Tensor, index: int, step: int) -> torch.Tensor:
+def noise_for(leaf: torch.Tensor, index: int, step: int, shape=None) -> torch.Tensor:
+    """Leaf ``index``'s rounding noise at ``step`` on the leaf's device, of
+    the leaf's shape or of ``shape`` (a whole leaf, of which ``leaf`` is a
+    block)."""
     gen = torch.Generator(device=leaf.device)
     gen.manual_seed((index << 32) + step)
-    return torch.rand(leaf.shape, generator=gen, device=leaf.device)
+    return torch.rand(leaf.shape if shape is None else shape, generator=gen,
+                      device=leaf.device)
 
 
 @torch.no_grad()
-def compress_pytree(grads, residual, step: int):
-    """-> ((int8 tree, scale tree), new residual)."""
+def compress_pytree(grads, residual, step: int, blocks=None):
+    """-> ((int8 tree, scale tree), new residual).
+
+    ``blocks`` (``runtime.sharded.LeafBlocks``) when the leaves are this
+    rank's blocks of whole leaves: ``blocks.amax`` turns the blocks' max
+    |x| into the whole leaves' (a MAX over the ranks) and ``blocks.noise``
+    cuts this block of the whole leaf's noise, so a block quantizes as the
+    same block of the whole leaf does."""
+    gl, rl = tree_leaves(grads), tree_leaves(residual)
+    amax = None if blocks is None else \
+        blocks.amax([(g.float() + r).abs().max() for g, r in zip(gl, rl)])
     qs, scales, new_res = [], [], []
-    for i, (g, r) in enumerate(zip(tree_leaves(grads), tree_leaves(residual))):
+    for i, (g, r) in enumerate(zip(gl, rl)):
         corrected = g.float() + r
-        q, s = _quantize(corrected, noise_for(corrected, i, step))
+        if blocks is None:
+            q, s = _quantize(corrected, noise_for(corrected, i, step))
+        else:
+            q, s = _quantize(corrected, blocks.noise(corrected, i, step), amax[i])
         qs.append(q)
         scales.append(s)
         new_res.append(corrected - q.float() * s)

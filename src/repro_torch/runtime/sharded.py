@@ -1,0 +1,387 @@
+"""Training across ranks: what GSPMD does inside the JAX
+``make_train_step`` under ``with mesh``, written out for ``torch.distributed``.
+
+The JAX package runs the single-device step on parameters laid out by
+``param_specs`` (FSDP over the data axes, TP over ``model``) and lets XLA
+insert the collectives. Here the layout is the same and the collectives
+are explicit:
+
+  * **What a rank holds.** Between steps each rank holds only its block
+    (``sharding.local_block``) of every parameter, both AdamW moments and
+    the error-feedback residual, under ``sharding.state_specs``; the
+    moments' count and a 0-d residual are replicated. The tokens are cut by
+    ``batch_spec``: rows over the data axes, replicated over ``model``.
+  * **The weights, per layer, just in time** (ZeRO-3 over every axis).
+    ``Gather`` puts a leaf's blocks together into the whole weight in its
+    forward pass; its backward pass sums the whole gradient over the data
+    axes, divides by their size and keeps this rank's block. Ranks along
+    ``model`` hold the same rows and compute the same gradient, which is
+    not summed over ``model``. ``model.forward_train`` gathers each layer
+    inside the layer's function, so under ``remat`` the gather runs again in
+    the recompute, as FSDP does; the top-level tables (embedding, head,
+    final norm) are gathered once per micro-batch.
+  * **The global reductions.** The loss is each data rank's mean averaged
+    over the data axes; the clip's norm sums each leaf's squares once (the
+    rank at coordinate 0 of every axis that replicates the leaf counts
+    it); the MoE load-balancing statistics are summed over the data axes
+    before their product (``DataSum``, whose backward pass is the same
+    sum); the int8 scale is the MAX over the ranks, and the rounding noise
+    this rank's block of the whole leaf's noise.
+
+The collectives are all-gather (weights, and the tokens of a micro-batch),
+reduce-scatter (gradients split over the data axes) and all-reduce (the
+rest, and the scalars). NCCL and gloo both run the three on CUDA tensors
+(torch 2.11 on the H100) and gloo on CPU tensors, so one program serves
+both backends. The matmuls are not split over ``model``: each rank
+computes its rows' whole layer (real TP compute is later work).
+
+``MeshLayout`` is one rank's view of a ``DeviceMesh``: axis sizes,
+coordinates, process groups and the counts of the collectives it issued.
+``gather_tree`` puts the blocks back together on rank 0 (checkpoints).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, Dict, List, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.bridge import init_params
+from repro_torch.config import ModelConfig, TrainConfig
+from repro_torch.launch import mesh as mesh_lib, sharding
+from repro_torch.models import model
+from repro_torch.optim import (AdamWState, adamw_update, clip_by_global_norm, compress,
+                               tree_leaves, tree_map, tree_unflatten)
+
+
+def _prod(xs) -> int:
+    return math.prod(xs)
+
+
+class MeshLayout:
+    """One rank's view of a ``DeviceMesh``: ``shape`` ({axis: size}),
+    ``coords`` ({axis: index}), the data axes, the process group of any run
+    of axes with its members' coordinates, and ``counts`` of the
+    collectives issued since ``reset_counts`` ("gathers": all-gathers of
+    weights and tokens; "reductions": every reduce-scatter and all-reduce)
+    with the ``bytes`` they carried (a gather's whole leaf, a reduction's
+    input)."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.names = mesh_lib.axis_names(mesh)
+        self.shape = mesh_lib.mesh_shape(mesh)
+        self.coords = mesh_lib.mesh_coords(mesh)
+        self.dp = mesh_lib.dp_axes(mesh)
+        self.n_dp = _prod(self.shape[a] for a in self.dp)
+        self._groups: Dict[Tuple[str, ...], object] = {}
+        self._members: Dict[Tuple[str, ...], List[Dict[str, int]]] = {}
+        # every run of axes a spec can split over, made now in one order on
+        # every rank (a flattened group is a collective to create)
+        for i in range(len(self.names)):
+            for j in range(i + 2, len(self.names) + 1):
+                self.group(self.names[i:j])
+        self.reset_counts()
+
+    def reset_counts(self) -> None:
+        self.counts = {"gathers": 0, "reductions": 0}
+        self.bytes = 0
+
+    def size(self, axes: Sequence[str]) -> int:
+        return _prod(self.shape[a] for a in axes)
+
+    def group(self, axes: Sequence[str]):
+        axes = tuple(a for a in self.names if a in axes)
+        if axes == self.names:
+            return dist.group.WORLD
+        if axes not in self._groups:
+            self._groups[axes] = mesh_lib.axes_group(self.mesh, axes)
+        return self._groups[axes]
+
+    def members(self, axes: Sequence[str]) -> List[Dict[str, int]]:
+        """The coordinates of the ranks of ``group(axes)``, in group-rank
+        order (the order of an all-gather's chunks)."""
+        axes = tuple(a for a in self.names if a in axes)
+        if axes not in self._members:
+            grid = self.mesh.mesh
+            where = {int(r): i for i, r in enumerate(grid.flatten().tolist())}
+            group = self.group(axes)
+            ranks = range(dist.get_world_size()) if group is dist.group.WORLD else \
+                dist.get_process_group_ranks(group)
+            out = []
+            for r in ranks:
+                i, c = where[int(r)], {}
+                for a in reversed(self.names):
+                    c[a], i = i % self.shape[a], i // self.shape[a]
+                out.append(c)
+            self._members[axes] = out
+        return self._members[axes]
+
+    def _count(self, kind: str, t: torch.Tensor) -> None:
+        self.counts[kind] += 1
+        self.bytes += t.numel() * t.element_size()
+
+    def all_reduce(self, t: torch.Tensor, axes: Sequence[str], op=dist.ReduceOp.SUM
+                   ) -> torch.Tensor:
+        """``t`` reduced in place over the ranks that differ along ``axes``
+        (nothing when they are one rank)."""
+        if self.size(axes) > 1:
+            self._count("reductions", t)
+            dist.all_reduce(t, op=op, group=self.group(axes))
+        return t
+
+    # ---------------------------------------------------------------- blocks
+    def whole_shape(self, block_shape: Sequence[int], sp) -> Tuple[int, ...]:
+        return tuple(s * self.size(sharding._axes_of(sp[d]) if d < len(sp) else ())
+                     for d, s in enumerate(block_shape))
+
+    def block(self, whole: torch.Tensor, sp) -> torch.Tensor:
+        return sharding.local_block(whole, sp, self.shape, self.coords)
+
+    def gather(self, block: torch.Tensor, sp) -> torch.Tensor:
+        """The whole leaf from this rank's ``block`` of it: the blocks of the
+        ranks that split the leaf, all-gathered, each put in its place. The
+        block itself when no axis splits it."""
+        axes = sharding.split_axes(sp, self.names)
+        if self.size(axes) == 1:
+            return block
+        shape = self.whole_shape(block.shape, sp)
+        chunks = block.new_empty(self.size(axes) * block.numel())
+        out = block.new_empty(shape)
+        self._count("gathers", out)
+        dist.all_gather_into_tensor(chunks, block.contiguous().view(-1), group=self.group(axes))
+        for chunk, c in zip(chunks.view((-1,) + tuple(block.shape)), self.members(axes)):
+            out[sharding.local_slices(shape, sp, self.shape, c)] = chunk
+        return out
+
+    def reduce_grad(self, g: torch.Tensor, sp, dtype: torch.dtype) -> torch.Tensor:
+        """This rank's block of the whole gradient ``g`` averaged over the
+        data axes, in ``dtype``: cut along the dimensions that only non-data
+        axes split, then summed in float32 over the data ranks, divided by
+        their count, and cut along the rest (a reduce-scatter of the data
+        ranks' blocks; an all-reduce when no data axis splits the leaf)."""
+        dp = set(self.dp)
+        axes = [set(sharding._axes_of(sp[d]) if d < len(sp) else ()) for d in range(g.ndim)]
+
+        def cut(coords, keep):
+            full = sharding.local_slices(g.shape, sp, self.shape, coords)
+            return tuple(s if keep(a) else slice(None) for s, a in zip(full, axes))
+        g = g[cut(self.coords, lambda a: a and not a & dp)]
+        if self.n_dp == 1:
+            return g.to(dtype).contiguous()
+        if not any(a & dp for a in axes):
+            g = self.all_reduce(g.to(torch.float32, copy=True), self.dp)
+        else:
+            parts = torch.stack([g[cut(c, lambda a: a & dp)] for c in self.members(self.dp)])
+            parts = parts.to(torch.float32)
+            out = parts.new_empty(parts.shape[1:])
+            self._count("reductions", parts)
+            dist.reduce_scatter_tensor(out.view(-1), parts.view(-1), group=self.group(self.dp))
+            g = out
+        return (g / self.n_dp).to(dtype).contiguous()
+
+    def owns(self, sp) -> bool:
+        """Whether this rank counts a leaf of ``sp`` in a global sum: it sits
+        at coordinate 0 of every axis that replicates the leaf."""
+        used = sharding.split_axes(sp, self.names)
+        return all(self.coords[a] == 0 for a in self.names if a not in used)
+
+    # ---------------------------------------------------------------- step reductions
+    def data_mean(self, t: torch.Tensor) -> torch.Tensor:
+        """A per-data-rank value averaged over the data axes (a copy)."""
+        out = self.all_reduce(t.detach().float().clone(), self.dp)
+        return out / self.n_dp
+
+    def sum_of_squares(self, leaf_specs: List) -> Callable:
+        """For ``adamw.global_norm``: the whole tree's sum of squares from
+        each block's, every leaf counted once, in one all-reduce."""
+        owned = [self.owns(sp) for sp in leaf_specs]
+
+        def total(sq: List[torch.Tensor]) -> torch.Tensor:
+            out = torch.zeros((), dtype=torch.float32, device=sq[0].device)
+            for s, mine in zip(sq, owned):
+                if mine:
+                    out = out + s
+            return self.all_reduce(out, self.names)
+        return total
+
+
+class LeafBlocks:
+    """What ``compress.compress_pytree`` needs of leaves that are this
+    rank's blocks: the scale's MAX over the ranks (one all-reduce for every
+    leaf: ranks that hold the same block hold the same values, so the MAX
+    over all ranks is the MAX over those that split the leaf) and each
+    block's cut of the whole leaf's rounding noise."""
+
+    def __init__(self, layout: MeshLayout, leaf_specs: List):
+        self.layout, self.specs = layout, leaf_specs
+
+    def amax(self, amaxes: List[torch.Tensor]) -> List[torch.Tensor]:
+        out = self.layout.all_reduce(torch.stack(amaxes), self.layout.names,
+                                     op=dist.ReduceOp.MAX)
+        return list(out.unbind())
+
+    def noise(self, block: torch.Tensor, index: int, step: int) -> torch.Tensor:
+        sp = self.specs[index]
+        whole = compress.noise_for(block, index, step,
+                                   shape=self.layout.whole_shape(block.shape, sp))
+        return self.layout.block(whole, sp)
+
+
+class Gather(torch.autograd.Function):
+    """Forward: the whole leaf from this rank's block (``MeshLayout.gather``).
+    Backward: this rank's block of the data-axis mean of the whole gradient
+    (``MeshLayout.reduce_grad``)."""
+
+    @staticmethod
+    def forward(ctx, block, layout: MeshLayout, sp):
+        ctx.layout, ctx.sp, ctx.dtype = layout, sp, block.dtype
+        out = layout.gather(block, sp)
+        return block.view_as(block) if out is block else out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.layout.reduce_grad(grad, ctx.sp, ctx.dtype), None, None
+
+
+class DataSum(torch.autograd.Function):
+    """A per-data-rank tensor summed over the data axes; the backward pass
+    sums the gradient the same way. With each data rank's loss carrying
+    the same global term and the weights' gradients averaged over the data
+    ranks, this gives the single device's gradient of a term that is not
+    linear in the tokens (the MoE load-balancing loss)."""
+
+    @staticmethod
+    def forward(ctx, t, layout: MeshLayout):
+        ctx.layout = layout
+        return layout.all_reduce(t.clone(), layout.dp)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.layout.all_reduce(grad.clone(), ctx.layout.dp), None
+
+
+def gather_tree(blocks, specs, layout: MeshLayout):
+    """This rank's blocks -> the whole tree on rank 0's host, None on the
+    other ranks. Each leaf is all-gathered by the ranks of rank 0's group
+    over the axes that split it (the others skip it) and rank 0 copies it
+    to the host at once, so a device holds one whole leaf at a time."""
+    rank0 = dist.get_rank() == 0
+
+    def one(key, leaf, sp):
+        if not layout.owns(sp):
+            return None
+        whole = layout.gather(leaf, sp)
+        return whole.cpu() if rank0 else None
+    tree = sharding.map_specs(one, blocks, specs)
+    return tree if rank0 else None
+
+
+# ---------------------------------------------------------------- the state
+def _layer_seed(seed: int, layer: int) -> int:
+    return (seed * 1_000_003 + layer) % 2 ** 62
+
+
+def _layer_init(cfg: ModelConfig, seed: int, layer: int, device):
+    """``init_params`` of a one-layer config of layer ``layer``'s kind, from
+    a generator of its own: (its top-level tables, its block)."""
+    kind = cfg.layer_kinds()[layer]
+    one = dataclasses.replace(cfg, num_layers=1, block_pattern=(kind,))
+    g = torch.Generator(device)
+    g.manual_seed(_layer_seed(seed, layer))
+    p = init_params(one, g, device)
+    return {k: v for k, v in p.items() if k != "layers"}, p["layers"][0]
+
+
+def init_state(cfg: ModelConfig, tcfg: TrainConfig, seed: int, layout: MeshLayout,
+               specs, device):
+    """This rank's blocks of a fresh train state, (params, AdamWState,
+    residual), without ever holding the whole state: the params drawn one
+    layer at a time (``_layer_init``; the top-level tables with layer 0)
+    and cut; the moments and the residual zeros of the blocks' shapes."""
+    p_specs = specs["params"]
+    cut = lambda tree, sp: sharding.map_specs(lambda _, t, s: layout.block(t, s).clone(),
+                                              tree, sp)
+    top, first = _layer_init(cfg, seed, 0, device)
+    layers = [cut(first, p_specs["layers"][0])]
+    del first
+    for i in range(1, cfg.num_layers):
+        layers.append(cut(_layer_init(cfg, seed, i, device)[1], p_specs["layers"][i]))
+    params = dict({k: cut(v, p_specs[k]) for k, v in top.items()}, layers=layers)
+    zeros = lambda: tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                                   device=p.device), params)
+    opt = AdamWState(mu=zeros(), nu=zeros(),
+                     count=torch.zeros((), dtype=torch.int32, device=device))
+    residual = zeros() if tcfg.grad_compression == "int8_ef" else \
+        torch.zeros((), device=device)
+    return params, opt, residual
+
+
+# ---------------------------------------------------------------- the step
+def make_sharded_step(cfg: ModelConfig, tcfg: TrainConfig, mesh):
+    """``runtime.trainer.make_train_step(cfg, tcfg, mesh)``: returns
+    step(params, opt, residual, tokens) -> (params, opt, residual, metrics)
+    on this rank's blocks (``sharding.state_specs``) and its rows of the
+    batch (``batch_spec``); metrics {"loss", "grad_norm"} are the global
+    values, equal on every rank. The step carries ``layout`` (the
+    ``MeshLayout``, with its collective counts) and ``specs``."""
+    model.check_supported(cfg)
+    layout = MeshLayout(mesh)
+    use_comp = tcfg.grad_compression == "int8_ef"
+    specs = sharding.state_specs(init_params(cfg, torch.Generator(), "meta"), mesh, use_comp)
+    p_specs = specs["params"]
+    bspec = sharding.batch_spec(mesh)
+
+    def gathered(tree, sp):
+        return sharding.map_specs(lambda _, t, s: Gather.apply(t, layout, s), tree, sp)
+
+    def value_and_grad(params, leaves, batch):
+        view = {k: (v if k == "layers" else gathered(v, p_specs[k])) for k, v in params.items()}
+        loss = model.loss_fn(view, cfg, batch, remat=tcfg.remat,
+                             layer_params=lambda i, bp: gathered(bp, p_specs["layers"][i]),
+                             moe_stats=lambda t: DataSum.apply(t, layout))
+        grads = torch.autograd.grad(loss, leaves)
+        return loss.detach(), tree_unflatten(params, list(grads))
+
+    def step_fn(params, opt, residual, tokens):
+        leaves = tree_leaves(params)
+        # each leaf's spec in the order of the caller's tree
+        leaf_specs = [sharding.leaf_at(p_specs, key) for key, _ in sharding.leaf_paths(params)]
+        for p in leaves:
+            p.requires_grad_(True)
+        try:
+            if tcfg.micro_batches > 1:
+                # the single device's micro-batches are runs of the whole
+                # batch's rows: put the batch together, cut each by batch_spec
+                whole = layout.gather(tokens, bspec)
+                mb = whole.reshape((tcfg.micro_batches, whole.shape[0] // tcfg.micro_batches)
+                                   + whole.shape[1:])
+                loss = torch.zeros((), device=tokens.device)
+                grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                                       device=p.device), params)
+                for batch in mb:
+                    l, g = value_and_grad(params, leaves, layout.block(batch, bspec))
+                    loss = loss + l
+                    grads = tree_map(torch.add, grads, g)
+                loss = loss / tcfg.micro_batches
+                grads = tree_map(lambda g: g / tcfg.micro_batches, grads)
+            else:
+                loss, grads = value_and_grad(params, leaves, tokens)
+        finally:
+            for p in leaves:
+                p.requires_grad_(False)
+        with torch.no_grad():
+            loss = layout.data_mean(loss)
+            if use_comp:
+                quant, residual = compress.compress_pytree(grads, residual, int(opt.count),
+                                                           LeafBlocks(layout, leaf_specs))
+                grads = compress.decompress_pytree(quant)
+            grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip,
+                                               layout.sum_of_squares(leaf_specs))
+            params, opt = adamw_update(grads, opt, params, tcfg)
+        return params, opt, residual, {"loss": loss, "grad_norm": gnorm}
+
+    step_fn.layout, step_fn.specs = layout, specs
+    return step_fn

@@ -32,6 +32,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import model
 from repro_torch.optim import (adamw_init, adamw_update, clip_by_global_norm, compress,
                                tree_leaves, tree_map, tree_unflatten)
+from repro_torch.runtime import sharded
 from repro_torch.runtime.fault import FailureInjector
 from repro_torch.runtime.straggler import StragglerWatchdog
 
@@ -44,11 +45,17 @@ class TrainState:
     step: int = 0
 
 
-def make_train_step(cfg: ModelConfig, tcfg: TrainConfig) -> Callable:
+def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None) -> Callable:
     """Returns step(params, opt, residual, tokens) -> (params, opt,
     residual, metrics) with metrics {"loss", "grad_norm"} as 0-d device
     tensors. tokens (B, S) int64 on the params' device; the inputs are
-    left as they were."""
+    left as they were.
+
+    With ``mesh`` (a ``DeviceMesh`` over the initialised world) the step
+    takes and returns this rank's blocks of the state and its rows of the
+    batch, and equals this single-device step (``runtime.sharded``)."""
+    if mesh is not None:
+        return sharded.make_sharded_step(cfg, tcfg, mesh)
     use_comp = tcfg.grad_compression == "int8_ef"
 
     def value_and_grad(params, leaves, batch):

@@ -180,7 +180,8 @@ def test_list_world_splits_the_target_cache(world, capsys):
                                            set(cfg.layer_kinds()) <= {"attn", "moe"})
             if r["sharded_decode"] and not cfg.moe:
                 assert r["cache_replicated"] == 4                    # the (1,) length
-    rows = [ln for ln in out.splitlines() if ln.split() and ln.split()[0] in configs.ARCH_IDS]
+    rows = [ln for ln in out.splitlines() if ln.split() and ln.split()[0] in configs.ARCH_IDS
+            and ln.split()[1] in decode]
     assert len(rows) == len(configs.ARCH_IDS) * len(decode)
     last = out.splitlines()[-1]
     assert last.startswith(f"decode cells that do not fit one card but fit {world}")
@@ -189,6 +190,41 @@ def test_list_world_splits_the_target_cache(world, capsys):
                              "pixtral-12b x long_500k, ssv-nsa-8b x long_500k")
         r = dryrun.rank_bytes("ssv-nsa-8b", "long_500k", 4)
         assert round(r["total"] / 1e9, 2) == 34.37
+
+
+@pytest.mark.parametrize("world,model", [(2, 1), (4, 2), (8, 2)])
+def test_train_rank_bytes_split_the_state(world, model):
+    """``train_rank_bytes``: on ``plan_mesh(world, prefer_model=model)`` the
+    per-rank bytes of the leaves split over every rank x ``world``, plus the
+    whole bytes of the leaves replicated along some axis, equal one card's
+    weights, gradients and two float32 moments (``specs.cell_bytes``); the
+    per-rank weights and moments are the local shapes'."""
+    for arch in configs.ARCH_IDS:
+        r = dryrun.train_rank_bytes(arch, "train_4k", world, model)
+        one = specs.cell_bytes(arch, "train_4k", 1)
+        assert r["split"] * world + r["partial_whole"] == one["total"], arch
+        assert r["total"] == r["split"] + r["partial"] == \
+            r["weights"] + r["grads"] + r["adam_moments"]
+        assert r["mesh"] == [world // model, model]
+
+
+def test_list_world_model_2_gives_the_8b_train_cell_four_cards(capsys):
+    """``--list --world 4 --model 2``: ssv-nsa-8b x train_4k (96.5 GB on one
+    card) fits four cards on a (2, 2) mesh and not one; every leaf divides;
+    per rank 27.33 GB (24.1 GB were the state split four ways: the
+    embedding table and the head are split over ``model`` alone)."""
+    assert dryrun.main(["--list", "--world", "4", "--model", "2", "--shape", "train_4k"]) == 0
+    out = capsys.readouterr().out
+    r = dryrun.train_rank_bytes("ssv-nsa-8b", "train_4k", 4, 2)
+    one = specs.cell_bytes("ssv-nsa-8b", "train_4k", 1)
+    assert r["divides"] and r["mesh"] == [2, 2]
+    assert specs.fit_batch("ssv-nsa-8b", "train_4k") == 0
+    assert round(one["total"] / 1e9, 1) == 96.5 and round(r["total"] / 1e9, 2) == 27.33
+    assert r["total"] <= rl.HBM_PER_CARD
+    row = next(ln for ln in out.splitlines() if ln.startswith("ssv-nsa-8b ") and "train_4k" in ln)
+    assert row.split()[-2:] == ["no", "yes"]
+    gained = next(ln for ln in out.splitlines() if ln.startswith("train cells that do not fit"))
+    assert "ssv-nsa-8b x train_4k" in gained
 
 
 def test_run_world_on_cpu_ranks_equals_decode_step(tmp_path):

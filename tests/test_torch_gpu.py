@@ -1125,3 +1125,39 @@ def test_sharded_decode_equals_decode_step_on_card(cuda, tmp_path, world, backen
                                    rtol=2e-4, atol=2e-5)
         torch.testing.assert_close(v, c["kv"]["v"][0, shape.seq_len].float().cpu(),
                                    rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("compression,micro", [("none", 1), ("int8_ef", 2)])
+def test_sharded_train_step_equals_single_device_on_card(cuda, tmp_path, compression, micro):
+    """Two gloo ranks sharing the card with CUDA tensors on a (2, 1) mesh:
+    ``make_train_step(cfg, tcfg, mesh)`` on reduced ssv-nsa-1b in float32
+    equals the single-device step on the card (loss rtol 1e-5; params, both
+    moments and the residual rtol 2e-4 / atol 2e-5, an int8 rounding flip
+    and an ill-conditioned AdamW param held as ``launch.train_checks``
+    holds them), plain and with int8 error-feedback compression over two
+    micro-batches."""
+    from repro_torch.config import TrainConfig
+    from repro_torch.configs import reduced
+    from repro_torch.launch import train_checks
+    cfg = reduced("ssv-nsa-1b")
+    tcfg = TrainConfig(steps=1, learning_rate=1e-3, grad_compression=compression,
+                       micro_batches=micro)
+    params = init_params(cfg, torch.Generator(cuda).manual_seed(0), cuda)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 128), device=cuda,
+                           generator=torch.Generator(cuda).manual_seed(1))
+    torch.save(train_checks.single_device_reference(cfg, tcfg, params, tokens),
+               tmp_path / "ref.pt")
+    from repro_torch.optim import tree_map
+    torch.save({"params": tree_map(lambda t: t.cpu(), params), "tokens": tokens.cpu()},
+               tmp_path / "case.pt")
+    job = dict(kind="step", name="reduced 1b", cfg=cfg, tcfg=tcfg,
+               mesh=((2, 1), ("data", "model")), case=str(tmp_path / "case.pt"),
+               refs={"card": str(tmp_path / "ref.pt")}, tol=(2e-4, 2e-5, 1e-5))
+    got = train_checks.run_checks([job], 2, "gloo", tmp_path / "out", timeout=300)
+    for r in got:
+        res = r["jobs"][0]
+        assert r["device"].startswith("cuda"), r["device"]
+        print(compression, "rank", r["rank"], res["refs"]["card"])
+        assert res["refs"]["card"]["ok"], res["refs"]["card"]
+        assert res["gathers"] > 0 and res["reductions"] > 0

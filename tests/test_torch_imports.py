@@ -90,6 +90,14 @@ def test_scan_covers_the_decode_across_ranks_and_the_examples():
         assert f"src/repro_torch/{rel}" in scanned
 
 
+def test_scan_covers_the_sharded_training_modules():
+    """Training across ranks and its checks in spawned ranks are scanned."""
+    scanned = {str(p.relative_to(ROOT)) for p in _port_files()}
+    for rel in ("runtime/sharded.py", "launch/train_checks.py", "runtime/trainer.py",
+                "ckpt/checkpoint.py", "optim/compress.py", "models/moe.py"):
+        assert f"src/repro_torch/{rel}" in scanned
+
+
 def test_chip_smoke_keeps_no_copy_of_the_roofline():
     """The card's rates and the kernel bounds live in
     ``analysis/roofline.py`` only: ``chip_smoke.py`` defines none of the
