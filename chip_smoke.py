@@ -23,8 +23,8 @@ Phases (every phase always runs; any failure exits non-zero):
      vanilla NSA layer (the Fig. 6(a) baseline: routing kernel, two
      single-branch launches, gated combine) as a counted path at full
      width, against the plain NSA layer (float32);
-  3. serve full-width ``ssv-nsa-1b`` (one 4097-token prompt) and then
-     full-width ``ssv-nsa-8b`` (one 4097-token prompt), bf16, random
+  3. serve full-width ``ssv-nsa-1b`` and then full-width ``ssv-nsa-8b``,
+     each at 4 layers (one 4097-token prompt each), bf16, random
      weights from a seed, max_context 8192, 16 new tokens, D4/k2 tree,
      under Strict and Approx+Reuse, through ``SSVEngine``, with the launch
      counters checked against layers x verify passes (flash: 2 draft
@@ -45,7 +45,7 @@ Phases (every phase always runs; any failure exits non-zero):
      tokens; and a profile of one group step at g = 1 and 4, eager against
      graph replay (wall, device busy, idle share, launches, host copies);
      then full-width ``ssv-nsa-8b`` on the paged store at 2 slots;
-  5. float32 equalities on full-depth ``ssv-nsa-1b``: Strict SSV equals
+  5. float32 equalities on full-width ``ssv-nsa-1b`` at 8 layers: Strict SSV equals
      autoregressive decoding; batched ``generate_batch`` (3 rows) equals
      per-request ``SSVEngine.generate``; the paged single stream equals the
      dense one; bucketed ``serve_continuous`` with captured group steps (3
@@ -168,13 +168,41 @@ Phases (every phase always runs; any failure exits non-zero):
      printed), one more step timed once the restores are done, alone on
      the card, its ms and the peak printed beside phase 9's; collectives,
      resident bytes, wall and peak per rank printed;
- 14. the summary lines: a ``kernels`` JSON line (every kernel x head dim,
-     and x query-head group for the zoo's, and x cell for phase 11's), the
-     card line, and the ``{"ok": true, "device": ...}`` line last.
+ 14. the dry run's serve cells across ranks (``models.prefill_sharded`` and
+     the batched ``decode_step_sharded`` on weights under ``param_specs``,
+     checked in spawned ranks by ``launch.serve_checks``): (a) four gloo
+     ranks share the card with CUDA tensors on a (data 2, model 2) mesh,
+     full-width ssv-nsa-1b cut to 2 layers in float32, 2 x 4096-token
+     prompts, ``max_len`` 8208: the sharded prefill equals
+     ``model.prefill`` on the card (the last position's logits, a vocab
+     slice per model rank; every rank's K/V rows and compressed blocks),
+     then 20 decode tokens equal 20 ``decode_step``s through the kernels
+     (each token's logits, the caches after the last; block 255 completes
+     at position 4111 with rows on both sides of the model boundary at
+     4104, and its owner writes it), rtol 2e-4 / atol 2e-5, argmax equal;
+     (b) beside (a), one NCCL rank on (1, 1), the whole ssv-nsa-1b in
+     bf16: ``prefill_32k`` at batch 1 equals the single-device prefill on
+     the same card within 3e-2 (logits, every K/V row and compressed
+     block), and 2 decode tokens equal the single device's
+     ``decode_step`` with its NSA layers on the plain ``nsa_verify_ref``
+     within 3e-2 (logits and caches) and give its argmax through the
+     kernels (the differences from the kernels' route are printed, each
+     layer's too; (a) holds that decode in float32); walls, collectives,
+     gathered bytes and the peak per rank printed;
+ 15. the summary lines: each phase's seconds, a ``kernels`` JSON line
+     (every kernel x head dim, and x query-head group for the zoo's, and x
+     cell for phase 11's), the card line, and the ``{"ok": true, "device":
+     ...}`` line last.
+
+Phases 3-4 serve ssv-nsa-1b and ssv-nsa-8b at 4 of their 16 and 32
+layers and phase 5 runs the float32 ssv-nsa-1b at 8 of its 16 layers
+(``SERVE_LAYERS``, ``F32_1B_LAYERS``: depth cut to make room for phase 14
+within the script's time; a cut config is named ``<arch>-x<layers>``).
+Phase 7's serve CLI and phase 11's cells serve both at full depth.
 
 ``--times-only`` stops after phases 1 and 8 (no ok line), ``--serve-only``
 after phases 1 and 3 (no ok line; the served tokens go to
-``chip_smoke_serve.json``), ``--cells-only`` after phases 1, 11, 12 and 13
+``chip_smoke_serve.json``), ``--cells-only`` after phases 1 and 11-14
 (no ok line; ``chip_smoke_cells.json``); with ``--src`` either times or serves
 another checkout's package by the same method (the parent's, in the same
 call, for a comparison on one card; one that has
@@ -599,10 +627,10 @@ def main(argv=None) -> int:
                          "Strict and Approx+Reuse, launch counts, profile) and stop; prints "
                          "no ok line")
     ap.add_argument("--cells-only", action="store_true",
-                    help="build and run phases 11, 12 and 13 (the dry run's long-context "
-                         "cells on full caches, their kernels against the plain versions, the "
-                         "sequence-sharded decode and training across ranks) and stop; prints "
-                         "no ok line")
+                    help="build and run phases 11-14 (the dry run's long-context cells on "
+                         "full caches, their kernels against the plain versions, the "
+                         "sequence-sharded decode, training and the serve cells across ranks) "
+                         "and stop; prints no ok line")
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="the directory that holds repro_torch (default: this checkout's); "
                          "with --times-only or --serve-only, another checkout's package is "
@@ -635,7 +663,8 @@ def main(argv=None) -> int:
     # ---- 1. build
     t0 = time.time()
     reports = build.build_all()
-    log(f"[1 build] {len(reports)} kernels built in {time.time() - t0:.1f}s")
+    t_build = time.time() - t0
+    log(f"[1 build] {len(reports)} kernels built in {t_build:.1f}s")
     instances = []
     for name, rep in reports.items():
         for inst in ptxas_instances(name, rep):
@@ -676,20 +705,24 @@ def main(argv=None) -> int:
         t0 = time.time()
         train_ranks = train_ranks_phase(ctx, out_dir / "train_ranks")
         log(f"[13 train ranks] {time.time() - t0:.1f}s")
+        t0 = time.time()
+        serve_ranks = serve_ranks_phase(ctx, out_dir / "serve_ranks")
+        log(f"[14 serve ranks] {time.time() - t0:.1f}s")
         for row in cell_rows:
             row.update(launches=ctx["launches"].get(row["name"], 0),
                        max_abs_err=cell_err.get(row["name"]))
         (out_dir / "chip_smoke_cells.json").write_text(json.dumps(
             {"card": card, "kind": kind, "cells": cells, "kernels": cell_rows,
-             "launches": ctx["launches"], "sharded": sharded, "train_ranks": train_ranks},
-            indent=1, default=str))
+             "launches": ctx["launches"], "sharded": sharded, "train_ranks": train_ranks,
+             "serve_ranks": serve_ranks}, indent=1, default=str))
         print(card)
         return 0
     if args.serve_only:
         e2e = {}
         for Dh in (64, 128):
-            weights = load_weights(cfgs[Dh], seed=0)
-            e2e[cfgs[Dh].name] = serve_e2e(cfgs[Dh], Dh, weights, ctx)
+            cfg = serve_depth(cfgs[Dh])
+            weights = load_weights(cfg, seed=0)
+            e2e[cfg.name] = serve_e2e(cfg, Dh, weights, ctx)
             del weights
             free()
         (out_dir / "chip_smoke_serve.json").write_text(json.dumps(
@@ -697,42 +730,56 @@ def main(argv=None) -> int:
         print(card)
         return 0
 
+    phase_s = {"1 build": t_build}
+
+    def done(name, t0):
+        phase_s[name] = time.time() - t0
+        log(f"[{name}] {phase_s[name]:.1f}s (done at {time.time() - t_start:.1f}s)")
+
     # ---- 2. kernels vs plain versions at full width
     t0 = time.time()
     max_err = check_kernels(cfgs, ctx)
     ctx["note_err"] = lambda key, e: max_err.__setitem__(key, max(max_err.get(key, 0.0), e))
-    log(f"[2 kernels] all cases agree with the plain versions ({time.time() - t0:.1f}s)")
+    log("[2 kernels] all cases agree with the plain versions")
+    done("2 kernels", t0)
 
     # ---- 3. single stream, and 4. batched / continuous serving, full width bf16
     e2e, batched = {}, {}
     for Dh in (64, 128):
-        weights = load_weights(cfgs[Dh], seed=0)
-        e2e[cfgs[Dh].name] = serve_e2e(cfgs[Dh], Dh, weights, ctx)
+        t0 = time.time()
+        cfg = serve_depth(cfgs[Dh])
+        weights = load_weights(cfg, seed=0)
+        e2e[cfg.name] = serve_e2e(cfg, Dh, weights, ctx)
         free()
-        batched[cfgs[Dh].name] = serve_batched(cfgs[Dh], Dh, weights, ctx,
-                                               **(dict() if Dh == 64 else BATCHED_8B))
+        done(f"3 serve {cfg.name}", t0)
+        t0 = time.time()
+        batched[cfg.name] = serve_batched(cfg, Dh, weights, ctx,
+                                          **(dict() if Dh == 64 else BATCHED_8B))
         if Dh == 64:
             free()
-            batched[cfgs[Dh].name]["bucketed"] = serve_bucketed(cfgs[Dh], Dh, weights, ctx)
+            batched[cfg.name]["bucketed"] = serve_bucketed(cfg, Dh, weights, ctx)
             free()
-            batched[cfgs[Dh].name]["group_step_profile"] = profile_group_steps(
-                cfgs[Dh], weights, ctx)
+            batched[cfg.name]["group_step_profile"] = profile_group_steps(cfg, weights, ctx)
         del weights
         free()
-
-    log(f"[3-4 serve] done at {time.time() - t_start:.1f}s")
+        done(f"4 batched {cfg.name}", t0)
 
     # ---- 5. float32 equalities
-    f32_equalities(cfgs[64], ctx)
+    t0 = time.time()
+    f32_equalities(cfgs[64], ctx, layers=F32_1B_LAYERS)
     free()
     strict_equals_ar(cfgs[128], 4, 16, ctx)
     free()
+    done("5 float32", t0)
 
     # ---- 6. the dense-verification baseline
+    t0 = time.time()
     e2e[cfgs[64].name + "-dense"] = dense_baseline(cfgs[64], ctx)
     free()
+    done("6 dense baseline", t0)
 
     # ---- 7. serve CLI (the five runs at once)
+    t0 = time.time()
     cli_profile = out_dir / "bucket_profile.json"
     cli_profile.write_text(cli_bucket_profile().to_json())
     one = (("--prompts", "1"), "prompt 0: 8 tokens")
@@ -748,54 +795,61 @@ def main(argv=None) -> int:
     idle = [k for k, n in ctx["launches"].items() if n == 0]
     if idle:
         fail(f"the main paths never launched {idle}")
-
-    log(f"[5-7] done at {time.time() - t_start:.1f}s")
+    done("7 serve CLI", t0)
 
     # ---- 8. kernel times at the slices' shapes (bf16)
     t0 = time.time()
     rows, layer_times = kernel_times(cfgs, ctx["launches"], max_err, kind, card)
-    log(f"[8 time] {time.time() - t0:.1f}s")
+    done("8 time", t0)
 
     # ---- 9. training, and the serve of a pair trained on the card
     t0 = time.time()
     train = train_phase(cfgs[64], ctx, out_dir / "train")
-    log(f"[9 train] {time.time() - t0:.1f}s")
+    done("9 train", t0)
 
     # ---- 10. the model zoo
     t0 = time.time()
     zoo = zoo_phase(ctx)
     serve_clis([("qwen3-8b", *one), ("recurrentgemma-9b", *one)])
-    log(f"[10 zoo] {time.time() - t0:.1f}s")
+    done("10 zoo", t0)
 
     # ---- 11. the dry run's long-context cells on full caches
     t0 = time.time()
     cells, cell_rows = cells_phase(ctx, out_dir / "dryrun", max_err)
     rows += cell_rows
-    log(f"[11 cells] {time.time() - t0:.1f}s")
     idle = [r["name"] for r in rows if ctx["launches"].get(r["name"], 0) == 0]
     if idle:
         fail(f"the main paths never launched {idle}")
+    done("11 cells", t0)
 
     # ---- 12. the sequence-sharded decode across ranks
     t0 = time.time()
     sharded = sharded_phase(ctx, out_dir / "sharded")
-    log(f"[12 ranks] {time.time() - t0:.1f}s")
+    done("12 ranks", t0)
 
     # ---- 13. training across ranks
     t0 = time.time()
     train_ranks = train_ranks_phase(ctx, out_dir / "train_ranks", train["target"])
-    log(f"[13 train ranks] {time.time() - t0:.1f}s")
+    done("13 train ranks", t0)
+
+    # ---- 14. the dry run's serve cells across ranks
+    t0 = time.time()
+    serve_ranks = serve_ranks_phase(ctx, out_dir / "serve_ranks")
+    done("14 serve ranks", t0)
     for row in rows:        # the trained pair's and the zoo's serves launched the kernels too
         row["launches"] = ctx["launches"].get(row["name"], 0)
         row["max_abs_err"] = max_err.get(row["name"])
+    phase_s["all"] = time.time() - t_start
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "kind": kind, "e2e": e2e, "batched": batched, "paths": ctx["paths"],
          "ptxas": instances, "kernels": rows, "layer_times": layer_times, "train": train,
          "zoo": zoo, "cells": cells, "sharded": sharded, "train_ranks": train_ranks,
+         "serve_ranks": serve_ranks, "phase_seconds": phase_s,
          "seconds": time.time() - t_start}, indent=1, default=str))
 
-    # ---- 14. summary
-    log(f"[14 done] {time.time() - t_start:.1f}s")
+    # ---- 15. summary
+    log(f"[15 done] {time.time() - t_start:.1f}s")
+    print("phase seconds: " + json.dumps({k: round(v, 1) for k, v in phase_s.items()}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -1071,6 +1125,23 @@ def serve_e2e(cfg, Dh, weights, ctx):
 # profile at 1 and 2 slots
 BATCHED_8B = dict(slots=2, n_req=2, classes=("Strict",), backends=("paged",),
                   continuous=False, sweep=(1, 2))
+# Depth cuts that make room for phase 14 (a new path cuts depth first, never
+# width): phases 3-4 serve ssv-nsa-1b and ssv-nsa-8b at SERVE_LAYERS of
+# their 16 and 32 layers, and phase 5's float32 equalities run ssv-nsa-1b
+# at F32_1B_LAYERS of 16.
+# Launch counts are layers x passes at the served depth.
+SERVE_LAYERS = {64: 4, 128: 4}
+F32_1B_LAYERS = 8
+
+
+def serve_depth(cfg):
+    """``cfg`` at phases 3-4's depth (``SERVE_LAYERS``); a cut config is
+    named for its depth (``-x<layers>``), so no number of the full depth
+    is printed beside it."""
+    layers = SERVE_LAYERS[cfg.head_dim]
+    if not layers or layers >= cfg.num_layers:
+        return cfg
+    return dataclasses.replace(cfg, num_layers=layers, name=f"{cfg.name}-x{layers}")
 
 
 def serve_batched(cfg, Dh, weights, ctx, slots=4, n_req=6, classes=("Strict", "Approx+Reuse"),
@@ -1508,13 +1579,17 @@ def strict_equals_ar(cfg, layers, n_tok, ctx, prompt_len=2049, tag="5"):
     return cfg32, weights, prompt, ssv_toks
 
 
-def f32_equalities(cfg, ctx, n_tok=16, rows=3):
-    """Phase 5 on full-depth float32 ``cfg``: Strict == AR; batched
-    ``generate_batch`` over ``rows`` 2049-token prompts equals per-request
-    ``SSVEngine.generate``; the paged single stream equals the dense one."""
+def f32_equalities(cfg, ctx, n_tok=16, rows=3, layers=None):
+    """Phase 5 on float32 ``cfg`` (``layers`` cuts its depth): Strict ==
+    AR; batched ``generate_batch`` over ``rows`` 2049-token prompts equals
+    per-request ``SSVEngine.generate``; the paged single stream equals the
+    dense one."""
     from repro_torch.config import ServeConfig, SSVConfig
     from repro_torch.core import engine as engine_lib
-    cfg32, (tp, dcfg32, dp), prompt, first = strict_equals_ar(cfg, None, n_tok, ctx)
+    cfg32, (tp, dcfg32, dp), prompt, first = strict_equals_ar(cfg, layers, n_tok, ctx)
+    if layers:
+        cfg32 = dataclasses.replace(cfg32, name=f"{cfg.name}-x{layers}")
+    name = cfg32.name
     prompts = [prompt] + [ctx["corpus"].batch(8 + i, 1, 2049)[0] % cfg.vocab_size
                           for i in range(rows - 1)]
 
@@ -1529,16 +1604,16 @@ def f32_equalities(cfg, ctx, n_tok=16, rows=3):
     batch = engine_lib.BatchedSSVEngine(tp, cfg32, dp, dcfg32, serve(), device=DEV) \
         .generate_batch(prompts, n_tok)
     got = [r.tokens.tolist() for r in batch.results]
-    log(f"[5 batched==single f32 {cfg.name}] {rows} rows x {n_tok} tokens: "
+    log(f"[5 batched==single f32 {name}] {rows} rows x {n_tok} tokens: "
         f"{'equal' if got == single else 'DIFFERENT'}")
     if got != single:
-        fail(f"{cfg.name}: batched tokens {got} differ from single-stream tokens {single}")
+        fail(f"{name}: batched tokens {got} differ from single-stream tokens {single}")
     paged = engine_lib.SSVEngine(tp, cfg32, dp, dcfg32, serve("paged"), device=DEV) \
         .generate(prompt, n_tok).tokens.tolist()
-    log(f"[5 paged==dense f32 {cfg.name}] single stream: "
+    log(f"[5 paged==dense f32 {name}] single stream: "
         f"{'equal' if paged == single[0] else 'DIFFERENT'}")
     if paged != single[0]:
-        fail(f"{cfg.name}: paged single-stream tokens differ from dense")
+        fail(f"{name}: paged single-stream tokens differ from dense")
     bucketed_f32(cfg32, (tp, dcfg32, dp), ctx, n_tok)
 
 
@@ -2224,6 +2299,143 @@ def train_ranks_phase(ctx, out_dir, phase9=None):
     shutil.rmtree(ck)
     for f in out_dir.glob("ref_a*.pt"):
         f.unlink()
+    free()
+    return out
+
+
+# Phase 14 (a): full-width ssv-nsa-1b cut to SERVE_RANKS_LAYERS layers in
+# float32, SERVE_RANKS_ROWS rows of SERVE_RANKS_PROMPT tokens, on four gloo
+# ranks sharing the card on (data 2, model 2), then SERVE_RANKS_DECODE
+# decode tokens. max_len 8208 puts the model boundary of the K/V rows at
+# 4104, inside the decode's positions 4096-4115: block 255 (rows 4080-4111)
+# completes at 4111 with rows on both model ranks, and model rank 0 (blocks
+# 0-255 of the 512 padded ones) writes it. (b): the whole model in bf16 on
+# one NCCL rank, prefill_32k at batch 1, then 2 decode tokens.
+SERVE_RANKS_LAYERS, SERVE_RANKS_ROWS, SERVE_RANKS_PROMPT = 2, 2, 4096
+SERVE_RANKS_MAX_LEN, SERVE_RANKS_DECODE = 8208, 20
+
+
+def serve_ranks_phase(ctx, out_dir):
+    """Phase 14: the dry run's serve cells across ranks, ``launch.
+    serve_checks``' jobs in spawned ranks. (a) four gloo ranks on one card,
+    (data 2, model 2), float32: ``prefill_sharded`` == ``model.prefill`` on
+    the card (the last position's logits, every rank's K/V rows and
+    compressed blocks), then ``SERVE_RANKS_DECODE`` batched
+    ``decode_step_sharded`` tokens == as many ``decode_step``s through the
+    kernels (each token's logits, the caches after the last, a compressed
+    block written across the model boundary), rtol 2e-4 / atol 2e-5,
+    argmax equal. (b) beside (a), one NCCL rank on (1, 1), whole
+    ssv-nsa-1b in bf16: ``prefill_32k`` at batch 1 == the single-device
+    prefill on the same card within 3e-2 (logits and caches), argmax
+    equal, then 2 decode tokens == the single device's ``decode_step`` on
+    the plain ``nsa_verify_ref`` within 3e-2 and with the argmax of its
+    ``decode_step`` through the kernels (the largest differences from it
+    printed, per layer too). Returns the records."""
+    from repro_torch import configs
+    from repro_torch.launch import serve_checks, specs
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    note = f"{ctx['kind']} ({ctx['card']})"
+    base = configs.get_config("ssv-nsa-1b")
+    out = {}
+
+    def report(tag, got, whole, ref):
+        same = {k: bool(torch.equal(whole[k].argmax(-1), ref[w].argmax(-1).cpu()))
+                for k, w in (("prefill", "prefill_logits"), ("decode", "decode_logits"))}
+        for g in got:
+            j = g["jobs"][0]
+            log(f"  {tag} rank {g['rank']} coords {j['coords']} rows {j['rows']} K/V rows "
+                f"{j['kv_rows']} vocab {j['vocab']}: max abs err " +
+                ", ".join(f"{k} {v:.3e}" for k, v in j["max_abs_err"].items()) +
+                f"; prefill {j['prefill']['wall_ms']:.1f} ms, {j['prefill']['collectives']} "
+                f"activation collectives, {j['prefill']['gathers']} gathers "
+                f"({j['prefill']['gathered_bytes'] / 1e9:.3f} GB); decode wall per token "
+                f"{[round(w, 1) for w in j['decode']['wall_ms']]} ms, "
+                f"{j['decode']['collectives_per_token']} collectives and "
+                f"{j['decode']['gathers_per_token']} gathers "
+                f"({j['decode']['gathered_bytes_per_token'][0] / 1e9:.3f} GB) per token; "
+                f"compressed blocks written {j['written_blocks']} (across the model boundary "
+                f"{j['across_boundary']}); peak {j.get('peak_gib', math.nan):.2f} GiB; weights "
+                f"resident {j['resident_weight_bytes'] / 2 ** 30:.3f} GiB")
+        bad = [g["jobs"][0]["held"] for g in got if not g["jobs"][0]["ok"]]
+        if bad or not all(same.values()):
+            fail(f"{tag} differs from the single device: held {bad}, argmax equal {same}")
+        return same
+
+    # ---- (b) one NCCL rank, whole ssv-nsa-1b in bf16 at prefill_32k, batch 1,
+    # started beside (a): its passes are device-bound, (a)'s gloo ranks host-bound
+    t_all = time.time()
+    shape = specs.SHAPE_BY_NAME["prefill_32k"]
+    job_b = dict(name="b", cfg=base, mesh=((1, 1), ("data", "model")),
+                 case={"seed": 0, "batch": 1, "seq": shape.seq_len, "decode": 2},
+                 max_len=shape.seq_len + specs.CACHE_SLACK, single_ref=True, plain_ref=True,
+                 tol=(3e-2, 3e-2), hold=("prefill_logits", "prefill_caches",
+                                         "plain_decode_logits", "plain_caches"),
+                 out=str(out_dir / "logits"))
+
+    def world_b():
+        t1 = time.time()
+        return serve_checks.run_checks([job_b], 1, "nccl", out_dir / "b", timeout=400), \
+            time.time() - t1
+
+    with ThreadPoolExecutor(1) as pool:
+        second = pool.submit(world_b)
+
+        # ---- (a) four gloo ranks on one card, float32
+        t0 = time.time()
+        cfg = dataclasses.replace(base, num_layers=SERVE_RANKS_LAYERS, dtype="float32")
+        case = {"seed": 0, "batch": SERVE_RANKS_ROWS, "seq": SERVE_RANKS_PROMPT,
+                "decode": SERVE_RANKS_DECODE}
+        whole = serve_checks.load_case(case, cfg, torch.device(DEV))
+        ref = serve_checks.reference(whole["params"], cfg, whole["tokens"], whole["decode"],
+                                     SERVE_RANKS_MAX_LEN)
+        del whole
+        free()
+        torch.save(ref, out_dir / "ref_a.pt")
+        t_ref = time.time() - t0
+        job = dict(name="a", cfg=cfg, mesh=((2, 2), ("data", "model")), case=case,
+                   max_len=SERVE_RANKS_MAX_LEN, ref=str(out_dir / "ref_a.pt"),
+                   tol=TOL["float32"], out=str(out_dir / "logits"))
+        got = serve_checks.run_checks([job], 4, "gloo", out_dir / "a", timeout=400)
+        (out_dir / "ref_a.pt").unlink()
+        got_b, t_b = second.result()
+    tag = (f"[14a {cfg.name} x{cfg.num_layers} f32, {SERVE_RANKS_ROWS} x {SERVE_RANKS_PROMPT} "
+           f"tokens + {SERVE_RANKS_DECODE} decode, (2, 2) over 4 gloo ranks]")
+    whole = serve_checks.assemble(out_dir / "logits", "a", 4)
+    same = report(tag, got, whole, ref)
+    across = sorted({b for g in got for b in g["jobs"][0]["across_boundary"]})
+    if not across:
+        fail(f"{tag} no compressed block was written across the model boundary")
+    log(f"  {tag} {note}: equal to model.prefill + {SERVE_RANKS_DECODE} decode_steps on the "
+        f"card within rtol 2e-4 / atol 2e-5 (argmax equal {same}); blocks written across the "
+        f"model boundary {across}; single device prefill {ref['prefill_ms']:.1f} ms, decode "
+        f"{statistics.median(ref['decode_ms']):.1f} ms a token (median); {t_ref:.1f}s for the "
+        f"reference, {time.time() - t0:.1f}s in all (14(b) ran beside it)")
+    out["a"] = {"ranks": got, "seconds": time.time() - t0}
+    del ref, whole
+    free()
+
+    tag = f"[14b {base.name} bf16 prefill_32k batch 1 + 2 decode, (1, 1) over 1 NCCL rank]"
+    whole = serve_checks.assemble(out_dir / "logits", "b", 1)
+    ref = torch.load(out_dir / "logits" / "single_b.pt")
+    report(tag, got_b, whole, ref)
+    j = got_b[0]["jobs"][0]
+    per_layer = {k: [f"{e:.3g}" for e in v] for k, v in j["layer_err"].items()}
+    log(f"  {tag} {note}: the prefill (logits, every K/V row and compressed block) equal to "
+        f"the single device's within 3e-2, argmax equal; the 2 decode tokens (logits, every "
+        f"K/V row and compressed block) equal to the single device's decode_step with its NSA "
+        f"layers on the plain nsa_verify_ref within 3e-2; largest differences "
+        + ", ".join(f"{k} {v:.3e}" for k, v in j["max_abs_err"].items()) +
+        f" (decode_logits and caches against the single device's kernels observed, not held: "
+        f"14(a) holds that decode in float32); caches after the decode, max abs err a layer "
+        f"{per_layer}; sharded prefill "
+        f"{j['prefill']['wall_ms']:.1f} ms against the single device's "
+        f"{j['single']['prefill_ms']:.1f} ms, decode {[round(w, 1) for w in j['decode']['wall_ms']]}"
+        f" against {[round(w, 1) for w in j['single']['decode_ms']]} ms (beside 14(a)); "
+        f"{t_b:.1f}s with the rank's start")
+    out["b"] = {"ranks": got_b, "seconds": t_b}
+    log(f"  [14] {time.time() - t_all:.1f}s")
+    del ref, whole
     free()
     return out
 

@@ -16,8 +16,11 @@ no ``--run`` each selected cell's record (the same numbers) is written to
 ``<--out>/static/<arch>__<shape>.json``.
 
 ``--run`` is for the card only (without one it raises; it never falls back
-to the CPU), and only for decode cells whose static bytes fit the card at
-batch 1. It builds the cell at full width from ``--seed`` (target and its
+to the CPU), for decode cells whose static bytes fit the card at batch 1
+and for prefill cells. A prefill cell (``measure_prefill``) runs
+``model.prefill`` over ``--batch`` rows (default: the most whose static
+bytes fit) one row at a time, timed and profiled, and records its wall,
+busy time, peak memory and ``Roofline`` row. A decode cell builds the cell at full width from ``--seed`` (target and its
 ``draft_config`` draft), fills both caches to ``seq_len`` — the JAX dry
 run's semantics, the cache is FULL — with seeded random K/V rows, the
 target's compressed blocks being ``nsa.compress_kv`` of those rows (in
@@ -64,11 +67,33 @@ time, peak, gathers and reductions per step, model-FLOPs share) goes to
   PYTHONPATH=src python -m repro_torch.launch.dryrun --list --world 4 --model 2
   PYTHONPATH=src python -m repro_torch.launch.dryrun --run --world 4 --model 2 \
       --backend nccl --arch ssv-nsa-8b --shape train_4k   # four cards
+
+The serve cells across ranks (the JAX dry run's ``prefill_32k`` and batched
+``decode_32k``: ``model.prefill`` / ``model.decode_step`` under
+``param_specs``, the caches under ``cache_specs(shard_sequence=False)``):
+``--list --world N --model M`` adds each prefill and batched decode cell's
+bytes per rank at its global batch (``serve_rank_bytes``) and the ones that
+fit N cards but not one. ``--run --world N --model M`` takes them for the
+NSA targets (``run_serve_sharded``): each rank draws its weight blocks
+(``runtime.sharded.ServeWeights``) and its rows of the global batch (or
+``--batch``, recorded as ``reduced``); a prefill cell runs one
+``prefill_sharded`` pass, timed, and one row's pass profiled; a decode cell
+fills its slices of the cache and serves one ``decode_step_sharded`` token, three
+timed and one profiled. Records (walls, busy and NCCL time, collectives,
+gathered bytes, peak, rows) go to
+``<--out>/world/<arch>__<shape>__<N>x<M><backend>/``. Other archs print
+``[SKIP]`` with the reason.
+
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --run --world 4 --model 2 \
+      --backend nccl --arch ssv-nsa-8b --shape prefill_32k  # four cards
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --run --world 4 --model 2 \
+      --backend nccl --arch ssv-nsa-1b --shape decode_32k   # four cards
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import math
 import time
@@ -89,6 +114,7 @@ from repro_torch.kernels import LaunchCounter
 from repro_torch.launch import sharding, specs
 from repro_torch.models import model
 from repro_torch.models import nsa as nsa_lib
+from repro_torch.models import prefill_sharded
 
 ART_DIR = Path(__file__).resolve().parents[3] / "build" / "dryrun"
 MESH = "card"                 # one card, no mesh
@@ -153,45 +179,57 @@ FILL_CHUNK = 8192             # K/V rows drawn from one seeded generator
 DRAFT_FILL = 7919             # the draft's fill seed, past the target's
 
 
-def _chunk_seed(seed: int, layer: int, chunk: int) -> int:
-    return ((seed * 1_000_003 + layer) * 1_000_033 + chunk) % 2 ** 62
+def _chunk_seed(seed: int, layer: int, chunk: int, row: int = 0) -> int:
+    base = ((seed * 1_000_003 + layer) * 1_000_033 + chunk) % 2 ** 62
+    return base if row == 0 else (base * 1_000_037 + row) % 2 ** 62
 
 
-def draw_rows(like, seed: int, layer: int, a: int, b: int):
-    """Global K/V rows ``a .. b`` of ``layer`` (standard normal, ``like``'s
-    dtype and device): each ``FILL_CHUNK`` rows come from a generator of
-    their own, seeded by (seed, layer, chunk) and always drawn whole, so a
-    row is the same whichever slice of the cache asks for it."""
+def draw_rows(like, seed: int, layer: int, a: int, b: int, row0: int = 0):
+    """Global K/V rows ``a .. b`` of ``layer`` for the batch rows ``row0
+    ..`` (``like``'s count; standard normal, ``like``'s dtype and device):
+    each ``FILL_CHUNK`` rows of each batch row come from a generator of
+    their own, seeded by (seed, layer, chunk, batch row) and always drawn
+    whole, so a row is the same whichever slice of the cache asks for it.
+    Batch row 0 keeps the seed of (seed, layer, chunk)."""
     B, _, H, Dh = like.shape
     ks, vs = [], []
     for c in range(a // FILL_CHUNK, (b - 1) // FILL_CHUNK + 1):
-        g = torch.Generator(like.device)
-        g.manual_seed(_chunk_seed(seed, layer, c))
-        shape = (B, FILL_CHUNK, H, Dh)
-        kc = torch.randn(shape, generator=g, device=like.device, dtype=like.dtype)
-        vc = torch.randn(shape, generator=g, device=like.device, dtype=like.dtype)
         base = c * FILL_CHUNK
         lo, hi = max(a, base) - base, min(b, base + FILL_CHUNK) - base
-        ks.append(kc[:, lo:hi])
-        vs.append(vc[:, lo:hi])
+        kr, vr = [], []
+        for r in range(row0, row0 + B):
+            g = torch.Generator(like.device)
+            g.manual_seed(_chunk_seed(seed, layer, c, r))
+            shape = (1, FILL_CHUNK, H, Dh)
+            kr.append(torch.randn(shape, generator=g, device=like.device,
+                                  dtype=like.dtype)[:, lo:hi])
+            vr.append(torch.randn(shape, generator=g, device=like.device,
+                                  dtype=like.dtype)[:, lo:hi])
+        ks.append(torch.cat(kr))
+        vs.append(torch.cat(vr))
     return torch.cat(ks, 1), torch.cat(vs, 1)
 
 
 @torch.no_grad()
 def fill_caches(params, cfg, caches, seq_len: int, seed: int) -> None:
     """Fill ``caches`` to ``seq_len`` committed tokens: K/V rows from
-    ``draw_rows`` (seeded per (layer, chunk)), each NSA layer's compressed
-    blocks ``nsa.compress_kv`` of its rows, ``CMP_CHUNK`` blocks per call at
-    fixed block boundaries. Recurrent states keep their initial values.
+    ``draw_rows`` (seeded per (layer, chunk, batch row)), each NSA layer's
+    compressed blocks ``nsa.compress_kv`` of its rows, ``CMP_CHUNK`` blocks
+    per call at fixed block boundaries, one batch row at a time. Recurrent
+    states keep their initial values. ``params``: whole weights or a
+    ``runtime.sharded.ServeWeights`` (each layer gathered as it is filled).
 
     ``caches`` may hold a slice of each layer: ``caches["global_rows"]``
     (``nsa_sharded.init_local_caches``) gives the K/V and compressed rows it
-    holds. A slice fills only its own rows, each equal to the same row of a
-    whole cache's fill: a compressed chunk whose tokens leave the slice
-    draws those rows again."""
+    holds and its batch rows. A slice fills only its own rows, each equal to
+    the same row of a whole cache's fill: a compressed chunk whose tokens
+    leave the slice draws those rows again."""
     nsa = cfg.nsa
     rows = caches.get("global_rows")
-    for li, (lp, c) in enumerate(zip(params["layers"], caches["layers"])):
+    row0 = rows["batch"][0] if rows and "batch" in rows else 0
+    mix_of = (lambda i: params.layer_params(i, "mix")) if hasattr(params, "layer_params") \
+        else (lambda i: params["layers"][i]["mix"])
+    for li, c in enumerate(caches["layers"]):
         if "kv" not in c:
             continue
         k, v = c["kv"]["k"], c["kv"]["v"]
@@ -199,23 +237,26 @@ def fill_caches(params, cfg, caches, seq_len: int, seed: int) -> None:
         top = min(r1, seq_len)
         for ch in range(r0 // FILL_CHUNK, (top - 1) // FILL_CHUNK + 1) if top > r0 else ():
             a, b = max(r0, ch * FILL_CHUNK), min(top, (ch + 1) * FILL_CHUNK)
-            k[:, a - r0:b - r0], v[:, a - r0:b - r0] = draw_rows(k, seed, li, a, b)
+            k[:, a - r0:b - r0], v[:, a - r0:b - r0] = draw_rows(k, seed, li, a, b, row0)
         if "cmp" not in c:
             continue
         c0, c1 = rows["cmp"] if rows else (0, c["cmp"]["k_cmp"].shape[1])
         ncb = nsa_lib.num_cmp_blocks(seq_len, nsa)
         last = min(c1, ncb)
+        mix = mix_of(li)        # a collective: every rank gathers, whatever its slice holds
         for j in range(c0 // CMP_CHUNK, (last - 1) // CMP_CHUNK + 1) if last > c0 else ():
             n0, n1 = j * CMP_CHUNK, min(ncb, (j + 1) * CMP_CHUNK)
             a, b = n0 * nsa.cmp_stride, (n1 - 1) * nsa.cmp_stride + nsa.cmp_block
-            if r0 <= a and b <= top:
-                kk, vv = k[:, a - r0:b - r0], v[:, a - r0:b - r0]
-            else:
-                kk, vv = draw_rows(k, seed, li, a, b)
-            kc, vc = nsa_lib.compress_kv(lp["mix"], kk, vv, nsa)
             lo, hi = max(n0, c0), min(n1, c1)
-            c["cmp"]["k_cmp"][:, lo - c0:hi - c0] = kc[:, lo - n0:hi - n0]
-            c["cmp"]["v_cmp"][:, lo - c0:hi - c0] = vc[:, lo - n0:hi - n0]
+            for r in range(k.shape[0]):
+                if r0 <= a and b <= top:
+                    kk, vv = k[r:r + 1, a - r0:b - r0], v[r:r + 1, a - r0:b - r0]
+                else:
+                    kk, vv = draw_rows(k[r:r + 1], seed, li, a, b, row0 + r)
+                kc, vc = nsa_lib.compress_kv(mix, kk, vv, nsa)
+                c["cmp"]["k_cmp"][r, lo - c0:hi - c0] = kc[0, lo - n0:hi - n0]
+                c["cmp"]["v_cmp"][r, lo - c0:hi - c0] = vc[0, lo - n0:hi - n0]
+        del mix
     caches["length"].fill_(seq_len)
 
 
@@ -352,19 +393,109 @@ def measure(cell: FullCell, outputs: Optional[Dict] = None) -> Dict:
             "decode_model_flops_share": rl.flops_share(rl.model_flops(cell.cfg, shape1), dec_s)}
 
 
+# ---------------------------------------------------------------- prefill cells
+def cell_prompt(cfg, rows, seq: int, seed: int, device) -> torch.Tensor:
+    """Rows ``rows`` (range) of a prefill cell's prompt, (len(rows), seq):
+    each row from a generator of its own, seeded by (seed, row), so a rank
+    draws only its rows and they equal the same rows of the whole batch."""
+    out = []
+    for r in rows:
+        g = torch.Generator(device)
+        g.manual_seed(_chunk_seed(seed + 1, 0, 0, r))
+        out.append(torch.randint(0, cfg.vocab_size, (1, seq), generator=g, device=device))
+    return torch.cat(out)
+
+
+def measure_prefill(arch_id: str, shape_name: str, batch: int = 0, seed: int = 0,
+                    device=None) -> Dict:
+    """A prefill cell on one card (``--run``): weights from ``seed``,
+    ``batch`` rows of the cell's prompt (default: the most whose static
+    bytes fit the card), and one ``model.prefill`` pass that fills caches
+    of ``batch`` rows to ``seq_len`` (``CACHE_SLACK`` slots more) with the
+    last position's logits — one row at a time, to bound the attention's
+    (chunk, S) score tensors (a row's prefill is independent of the
+    others'). The pass runs once, timed on the host clock, and then row 0's
+    prefill once under the profiler (the profiler doubled the wall of a
+    profiled 32K pass on the H100, so it stays out of the timed one); the
+    record holds the pass's wall, the profiled row's busy time, peak memory
+    and the ``Roofline`` row at ``batch``."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise RuntimeError("dryrun --run measures a cell on the card; it has no CPU mode")
+    shape = specs.SHAPE_BY_NAME[shape_name]
+    if shape.kind != "prefill":
+        raise ValueError(f"{shape_name} is a {shape.kind} cell, not a prefill cell")
+    capacity = torch.cuda.get_device_properties(dev).total_memory
+    cfg = specs.cell_config(arch_id, shape_name)[0]
+    fit = specs.fit_batch(arch_id, shape_name, capacity)
+    batch = batch or fit
+    if batch < 1 or specs.config_bytes(cfg, shape, batch)["total"] > capacity:
+        raise ValueError(f"{arch_id} x {shape_name} at batch {batch} does not fit one card")
+    t0 = time.time()
+    g = torch.Generator(dev)
+    g.manual_seed(seed)
+    params = init_params(cfg, g, dev)
+    tokens = cell_prompt(cfg, range(batch), shape.seq_len, seed, dev)
+    max_len = shape.seq_len + specs.CACHE_SLACK
+    caches = model.init_caches(cfg, batch, max_len, dev)
+    build_s = time.time() - t0
+    out = []
+
+    def one_pass(rows):
+        logits = []
+        for b in rows:
+            hidden, c = model.prefill(params, cfg, tokens[b:b + 1], max_len)
+            logits.append(model.logits_fn(params, cfg, hidden[:, -1:]).float())
+            del hidden
+            for dst, src in zip(caches["layers"], c["layers"]):
+                for part in src:
+                    for name, t in src[part].items():
+                        dst[part][name][b] = t[0]
+            del c
+        caches["length"].fill_(shape.seq_len)
+        out.append(torch.cat(logits))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    one_pass(range(batch))
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    prof = _profile(lambda: one_pass(range(1)))
+    logits = out[0]
+    shape_b = dataclasses.replace(shape, global_batch=batch)
+    cost = rl.step_cost(cfg, shape_b, batch=batch, weight_bytes=specs.param_bytes(cfg))
+    roof = rl.build(arch_id, shape_b, MESH, 1, cfg, cost, peak, capacity)
+    return {"arch": arch_id, "shape": shape_name, "kind": "prefill", "seq_len": shape.seq_len,
+            "batch": batch, "fit_batch": fit, "config_name": cfg.name,
+            "device": torch.cuda.get_device_name(dev), "build_s": build_s,
+            "steps": {"prefill": {"wall_ms": wall, "profiled_rows": 1, **prof}},
+            "peak_bytes": peak,
+            "capacity_bytes": capacity, "static_bytes": specs.cell_bytes(arch_id, shape_name, batch),
+            "logits_finite": bool(torch.isfinite(logits).all()),
+            "argmax": logits.argmax(-1)[:, 0].tolist(), "roofline": roof.row(),
+            "bound_ms": roof.step_time_s * 1e3,
+            "model_flops_share": rl.flops_share(rl.model_flops(cfg, shape_b), wall / 1e3)}
+
+
 def run_cell(arch_id: str, shape_name: str, out_dir: Path, force: bool = False,
-             run: bool = False, seed: int = 0, inspect: Optional[Callable] = None) -> Dict:
+             run: bool = False, seed: int = 0, inspect: Optional[Callable] = None,
+             batch: int = 0) -> Dict:
     """One cell's record: static (no ``run``) or measured on the card
-    (``run``). Reads an existing record unless ``force``; writes it as
-    JSON under ``out_dir``. ``inspect(cell, record, outputs)``, called on a
-    measured cell before it is freed, returns what goes under the record's
-    ``"checks"`` (``outputs``: the first Strict verify's and decode's
-    logits)."""
+    (``run``: a decode cell's ``FullCell`` at batch 1, a prefill cell's
+    ``measure_prefill`` at ``batch``, 0 for the most that fit). Reads an
+    existing record unless ``force``; writes it as JSON under ``out_dir``.
+    ``inspect(cell, record, outputs)``, called on a measured decode cell
+    before it is freed, returns what goes under the record's ``"checks"``
+    (``outputs``: the first Strict verify's and decode's logits)."""
     path = Path(out_dir) / ("run" if run else "static") / f"{arch_id}__{shape_name}.json"
     if path.exists() and not force:
         return json.loads(path.read_text())
     t0 = time.time()
-    if run:
+    if run and specs.SHAPE_BY_NAME[shape_name].kind == "prefill":
+        rec = measure_prefill(arch_id, shape_name, batch, seed)
+    elif run:
         cell = FullCell(arch_id, shape_name, seed)
         build_s = time.time() - t0
         outputs = {}
@@ -465,11 +596,75 @@ def train_rank_bytes(arch_id: str, shape_name: str, world: int, model_axis: int 
     return dict(world=world, mesh=list(mc.shape), axes=list(mc.axes), divides=divides, **out)
 
 
+@functools.lru_cache(maxsize=128)
+def _split_bytes(cfg, mc: MeshConfig, part: str, batch: int, max_len: int) -> Dict:
+    """The per-rank bytes of ``cfg``'s weights under ``param_specs`` (part
+    "weights") or of its caches at ``batch`` x ``max_len`` under
+    ``cache_specs(shard_sequence=False)`` ("cache") on the mesh ``mc``:
+    {"bytes", "split" (of the leaves split over every rank), "partial" (of
+    the rest), "partial_whole" (the rest's whole bytes), "divides"}."""
+    sizes = dict(zip(mc.axes, mc.shape))
+    out = dict(bytes=0, split=0, partial=0, partial_whole=0, divides=True)
+
+    def count(leaf, sp):
+        n = math.prod(sizes[a] for a in sharding.split_axes(sp, mc.axes))
+        try:
+            numel = math.prod(sharding.local_shape(leaf.shape, sp, sizes))
+        except ValueError:
+            out["divides"], numel = False, -(-leaf.numel() // n)
+        b = numel * leaf.element_size()
+        out["bytes"] += b
+        if n == mc.num_devices:
+            out["split"] += b
+        else:
+            out["partial"] += b
+            out["partial_whole"] += leaf.nbytes
+    if part == "weights":
+        meta = rl.param_tree(cfg)
+        sharding.map_specs(lambda _, t, sp: count(t, sp), meta, sharding.param_specs(meta, mc))
+    else:
+        for key, leaf in sharding.flatten(rl.cache_tree(cfg, batch, max_len)).items():
+            count(leaf, sharding.cache_spec(key, tuple(leaf.shape), mc, shard_sequence=False))
+    return out
+
+
+def serve_rank_bytes(arch_id: str, shape_name: str, world: int, model_axis: int = 1,
+                     batch: int = 0) -> Dict:
+    """A prefill or batched decode cell's static bytes on each of ``world``
+    ranks on ``elastic.plan_mesh(world, prefer_model=model_axis)``, at
+    ``batch`` rows (0: the shape's global batch): the weights' local shapes
+    under ``param_specs`` and the target cache's under
+    ``cache_specs(shard_sequence=False)`` (no draft: the cells across ranks
+    serve the target alone). ``split``: the per-rank bytes of the leaves
+    split over every rank; ``partial``: of the rest, whose whole bytes are
+    ``partial_whole`` (so ``split * world + partial_whole`` is
+    ``one_card``'s, the weights and the target cache). ``divides``: whether
+    every sharded dimension divides."""
+    from repro_torch.runtime.elastic import plan_mesh
+    cfg = specs.cell_config(arch_id, shape_name)[0]
+    shape = specs.SHAPE_BY_NAME[shape_name]
+    B = batch or shape.global_batch
+    mc = plan_mesh(world, prefer_model=model_axis)
+    w = _split_bytes(cfg, mc, "weights", 0, 0)
+    c = _split_bytes(cfg, mc, "cache", B, shape.seq_len + specs.CACHE_SLACK)
+    out = {"weights": w["bytes"], "cache": c["bytes"]}
+    for k in ("split", "partial", "partial_whole"):
+        out[k] = w[k] + c[k]
+    divides = w["divides"] and c["divides"]
+    one = specs.config_bytes(cfg, shape, B)
+    return dict(world=world, mesh=list(mc.shape), axes=list(mc.axes), batch=B, divides=divides,
+                total=out["weights"] + out["cache"],
+                one_card=one["weights"] + one["target_cache"],
+                sharded_serve=prefill_sharded.takes(cfg), **out)
+
+
 def list_world(archs: List[str], shapes: List[str], world: int,
                model_axis: int = 1) -> List[Dict]:
-    """Print each train cell's state bytes per rank (``train_rank_bytes``)
-    and each decode cell's bytes per rank across ``world`` ranks, and which
-    of the cells that do not fit one card fit ``world`` cards."""
+    """Print each train cell's state bytes per rank (``train_rank_bytes``),
+    each decode cell's bytes per rank across ``world`` ranks at batch 1
+    (``rank_bytes``), each prefill and batched decode
+    cell's at its global batch (``serve_rank_bytes``), and which of the
+    cells that do not fit one card fit ``world`` cards."""
     gb = 1e9
     train = [s for s in shapes if specs.SHAPE_BY_NAME[s].kind == "train"]
     recs = []
@@ -512,7 +707,32 @@ def list_world(archs: List[str], shapes: List[str], world: int,
     print(f"decode cells that do not fit one card but fit {world} "
           f"({rl.HBM_PER_CARD / 2 ** 30:.0f} GiB each, weights whole, target cache split by "
           f"sequence): {', '.join(gained) or 'none'}")
-    return recs + decode
+    batched = [s for s in shapes if specs.SHAPE_BY_NAME[s].global_batch > 1
+               and specs.SHAPE_BY_NAME[s].kind in ("prefill", "decode")]
+    served = []
+    if batched:
+        print(f"{'arch':22s} {'shape':12s} {'mesh':>6s} {'batch':>5s} {'weights/rank GB':>15s} "
+              f"{'cache/rank GB':>13s} {'rank GB':>8s} {'1 card GB':>9s} {'1 card':>7s} "
+              f"{f'{world} cards':>8s} {'across ranks':>12s}")
+        for a in archs:
+            for s in batched:
+                r = {"arch": a, "shape": s, **serve_rank_bytes(a, s, world, model_axis)}
+                r["fits_one"] = r["one_card"] <= rl.HBM_PER_CARD
+                r["fits_world"] = r["divides"] and r["total"] <= rl.HBM_PER_CARD
+                mesh = "x".join(map(str, r["mesh"]))
+                print(f"{a:22s} {s:12s} {mesh:>6s} {r['batch']:5d} {r['weights'] / gb:15.2f} "
+                      f"{r['cache'] / gb:13.2f} {r['total'] / gb:8.2f} {r['one_card'] / gb:9.2f} "
+                      f"{'yes' if r['fits_one'] else 'no':>7s} "
+                      f"{'yes' if r['fits_world'] else 'no':>8s} "
+                      f"{'yes' if r['sharded_serve'] else 'no':>12s}")
+                served.append(r)
+        gained = [f"{r['arch']} x {r['shape']} (batch {r['batch']})" for r in served
+                  if not r["fits_one"] and r["fits_world"]]
+        print(f"prefill and batched decode cells at their global batch that do not fit one card "
+              f"but fit {world} ({rl.HBM_PER_CARD / 2 ** 30:.0f} GiB each; the target's weights "
+              f"under param_specs, its cache under cache_specs(shard_sequence=False); the gathered "
+              f"layer and activations not reckoned): {', '.join(gained) or 'none'}")
+    return recs + decode + served
 
 
 def sharded_rank(rank: int, world: int, dev, arch_id: str, shape_name: str, seed: int,
@@ -598,6 +818,143 @@ def run_sharded(arch_id: str, shape_name: str, world: int, backend: str, out_dir
     from repro_torch.launch import ranks
     args = (arch_id, shape_name, seed, cfg, str(out_dir), timed)
     ranks.spawn(sharded_rank, world, backend, device_type, args=args, timeout=timeout,
+                threads=threads)
+    return [json.loads((Path(out_dir) / f"rank{r}.json").read_text()) for r in range(world)]
+
+
+SERVE_TIMED = 3               # timed decode tokens of a serve cell across ranks
+
+
+def serve_rank(rank: int, world: int, dev, arch_id: str, shape_name: str, model_axis: int,
+               seed: int, batch: int, out_dir: str, cfg: Optional[ModelConfig] = None) -> Dict:
+    """One rank of ``--run --world N --model M`` on a prefill or batched
+    decode cell (the JAX dry run's ``prefill_32k`` / ``decode_32k`` steps on
+    a (data, model) mesh): its ``ServeWeights`` blocks drawn from ``seed``
+    one layer at a time, on ``elastic.plan_mesh(N, prefer_model=M)``, and
+    its rows of ``batch`` (0: the shape's global batch).
+
+    A prefill cell runs one ``prefill_sharded`` pass over the rank's rows
+    of the prompt (``cell_prompt``), timed on the host clock, and then, on
+    a card, a pass of its first row under the profiler (which would double
+    the timed pass's wall). A decode cell fills the rank's slices of the
+    cache (rows over the data axes, sequence over ``model``) to
+    ``seq_len`` as ``fill_caches`` fills a whole cache, then serves one
+    ``decode_step_sharded`` token, ``SERVE_TIMED`` timed ones and one
+    profiled. Returns the rank's record (also ``<out_dir>/rank<r>.json``):
+    walls, busy and NCCL time, the collectives, the weights' gathers and
+    their bytes, the peak, its ``rows`` and, when the batch was cut,
+    ``reduced``; the first pass's logits (the rank's vocab slice) go to
+    ``<out_dir>/rank<r>.pt``. ``cfg`` replaces the cell's config."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import nsa_sharded
+    from repro_torch.runtime.elastic import build_mesh, plan_mesh
+    from repro_torch.runtime.sharded import ServeWeights
+    ps = prefill_sharded
+    shape = specs.SHAPE_BY_NAME[shape_name]
+    cfg = cfg or specs.cell_config(arch_id, shape_name)[0]
+    mc = plan_mesh(world, prefer_model=model_axis)
+    mesh = build_mesh(mc, dev.type)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    B = batch or shape.global_batch
+    d_idx, n_dp = mesh_lib.axes_index(mesh, mesh_lib.dp_axes(mesh))
+    if B % n_dp:
+        raise ValueError(f"a batch of {B} rows does not divide over {n_dp} data ranks")
+    rows = range(d_idx * (B // n_dp), (d_idx + 1) * (B // n_dp))
+    max_len = shape.seq_len + specs.CACHE_SLACK
+    t0 = time.time()
+    view = ServeWeights.init(cfg, seed, mesh, dev)
+    layout = view.layout
+    rec = {"rank": rank, "world": world, "mesh": list(mc.shape), "axes": list(mc.axes),
+           "coords": layout.coords, "backend": dist.get_backend(), "device": str(dev),
+           "arch": arch_id, "shape": shape_name, "kind": shape.kind, "dtype": cfg.dtype,
+           "seq_len": shape.seq_len, "batch": B, "rows": [rows.start, rows.stop],
+           "vocab": list(view.vocab), "resident_weight_bytes": view.resident_bytes()}
+    if B != shape.global_batch:
+        rec["reduced"] = {"global_batch": B, "of": shape.global_batch, "why": "--batch"}
+    if shape.kind == "prefill":
+        tokens = cell_prompt(cfg, rows, shape.seq_len, seed, dev)
+        sync()
+        dist.barrier()
+        rec["build_s"] = time.time() - t0
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        nsa_sharded.reset_collectives()
+        layout.reset_counts()
+        t0 = time.perf_counter()
+        logits, caches = ps.prefill_sharded(view, cfg, mesh, tokens, max_len)
+        sync()
+        rec["wall_ms"] = [(time.perf_counter() - t0) * 1e3]
+        rec["kv_rows"] = list(caches["global_rows"]["kv"])
+        rec.update(collectives=nsa_sharded.collectives(), gathers=layout.counts["gathers"],
+                   gathered_bytes=layout.bytes, logits_finite=bool(torch.isfinite(logits).all()))
+        if dev.type == "cuda":
+            dist.barrier()
+            rec.update(_profile(lambda: ps.prefill_sharded(view, cfg, mesh, tokens[:1], max_len)),
+                       profiled_rows=1)
+        flops = rl.model_flops(cfg, dataclasses.replace(shape, global_batch=B))
+        rec["model_flops_share"] = rl.flops_share(flops, rec["wall_ms"][0] / 1e3,
+                                                  world * rl.PEAK_FLOPS)
+    else:
+        caches = nsa_sharded.init_local_caches(cfg, B, max_len, mesh, ps.SEQ_AXES, dev,
+                                               shard_sequence=False)
+        fill_caches(view, cfg, caches, shape.seq_len, seed)
+        g = torch.Generator(dev)
+        g.manual_seed(seed + 1)
+        token = torch.randint(0, cfg.vocab_size, (B, 1), generator=g,
+                              device=dev)[rows.start:rows.stop]
+        rec["kv_rows"] = list(caches["global_rows"]["kv"])
+        sync()
+        dist.barrier()
+        rec["build_s"] = time.time() - t0
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+
+        def step():
+            return nsa_sharded.decode_step_sharded(view, cfg, mesh, caches, token,
+                                                   ps.SEQ_AXES)[0]
+
+        nsa_sharded.reset_collectives()
+        layout.reset_counts()
+        t0 = time.perf_counter()
+        logits = step()
+        sync()
+        rec.update(first_wall_ms=(time.perf_counter() - t0) * 1e3,
+                   collectives_per_token=nsa_sharded.collectives(),
+                   gathers_per_token=layout.counts["gathers"],
+                   gathered_bytes_per_token=layout.bytes,
+                   logits_finite=bool(torch.isfinite(logits).all()))
+        walls = []
+        for _ in range(SERVE_TIMED):
+            dist.barrier()
+            t0 = time.perf_counter()
+            step()
+            sync()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        rec["wall_ms"] = walls
+        if dev.type == "cuda":
+            dist.barrier()
+            rec.update(_profile(step))
+    if dev.type == "cuda":
+        rec["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+        rec["card"] = torch.cuda.get_device_name(dev)
+    out_path = Path(out_dir)
+    out_path.mkdir(parents=True, exist_ok=True)
+    torch.save({"logits": logits.float().cpu(), "rows": rec["rows"], "vocab": rec["vocab"]},
+               out_path / f"rank{rank}.pt")
+    (out_path / f"rank{rank}.json").write_text(json.dumps(rec, indent=1))
+    return rec
+
+
+def run_serve_sharded(arch_id: str, shape_name: str, world: int, backend: str, out_dir: Path,
+                      model_axis: int = 1, seed: int = 0, batch: int = 0,
+                      cfg: Optional[ModelConfig] = None, device_type: str = "cuda",
+                      timeout: float = 3000.0, threads: Optional[int] = None) -> List[Dict]:
+    """``serve_rank`` on ``world`` spawned ranks (``cfg`` in place of the
+    cell's config when given); every rank's record."""
+    from repro_torch.launch import ranks
+    args = (arch_id, shape_name, model_axis, seed, batch, str(out_dir), cfg)
+    ranks.spawn(serve_rank, world, backend, device_type, args=args, timeout=timeout,
                 threads=threads)
     return [json.loads((Path(out_dir) / f"rank{r}.json").read_text()) for r in range(world)]
 
@@ -709,23 +1066,63 @@ def _run_world_train(a: str, s: str, args, capacity: float, per_card: int) -> No
               f"{100 * r['model_flops_share']:.3f}% of {r['world']} x 989 TFLOP/s", flush=True)
 
 
+def _run_world_serve(a: str, s: str, args, capacity: float, per_card: int) -> None:
+    cfg = specs.cell_config(a, s)[0]
+    if not prefill_sharded.takes(cfg):
+        print(f"[SKIP] {a:22s} {s:12s} (the prefill and batched decode across ranks take NSA "
+              f"attention stacks, the two NSA targets; {cfg.name}'s native {cfg.attention} "
+              f"{'/'.join(sorted(set(cfg.layer_kinds())))} stack is later work)")
+        return
+    rb = serve_rank_bytes(a, s, args.world, args.model, args.batch)
+    if not rb["divides"] or rb["total"] * per_card > capacity:
+        print(f"[SKIP] {a:22s} {s:12s} (its blocks and slices do not divide or do not fit the "
+              "cards)")
+        return
+    out = Path(args.out) / "world" / f"{a}__{s}__{args.world}x{args.model}{args.backend}"
+    recs = run_serve_sharded(a, s, args.world, args.backend, out, args.model, args.seed,
+                             args.batch)
+    for r in recs:
+        head = (f"[RUN]  {a:22s} {s:12s} rank {r['rank']}/{r['world']} mesh {r['mesh']} "
+                f"({r['backend']}, {r['device']}) rows {r['rows']} of {r['batch']}: ")
+        busy = (f"busy {r.get('device_busy_ms', float('nan')):.1f} ms (of it "
+                f"{r.get('collective_ms', float('nan')):.1f} in NCCL kernels); peak "
+                f"{r.get('peak_bytes', 0) / 2 ** 30:.2f} GiB")
+        if r["kind"] == "prefill":
+            print(head + f"prefill {r['wall_ms'][0]:.1f} ms; {r['collectives']} activation "
+                  f"collectives, {r['gathers']} gathers ({r['gathered_bytes'] / 1e9:.2f} GB); "
+                  f"one row profiled: " + busy + f"; logits finite {r['logits_finite']}",
+                  flush=True)
+        else:
+            print(head + f"{r['collectives_per_token']} activation collectives and "
+                  f"{r['gathers_per_token']} gathers ({r['gathered_bytes_per_token'] / 1e9:.2f} "
+                  f"GB) per token; wall per token " + ", ".join(f"{w:.1f}" for w in r["wall_ms"])
+                  + f" ms (first {r['first_wall_ms']:.1f}); " + busy +
+                  f"; logits finite {r['logits_finite']}", flush=True)
+
+
 def run_world(archs: List[str], shapes: List[str], args) -> int:
     """``--run --world N``: ``run_train_sharded`` for each selected train
-    cell and ``run_sharded`` for each selected decode cell that the sharded
-    decode takes, whose ranks fit their cards."""
+    cell, ``run_serve_sharded`` for each prefill cell and each decode cell
+    of more than one row (its global batch, or ``--batch``), and
+    ``run_sharded`` for each batch-1 decode cell that the sharded decode
+    takes, whose ranks fit their cards."""
     resolve_device("cuda")                    # raises without a card
     cards = torch.cuda.device_count()
     capacity = torch.cuda.get_device_properties(0).total_memory
     per_card = -(-args.world // cards)
     for a in archs:
         for s in shapes:
-            if specs.SHAPE_BY_NAME[s].kind == "train":
+            shape = specs.SHAPE_BY_NAME[s]
+            if shape.kind == "train":
                 _run_world_train(a, s, args, capacity, per_card)
                 continue
-            rb = rank_bytes(a, s, args.world) if specs.SHAPE_BY_NAME[s].kind == "decode" else None
-            if rb is None or not rb["sharded_decode"] or not rb["divides"] or \
+            if shape.kind == "prefill" or (args.batch or shape.global_batch) > 1:
+                _run_world_serve(a, s, args, capacity, per_card)
+                continue
+            rb = rank_bytes(a, s, args.world)
+            if not rb["sharded_decode"] or not rb["divides"] or \
                     rb["total"] * per_card > capacity:
-                print(f"[SKIP] {a:22s} {s:12s} (--run --world takes train cells and NSA "
+                print(f"[SKIP] {a:22s} {s:12s} (the batch-1 sequence-sharded decode takes NSA "
                       f"decode cells whose ranks fit {cards} card(s))")
                 continue
             out = Path(args.out) / "world" / f"{a}__{s}__{args.world}{args.backend}"
@@ -756,10 +1153,14 @@ def main(argv=None) -> int:
                          "--run trains steps of a train cell or serves one token of a decode "
                          "cell across the ranks")
     ap.add_argument("--model", type=int, default=1,
-                    help="the model axis of a train cell's mesh (elastic.plan_mesh(world, "
-                         "prefer_model=M))")
+                    help="the model axis of a train, prefill or batched decode cell's mesh "
+                         "(elastic.plan_mesh(world, prefer_model=M))")
     ap.add_argument("--backend", choices=("nccl", "gloo"), default="nccl",
                     help="collective backend of --run --world (gloo shares the cards)")
+    ap.add_argument("--batch", type=int, default=0,
+                    help="rows of a prefill cell (--run on one card; 0: the most that fit) or "
+                         "of a prefill or decode cell across ranks (--run --world; 0: the "
+                         "shape's global batch)")
     args = ap.parse_args(argv)
     archs = list(cfglib.ARCH_IDS) if args.arch == "all" else args.arch.split(",")
     shapes = [s.name for s in SHAPES] if args.shape == "all" else args.shape.split(",")
@@ -779,13 +1180,23 @@ def main(argv=None) -> int:
         capacity = torch.cuda.get_device_properties(dev).total_memory
     for a in archs:
         for s in shapes:
-            if args.run and (specs.SHAPE_BY_NAME[s].kind != "decode" or
-                             specs.fit_batch(a, s, capacity) < 1):
-                print(f"[SKIP] {a:22s} {s:12s} (--run takes decode cells that fit at batch 1)")
+            kind = specs.SHAPE_BY_NAME[s].kind
+            if args.run and (kind == "train" or specs.fit_batch(a, s, capacity) < 1):
+                print(f"[SKIP] {a:22s} {s:12s} (--run takes decode cells that fit at batch 1 "
+                      "and prefill cells that fit at --batch rows)")
                 continue
-            rec = run_cell(a, s, Path(args.out), args.force, args.run, args.seed)
+            rec = run_cell(a, s, Path(args.out), args.force, args.run, args.seed,
+                           batch=args.batch)
             r = rec["roofline"]
-            if args.run:
+            if args.run and kind == "prefill":
+                p = rec["steps"]["prefill"]
+                print(f"[RUN]  {a:22s} {s:12s} batch {rec['batch']} (fit {rec['fit_batch']}): "
+                      f"prefill {p['wall_ms']:.1f} ms (one row profiled: busy "
+                      f"{p['device_busy_ms']:.1f} ms); peak "
+                      f"{rec['peak_bytes'] / 2 ** 30:.2f} GiB; bound {rec['bound_ms']:.2f} ms "
+                      f"({r['bottleneck']}); model-FLOPs share "
+                      f"{100 * rec['model_flops_share']:.2f}%", flush=True)
+            elif args.run:
                 st = rec["steps"]
                 print(f"[RUN]  {a:22s} {s:12s} " + ", ".join(
                     f"{k} {v['wall_ms']:.2f} ms (busy {v['device_busy_ms']:.2f})"

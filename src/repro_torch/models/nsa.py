@@ -253,27 +253,52 @@ def attend_train_nsa(params, cfg: ModelConfig, x, positions, chunk: int = 512):
     comparisons, not scatters), so a train step can run under
     ``torch.use_deterministic_algorithms(True)``.
     """
-    nsa = cfg.nsa
-    B, S, _ = x.shape
-    Hq, Hkv, G, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.q_per_kv, cfg.head_dim
-    dev = x.device
     q, k, v = qkv(params, cfg, x, positions)
-    k_cmp, v_cmp = compress_kv(params, k, v, nsa)
-    nsb = num_sel_blocks(S, nsa)
-    g_all = gates(params, x, Hq)
-    scale = 1.0 / math.sqrt(Dh)
+    k_cmp, v_cmp = compress_kv(params, k, v, cfg.nsa)
+    out = attend_queries(cfg, q, gates(params, x, cfg.num_heads), positions, k, v,
+                         k_cmp, v_cmp, chunk=chunk)
+    return out @ params["wo"], (k, v)
+
+
+def query_chunks(S: int, q0: int, q1: int, chunk: int = 512):
+    """The query runs ``attend_queries`` takes for global positions
+    ``[q0, q1)`` of an S-token sequence: the pieces of ``attend_train_nsa``'s
+    chunks (S // chunk of them when ``chunk`` divides S, else one) that lie
+    in the range, as (start, stop) pairs."""
     nchunk = max(1, S // chunk) if (chunk and S % chunk == 0) else 1
     Sc = S // nchunk
+    return [(max(q0, i * Sc), min(q1, (i + 1) * Sc)) for i in range(q0 // Sc, -(-q1 // Sc))
+            if max(q0, i * Sc) < min(q1, (i + 1) * Sc)]
+
+
+def attend_queries(cfg: ModelConfig, q, g_all, positions, k, v, k_cmp, v_cmp, q0: int = 0,
+                   chunk: int = 512):
+    """NSA attention of the queries at global positions ``[q0, q0 + Tq)``
+    over a whole S-token sequence: q (B, Tq, Hq, Dh) after RoPE, their gates
+    g_all (B, Tq, 3, Hq) and positions (B, Tq); k, v (B, S, Hkv, Dh) and
+    the sequence's compressed blocks k_cmp, v_cmp (B, NCB, Hkv, Dh). The
+    queries run in ``query_chunks``' pieces, so the whole range (q0 = 0, Tq
+    = S) is ``attend_train_nsa``'s computation and a slice of it the same
+    rows of it. Returns the gated heads (B, Tq, Hq * Dh) in q's dtype,
+    before the output projection."""
+    nsa = cfg.nsa
+    B, Tq = q.shape[0], q.shape[1]
+    S = k.shape[1]
+    Hq, Hkv, G, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.q_per_kv, cfg.head_dim
+    dev = q.device
+    nsb = num_sel_blocks(S, nsa)
+    scale = 1.0 / math.sqrt(Dh)
     kf, vf = k.float(), v.float()
     tok = torch.arange(S, device=dev)
     blk_of_tok = torch.div(tok, nsa.sel_block, rounding_mode="floor")
     neg = torch.full((), NEG_INF, device=dev)
     zero = torch.zeros((), device=dev)
     outs = []
-    for i in range(nchunk):
-        sl = slice(i * Sc, (i + 1) * Sc)
+    for a, b in query_chunks(S, q0, q0 + Tq, chunk):
+        sl = slice(a - q0, b - q0)
+        Sc = b - a
         qc, posc, gc = q[:, sl], positions[:, sl], g_all[:, sl]
-        o_cmp, p_slc = routing(params, cfg, qc, k_cmp, v_cmp, posc - 1, S)
+        o_cmp, p_slc = routing(None, cfg, qc, k_cmp, v_cmp, posc - 1, S)
         idx, idx_valid = select_topn(p_slc, posc - 1, S, nsa)        # (B,Sc,Hkv,n)
         # token-granular selection mask: block-level hits, then per token
         hits = ((idx[..., None] == torch.arange(nsb, device=dev)) &
@@ -291,9 +316,8 @@ def attend_train_nsa(params, cfg: ModelConfig, x, positions, chunk: int = 512):
         o_win = torch.einsum("bhgtk,bkhd->bthgd", p_w, vf).reshape(B, Sc, Hq, Dh)
         out = (gc[:, :, 0, :, None] * o_cmp + gc[:, :, 1, :, None] * o_slc +
                gc[:, :, 2, :, None] * o_win)
-        outs.append(out.to(x.dtype))
-    out = torch.cat(outs, dim=1).reshape(B, S, Hq * Dh)
-    return out @ params["wo"], (k, v)
+        outs.append(out.to(q.dtype))
+    return torch.cat(outs, dim=1).reshape(B, Tq, Hq * Dh)
 
 
 # ---------------------------------------------------------------- verify (ref)

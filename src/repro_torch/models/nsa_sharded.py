@@ -21,11 +21,24 @@ only:
   4. log-sum-exp merges of the slc and win states and the gated sum.
 
 Five all-reduces per layer and token: MAX and SUM for the cmp branch, SUM
-of the selection scores, MAX and SUM for the slc and win branches
-(``collectives`` counts them). The new K/V row is written on the rank that
-owns position ``prefix_len``. As in the reference the compressed cache is
-read-only here: a compressed block that this token completes is not
-written (the serving engine's commit owns that update).
+of the selection scores, MAX and SUM for the slc and win branches. The new
+K/V row is written on the rank that owns position ``prefix_len``. The
+reference leaves the compressed cache read-only here (the serving engine's
+commit owns that update); the port writes it, as ``model.decode_step``'s
+commit does, so that N tokens equal N ``decode_step``s (the JAX dry run's
+``decode_32k`` step is ``model.decode_step``): ``commit_cmp_sharded``
+writes the block that a token completes on the rank that owns it. A token
+completes a block once in ``cmp_stride`` tokens; only when the block's
+``cmp_block`` rows straddle two slices, or lie on another rank than the
+block, does the write cost one more all-reduce (``collectives`` counts
+them, and the embedding's sum over ``model`` when the weights are
+``runtime.sharded.ServeWeights``).
+
+The same code serves the batched decode (``cache_specs(shard_sequence=
+False)``: the rows over the data axes, the sequence over ``model``, and
+``seq_axes = ("model",)`` within each data group) with the weights under
+``param_specs`` (``ServeWeights``: each layer gathered just in time, the
+logits a vocab slice per ``model`` rank).
 
 Where the reference differs from itself, the port takes the single-device
 side. ``repro.models.nsa_sharded`` sums ``exp(l - m)`` over the query heads
@@ -55,7 +68,8 @@ from repro_torch.config import ModelConfig
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import layers
 from repro_torch.models.attention import NEG_INF, qkv
-from repro_torch.models.nsa import dyn_num_cmp_blocks, gates, num_sel_blocks, select_topn
+from repro_torch.models.nsa import (_pool_project, dyn_num_cmp_blocks, gates, num_cmp_blocks,
+                                    num_sel_blocks, select_topn)
 
 _COUNT = [0]
 
@@ -69,10 +83,29 @@ def reset_collectives() -> None:
     _COUNT[0] = 0
 
 
-def _all_reduce(t: torch.Tensor, op, group) -> torch.Tensor:
+def all_reduce(t: torch.Tensor, op, group) -> torch.Tensor:
+    """``t`` reduced in place over ``group``; counted."""
     _COUNT[0] += 1
     dist.all_reduce(t, op=op, group=group)
     return t
+
+
+def all_gather(t: torch.Tensor, group, n: int) -> torch.Tensor:
+    """(n, *t.shape): every rank's ``t`` in the order of the group's
+    ranks, which is the order of their shard index (``shard_of``); counted."""
+    _COUNT[0] += 1
+    out = t.new_empty((n,) + tuple(t.shape))
+    dist.all_gather_into_tensor(out.view(-1), t.contiguous().view(-1), group=group)
+    return out
+
+
+def reduce_scatter(t: torch.Tensor, group) -> torch.Tensor:
+    """t (n, ...) -> the sum over the group of every rank's t[i], on the
+    rank of shard index i; counted."""
+    _COUNT[0] += 1
+    out = t.new_empty(tuple(t.shape[1:]))
+    dist.reduce_scatter_tensor(out.view(-1), t.contiguous().view(-1), group=group)
+    return out
 
 
 # ---------------------------------------------------------------- geometry
@@ -85,7 +118,11 @@ def shard_of(mesh, seq_axes: Sequence[str]) -> Tuple[object, int, int]:
     key = (id(mesh), tuple(seq_axes))
     if key not in _GROUPS:
         idx, n = mesh_lib.axes_index(mesh, seq_axes)
-        _GROUPS[key] = (mesh, mesh_lib.axes_group(mesh, seq_axes), idx, n)
+        group = mesh_lib.axes_group(mesh, seq_axes)
+        if dist.get_group_rank(group, dist.get_rank()) != idx:
+            raise RuntimeError(f"the group of {tuple(seq_axes)} does not order its ranks by "
+                               "their shard index")
+        _GROUPS[key] = (mesh, group, idx, n)
     _, group, idx, n = _GROUPS[key]
     return group, idx, n
 
@@ -131,10 +168,10 @@ def _state(logits, mask):
 def _merge(m, l, acc, group):
     """LSE-merge per-rank states (m (…), l (…), acc (…, Dh)) across the
     group: two all-reduces. Returns the merged, normalised output."""
-    m_max = _all_reduce(m.clone(), dist.ReduceOp.MAX, group)
+    m_max = all_reduce(m.clone(), dist.ReduceOp.MAX, group)
     s = torch.exp(m - m_max)
     buf = torch.cat([(l * s)[..., None], acc * s[..., None]], dim=-1)
-    _all_reduce(buf, dist.ReduceOp.SUM, group)
+    all_reduce(buf, dist.ReduceOp.SUM, group)
     l_g, acc_g = buf[..., 0], buf[..., 1:]
     return torch.where(l_g[..., None] > 0, acc_g / l_g.clamp(min=1e-30)[..., None],
                        torch.zeros((), device=acc.device))
@@ -182,11 +219,11 @@ def nsa_attend_decode_sharded(params, cfg: ModelConfig, mesh, x, cache_local, cm
     cmask = cvis[:, None, None, :]
     lc = torch.where(cmask, lc, neg)
     # ---- 2. each head's global max and softmax sum (also the cmp merge)
-    m_glob = _all_reduce(lc.amax(-1), dist.ReduceOp.MAX, group)
+    m_glob = all_reduce(lc.amax(-1), dist.ReduceOp.MAX, group)
     p_c = torch.where(cmask, torch.exp(lc - m_glob[..., None]), zero)     # exp(l - m_glob)
     acc_c = torch.einsum("bhgk,bkhd->bhgd", p_c, v_cm.float())
     buf = torch.cat([p_c.sum(-1)[..., None], acc_c], dim=-1)
-    _all_reduce(buf, dist.ReduceOp.SUM, group)
+    all_reduce(buf, dist.ReduceOp.SUM, group)
     l_glob, acc_glob = buf[..., 0], buf[..., 1:]
     o_cmp = torch.where(l_glob[..., None] > 0, acc_glob / l_glob.clamp(min=1e-30)[..., None],
                         zero)
@@ -197,7 +234,7 @@ def nsa_attend_decode_sharded(params, cfg: ModelConfig, mesh, x, cache_local, cm
                             nsa.sel_block, str(dev))
     p_slc = torch.zeros((B, Hkv, max(NSB, 1)), dtype=torch.float32, device=dev)
     p_slc[..., c0:c0 + band.shape[1]] = torch.einsum("bhk,ks->bhs", pm, band)
-    _all_reduce(p_slc, dist.ReduceOp.SUM, group)
+    all_reduce(p_slc, dist.ReduceOp.SUM, group)
     sel_idx, sel_valid = select_topn(p_slc[:, None], positions, pos, nsa)
     sel_idx, sel_valid = sel_idx[:, 0], sel_valid[:, 0]                  # (B,Hkv,n)
 
@@ -254,44 +291,110 @@ def nsa_attend_decode_sharded(params, cfg: ModelConfig, mesh, x, cache_local, cm
     return out, cache_local, cmp_local
 
 
+# ---------------------------------------------------------------- the compressed write
+@torch.no_grad()
+def commit_cmp_sharded(params, cfg: ModelConfig, mesh, cache_local, cmp_local, prefix_len,
+                       seq_axes: Sequence[str], lengths: Sequence[int]) -> None:
+    """After the token at ``prefix_len`` was written (``nsa_attend_decode_
+    sharded``): the compressed block that it completes, as
+    ``model.commit``'s ``update_cmp_cache_dyn`` computes it, written in
+    place by the rank whose slice of the compressed cache holds it.
+
+    ``lengths``: ``prefix_len`` on the host, one per row. They are the same on every rank of the group, so every rank
+    decides alike, with no collective: when no row completes a block,
+    nothing is done; when each completed block's rows all lie in the slice
+    of the rank that owns the block, that rank computes it from its own
+    rows; otherwise each rank puts the blocks' rows that it holds into a
+    zeroed (2, B, l, Hkv, Dh) buffer and one all-reduce SUM gives every
+    rank all of them (each row is held once, so the sum is exact)."""
+    nsa = cfg.nsa
+    group, idx, _ = shard_of(mesh, seq_axes)
+    k_c, v_c = cache_local["k"], cache_local["v"]
+    B, S_loc = k_c.shape[0], k_c.shape[1]
+    NCB_loc = cmp_local["k_cmp"].shape[1]
+    blocks = [num_cmp_blocks(p, nsa) for p in lengths
+              if num_cmp_blocks(p + 1, nsa) > num_cmp_blocks(p, nsa)]
+    owners = {j // NCB_loc for j in blocks}
+    shared = any(j * nsa.cmp_stride // S_loc != j // NCB_loc or
+                 (j * nsa.cmp_stride + nsa.cmp_block - 1) // S_loc != j // NCB_loc
+                 for j in blocks)
+    if not shared and idx not in owners:
+        return
+    off, cmp_off = idx * S_loc, idx * NCB_loc
+    dev = k_c.device
+    pos = torch.as_tensor(prefix_len, device=dev).to(torch.int32).reshape(-1).expand(B)
+    j = dyn_num_cmp_blocks(pos, nsa)                                      # (B,)
+    done = dyn_num_cmp_blocks(pos + 1, nsa) > j
+    rows = j[:, None].long() * nsa.cmp_stride + torch.arange(nsa.cmp_block, device=dev)
+    loc = (rows - off).clamp(0, S_loc - 1)
+    brow = torch.arange(B, device=dev)[:, None]
+    buf = torch.stack([k_c[brow, loc], v_c[brow, loc]]).float()          # (2,B,l,Hkv,Dh)
+    if shared:
+        mine = (rows >= off) & (rows < off + S_loc)                       # (B, l)
+        buf = torch.where(mine[None, :, :, None, None], buf, torch.zeros((), device=dev))
+        all_reduce(buf, dist.ReduceOp.SUM, group)
+    k_new, v_new = _pool_project(params, buf[0][:, None], buf[1][:, None], torch.float32)
+    own = (done & (j >= cmp_off) & (j < cmp_off + NCB_loc))[:, None, None]
+    slot = (j - cmp_off).clamp(0, NCB_loc - 1).long()
+    b = torch.arange(B, device=dev)
+    for name, new in (("k_cmp", k_new), ("v_cmp", v_new)):
+        t = cmp_local[name]
+        t[b, slot] = torch.where(own, new[:, 0].to(t.dtype), t[b, slot])
+
+
 # ---------------------------------------------------------------- full model
 @torch.no_grad()
 def decode_step_sharded(params, cfg: ModelConfig, mesh, caches, tokens,
                         seq_axes: Sequence[str]):
     """Full-model one-token decode with sequence-sharded NSA attention: the
     semantics of ``model.decode_step`` for stacks of ``"attn"`` / ``"moe"``
-    blocks with ``cfg.attention == "nsa"`` (the long_500k serving
-    configuration), the compressed cache read-only.
+    blocks with ``cfg.attention == "nsa"``, the compressed cache written
+    by the owner of each block a token completes.
 
-    ``caches``: this rank's slices (``init_local_caches``), with the
-    (B,) ``"length"`` the same on every rank; tokens (B, 1). Writes each
-    layer's new row on its owning rank and advances the length in place.
-    Returns (logits (B, 1, V), caches)."""
+    ``params``: whole weights (the batch-1 long-context cells) or this
+    rank's ``runtime.sharded.ServeWeights`` (the batched cells, each layer
+    gathered when it runs). ``caches``: this rank's slices
+    (``init_local_caches``), with the (B,) ``"length"`` the same on every
+    rank of a row; tokens (B, 1), the rank's rows. Writes each layer's new
+    row on its owning rank and advances the length in place. Returns
+    (logits (B, 1, V) or, with ``ServeWeights``, the rank's vocab slice
+    (B, 1, V / model), caches)."""
     from repro_torch.models import model as model_lib
+    from repro_torch.runtime.sharded import WholeWeights
     kinds = cfg.layer_kinds()
     if cfg.attention != "nsa" or set(kinds) - {"attn", "moe"}:
         raise NotImplementedError(f"{cfg.name}: the sharded decode takes NSA attn / moe stacks")
+    w = params if hasattr(params, "layer_params") else WholeWeights(params, cfg)
     prefix_len = caches["length"]
-    x = layers.embed(params["embed"], tokens)
-    for bp, cache, kind in zip(params["layers"], caches["layers"], kinds):
+    lengths = prefix_len.tolist()       # which rows complete a compressed block, on the host
+    x = w.embed(tokens)
+    for i, (cache, kind) in enumerate(zip(caches["layers"], kinds)):
+        bp = w.layer_params(i)
         hn = layers.rmsnorm(bp["norm1"], x, cfg.norm_eps)
         mix, _, _ = nsa_attend_decode_sharded(bp["mix"], cfg, mesh, hn, cache["kv"],
                                               cache["cmp"], prefix_len, seq_axes)
+        commit_cmp_sharded(bp["mix"], cfg, mesh, cache["kv"], cache["cmp"], prefix_len,
+                           seq_axes, lengths)
         x = x + mix
         x = x + model_lib._apply_ffn(bp, cfg, kind,
                                      layers.rmsnorm(bp["norm2"], x, cfg.norm_eps))[0]
-    x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    logits = model_lib.logits_fn(params, cfg, x)
+        del bp
+    x = layers.rmsnorm(w.final_norm, x, cfg.norm_eps)
+    logits = w.logits(x)
     caches["length"].copy_(prefix_len + 1)
     return logits, caches
 
 
 def init_local_caches(cfg: ModelConfig, batch: int, max_len: int, mesh,
-                      seq_axes: Sequence[str], device) -> Dict:
+                      seq_axes: Sequence[str], device, shard_sequence: bool = True) -> Dict:
     """This rank's zeroed slices of ``model.init_caches(cfg, batch,
-    max_len)`` under ``sharding.cache_specs(shard_sequence=True)``:
-    ``"global_rows"`` gives the rows of the whole cache that each holds
-    (K/V and compressed). Raises when S or NCB does not divide."""
+    max_len)`` under ``sharding.cache_specs(shard_sequence=...)``: with
+    True (the batch-1 long-context cells) the sequence over ``seq_axes``
+    (every axis), with False (the batched cells) the rows over the data
+    axes and the sequence over ``seq_axes`` = ("model",). ``"global_rows"``
+    gives the rows of the whole cache that it holds: "kv" and "cmp" along
+    the sequence, "batch" the batch rows. The (rows,) ``"length"`` is 0.
+    Raises when S, NCB or the batch does not divide."""
     from repro_torch.device import dtype_of
     from repro_torch.launch import sharding
     from repro_torch.models import model as model_lib
@@ -300,17 +403,25 @@ def init_local_caches(cfg: ModelConfig, batch: int, max_len: int, mesh,
     NCB = init_cmp_cache(cfg, 1, max_len, torch.float32, "meta")["k_cmp"].shape[1]
     check_shards(max_len, NCB, n)
     full = model_lib.init_caches(cfg, batch, max_len, "meta")
-    specs = sharding.cache_specs(full, mesh, shard_sequence=True)
+    specs = sharding.cache_specs(full, mesh, shard_sequence=shard_sequence)
     seq = specs["layers"][0]["kv"]["k"][1]
     if (seq if isinstance(seq, tuple) else (seq,)) != tuple(seq_axes):
         raise ValueError(f"the cache splits its sequence over {seq}, not {tuple(seq_axes)}")
+    shape = mesh_lib.mesh_shape(mesh)
+    b0, nb = 0, 1
+    if not shard_sequence:
+        b0, nb = mesh_lib.axes_index(mesh, mesh_lib.dp_axes(mesh))
+        if batch % nb:
+            raise ValueError(f"a batch of {batch} rows does not divide over {nb} data ranks")
+    rows = batch // nb
     dtype = dtype_of(cfg.dtype)
     out = []
     for layer, lspec in zip(full["layers"], specs["layers"]):
         out.append({part: {name: torch.zeros(
-            sharding.local_shape(t.shape, lspec[part][name], mesh_lib.mesh_shape(mesh)),
+            sharding.local_shape(t.shape, lspec[part][name], shape),
             dtype=dtype, device=device) for name, t in leaves.items()}
             for part, leaves in layer.items()})
-    return {"layers": out, "length": torch.zeros((batch,), dtype=torch.int32, device=device),
+    return {"layers": out, "length": torch.zeros((rows,), dtype=torch.int32, device=device),
             "global_rows": {"kv": (idx * max_len // n, (idx + 1) * max_len // n),
-                            "cmp": (idx * NCB // n, (idx + 1) * NCB // n)}}
+                            "cmp": (idx * NCB // n, (idx + 1) * NCB // n),
+                            "batch": (b0 * rows, (b0 + 1) * rows)}}

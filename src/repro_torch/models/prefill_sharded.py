@@ -1,0 +1,132 @@
+"""The prefill across ranks — what GSPMD makes of the JAX dry run's
+``prefill_32k`` step (``repro.launch.specs.build_cell``: ``model.prefill``
+under ``param_specs`` with the residual stream constrained by
+``activation_constraint``), written out for ``torch.distributed``.
+
+The layout is the JAX one: the tokens' rows over the data axes, the
+residual stream's sequence over ``model`` (``sharding.activation_spec``'s
+"sp"), the caches out under ``cache_specs(shard_sequence=False)`` (rows
+over the data axes, the sequence over ``model``) and the last position's
+logits vocab-split over ``model``. A rank of a data group holds the chunk
+``[i * S / m, (i + 1) * S / m)`` of the sequence of each of its rows (i its
+``model`` index, m the axis' size) and, per layer:
+
+  1. gathers the layer's weights (``runtime.sharded.ServeWeights``);
+  2. computes q, k and v of its own chunk;
+  3. all-gathers k and v over ``model`` (collective 1);
+  4. builds its own slice of the compressed blocks with ``nsa.compress_kv``
+     from the gathered rows (a block may straddle two chunks) and
+     all-gathers the slices over ``model`` (collective 2), so every rank
+     holds every block;
+  5. runs NSA attention for its own queries (``nsa.attend_queries``, the
+     single device's 512-query chunks on their global boundaries) over the
+     whole K/V and compressed K/V;
+  6. keeps its slice of the K/V rows and of the compressed blocks in its
+     caches;
+  7. runs the FFN on its own chunk.
+
+Before the layers each rank embeds the ids in its vocab rows and a
+reduce-scatter over ``model`` sums and cuts the chunks (collective 0);
+after them the last position's hidden state, which the last ``model`` rank
+holds, reaches the others in one all-reduce (the last), and each computes
+its vocab slice of the logits. So 2 per layer and 2 more activation
+collectives a prefill (``nsa_sharded.collectives``), besides the weights'
+gathers (``MeshLayout.counts``). No work repeats along ``model``. The
+per-row work (steps 2, 5, 7) runs one row at a time, to bound the
+attention's (chunk, S) score tensors; the collectives carry all rows.
+
+The per-rank compute is plain PyTorch: the JAX prefill runs
+``attend_train_nsa`` in plain ``jnp``, no TPU kernel lies on this path.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.config import ModelConfig
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.models import layers, model as model_lib, nsa as nsa_lib, nsa_sharded
+from repro_torch.models.attention import qkv
+
+SEQ_AXES = ("model",)
+
+
+def takes(cfg: ModelConfig) -> bool:
+    """Whether the sharded prefill and the batched sharded decode take
+    ``cfg``: NSA attention stacks (the two NSA targets' native cells)."""
+    return cfg.attention == "nsa" and set(cfg.layer_kinds()) == {"attn"}
+
+
+@torch.no_grad()
+def prefill_sharded(view, cfg: ModelConfig, mesh, tokens, max_len: int, chunk: int = 512):
+    """The rank's part of ``model.prefill(params, cfg, tokens, max_len)``
+    followed by the logits of the last position (the JAX ``prefill_step``).
+
+    ``view``: the rank's ``ServeWeights``; ``tokens`` (B, S): the rank's
+    rows (the batch over the data axes), whole along the sequence. Returns
+    (logits (B, 1, V / model): the rank's vocab slice, caches): the rank's
+    slices (``nsa_sharded.init_local_caches(shard_sequence=False)``, with
+    ``"global_rows"``) holding what ``model.prefill``'s caches hold there,
+    lengths S."""
+    if not takes(cfg):
+        raise NotImplementedError(f"{cfg.name}: the sharded prefill takes NSA attention stacks")
+    nsa = cfg.nsa
+    group, idx, m = nsa_sharded.shard_of(mesh, SEQ_AXES)
+    B, S = tokens.shape
+    if S % m:
+        raise ValueError(f"a prompt of {S} tokens does not divide over {m} model ranks")
+    if S > max_len:
+        raise ValueError(f"prompt of {S} tokens exceeds max_len={max_len}")
+    Sl, q0 = S // m, idx * (S // m)
+    dev = tokens.device
+    n_dp = mesh_lib.axes_index(mesh, mesh_lib.dp_axes(mesh))[1]
+    caches = nsa_sharded.init_local_caches(cfg, B * n_dp, max_len, mesh, SEQ_AXES, dev,
+                                           shard_sequence=False)
+    r0, r1 = caches["global_rows"]["kv"]
+    c0, c1 = caches["global_rows"]["cmp"]
+    ncb = nsa_lib.num_cmp_blocks(S, nsa)
+    c_hi = min(c1, ncb)
+    x = view.embed_chunk(tokens)                                          # (B, Sl, D)
+    positions = (q0 + torch.arange(Sl, dtype=torch.int32, device=dev))[None]  # (1, Sl)
+    for i, cache in enumerate(caches["layers"]):
+        bp = view.layer_params(i)
+        mix = bp["mix"]
+        qs, ks, vs = [], [], []
+        for b in range(B):
+            q, k, v = qkv(mix, cfg, layers.rmsnorm(bp["norm1"], x[b:b + 1], cfg.norm_eps),
+                          positions)
+            qs.append(q)
+            ks.append(k)
+            vs.append(v)
+        q = torch.cat(qs)
+        kv = nsa_sharded.all_gather(torch.stack([torch.cat(ks), torch.cat(vs)]), group, m)
+        del qs, ks, vs
+        kv = kv.permute(1, 2, 0, 3, 4, 5).reshape(2, B, S, *kv.shape[-2:])  # (2, B, S, H, Dh)
+        k, v = kv[0], kv[1]
+        if S > r0:
+            cache["kv"]["k"][:, :min(r1, S) - r0] = k[:, r0:min(r1, S)]
+            cache["kv"]["v"][:, :min(r1, S) - r0] = v[:, r0:min(r1, S)]
+        cmp = cache["cmp"]
+        if c_hi > c0:
+            a, z = c0 * nsa.cmp_stride, (c_hi - 1) * nsa.cmp_stride + nsa.cmp_block
+            kc, vc = nsa_lib.compress_kv(mix, k[:, a:z], v[:, a:z], nsa)
+            cmp["k_cmp"][:, :c_hi - c0] = kc.to(cmp["k_cmp"].dtype)
+            cmp["v_cmp"][:, :c_hi - c0] = vc.to(cmp["v_cmp"].dtype)
+        every = nsa_sharded.all_gather(torch.stack([cmp["k_cmp"], cmp["v_cmp"]]), group, m)
+        every = every.permute(1, 2, 0, 3, 4, 5).reshape(2, B, -1, *every.shape[-2:])
+        k_cmp, v_cmp = every[0][:, :ncb], every[1][:, :ncb]
+        for b in range(B):
+            h = x[b:b + 1]
+            hn = layers.rmsnorm(bp["norm1"], h, cfg.norm_eps)
+            heads = nsa_lib.attend_queries(
+                cfg, q[b:b + 1], nsa_lib.gates(mix, hn, cfg.num_heads), positions,
+                k[b:b + 1], v[b:b + 1], k_cmp[b:b + 1], v_cmp[b:b + 1], q0=q0, chunk=chunk)
+            h = h + heads @ mix["wo"]
+            x[b:b + 1] = h + model_lib._apply_ffn(
+                bp, cfg, "attn", layers.rmsnorm(bp["norm2"], h, cfg.norm_eps))[0]
+        del bp, q, kv, k, v, every, k_cmp, v_cmp
+    last = layers.rmsnorm(view.final_norm, x[:, -1:], cfg.norm_eps)
+    if idx != m - 1:
+        last = torch.zeros_like(last)
+    last = nsa_sharded.all_reduce(last, torch.distributed.ReduceOp.SUM, group)
+    caches["length"].fill_(S)
+    return view.logits(last), caches

@@ -10,9 +10,9 @@ reduction crosses a wire, so here it simulates the quantization error only.
 A leaf is one tensor of the port's tree (one layer's weight), where the
 JAX package quantizes each stacked segment leaf (all layers of one weight)
 under one scale. The rounding noise of leaf ``i`` at step ``s`` is
-``torch.rand`` from a ``torch.Generator`` seeded with ``(i, s)``, so a run
-is reproducible; ``_quantize`` takes the noise as an argument, which lets
-a test feed in the JAX noise.
+``torch.rand`` from a ``torch.Generator`` seeded with ``noise_seed(i, s)``,
+so a run is reproducible; ``_quantize`` takes the noise as an argument,
+which lets a test feed in the JAX noise.
 """
 from __future__ import annotations
 
@@ -33,12 +33,33 @@ def _quantize(x, noise, amax=None):
     return q, scale
 
 
+_MASK64 = (1 << 64) - 1
+
+
+def _mix64(x: int) -> int:
+    """SplitMix64's finaliser: a bijection of 64-bit integers whose every
+    output bit depends on every input bit."""
+    x = (x ^ (x >> 30)) * 0xBF58476D1CE4E5B9 & _MASK64
+    x = (x ^ (x >> 27)) * 0x94D049BB133111EB & _MASK64
+    return x ^ (x >> 31)
+
+
+def noise_seed(index: int, step: int) -> int:
+    """The generator seed of leaf ``index`` at ``step``: (index, step) mixed
+    through a 64-bit hash and folded to 63 bits. The CPU generator keeps a
+    seed's low 32 bits only and CUDA's Philox all 64, so the seed spreads
+    (index, step) over the low bits as well as the high ones: distinct
+    pairs draw distinct noise on either device."""
+    h = _mix64(_mix64(index & _MASK64) ^ (step & _MASK64))
+    return (h ^ (h >> 63)) & ((1 << 63) - 1)
+
+
 def noise_for(leaf: torch.Tensor, index: int, step: int, shape=None) -> torch.Tensor:
     """Leaf ``index``'s rounding noise at ``step`` on the leaf's device, of
     the leaf's shape or of ``shape`` (a whole leaf, of which ``leaf`` is a
     block)."""
     gen = torch.Generator(device=leaf.device)
-    gen.manual_seed((index << 32) + step)
+    gen.manual_seed(noise_seed(index, step))
     return torch.rand(leaf.shape if shape is None else shape, generator=gen,
                       device=leaf.device)
 

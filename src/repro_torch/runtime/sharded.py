@@ -38,12 +38,15 @@ computes its rows' whole layer (real TP compute is later work).
 ``MeshLayout`` is one rank's view of a ``DeviceMesh``: axis sizes,
 coordinates, process groups and the counts of the collectives it issued.
 ``gather_tree`` puts the blocks back together on rank 0 (checkpoints).
+``ServeWeights`` holds the same blocks for serving across ranks (the
+sharded prefill and the batched sharded decode), gathering each layer
+when it runs.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -385,3 +388,137 @@ def make_sharded_step(cfg: ModelConfig, tcfg: TrainConfig, mesh):
 
     step_fn.layout, step_fn.specs = layout, specs
     return step_fn
+
+
+# ---------------------------------------------------------------- serving
+class ServeWeights:
+    """One rank's view of the weights for serving across ranks (the JAX dry
+    run's ``prefill_32k`` and ``decode_32k`` cells run ``model.prefill`` /
+    ``model.decode_step`` on weights under ``param_specs``): the rank holds
+    its blocks, as the train step does (FSDP over the data axes, the
+    ``model`` splits), and
+
+      * ``layer_params(i)`` gathers layer i's weights whole just in time,
+        under ``torch.no_grad`` (``MeshLayout.gather``; ``layout.counts``
+        and ``layout.bytes`` count the gathers and their bytes);
+      * the top-level tables stay as the specs lay them out: the embedding
+        table's vocab rows and the head's vocab columns over ``model``. A
+        rank embeds the tokens whose ids lie in its rows (zeros elsewhere)
+        and the ranks along ``model`` sum the partials (an all-reduce for a
+        decode token, a reduce-scatter over the sequence for a prefill);
+        the head gives each rank its slice of the vocabulary, ``vocab``,
+        without gathering the head (the JAX ``out_shardings`` put the
+        logits' vocab over ``model``).
+
+    The sums add one nonzero partial to zeros, so they are exact in any
+    dtype. ``models.nsa_sharded.collectives`` counts them."""
+
+    def __init__(self, cfg: ModelConfig, blocks, layout: MeshLayout):
+        self.cfg, self.blocks, self.layout = cfg, blocks, layout
+        self.specs = sharding.param_specs(init_params(cfg, torch.Generator(), "meta"),
+                                          layout.mesh)
+        m, idx = layout.shape.get("model", 1), layout.coords.get("model", 0)
+        n = cfg.vocab_size // m
+        self.vocab = (idx * n, (idx + 1) * n)
+
+    @classmethod
+    def from_whole(cls, params, cfg: ModelConfig, mesh) -> "ServeWeights":
+        """This rank's blocks cut from whole ``params`` (on their device)."""
+        layout = MeshLayout(mesh)
+        return cls(cfg, sharding.shard_tree(params, sharding.param_specs(params, mesh), mesh),
+                   layout)
+
+    @classmethod
+    def init(cls, cfg: ModelConfig, seed: int, mesh, device) -> "ServeWeights":
+        """This rank's blocks of weights drawn one layer at a time from
+        ``seed`` (``init_state``'s draw), never holding the whole tree."""
+        layout = MeshLayout(mesh)
+        specs = sharding.param_specs(init_params(cfg, torch.Generator(), "meta"), mesh)
+        cut = lambda tree, sp: sharding.map_specs(lambda _, t, s: layout.block(t, s).clone(),
+                                                  tree, sp)
+        top, first = _layer_init(cfg, seed, 0, device)
+        layers = [cut(first, specs["layers"][0])]
+        del first
+        for i in range(1, cfg.num_layers):
+            layers.append(cut(_layer_init(cfg, seed, i, device)[1], specs["layers"][i]))
+        return cls(cfg, dict({k: cut(v, specs[k]) for k, v in top.items()}, layers=layers),
+                   layout)
+
+    def resident_bytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in tree_leaves(self.blocks))
+
+    @torch.no_grad()
+    def layer_params(self, i: int, part: Optional[str] = None):
+        """Layer i's weights, whole (``part``: only that subtree, e.g.
+        ``"mix"``). Every rank of the mesh must call it together."""
+        blocks, specs = self.blocks["layers"][i], self.specs["layers"][i]
+        if part is not None:
+            blocks, specs = blocks[part], specs[part]
+        return sharding.map_specs(lambda _, t, s: self.layout.gather(t, s), blocks, specs)
+
+    @property
+    def final_norm(self):
+        return self.blocks["final_norm"]
+
+    def _table(self):
+        return self.blocks["embed"]["table"]
+
+    def _partial_embed(self, tokens):
+        table = self._table()
+        v0 = self.vocab[0]
+        t = tokens.long() - v0
+        inside = (t >= 0) & (t < table.shape[0])
+        e = table[t.clamp(0, table.shape[0] - 1)]
+        return torch.where(inside[..., None], e, torch.zeros((), dtype=e.dtype,
+                                                             device=e.device))
+
+    @torch.no_grad()
+    def embed(self, tokens):
+        """tokens (B, T) -> (B, T, D), whole on every rank of the row."""
+        from repro_torch.models import nsa_sharded
+        group = nsa_sharded.shard_of(self.layout.mesh, ("model",))[0]
+        return nsa_sharded.all_reduce(self._partial_embed(tokens), dist.ReduceOp.SUM, group)
+
+    @torch.no_grad()
+    def embed_chunk(self, tokens):
+        """tokens (B, S) -> this rank's sequence chunk of the embeddings
+        (B, S / model, D): the partials of every position summed over
+        ``model`` and scattered along the sequence."""
+        from repro_torch.models import nsa_sharded
+        group, idx, m = nsa_sharded.shard_of(self.layout.mesh, ("model",))
+        part = self._partial_embed(tokens)
+        B, S, D = part.shape
+        chunks = part.reshape(B, m, S // m, D).transpose(0, 1).contiguous()
+        return nsa_sharded.reduce_scatter(chunks, group)
+
+    def logits(self, hidden):
+        """hidden (..., D) -> this rank's vocab slice of the logits (...,
+        V / model)."""
+        if self.cfg.tie_embeddings:
+            return hidden @ self._table().T
+        return hidden @ self.blocks["lm_head"]["w"]
+
+
+class WholeWeights:
+    """``ServeWeights``' interface over whole weights on every rank (the
+    sequence-sharded batch-1 decode holds them so): no gather, and the
+    whole vocabulary on every rank."""
+
+    def __init__(self, params, cfg: ModelConfig):
+        self.params, self.cfg = params, cfg
+        self.vocab = (0, cfg.vocab_size)
+
+    def layer_params(self, i: int, part: Optional[str] = None):
+        p = self.params["layers"][i]
+        return p if part is None else p[part]
+
+    @property
+    def final_norm(self):
+        return self.params["final_norm"]
+
+    def embed(self, tokens):
+        from repro_torch.models import layers
+        return layers.embed(self.params["embed"], tokens)
+
+    def logits(self, hidden):
+        return model.logits_fn(self.params, self.cfg, hidden)

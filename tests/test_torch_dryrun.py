@@ -180,11 +180,14 @@ def test_list_world_splits_the_target_cache(world, capsys):
                                            set(cfg.layer_kinds()) <= {"attn", "moe"})
             if r["sharded_decode"] and not cfg.moe:
                 assert r["cache_replicated"] == 4                    # the (1,) length
-    rows = [ln for ln in out.splitlines() if ln.split() and ln.split()[0] in configs.ARCH_IDS
-            and ln.split()[1] in decode]
-    assert len(rows) == len(configs.ARCH_IDS) * len(decode)
-    last = out.splitlines()[-1]
-    assert last.startswith(f"decode cells that do not fit one card but fit {world}")
+    lines = out.splitlines()
+    head = next(i for i, ln in enumerate(lines) if ln.rstrip().endswith("sharded decode"))
+    summary = next(i for i, ln in enumerate(lines)
+                   if ln.startswith(f"decode cells that do not fit one card but fit {world}"))
+    rows = [ln for ln in lines[head + 1:summary] if ln.split()
+            and ln.split()[0] in configs.ARCH_IDS and ln.split()[1] in decode]
+    assert len(rows) == summary - head - 1 == len(configs.ARCH_IDS) * len(decode)
+    last = lines[summary]
     if world == 4:
         assert last.endswith("qwen3-8b x long_500k, musicgen-medium x long_500k, "
                              "pixtral-12b x long_500k, ssv-nsa-8b x long_500k")

@@ -1161,3 +1161,35 @@ def test_sharded_train_step_equals_single_device_on_card(cuda, tmp_path, compres
         print(compression, "rank", r["rank"], res["refs"]["card"])
         assert res["refs"]["card"]["ok"], res["refs"]["card"]
         assert res["gathers"] > 0 and res["reductions"] > 0
+
+
+@pytest.mark.gpu
+def test_sharded_prefill_and_decode_equal_single_device_on_card(cuda, tmp_path):
+    """Two gloo ranks sharing the card with CUDA tensors on a (1, 2) mesh:
+    ``prefill_sharded`` and 12 batched ``decode_step_sharded`` tokens of
+    reduced ssv-nsa-1b in float32 (2 rows x 32-token prompts, ``max_len``
+    80) equal ``model.prefill`` and 12 ``decode_step``s through the kernels
+    on the card: every rank's logits slice and cache slices within rtol
+    2e-4 / atol 2e-5, the assembled argmax equal, and the compressed block
+    whose rows straddle the ``model`` boundary written by its owner."""
+    from repro_torch.configs import reduced
+    from repro_torch.launch import serve_checks
+    from repro_torch.optim import tree_map
+    cfg = reduced("ssv-nsa-1b")
+    case = serve_checks.load_case({"seed": 0, "batch": 2, "seq": 32, "decode": 12}, cfg, cuda)
+    ref = serve_checks.reference(case["params"], cfg, case["tokens"], case["decode"], 80)
+    torch.save(ref, tmp_path / "ref.pt")
+    torch.save(tree_map(lambda t: t.cpu(), case), tmp_path / "case.pt")
+    job = dict(name="reduced-1b", cfg=cfg, mesh=((1, 2), ("data", "model")),
+               case=str(tmp_path / "case.pt"), max_len=80, ref=str(tmp_path / "ref.pt"),
+               tol=(2e-4, 2e-5), out=str(tmp_path / "logits"))
+    got = serve_checks.run_checks([job], 2, "gloo", tmp_path / "out", timeout=300)
+    for r in got:
+        res = r["jobs"][0]
+        assert r["device"].startswith("cuda"), r["device"]
+        print("rank", r["rank"], res["max_abs_err"], res["written_blocks"])
+        assert res["ok"], res
+    assert [r["jobs"][0]["across_boundary"] for r in got] == [[9], []]
+    whole = serve_checks.assemble(tmp_path / "logits", "reduced-1b", 2)
+    assert torch.equal(whole["prefill"].argmax(-1), ref["prefill_logits"].argmax(-1))
+    assert torch.equal(whole["decode"].argmax(-1), ref["decode_logits"].argmax(-1))
