@@ -87,7 +87,8 @@ Phases (every phase always runs; any failure exits non-zero):
      model's committed K/V rows, compressed blocks and next logits equal
      a one-token-at-a-time ``decode_step``'s; bf16: Strict and
      Approx+Reuse SSV with exact launch counts, and AR; mean accepted > 0);
-     the train CLI twice (train, then resume);
+     the train CLI twice (train, then resume; beside the reduced checks and
+     the pair's rounds, processes of their own);
  10. the model zoo: qwen3-8b, granite-20b, musicgen-medium,
      mixtral-8x22b and qwen3-moe-235b-a22b, each as its NSA variant
      (``configs.nsa_variant``) with its ``draft_config`` draft, at full
@@ -142,11 +143,10 @@ Phases (every phase always runs; any failure exits non-zero):
      filling only its slice of the cache as phase 11 fills the whole):
      (a) one rank over NCCL, ssv-nsa-1b x decode_32k in float32; (b) four
      ranks sharing the card over gloo with CUDA tensors, the same cell and
-     ssv-nsa-1b x long_500k in float32, and long_500k in bf16; each held
-     against phase 11's ``decode_step`` on the same fill (float32: logits
-     and every layer's written K/V row within rtol 2e-4 / atol 2e-5, the
-     same argmax; bf16: the same argmax and layer 0's written row bitwise,
-     the largest differences printed), every rank's logits equal; wall and busy per token,
+     ssv-nsa-1b x long_500k, both in float32; each held against phase 11's
+     ``decode_step`` on the same fill (logits and every layer's written K/V
+     row within rtol 2e-4 / atol 2e-5, the same argmax), every rank's
+     logits equal; wall and busy per token,
      collectives per token and per-rank peak memory printed;
  13. training across ranks (``make_train_step(cfg, tcfg, mesh)``, checked in
      spawned ranks by ``launch.train_checks``): (a) four gloo ranks share
@@ -187,15 +187,33 @@ Phases (every phase always runs; any failure exits non-zero):
      ``decode_step`` with its NSA layers on the plain ``nsa_verify_ref``
      within 3e-2 (logits and caches) and give its argmax through the
      kernels (the differences from the kernels' route are printed, each
-     layer's too; (a) holds that decode in float32); walls, collectives,
-     gathered bytes and the peak per rank printed;
+     layer's too; (a) holds that decode in float32); (c) and (d) in (a)'s
+     world of four gloo ranks on (2, 2), after it and after (b) (the ranks
+     draw the whole params one at a time): (c) full-width
+     pixtral-12b cut to 2 layers in float32, 2 rows
+     of 256 seeded frontend frames + 4,096 tokens, ``max_len`` 4,864: the
+     prefill (frames in front of the tokens, the dense attention's K/V
+     all-gathered) and 12 decode tokens (the split-KV dense decode) equal
+     ``model.prefill`` + 12 ``decode_step``s through the flash kernel on
+     the card, rtol 2e-4 / atol 2e-5, argmax equal; (d) full-width
+     mixtral-8x22b cut to 1 layer in bf16, 4 x 6,144
+     tokens (1,024-token MoE groups divide each rank's 3,072), ``max_len``
+     8,208, so every decode token's 4,096-key window straddles the model
+     boundary at row 4,104: the prefill within 3e-2 of the single
+     device's, 8 decode tokens (the expert ids all-gathered over the data
+     ranks, the capacity counted over the whole batch) within 3e-2 of its
+     ``decode_step`` on the flash kernel's plain version and with the
+     argmax of its kernel route (or a token tied with it within 3e-2,
+     each such margin printed); the assignments the whole batch's group
+     dropped printed beside those per-rank groups would have dropped;
+     walls, collectives, gathered bytes and the peak per rank printed;
  15. the summary lines: each phase's seconds, a ``kernels`` JSON line
      (every kernel x head dim, and x query-head group for the zoo's, and x
      cell for phase 11's), the card line, and the ``{"ok": true, "device":
      ...}`` line last.
 
-Phases 3-4 serve ssv-nsa-1b and ssv-nsa-8b at 4 of their 16 and 32
-layers and phase 5 runs the float32 ssv-nsa-1b at 8 of its 16 layers
+Phases 3-4 serve ssv-nsa-1b and ssv-nsa-8b at 2 of their 16 and 32
+layers and phase 5 runs the float32 ssv-nsa-1b at 4 of its 16 layers
 (``SERVE_LAYERS``, ``F32_1B_LAYERS``: depth cut to make room for phase 14
 within the script's time; a cut config is named ``<arch>-x<layers>``).
 Phase 7's serve CLI and phase 11's cells serve both at full depth.
@@ -1127,11 +1145,11 @@ BATCHED_8B = dict(slots=2, n_req=2, classes=("Strict",), backends=("paged",),
                   continuous=False, sweep=(1, 2))
 # Depth cuts that make room for phase 14 (a new path cuts depth first, never
 # width): phases 3-4 serve ssv-nsa-1b and ssv-nsa-8b at SERVE_LAYERS of
-# their 16 and 32 layers, and phase 5's float32 equalities run ssv-nsa-1b
-# at F32_1B_LAYERS of 16.
+# their 16 and 32 layers (a refresh and a reuse layer each), and phase 5's
+# float32 equalities run ssv-nsa-1b at F32_1B_LAYERS of 16.
 # Launch counts are layers x passes at the served depth.
-SERVE_LAYERS = {64: 4, 128: 4}
-F32_1B_LAYERS = 8
+SERVE_LAYERS = {64: 2, 128: 2}
+F32_1B_LAYERS = 4
 
 
 def serve_depth(cfg):
@@ -2054,11 +2072,12 @@ def keep_decode_ref(ctx, cell, logits):
 # Phase 12: (part, world, backend, arch, shape, dtype). Four ranks share the
 # one card over gloo with CUDA tensors (NCCL takes one card per rank). The
 # float32 runs hold the logits and every layer's row; in bf16 the deeper
-# rows and the logits round apart after the plain and the kernel attention.
+# rows and the logits round apart after the plain and the kernel attention
+# (the bf16 sharded decode is phase 14(b)'s and (d)'s; a bf16 run at 524K
+# here made room for phase 14(c) and (d)).
 SHARDED = (("a", 1, "nccl", "ssv-nsa-1b", "decode_32k", "float32"),
            ("b", 4, "gloo", "ssv-nsa-1b", "decode_32k", "float32"),
-           ("b", 4, "gloo", "ssv-nsa-1b", "long_500k", "float32"),
-           ("b", 4, "gloo", "ssv-nsa-1b", "long_500k", "bfloat16"))
+           ("b", 4, "gloo", "ssv-nsa-1b", "long_500k", "float32"))
 
 
 def sharded_phase(ctx, out_dir):
@@ -2303,6 +2322,136 @@ def train_ranks_phase(ctx, out_dir, phase9=None):
     return out
 
 
+# Phase 14 (c) and (d): the native-attention archs across four gloo ranks
+# sharing the card on (data 2, model 2), each at full width with its depth
+# cut. (c): pixtral-12b, dense attention behind a frontend, in float32 (held
+# to the float32 tolerance against the flash kernel's route); (d): mixtral-
+# 8x22b, sliding-window attention and MoE, in bf16 (held within 3e-2 of the
+# single device's prefill and of its decode on the flash kernel's plain
+# version, argmax equal to the kernel's route). max_len 8208 puts (d)'s model
+# boundary at row 4104, inside every decode token's 4096-key window.
+NATIVE_RANKS = {
+    "c": dict(arch="pixtral-12b", layers=2, dtype="float32", rows=2, frames=256, seq=4096,
+              max_len=4864, decode=12),
+    "d": dict(arch="mixtral-8x22b", layers=1, dtype="bfloat16", rows=4, frames=0, seq=6144,
+              max_len=8208, decode=8)}
+BF16_SERVE_TOL = (3e-2, 3e-2)
+
+
+def serve_report(tag, got, whole, ref, tie_tol=None, job=0):
+    """Prints each rank's errors, walls, collectives, gathers and peak for a
+    ``serve_checks`` job; fails unless every rank held and the assembled
+    prefill and decode argmax equal ``ref``'s (the kernels' route). With
+    ``tie_tol`` (rtol, atol; a bf16 job) a position whose argmax differs
+    passes when ``ref``'s logit there is within that tolerance of its
+    maximum (the two tokens tie at the precision the logits are held to);
+    each such position and its margin is printed. ``job``: the job's index
+    in the ranks' records. Returns the argmax verdicts."""
+    same = {}
+    for k, w in (("prefill", "prefill_logits"), ("decode", "decode_logits")):
+        got_top, want = whole[k].argmax(-1), ref[w].float().cpu()
+        same[k] = bool(torch.equal(got_top, want.argmax(-1)))
+        if same[k] or tie_tol is None:
+            continue
+        top = want.max(-1).values
+        at = want.gather(-1, got_top[..., None])[..., 0]
+        margin = top - at
+        flips = (got_top != want.argmax(-1)).nonzero().tolist()
+        ties = bool((margin <= tie_tol[1] + tie_tol[0] * top.abs()).all())
+        log(f"  {tag} {k}: argmax differs at {len(flips)} of {got_top.numel()} positions "
+            f"{flips[:8]}, the kernels' route's logit there below its maximum by "
+            f"{[round(float(margin[tuple(f)]), 5) for f in flips[:8]]}"
+            + (" (ties within the held tolerance)" if ties else ""))
+        same[k] = ties
+    for g in got:
+        j = g["jobs"][job]
+        log(f"  {tag} rank {g['rank']} coords {j['coords']} rows {j['rows']} K/V rows "
+            f"{j['kv_rows']} vocab {j['vocab']}: max abs err " +
+            ", ".join(f"{k} {v:.3e}" for k, v in j["max_abs_err"].items()) +
+            f"; prefill {j['prefill']['wall_ms']:.1f} ms, {j['prefill']['collectives']} "
+            f"activation collectives, {j['prefill']['gathers']} gathers "
+            f"({j['prefill']['gathered_bytes'] / 1e9:.3f} GB); decode wall per token "
+            f"{[round(w, 1) for w in j['decode']['wall_ms']]} ms, "
+            f"{j['decode']['collectives_per_token']} collectives and "
+            f"{j['decode']['gathers_per_token']} gathers "
+            f"({j['decode']['gathered_bytes_per_token'][0] / 1e9:.3f} GB) per token; "
+            f"compressed blocks written {j['written_blocks']} (across the model boundary "
+            f"{j['across_boundary']}); peak {j.get('peak_gib', math.nan):.2f} GiB (drawing "
+            f"the whole params {j.get('load_peak_gib', math.nan):.2f} GiB, after waiting "
+            f"{j['waited_s']:.1f} s); weights resident "
+            f"{j['resident_weight_bytes'] / 2 ** 30:.3f} GiB")
+    bad = [g["jobs"][job]["held"] for g in got if not g["jobs"][job]["ok"]]
+    if bad or not all(same.values()):
+        fail(f"{tag} differs from the single device: held {bad}, argmax equal {same}")
+    return same
+
+
+def native_job(out_dir, name):
+    """Phase 14 (c) or (d) (``NATIVE_RANKS[name]``) up to its ranks: the
+    single device's reference on the card, saved for them. Returns (the
+    job, the reference, its seconds)."""
+    from repro_torch import configs
+    from repro_torch.launch import serve_checks
+    c = NATIVE_RANKS[name]
+    t0 = time.time()
+    base = configs.get_config(c["arch"])
+    cfg = dataclasses.replace(base, num_layers=c["layers"], dtype=c["dtype"],
+                              name=f"{base.name}-x{c['layers']}")
+    bf16 = c["dtype"] == "bfloat16"
+    case = {"seed": 0, "batch": c["rows"], "seq": c["seq"], "decode": c["decode"],
+            "frames": c["frames"]}
+    whole = serve_checks.load_case(case, cfg, torch.device(DEV))
+    ref = serve_checks.reference(whole["params"], cfg, whole["tokens"], whole["decode"],
+                                 c["max_len"], plain_decode=bf16, frontend=whole.get("frontend"))
+    del whole
+    free()
+    torch.save(ref, out_dir / f"ref_{name}.pt")
+    tol, hold = (BF16_SERVE_TOL, ("prefill_logits", "prefill_caches", "plain_decode_logits",
+                                  "plain_caches")) if bf16 else (TOL["float32"], None)
+    job = dict(name=name, cfg=cfg, mesh=((2, 2), ("data", "model")), case=case,
+               max_len=c["max_len"], ref=str(out_dir / f"ref_{name}.pt"), tol=tol,
+               out=str(out_dir / "logits"), **({"hold": hold} if hold else {}))
+    return job, ref, time.time() - t0
+
+
+def native_report(ctx, out_dir, name, got, job, ref, t_ref):
+    """Phase 14 (c) or (d) after its ranks: the report, the checks of the
+    cases it guards. Returns the record."""
+    from repro_torch.launch import serve_checks
+    c = NATIVE_RANKS[name]
+    i = list(NATIVE_RANKS).index(name) + 1        # (a) is the world's first job
+    cfg = job["cfg"]
+    bf16 = c["dtype"] == "bfloat16"
+    frames = f"{c['frames']} frames + " if c["frames"] else ""
+    tag = (f"[14{name} {cfg.name} {c['dtype']}, {c['rows']} x {frames}{c['seq']} tokens + "
+           f"{c['decode']} decode, (2, 2) over 4 gloo ranks]")
+    whole = serve_checks.assemble(out_dir / "logits", name, 4)
+    same = serve_report(tag, got, whole, ref, BF16_SERVE_TOL if bf16 else None, job=i)
+    what = (f"the prefill within 3e-2 of the single device's, the {c['decode']} decode "
+            "tokens within 3e-2 of its decode_step on the flash kernel's plain version "
+            "(logits and caches)" if bf16 else
+            f"equal to model.prefill + {c['decode']} decode_steps through the flash kernel "
+            "within rtol 2e-4 / atol 2e-5")
+    rec = {"ranks": [g["jobs"][i] for g in got], "single_prefill_ms": ref["prefill_ms"],
+           "single_decode_ms": ref["decode_ms"], "reference_s": t_ref}
+    if cfg.attention == "swa":
+        b, p0 = c["max_len"] // 2, c["frames"] + c["seq"]
+        if not all(p - cfg.window + 1 < b <= p for p in range(p0, p0 + c["decode"])):
+            fail(f"{tag} a decode token's window does not straddle the model boundary at {b}")
+        what += f"; every decode token's {cfg.window}-key window straddles row {b}"
+    if cfg.moe is not None:
+        drops = got[0]["jobs"][i]["decode"]["moe_drops"]
+        rec["moe_drops"] = drops
+        what += (f"; the whole batch's MoE group dropped {drops['whole']} expert assignments "
+                 f"over the decode, per-rank groups would have dropped {drops['per_rank']} "
+                 f"({drops['whole_only']} only the whole group drops)")
+    log(f"  {tag} {ctx['kind']} ({ctx['card']}): {what}; argmax equal to the kernels' route "
+        f"{same}; single device prefill {ref['prefill_ms']:.1f} ms, decode "
+        f"{statistics.median(ref['decode_ms']):.1f} ms a token (median); {t_ref:.1f}s for the "
+        "reference")
+    return rec
+
+
 # Phase 14 (a): full-width ssv-nsa-1b cut to SERVE_RANKS_LAYERS layers in
 # float32, SERVE_RANKS_ROWS rows of SERVE_RANKS_PROMPT tokens, on four gloo
 # ranks sharing the card on (data 2, model 2), then SERVE_RANKS_DECODE
@@ -2330,7 +2479,9 @@ def serve_ranks_phase(ctx, out_dir):
     equal, then 2 decode tokens == the single device's ``decode_step`` on
     the plain ``nsa_verify_ref`` within 3e-2 and with the argmax of its
     ``decode_step`` through the kernels (the largest differences from it
-    printed, per layer too). Returns the records."""
+    printed, per layer too). (c) and (d) (``NATIVE_RANKS``) run in (a)'s
+    world after it, their references computed first, once (b) has
+    ended. Returns the records."""
     from repro_torch import configs
     from repro_torch.launch import serve_checks, specs
     shutil.rmtree(out_dir, ignore_errors=True)
@@ -2338,29 +2489,6 @@ def serve_ranks_phase(ctx, out_dir):
     note = f"{ctx['kind']} ({ctx['card']})"
     base = configs.get_config("ssv-nsa-1b")
     out = {}
-
-    def report(tag, got, whole, ref):
-        same = {k: bool(torch.equal(whole[k].argmax(-1), ref[w].argmax(-1).cpu()))
-                for k, w in (("prefill", "prefill_logits"), ("decode", "decode_logits"))}
-        for g in got:
-            j = g["jobs"][0]
-            log(f"  {tag} rank {g['rank']} coords {j['coords']} rows {j['rows']} K/V rows "
-                f"{j['kv_rows']} vocab {j['vocab']}: max abs err " +
-                ", ".join(f"{k} {v:.3e}" for k, v in j["max_abs_err"].items()) +
-                f"; prefill {j['prefill']['wall_ms']:.1f} ms, {j['prefill']['collectives']} "
-                f"activation collectives, {j['prefill']['gathers']} gathers "
-                f"({j['prefill']['gathered_bytes'] / 1e9:.3f} GB); decode wall per token "
-                f"{[round(w, 1) for w in j['decode']['wall_ms']]} ms, "
-                f"{j['decode']['collectives_per_token']} collectives and "
-                f"{j['decode']['gathers_per_token']} gathers "
-                f"({j['decode']['gathered_bytes_per_token'][0] / 1e9:.3f} GB) per token; "
-                f"compressed blocks written {j['written_blocks']} (across the model boundary "
-                f"{j['across_boundary']}); peak {j.get('peak_gib', math.nan):.2f} GiB; weights "
-                f"resident {j['resident_weight_bytes'] / 2 ** 30:.3f} GiB")
-        bad = [g["jobs"][0]["held"] for g in got if not g["jobs"][0]["ok"]]
-        if bad or not all(same.values()):
-            fail(f"{tag} differs from the single device: held {bad}, argmax equal {same}")
-        return same
 
     # ---- (b) one NCCL rank, whole ssv-nsa-1b in bf16 at prefill_32k, batch 1,
     # started beside (a): its passes are device-bound, (a)'s gloo ranks host-bound
@@ -2381,7 +2509,8 @@ def serve_ranks_phase(ctx, out_dir):
     with ThreadPoolExecutor(1) as pool:
         second = pool.submit(world_b)
 
-        # ---- (a) four gloo ranks on one card, float32
+        # ---- (a), (c) and (d): the single device's references on the card,
+        # then one world of four gloo ranks that runs the three jobs in turn
         t0 = time.time()
         cfg = dataclasses.replace(base, num_layers=SERVE_RANKS_LAYERS, dtype="float32")
         case = {"seed": 0, "batch": SERVE_RANKS_ROWS, "seq": SERVE_RANKS_PROMPT,
@@ -2396,13 +2525,28 @@ def serve_ranks_phase(ctx, out_dir):
         job = dict(name="a", cfg=cfg, mesh=((2, 2), ("data", "model")), case=case,
                    max_len=SERVE_RANKS_MAX_LEN, ref=str(out_dir / "ref_a.pt"),
                    tol=TOL["float32"], out=str(out_dir / "logits"))
-        got = serve_checks.run_checks([job], 4, "gloo", out_dir / "a", timeout=400)
-        (out_dir / "ref_a.pt").unlink()
+        native = {}
+        for name in NATIVE_RANKS:
+            t1 = time.time()
+            native[name] = native_job(out_dir, name)
+            log(f"  [14{name} reference] {time.time() - t1:.1f}s")
+        # (c) and (d) start only once (b) has handed its memory back: the card
+        # holds (b)'s passes beside (a)'s alone
+        b_done = out_dir / "b_done"
+        second.add_done_callback(lambda _: b_done.touch())
+        for name in NATIVE_RANKS:
+            native[name][0]["after"] = str(b_done)
+        t1 = time.time()
+        got = serve_checks.run_checks([job] + [native[n][0] for n in NATIVE_RANKS], 4,
+                                      "gloo", out_dir / "acd", timeout=900)
+        t_world = time.time() - t1
+        for name in ["a", *NATIVE_RANKS]:
+            (out_dir / f"ref_{name}.pt").unlink()
         got_b, t_b = second.result()
     tag = (f"[14a {cfg.name} x{cfg.num_layers} f32, {SERVE_RANKS_ROWS} x {SERVE_RANKS_PROMPT} "
            f"tokens + {SERVE_RANKS_DECODE} decode, (2, 2) over 4 gloo ranks]")
     whole = serve_checks.assemble(out_dir / "logits", "a", 4)
-    same = report(tag, got, whole, ref)
+    same = serve_report(tag, got, whole, ref)
     across = sorted({b for g in got for b in g["jobs"][0]["across_boundary"]})
     if not across:
         fail(f"{tag} no compressed block was written across the model boundary")
@@ -2410,15 +2554,16 @@ def serve_ranks_phase(ctx, out_dir):
         f"card within rtol 2e-4 / atol 2e-5 (argmax equal {same}); blocks written across the "
         f"model boundary {across}; single device prefill {ref['prefill_ms']:.1f} ms, decode "
         f"{statistics.median(ref['decode_ms']):.1f} ms a token (median); {t_ref:.1f}s for the "
-        f"reference, {time.time() - t0:.1f}s in all (14(b) ran beside it)")
-    out["a"] = {"ranks": got, "seconds": time.time() - t0}
+        f"reference; the world's four ranks ran (a), (c) and (d) in {t_world:.1f}s (14(b) "
+        f"beside (a), (c) after waiting {got[0]['jobs'][1]['waited_s']:.1f}s for it)")
+    out["a"] = {"ranks": [g["jobs"][0] for g in got], "world_s": t_world}
     del ref, whole
     free()
 
     tag = f"[14b {base.name} bf16 prefill_32k batch 1 + 2 decode, (1, 1) over 1 NCCL rank]"
     whole = serve_checks.assemble(out_dir / "logits", "b", 1)
     ref = torch.load(out_dir / "logits" / "single_b.pt")
-    report(tag, got_b, whole, ref)
+    serve_report(tag, got_b, whole, ref)
     j = got_b[0]["jobs"][0]
     per_layer = {k: [f"{e:.3g}" for e in v] for k, v in j["layer_err"].items()}
     log(f"  {tag} {note}: the prefill (logits, every K/V row and compressed block) equal to "
@@ -2434,9 +2579,12 @@ def serve_ranks_phase(ctx, out_dir):
         f" against {[round(w, 1) for w in j['single']['decode_ms']]} ms (beside 14(a)); "
         f"{t_b:.1f}s with the rank's start")
     out["b"] = {"ranks": got_b, "seconds": t_b}
-    log(f"  [14] {time.time() - t_all:.1f}s")
     del ref, whole
+    for name, (job, ref, t_ref) in native.items():
+        out[name] = native_report(ctx, out_dir, name, got, job, ref, t_ref)
+    del native
     free()
+    log(f"  [14] {time.time() - t_all:.1f}s")
     return out
 
 
@@ -3063,12 +3211,16 @@ def train_phase(cfg, ctx, workdir):
     del tr
     free()
     small = configs.reduced("ssv-nsa-1b")
-    out["card_step_equals_cpu"] = card_step_equals_cpu(small)
-    out["restart"] = restart_equals_uninterrupted(small, workdir)
-    free()
-    out["pair"] = train_pair(ctx)
-    free()
-    train_cli(workdir)
+    # the train CLI's two runs, processes of their own on the card, beside
+    # the reduced checks and the pair's rounds
+    with ThreadPoolExecutor(1) as pool:
+        cli = pool.submit(train_cli, workdir)
+        out["card_step_equals_cpu"] = card_step_equals_cpu(small)
+        out["restart"] = restart_equals_uninterrupted(small, workdir)
+        free()
+        out["pair"] = train_pair(ctx)
+        free()
+        cli.result()
     return out
 
 

@@ -73,16 +73,19 @@ The serve cells across ranks (the JAX dry run's ``prefill_32k`` and batched
 ``param_specs``, the caches under ``cache_specs(shard_sequence=False)``):
 ``--list --world N --model M`` adds each prefill and batched decode cell's
 bytes per rank at its global batch (``serve_rank_bytes``) and the ones that
-fit N cards but not one. ``--run --world N --model M`` takes them for the
-NSA targets (``run_serve_sharded``): each rank draws its weight blocks
+fit N cards but not one. ``--run --world N --model M`` takes them
+(``run_serve_sharded``): each rank draws its weight blocks
 (``runtime.sharded.ServeWeights``) and its rows of the global batch (or
 ``--batch``, recorded as ``reduced``); a prefill cell runs one
 ``prefill_sharded`` pass, timed, and one row's pass profiled; a decode cell
 fills its slices of the cache and serves one ``decode_step_sharded`` token, three
 timed and one profiled. Records (walls, busy and NCCL time, collectives,
 gathered bytes, peak, rows) go to
-``<--out>/world/<arch>__<shape>__<N>x<M><backend>/``. Other archs print
-``[SKIP]`` with the reason.
+``<--out>/world/<arch>__<shape>__<N>x<M><backend>/``. Every stack of
+attention (NSA, dense or sliding-window) and MoE blocks runs, each over its
+native attention, an arch with a frontend with its frames in front of the
+tokens (``cell_frontend``, as in the one-card prefill and the train cells);
+the recurrent archs print ``[SKIP]`` with the reason.
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun --run --world 4 --model 2 \
       --backend nccl --arch ssv-nsa-8b --shape prefill_32k  # four cards
@@ -406,6 +409,23 @@ def cell_prompt(cfg, rows, seq: int, seed: int, device) -> torch.Tensor:
     return torch.cat(out)
 
 
+def cell_frontend(cfg, arch_id: str, rows, seed: int, device) -> Optional[torch.Tensor]:
+    """Rows ``rows`` (range) of a cell's frontend input, (len(rows),
+    ``configs.frontend_len(arch_id)``, ``cfg.frontend_dim``) in bf16 (the
+    JAX dry run's ``fe``), each row standard normal from a generator of its
+    own, seeded by (seed, row), so a rank draws only its rows and they equal
+    the same rows of the whole batch. None for an arch without a frontend."""
+    F = cfglib.frontend_len(arch_id)
+    if not F or not cfg.frontend_dim:
+        return None
+    out = []
+    for r in rows:
+        g = torch.Generator(device)
+        g.manual_seed(_chunk_seed(seed + 3, 0, 0, r))
+        out.append(torch.randn((1, F, cfg.frontend_dim), generator=g, device=device))
+    return torch.cat(out).to(torch.bfloat16)
+
+
 def measure_prefill(arch_id: str, shape_name: str, batch: int = 0, seed: int = 0,
                     device=None) -> Dict:
     """A prefill cell on one card (``--run``): weights from ``seed``,
@@ -418,7 +438,10 @@ def measure_prefill(arch_id: str, shape_name: str, batch: int = 0, seed: int = 0
     prefill once under the profiler (the profiler doubled the wall of a
     profiled 32K pass on the H100, so it stays out of the timed one); the
     record holds the pass's wall, the profiled row's busy time, peak memory
-    and the ``Roofline`` row at ``batch``."""
+    and the ``Roofline`` row at ``batch``. An arch with a frontend
+    (``cell_frontend``) prefills its frames in front of the tokens, as the
+    JAX cell does: its caches then hold ``frontend_len + seq_len``
+    positions, within ``CACHE_SLACK``."""
     dev = resolve_device(device)
     if dev.type != "cuda":
         raise RuntimeError("dryrun --run measures a cell on the card; it has no CPU mode")
@@ -429,13 +452,15 @@ def measure_prefill(arch_id: str, shape_name: str, batch: int = 0, seed: int = 0
     cfg = specs.cell_config(arch_id, shape_name)[0]
     fit = specs.fit_batch(arch_id, shape_name, capacity)
     batch = batch or fit
-    if batch < 1 or specs.config_bytes(cfg, shape, batch)["total"] > capacity:
+    if batch < 1 or specs.cell_bytes(arch_id, shape_name, batch)["total"] > capacity:
         raise ValueError(f"{arch_id} x {shape_name} at batch {batch} does not fit one card")
     t0 = time.time()
     g = torch.Generator(dev)
     g.manual_seed(seed)
     params = init_params(cfg, g, dev)
     tokens = cell_prompt(cfg, range(batch), shape.seq_len, seed, dev)
+    frames = cell_frontend(cfg, arch_id, range(batch), seed, dev)
+    n_frames = 0 if frames is None else frames.shape[1]
     max_len = shape.seq_len + specs.CACHE_SLACK
     caches = model.init_caches(cfg, batch, max_len, dev)
     build_s = time.time() - t0
@@ -444,7 +469,8 @@ def measure_prefill(arch_id: str, shape_name: str, batch: int = 0, seed: int = 0
     def one_pass(rows):
         logits = []
         for b in rows:
-            hidden, c = model.prefill(params, cfg, tokens[b:b + 1], max_len)
+            hidden, c = model.prefill(params, cfg, tokens[b:b + 1], max_len,
+                                      None if frames is None else frames[b:b + 1])
             logits.append(model.logits_fn(params, cfg, hidden[:, -1:]).float())
             del hidden
             for dst, src in zip(caches["layers"], c["layers"]):
@@ -452,7 +478,7 @@ def measure_prefill(arch_id: str, shape_name: str, batch: int = 0, seed: int = 0
                     for name, t in src[part].items():
                         dst[part][name][b] = t[0]
             del c
-        caches["length"].fill_(shape.seq_len)
+        caches["length"].fill_(n_frames + shape.seq_len)
         out.append(torch.cat(logits))
 
     torch.cuda.synchronize()
@@ -468,7 +494,7 @@ def measure_prefill(arch_id: str, shape_name: str, batch: int = 0, seed: int = 0
     cost = rl.step_cost(cfg, shape_b, batch=batch, weight_bytes=specs.param_bytes(cfg))
     roof = rl.build(arch_id, shape_b, MESH, 1, cfg, cost, peak, capacity)
     return {"arch": arch_id, "shape": shape_name, "kind": "prefill", "seq_len": shape.seq_len,
-            "batch": batch, "fit_batch": fit, "config_name": cfg.name,
+            "frontend_frames": n_frames, "batch": batch, "fit_batch": fit, "config_name": cfg.name,
             "device": torch.cuda.get_device_name(dev), "build_s": build_s,
             "steps": {"prefill": {"wall_ms": wall, "profiled_rows": 1, **prof}},
             "peak_bytes": peak,
@@ -874,6 +900,8 @@ def serve_rank(rank: int, world: int, dev, arch_id: str, shape_name: str, model_
         rec["reduced"] = {"global_batch": B, "of": shape.global_batch, "why": "--batch"}
     if shape.kind == "prefill":
         tokens = cell_prompt(cfg, rows, shape.seq_len, seed, dev)
+        frames = cell_frontend(cfg, arch_id, rows, seed, dev)
+        rec["frontend_frames"] = 0 if frames is None else frames.shape[1]
         sync()
         dist.barrier()
         rec["build_s"] = time.time() - t0
@@ -882,7 +910,7 @@ def serve_rank(rank: int, world: int, dev, arch_id: str, shape_name: str, model_
         nsa_sharded.reset_collectives()
         layout.reset_counts()
         t0 = time.perf_counter()
-        logits, caches = ps.prefill_sharded(view, cfg, mesh, tokens, max_len)
+        logits, caches = ps.prefill_sharded(view, cfg, mesh, tokens, max_len, frontend=frames)
         sync()
         rec["wall_ms"] = [(time.perf_counter() - t0) * 1e3]
         rec["kv_rows"] = list(caches["global_rows"]["kv"])
@@ -890,8 +918,9 @@ def serve_rank(rank: int, world: int, dev, arch_id: str, shape_name: str, model_
                    gathered_bytes=layout.bytes, logits_finite=bool(torch.isfinite(logits).all()))
         if dev.type == "cuda":
             dist.barrier()
-            rec.update(_profile(lambda: ps.prefill_sharded(view, cfg, mesh, tokens[:1], max_len)),
-                       profiled_rows=1)
+            rec.update(_profile(lambda: ps.prefill_sharded(
+                view, cfg, mesh, tokens[:1], max_len,
+                frontend=None if frames is None else frames[:1])), profiled_rows=1)
         flops = rl.model_flops(cfg, dataclasses.replace(shape, global_batch=B))
         rec["model_flops_share"] = rl.flops_share(flops, rec["wall_ms"][0] / 1e3,
                                                   world * rl.PEAK_FLOPS)
@@ -967,9 +996,10 @@ def train_rank(rank: int, world: int, dev, arch_id: str, shape_name: str, model_
     """One rank of ``--run --world N`` on a train cell: its blocks of the
     state from ``seed`` (``sharded.init_state``), its data rank's row of a
     batch of one ``seq_len`` sequence per data rank (``SyntheticCorpus``,
-    seeded), and ``make_train_step(cfg, tcfg, mesh)``: one step to warm
-    up, ``TRAIN_TIMED`` steps on the host clock, one under the profiler
-    (on a card). Returns the rank's record (also
+    seeded; an arch with a frontend also its rows' ``cell_frontend``
+    frames, as the JAX cell feeds them), and ``make_train_step(cfg, tcfg,
+    mesh)``: one step to warm up, ``TRAIN_TIMED`` steps on the host clock,
+    one under the profiler (on a card). Returns the rank's record (also
     ``<out_dir>/rank<r>.json``)."""
     import torch.distributed as dist
     from repro_torch.data.synthetic import SyntheticConfig, SyntheticCorpus
@@ -992,6 +1022,9 @@ def train_rank(rank: int, world: int, dev, arch_id: str, shape_name: str, model_
     corpus = SyntheticCorpus(SyntheticConfig(vocab_size=cfg.vocab_size, seed=seed))
     batches = [torch.from_numpy(corpus.batch(i, n_dp, shape.seq_len, dp_index, n_dp)).to(dev)
                for i in range(timed + 2)]
+    # an arch with a frontend trains on its frames too, the rank's rows of each step's
+    rows = lambda b: range(dp_index * b.shape[0], (dp_index + 1) * b.shape[0])
+    frames = [cell_frontend(cfg, arch_id, rows(b), seed + i, dev) for i, b in enumerate(batches)]
     sync()
     dist.barrier()
     build_s = time.time() - t0
@@ -1001,7 +1034,7 @@ def train_rank(rank: int, world: int, dev, arch_id: str, shape_name: str, model_
 
     def one(i):
         layout.reset_counts()
-        *state[:], m = step(*state, batches[i])
+        *state[:], m = step(*state, batches[i], frames[i])
         steps.append({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
                       **layout.counts, "bytes": layout.bytes})
 
@@ -1017,6 +1050,7 @@ def train_rank(rank: int, world: int, dev, arch_id: str, shape_name: str, model_
            "arch": arch_id, "shape": shape_name, "dtype": cfg.dtype, "seq_len": shape.seq_len,
            "reduced": {"global_batch": n_dp, "of": shape.global_batch,
                        "why": "one sequence per data rank"},
+           "frontend_frames": 0 if frames[0] is None else frames[0].shape[1],
            "build_s": build_s, "first_wall_ms": walls[0], "wall_ms": walls[1:], "steps": steps}
     if dev.type == "cuda":
         dist.barrier()
@@ -1069,9 +1103,10 @@ def _run_world_train(a: str, s: str, args, capacity: float, per_card: int) -> No
 def _run_world_serve(a: str, s: str, args, capacity: float, per_card: int) -> None:
     cfg = specs.cell_config(a, s)[0]
     if not prefill_sharded.takes(cfg):
-        print(f"[SKIP] {a:22s} {s:12s} (the prefill and batched decode across ranks take NSA "
-              f"attention stacks, the two NSA targets; {cfg.name}'s native {cfg.attention} "
-              f"{'/'.join(sorted(set(cfg.layer_kinds())))} stack is later work)")
+        print(f"[SKIP] {a:22s} {s:12s} (the prefill and batched decode across ranks take "
+              f"attention and MoE stacks; {cfg.name}'s recurrent "
+              f"{'/'.join(sorted(set(cfg.layer_kinds())))} blocks need their state passed along "
+              "the model ranks, later work)")
         return
     rb = serve_rank_bytes(a, s, args.world, args.model, args.batch)
     if not rb["divides"] or rb["total"] * per_card > capacity:

@@ -8,8 +8,10 @@ A check is a list of jobs (dicts); every rank of a world runs them in order
 (``check_rank``, spawned by ``run_checks``) and writes its results to
 ``<out_dir>/rank<r>.json``. A ``"serve"`` job builds the mesh ``mesh``
 (shape, axes), cuts its ``ServeWeights`` from the whole params of ``case``
-(saved at a path, or drawn from a seed: ``load_case``) and its rows of the
-prompt (B, S) and of the decode tokens (B, K) (``batch_spec``), runs
+(saved at a path, or drawn from a seed: ``load_case``; on a card the ranks
+draw in turn, after the file at ``after`` exists when the job names one)
+and its rows of the prompt (B, S) and of the decode tokens (B, K)
+(``batch_spec``), runs
 ``prefill_sharded`` to ``max_len`` and then K ``decode_step_sharded``
 tokens (``seq_axes = ("model",)``), and holds against ``reference``'s
 single-device results (``ref``: a file, read once it exists; with
@@ -30,10 +32,14 @@ of them, or the parts the job names in ``hold``; ``max_abs_err``: each
 part's largest difference). It records
 which compressed blocks the rank wrote during the decode and which of them
 have rows outside its K/V slice (written across the ``model`` boundary),
+for a MoE arch whose rows lie over data ranks the decode's expert
+assignments dropped by the whole batch's groups against per-rank groups
+(``moe_drops``: ``counting_moe_drops``),
 the collectives (``nsa_sharded.
 collectives``: of the prefill, and per decode token), the weights' gathers
-and their bytes (``MeshLayout``), walls and the peak on a card. The logits
-slices go to ``<out>/rank<r>_<name>.pt`` when the job names ``out``, for the
+and their bytes (``MeshLayout``), walls, the seconds waited for ``after``,
+and on a card the peak while the rank drew the whole params and after. The
+logits slices go to ``<out>/rank<r>_<name>.pt`` when the job names ``out``, for the
 caller to assemble the whole vocabulary and compare argmax (with
 ``single_ref``, rank 0 puts the single device's logits beside them, in
 ``<out>/single_<name>.pt``).
@@ -41,6 +47,7 @@ caller to assemble the whole vocabulary and compare argmax (with
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import time
 from pathlib import Path
@@ -51,18 +58,21 @@ import torch.distributed as dist
 
 from repro_torch.bridge import init_params
 from repro_torch.launch import mesh as mesh_lib, sharding
-from repro_torch.models import model, nsa as nsa_lib, nsa_sharded
+from repro_torch.kernels.flash import ref as flash_ref
+from repro_torch.models import attention, model, moe as moe_lib, nsa as nsa_lib, nsa_sharded
 from repro_torch.models.prefill_sharded import SEQ_AXES, prefill_sharded
 from repro_torch.optim import tree_map
 from repro_torch.runtime.sharded import ServeWeights
 
 
 def load_case(case, cfg, dev) -> Dict:
-    """A serve job's whole params, prompt and decode tokens: saved at a path
-    (read lazily, ``mmap``), or {"seed", "batch", "seq", "decode"}:
-    ``init_params`` from a generator seeded with ``seed``, the prompt
-    (batch, seq) uniform from ``seed + 1`` and the decode tokens (batch,
-    decode) from ``seed + 2``, on ``dev``."""
+    """A serve job's whole params, prompt and decode tokens (and, for an
+    arch with a frontend, the rows' ``"frontend"`` frames): saved
+    at a path (read lazily, ``mmap``), or {"seed", "batch", "seq",
+    "decode"[, "frames"]}: ``init_params`` from a generator seeded with
+    ``seed``, the prompt (batch, seq) uniform from ``seed + 1``, the decode
+    tokens (batch, decode) from ``seed + 2`` and ``frames`` standard normal
+    frames a row from ``seed + 3``, on ``dev``."""
     if not isinstance(case, dict):
         return torch.load(case, mmap=True, weights_only=False)
     gen = lambda s: torch.Generator(dev).manual_seed(s)
@@ -71,12 +81,60 @@ def load_case(case, cfg, dev) -> Dict:
                            generator=gen(case["seed"] + 1))
     decode = torch.randint(0, cfg.vocab_size, (case["batch"], case["decode"]), device=dev,
                            generator=gen(case["seed"] + 2))
-    return {"params": params, "tokens": tokens, "decode": decode}
+    out = {"params": params, "tokens": tokens, "decode": decode}
+    if case.get("frames"):
+        out["frontend"] = torch.randn((case["batch"], case["frames"], cfg.frontend_dim),
+                                      device=dev, generator=gen(case["seed"] + 3))
+    return out
 
 
 def _clone_caches(caches) -> Dict:
     return {"layers": [{p: {k: t.clone() for k, t in c[p].items()} for p in c}
                        for c in caches["layers"]], "length": caches["length"].clone()}
+
+
+@contextlib.contextmanager
+def counting_moe_drops(cfg, n_rows: int, drops: Dict):
+    """Within it, each MoE dispatch of the batched decode across ``n_rows``
+    data ranks (whose groups hold the gathered ids of every rank's rows)
+    adds to ``drops`` the assignments that the whole group drops
+    ("whole"), that groups cut from each data rank's rows would drop
+    ("per_rank") and that only the whole group drops ("whole_only"): what
+    the decode's gather of the expert ids changes."""
+    dispatch = moe_lib.dispatch
+
+    def kept(ids):
+        G = moe_lib.group_size(ids.shape[0], cfg.moe)
+        return dispatch(ids, G, moe_lib.capacity(G, cfg.moe), cfg.moe.num_experts)[1]
+
+    def counted(ids, G, C, E):
+        out = dispatch(ids, G, C, E)
+        whole = out[1]
+        rank = torch.cat([kept(p) for p in ids.reshape(n_rows, -1, ids.shape[-1])])
+        drops["whole"] += int((~whole).sum())
+        drops["per_rank"] += int((~rank).sum())
+        drops["whole_only"] += int((~whole & rank).sum())
+        return out
+
+    moe_lib.dispatch = counted
+    try:
+        yield
+    finally:
+        moe_lib.dispatch = dispatch
+
+
+@contextlib.contextmanager
+def plain_attention_layers():
+    """Within it, ``model``'s dense and windowed layers run the flash
+    kernel's plain version (``kernels.flash.ref``) on any device in place
+    of the kernel: the counterpart of ``plain_nsa_layers`` for the native
+    attention archs."""
+    kernel = attention.flash_ops.flash_verify
+    attention.flash_ops.flash_verify = flash_ref.ref_flash_verify
+    try:
+        yield
+    finally:
+        attention.flash_ops.flash_verify = kernel
 
 
 @contextlib.contextmanager
@@ -100,19 +158,20 @@ def plain_nsa_layers():
 
 @torch.no_grad()
 def reference(params, cfg, tokens, decode, max_len: int, host: bool = True,
-              plain_decode: bool = False) -> Dict:
-    """The single device: ``model.prefill`` with the last position's logits
-    (the JAX ``prefill_step``), then one ``model.decode_step`` per column
-    of ``decode``. {"prefill_logits", "prefill_caches", "decode_logits"
-    (K, B, 1, V), "caches"} on the host when ``host``, with the passes'
-    walls on the device's clock ("prefill_ms", "decode_ms"). With
-    ``plain_decode`` the decode also runs from the same prefill under
-    ``plain_nsa_layers``: "plain_decode_logits", "plain_caches"."""
+              plain_decode: bool = False, frontend=None) -> Dict:
+    """The single device: ``model.prefill`` (after ``frontend``'s frames,
+    if any) with the last position's logits (the JAX ``prefill_step``),
+    then one ``model.decode_step`` per column of ``decode``.
+    {"prefill_logits", "prefill_caches", "decode_logits" (K, B, 1, V),
+    "caches"} on the host when ``host``, with the passes' walls on the
+    device's clock ("prefill_ms", "decode_ms"). With ``plain_decode`` the
+    decode also runs from the same prefill under ``plain_nsa_layers`` and
+    ``plain_attention_layers``: "plain_decode_logits", "plain_caches"."""
     dev = tokens.device
     move = (lambda t: t.cpu()) if host else (lambda t: t)
     _sync(dev)
     t0 = time.perf_counter()
-    hidden, caches = model.prefill(params, cfg, tokens, max_len)
+    hidden, caches = model.prefill(params, cfg, tokens, max_len, frontend)
     logits = model.logits_fn(params, cfg, hidden[:, -1:])
     _sync(dev)
     prefill_ms = (time.perf_counter() - t0) * 1e3
@@ -120,7 +179,7 @@ def reference(params, cfg, tokens, decode, max_len: int, host: bool = True,
     out = {"prefill_logits": move(logits), "prefill_caches": tree_map(move, _clone_caches(caches))}
     if plain_decode:
         plain = _clone_caches(caches)
-        with plain_nsa_layers():
+        with plain_nsa_layers(), plain_attention_layers():
             steps = [model.decode_step(params, cfg, plain, decode[:, t:t + 1])[0]
                      for t in range(decode.shape[1])]
         out.update(plain_decode_logits=move(torch.stack(steps)),
@@ -178,21 +237,41 @@ def _serve_job(job: Dict, dev) -> Dict:
     cfg, max_len = job["cfg"], job["max_len"]
     rtol, atol = job["tol"]
     mesh = mesh_lib.make_mesh(*job["mesh"], dev.type)
-    case = load_case(job["case"], cfg, dev)
-    view = ServeWeights.from_whole(tree_map(lambda t: t.to(dev), case["params"]), cfg, mesh)
-    layout = view.layout
-    bspec = sharding.batch_spec(mesh)
-    tokens = layout.block(case["tokens"], bspec).to(dev)
-    decode = layout.block(case["decode"], bspec).to(dev)
-    del case
-    _sync(dev)
+    t0 = time.perf_counter()
+    if job.get("after"):
+        _when_written(job["after"])
+    waited_s = time.perf_counter() - t0
+    # on a card the ranks draw the whole params in turn: each keeps its blocks
+    # and hands the rest back before the next draws, so the card holds one
+    # whole tree at a time however many ranks share it
+    turns = range(dist.get_world_size()) if dev.type == "cuda" else [dist.get_rank()]
+    for turn in turns:
+        if turn == dist.get_rank():
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(dev)
+            case = load_case(job["case"], cfg, dev)
+            view = ServeWeights.from_whole(tree_map(lambda t: t.to(dev), case["params"]),
+                                           cfg, mesh)
+            layout = view.layout
+            bspec = sharding.batch_spec(mesh)
+            tokens = layout.block(case["tokens"], bspec).to(dev)
+            decode = layout.block(case["decode"], bspec).to(dev)
+            frontend = None if case.get("frontend") is None else \
+                layout.block(case["frontend"], sharding.spec(*bspec, None)).to(dev)
+            del case
+            gc.collect()
+            _sync(dev)
+            if dev.type == "cuda":
+                load_peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                torch.cuda.empty_cache()
+        dist.barrier()
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     dist.barrier()
     nsa_sharded.reset_collectives()
     layout.reset_counts()
     t0 = time.perf_counter()
-    logits, caches = prefill_sharded(view, cfg, mesh, tokens, max_len)
+    logits, caches = prefill_sharded(view, cfg, mesh, tokens, max_len, frontend=frontend)
     _sync(dev)
     res = {"name": job["name"], "mesh": list(job["mesh"][0]), "coords": layout.coords,
            "vocab": list(view.vocab), "rows": list(caches["global_rows"]["batch"]),
@@ -203,15 +282,22 @@ def _serve_job(job: Dict, dev) -> Dict:
                        "collectives": nsa_sharded.collectives(), **layout.counts,
                        "gathered_bytes": layout.bytes}}
     prefill_logits, prefill_caches = logits, _clone_caches(caches)
-    cmp0 = [{k: t.clone() for k, t in c["cmp"].items()} for c in caches["layers"]]
+    is_nsa = cfg.attention == "nsa"
+    cmp0 = [{k: t.clone() for k, t in c["cmp"].items()} for c in caches["layers"]] \
+        if is_nsa else []
+    drops = {"whole": 0, "per_rank": 0, "whole_only": 0}
+    n_rows = layout.n_dp if cfg.moe is not None else 1
+    counting = (lambda: counting_moe_drops(cfg, n_rows, drops)) if n_rows > 1 else \
+        contextlib.nullcontext
     steps, walls, per_token = [], [], []
     for t in range(decode.shape[1]):
         nsa_sharded.reset_collectives()
         layout.reset_counts()
         dist.barrier()
         t0 = time.perf_counter()
-        lg, caches = nsa_sharded.decode_step_sharded(view, cfg, mesh, caches, decode[:, t:t + 1],
-                                                     SEQ_AXES)
+        with counting():
+            lg, caches = nsa_sharded.decode_step_sharded(view, cfg, mesh, caches,
+                                                         decode[:, t:t + 1], SEQ_AXES)
         _sync(dev)
         walls.append((time.perf_counter() - t0) * 1e3)
         per_token.append((nsa_sharded.collectives(), layout.counts["gathers"], layout.bytes))
@@ -219,9 +305,12 @@ def _serve_job(job: Dict, dev) -> Dict:
     res["decode"] = {"wall_ms": walls,
                      "collectives_per_token": sorted({c for c, _, _ in per_token}),
                      "gathers_per_token": sorted({g for _, g, _ in per_token}),
-                     "gathered_bytes_per_token": sorted({b for _, _, b in per_token})}
+                     "gathered_bytes_per_token": sorted({b for _, _, b in per_token}),
+                     "moe_drops": drops}
+    res["waited_s"] = waited_s
     if dev.type == "cuda":
         res["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        res["load_peak_gib"] = load_peak
     # the compressed blocks this rank wrote, and those whose rows it does not all hold
     c0, (r0, r1) = caches["global_rows"]["cmp"][0], caches["global_rows"]["kv"]
     nsa = cfg.nsa
@@ -244,7 +333,9 @@ def _serve_job(job: Dict, dev) -> Dict:
         case = load_case(job["case"], cfg, dev)
         ref = reference(tree_map(lambda t: t.to(dev), case["params"]), cfg,
                         case["tokens"].to(dev), case["decode"].to(dev), max_len, host=False,
-                        plain_decode=job.get("plain_ref", False))
+                        plain_decode=job.get("plain_ref", False),
+                        frontend=None if case.get("frontend") is None else
+                        case["frontend"].to(dev))
         del case
         res["single"] = {"prefill_ms": ref["prefill_ms"], "decode_ms": ref["decode_ms"]}
         if job.get("out") and dist.get_rank() == 0:
@@ -304,11 +395,19 @@ JOBS = {"serve": _serve_job}
 
 
 def run_jobs(jobs: List[Dict], dev) -> List[Dict]:
-    """Every job on this rank of the initialised world (TF32 off)."""
+    """Every job on this rank of the initialised world (TF32 off), the
+    job's garbage collected and a card's cached blocks handed back after
+    each (ranks share the card)."""
     if dev.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    return [JOBS[j.get("kind", "serve")](j, dev) for j in jobs]
+    out = []
+    for j in jobs:
+        out.append(JOBS[j.get("kind", "serve")](j, dev))
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
 
 
 def check_rank(rank: int, world: int, dev, jobs_path: str, out_dir: str) -> None:

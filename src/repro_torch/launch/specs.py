@@ -63,13 +63,19 @@ def cache_bytes(cfg: ModelConfig, batch: int, max_len: int) -> int:
 
 def cell_bytes(arch_id: str, shape_name: str, batch: int) -> Dict[str, int]:
     """The cell's static bytes at ``batch`` rows, by part, and ``total``."""
-    return config_bytes(cell_config(arch_id, shape_name)[0], SHAPE_BY_NAME[shape_name], batch)
+    return config_bytes(cell_config(arch_id, shape_name)[0], SHAPE_BY_NAME[shape_name], batch,
+                        cfglib.frontend_len(arch_id))
 
 
-def config_bytes(cfg: ModelConfig, shape, batch: int) -> Dict[str, int]:
-    """``cell_bytes`` of ``cfg`` at ``shape`` (a ``ShapeConfig``)."""
+def config_bytes(cfg: ModelConfig, shape, batch: int, frames: int = 0) -> Dict[str, int]:
+    """``cell_bytes`` of ``cfg`` at ``shape`` (a ``ShapeConfig``). A train
+    or prefill cell of an arch with a frontend also holds its input,
+    ``frames`` bf16 frames of ``cfg.frontend_dim`` a row (the JAX dry
+    run's ``fe``): ``frontend_input``."""
     w = param_bytes(cfg)
     out = {"weights": w}
+    if frames and cfg.frontend_dim and shape.kind in ("train", "prefill"):
+        out["frontend_input"] = batch * frames * cfg.frontend_dim * 2
     if shape.kind == "train":
         out.update(grads=w, adam_moments=2 * 4 * _param_stats(cfg)[1])
     else:

@@ -233,9 +233,11 @@ def _moved(ref, opt, params0, opt0, specs, layout: MeshLayout, tcfg, steps=None,
 
 
 def load_case(case, cfg, dev) -> Dict:
-    """A step job's whole params and tokens: saved at a path (read lazily,
-    ``mmap``), or {"seed", "batch", "seq"}: ``init_params`` from a generator
-    seeded with ``seed`` and uniform tokens from ``seed + 1``, on ``dev``."""
+    """A step job's whole params and tokens (and, for an arch with a
+    frontend, its rows' ``"frontend"`` frames): saved at a path (read
+    lazily, ``mmap``), or {"seed", "batch", "seq"}: ``init_params`` from a
+    generator seeded with ``seed`` and uniform tokens from ``seed + 1``, on
+    ``dev``."""
     if not isinstance(case, dict):
         return torch.load(case, mmap=True, weights_only=False)
     params = init_params(cfg, torch.Generator(dev).manual_seed(case["seed"]), dev)
@@ -254,7 +256,10 @@ def _step_job(job: Dict, dev) -> Dict:
                                                                mesh))
     residual = compress.init_residual(params) if tcfg.grad_compression == "int8_ef" else \
         torch.zeros((), device=dev)
-    tokens = layout.block(case["tokens"], sharding.batch_spec(mesh)).to(dev)
+    bspec = sharding.batch_spec(mesh)
+    tokens = layout.block(case["tokens"], bspec).to(dev)
+    frontend = None if case.get("frontend") is None else \
+        layout.block(case["frontend"], sharding.spec(*bspec, None)).to(dev)
     del case
     _sync(dev)
     if dev.type == "cuda":
@@ -262,7 +267,7 @@ def _step_job(job: Dict, dev) -> Dict:
     params0, opt0 = params, adamw_init(params)   # the step leaves its inputs as they were
     dist.barrier()
     t0 = time.perf_counter()
-    params, opt, residual, m = step(params0, opt0, residual, tokens)
+    params, opt, residual, m = step(params0, opt0, residual, tokens, frontend)
     _sync(dev)
     wall = (time.perf_counter() - t0) * 1e3
     state = {"params": params, "opt": opt, "residual": residual}
@@ -346,7 +351,7 @@ def _step_job(job: Dict, dev) -> Dict:
     for _ in range(job.get("timed", 0)):
         dist.barrier()
         t0 = time.perf_counter()
-        params, opt, residual, m = step(params, opt, residual, tokens)
+        params, opt, residual, m = step(params, opt, residual, tokens, frontend)
         _sync(dev)
         walls.append((time.perf_counter() - t0) * 1e3)
     res["timed_wall_ms"] = walls

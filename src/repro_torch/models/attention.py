@@ -94,6 +94,43 @@ def attend_train(params, cfg: ModelConfig, x, positions, window: int = 0,
     return out @ params["wo"], (k, v)
 
 
+def query_runs(q0: int, q1: int, chunk: int = 512):
+    """The (start, stop) runs ``attend_queries`` takes for global query
+    positions ``[q0, q1)``: the pieces of the ``chunk``-query chunks on
+    their global boundaries (the last one shorter where ``chunk`` does not
+    divide the length) that lie in the range."""
+    if not chunk:
+        return [(q0, q1)] if q1 > q0 else []
+    return [(max(q0, a), min(q1, a + chunk)) for a in range(q0 - q0 % chunk, q1, chunk)]
+
+
+def attend_queries(cfg: ModelConfig, q, k, v, q0: int = 0, window: int = 0,
+                   chunk: int = 512):
+    """Causal (optionally sliding-window) attention of the queries at
+    global positions ``[q0, q0 + Tq)`` over a sequence's keys: q (B, Tq, Hq,
+    Dh) after RoPE; k, v (B, S, Hkv, Dh) whole (at least to the last query).
+    The queries run in ``query_runs``' pieces, each over the keys it can
+    see (those before a run's first window start, and after its last query,
+    are left out: their probabilities are 0), so the score tensors stay
+    (chunk, keys) whatever S is, and a slice of the queries gives the same
+    rows as the whole range. Up to rounding, the whole range (q0 = 0, Tq =
+    S) is ``attend_train``'s result. Returns the heads (B, Tq, Hq * Dh) in
+    q's dtype, before the output projection. The prefill's dense and
+    windowed layers run it (``model.prefill``: the reference's
+    ``attend_train`` builds the whole (S, S) scores when ``chunk`` does not
+    divide S), one card or across ranks (``models.prefill_sharded``)."""
+    B, Tq = q.shape[0], q.shape[1]
+    Hkv, G, Dh = cfg.num_kv_heads, cfg.q_per_kv, cfg.head_dim
+    qg = q.reshape(B, Tq, Hkv, G, Dh)
+    scale = 1.0 / math.sqrt(Dh)
+    outs = []
+    for a, b in query_runs(q0, q0 + Tq, chunk):
+        lo = max(0, a - window + 1) if window > 0 else 0
+        m = causal_mask(b - a, b - lo, q.device, q_offset=a - lo, window=window)
+        outs.append(_sdpa(qg[:, a - q0:b - q0], k[:, lo:b], v[:, lo:b], m, scale))
+    return torch.cat(outs, dim=1).reshape(B, Tq, cfg.num_heads * Dh)
+
+
 def _tile_mask(qi: int, qc: int, ki: int, kc: int, window: int, device):
     """(qc, kc) visibility of key tile ki to query tile qi (causal, window)."""
     qpos = qi * qc + torch.arange(qc, device=device)

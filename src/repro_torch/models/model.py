@@ -87,16 +87,20 @@ def _attn_window(cfg: ModelConfig) -> int:
 
 
 def _apply_ffn(bp, cfg: ModelConfig, kind: str, x, moe_per_row: bool = False,
-               moe_by_expert: bool = False, moe_stats=None):
+               moe_by_expert: bool = False, moe_stats=None, moe_group: int = 0,
+               moe_gather_ids=None):
     """Returns (y, aux): the MoE FFN and its load-balancing loss for a
     ``"moe"`` block (dispatch groups per row with ``moe_per_row``; experts
     one by one, reading counts on the host, with ``moe_by_expert``; the
-    loss's statistics summed by ``moe_stats``, see ``moe.moe_apply``), else
-    the dense FFN and None (no loss term, and no launch for a zero). A
-    recurrent block without an FFN (``cfg.d_ff == 0``) adds zeros."""
+    loss's statistics summed by ``moe_stats``; the group size
+    ``moe_group`` and the ids' gather ``moe_gather_ids`` of the cells
+    across ranks: see ``moe.moe_apply``), else the dense FFN and None (no
+    loss term, and no launch for a zero). A recurrent block without an FFN
+    (``cfg.d_ff == 0``) adds zeros."""
     if kind == "moe":
         return moe_lib.moe_apply(bp["ffn"], cfg, x, per_row=moe_per_row,
-                                 by_expert=moe_by_expert, stats_sum=moe_stats)
+                                 by_expert=moe_by_expert, stats_sum=moe_stats,
+                                 group=moe_group, gather_ids=moe_gather_ids)
     if "ffn" not in bp:
         return torch.zeros_like(x), None
     return layers.ffn(bp["ffn"], x, cfg.activation), None
@@ -288,8 +292,9 @@ def prefill(params, cfg: ModelConfig, tokens, max_len: int, frontend=None,
             mix, (k, v) = attention.attend_train_flash(bp["mix"], cfg, hn, positions,
                                                        window=window)
         else:
-            mix, (k, v) = attention.attend_train(bp["mix"], cfg, hn, positions,
-                                                 window=window, chunk=attn_chunk)
+            q, k, v = attention.qkv(bp["mix"], cfg, hn, positions)
+            heads = attention.attend_queries(cfg, q, k, v, 0, window, attn_chunk)
+            mix = heads @ bp["mix"]["wo"]
         attention.write_cache(cache["kv"], k, v, 0)
         x = x + mix
         x = x + _apply_ffn(bp, cfg, kind, layers.rmsnorm(bp["norm2"], x, cfg.norm_eps),

@@ -113,16 +113,18 @@ def _expert_ffn(params, xe, activation: str, e=slice(None)):
     return torch.matmul(h, params["w_down"][e])
 
 
-def _expert_outputs(params, cfg: ModelConfig, xf, topk_idx, pos, keep, G: int, C: int):
+def _expert_outputs(params, cfg: ModelConfig, xf, topk_idx, pos, keep, G: int, C: int,
+                    t0: int = 0, n_all: int = 0):
     """The expert output of every kept assignment, (N, K, d), all experts
-    at once; dropped ones are 0."""
+    at once; dropped ones are 0. ``xf`` holds tokens ``t0 .. t0 + N`` of
+    the ``n_all`` (default N) whose groups ``pos`` counts places in."""
     N, d = xf.shape
     E, K = cfg.moe.num_experts, cfg.moe.top_k
     P = min(C, G)                                   # places per expert and group
-    slots = (N // G) * P                            # places per expert
+    slots = ((n_all or N) // G) * P                 # places per expert
     tok = torch.arange(N, device=xf.device)[:, None].expand(N, K)
     # empty places read a zero row
-    slot = topk_idx * slots + torch.div(tok, G, rounding_mode="floor") * P + pos
+    slot = topk_idx * slots + torch.div(tok + t0, G, rounding_mode="floor") * P + pos
     slot = torch.where(keep, slot, torch.full_like(slot, E * slots))
     src = torch.full((E * slots + 1,), N, dtype=torch.long, device=xf.device)
     src[slot.reshape(-1)] = tok.reshape(-1)
@@ -153,7 +155,7 @@ def _expert_outputs_by_expert(params, cfg: ModelConfig, xf, topk_idx, keep):
 
 
 def moe_apply(params, cfg: ModelConfig, x, per_row: bool = False, by_expert: bool = False,
-              stats_sum=None):
+              stats_sum=None, group: int = 0, gather_ids=None):
     """x: (B, S, d) -> (out (B, S, d), aux_loss 0-d f32). Dispatch groups
     are cut from the B*S flattened tokens, or from each row's S tokens
     with ``per_row`` (the JAX batched engine's per-row ``vmap``). The
@@ -163,19 +165,36 @@ def moe_apply(params, cfg: ModelConfig, x, per_row: bool = False, by_expert: boo
     Across data ranks each rank cuts its groups from its own rows; they are
     the single device's groups while the group size divides each rank's
     B*S tokens (no group straddles two ranks' rows): the capacity drops are
-    then the single device's too."""
+    then the single device's too. Two hooks serve the cells across ranks:
+
+      * ``group``: the group size, in place of ``group_size``'s; the
+        prefill across ranks passes the single device's, which must divide
+        N (each rank then cuts the single device's groups from its chunk);
+      * ``gather_ids`` (the batched decode across data ranks, whose single
+        group holds every row's token): topk_idx (N, K) -> (the whole
+        group's ids (N_all, K), this rank's first token t0). The places
+        are counted over all N_all tokens, as on one device, and the rank
+        keeps those of its own; only int ids travel."""
     moe = cfg.moe
     B, S, d = x.shape
     N = B * S
     xf = x.reshape(N, d)
-    G = group_size(S if per_row else N, moe)
-    C = capacity(G, moe)
     probs, topk_idx, topk_w = router_probs(params, xf, moe)
     aux = load_balance_loss(probs, topk_idx, moe.num_experts, stats_sum)
-    pos, keep = dispatch(topk_idx, G, C, moe.num_experts)
+    t0, n_all = 0, N
+    if gather_ids is None:
+        G = group or group_size(S if per_row else N, moe)
+        C = capacity(G, moe)
+        pos, keep = dispatch(topk_idx, G, C, moe.num_experts)
+    else:
+        every, t0 = gather_ids(topk_idx)
+        n_all = every.shape[0]
+        G = group_size(n_all, moe)
+        C = capacity(G, moe)
+        pos, keep = (t[t0:t0 + N] for t in dispatch(every, G, C, moe.num_experts))
     w = torch.where(keep, topk_w, torch.zeros((), device=x.device))
     y_k = (_expert_outputs_by_expert(params, cfg, xf, topk_idx, keep) if by_expert
-           else _expert_outputs(params, cfg, xf, topk_idx, pos, keep, G, C))
+           else _expert_outputs(params, cfg, xf, topk_idx, pos, keep, G, C, t0, n_all))
     # the reference's combine weights are cast to the activations' dtype
     y = (w.to(x.dtype).float()[..., None] * y_k.float()).sum(dim=1).to(x.dtype)
     y = y.reshape(B, S, d)

@@ -38,7 +38,10 @@ The same code serves the batched decode (``cache_specs(shard_sequence=
 False)``: the rows over the data axes, the sequence over ``model``, and
 ``seq_axes = ("model",)`` within each data group) with the weights under
 ``param_specs`` (``ServeWeights``: each layer gathered just in time, the
-logits a vocab slice per ``model`` rank).
+logits a vocab slice per ``model`` rank), and there the dense and
+sliding-window archs too: ``decode_step_sharded`` sends their layers to
+``attention_sharded.attend_decode_sharded`` and a MoE layer's expert ids
+across the data ranks (``ids_gather``).
 
 Where the reference differs from itself, the port takes the single-device
 side. ``repro.models.nsa_sharded`` sums ``exp(l - m)`` over the query heads
@@ -343,13 +346,33 @@ def commit_cmp_sharded(params, cfg: ModelConfig, mesh, cache_local, cmp_local, p
 
 
 # ---------------------------------------------------------------- full model
+def ids_gather(mesh, seq_axes: Sequence[str]):
+    """The MoE decode's hook (``moe.moe_apply(gather_ids=)``) when the rows
+    lie over data axes outside ``seq_axes`` and those hold more than one
+    rank: topk_idx (N, K) -> (every data rank's ids in the order of their
+    rows, this rank's first token), one counted all-gather. None otherwise
+    (every rank holds the whole group)."""
+    axes = tuple(a for a in mesh_lib.dp_axes(mesh) if a not in seq_axes)
+    if not axes or mesh_lib.axes_index(mesh, axes)[1] == 1:
+        return None
+    group, idx, n = shard_of(mesh, axes)
+
+    def gather(ids):
+        return all_gather(ids, group, n).reshape(-1, ids.shape[-1]), idx * ids.shape[0]
+    return gather
+
+
 @torch.no_grad()
 def decode_step_sharded(params, cfg: ModelConfig, mesh, caches, tokens,
                         seq_axes: Sequence[str]):
-    """Full-model one-token decode with sequence-sharded NSA attention: the
+    """Full-model one-token decode with sequence-sharded attention: the
     semantics of ``model.decode_step`` for stacks of ``"attn"`` / ``"moe"``
-    blocks with ``cfg.attention == "nsa"``, the compressed cache written
-    by the owner of each block a token completes.
+    blocks. Each layer's attention goes by ``cfg.attention``: NSA
+    (``nsa_attend_decode_sharded``, the compressed cache written by the
+    owner of each block a token completes) or dense / ``"swa"``
+    (``attention_sharded.attend_decode_sharded``). A MoE layer whose rows
+    lie over more than one data rank counts its capacity over the whole
+    batch's group, as one device does (``ids_gather``).
 
     ``params``: whole weights (the batch-1 long-context cells) or this
     rank's ``runtime.sharded.ServeWeights`` (the batched cells, each layer
@@ -358,26 +381,41 @@ def decode_step_sharded(params, cfg: ModelConfig, mesh, caches, tokens,
     rank of a row; tokens (B, 1), the rank's rows. Writes each layer's new
     row on its owning rank and advances the length in place. Returns
     (logits (B, 1, V) or, with ``ServeWeights``, the rank's vocab slice
-    (B, 1, V / model), caches)."""
-    from repro_torch.models import model as model_lib
+    (B, 1, V / model), caches).
+
+    Collectives a token (``collectives``): 1 for the embedding with
+    ``ServeWeights``; per layer 5 for NSA (6 when a completed compressed
+    block's rows lie on another rank) or 2 for dense / ``swa``; 1 more for
+    a MoE layer under ``ids_gather``."""
+    from repro_torch.models import attention_sharded, model as model_lib
     from repro_torch.runtime.sharded import WholeWeights
     kinds = cfg.layer_kinds()
-    if cfg.attention != "nsa" or set(kinds) - {"attn", "moe"}:
-        raise NotImplementedError(f"{cfg.name}: the sharded decode takes NSA attn / moe stacks")
+    if cfg.attention not in ("nsa", "dense", "swa") or set(kinds) - {"attn", "moe"}:
+        raise NotImplementedError(f"{cfg.name}: the sharded decode takes attn / moe stacks")
     w = params if hasattr(params, "layer_params") else WholeWeights(params, cfg)
     prefix_len = caches["length"]
-    lengths = prefix_len.tolist()       # which rows complete a compressed block, on the host
+    nsa = cfg.attention == "nsa"
+    # which rows complete a compressed block, on the host
+    lengths = prefix_len.tolist() if nsa else None
+    gather = ids_gather(mesh, seq_axes) if "moe" in kinds else None
+    window = model_lib._attn_window(cfg)
     x = w.embed(tokens)
     for i, (cache, kind) in enumerate(zip(caches["layers"], kinds)):
         bp = w.layer_params(i)
         hn = layers.rmsnorm(bp["norm1"], x, cfg.norm_eps)
-        mix, _, _ = nsa_attend_decode_sharded(bp["mix"], cfg, mesh, hn, cache["kv"],
-                                              cache["cmp"], prefix_len, seq_axes)
-        commit_cmp_sharded(bp["mix"], cfg, mesh, cache["kv"], cache["cmp"], prefix_len,
-                           seq_axes, lengths)
+        if nsa:
+            mix, _, _ = nsa_attend_decode_sharded(bp["mix"], cfg, mesh, hn, cache["kv"],
+                                                  cache["cmp"], prefix_len, seq_axes)
+            commit_cmp_sharded(bp["mix"], cfg, mesh, cache["kv"], cache["cmp"], prefix_len,
+                               seq_axes, lengths)
+        else:
+            mix, _ = attention_sharded.attend_decode_sharded(bp["mix"], cfg, mesh, hn,
+                                                             cache["kv"], prefix_len, seq_axes,
+                                                             window)
         x = x + mix
         x = x + model_lib._apply_ffn(bp, cfg, kind,
-                                     layers.rmsnorm(bp["norm2"], x, cfg.norm_eps))[0]
+                                     layers.rmsnorm(bp["norm2"], x, cfg.norm_eps),
+                                     moe_gather_ids=gather)[0]
         del bp
     x = layers.rmsnorm(w.final_norm, x, cfg.norm_eps)
     logits = w.logits(x)
@@ -394,14 +432,14 @@ def init_local_caches(cfg: ModelConfig, batch: int, max_len: int, mesh,
     axes and the sequence over ``seq_axes`` = ("model",). ``"global_rows"``
     gives the rows of the whole cache that it holds: "kv" and "cmp" along
     the sequence, "batch" the batch rows. The (rows,) ``"length"`` is 0.
-    Raises when S, NCB or the batch does not divide."""
+    Raises when S, the batch or (an NSA stack's) NCB does not divide."""
     from repro_torch.device import dtype_of
     from repro_torch.launch import sharding
     from repro_torch.models import model as model_lib
     from repro_torch.models.nsa import init_cmp_cache
     _, idx, n = shard_of(mesh, seq_axes)
     NCB = init_cmp_cache(cfg, 1, max_len, torch.float32, "meta")["k_cmp"].shape[1]
-    check_shards(max_len, NCB, n)
+    check_shards(max_len, NCB if cfg.attention == "nsa" else 0, n)
     full = model_lib.init_caches(cfg, batch, max_len, "meta")
     specs = sharding.cache_specs(full, mesh, shard_sequence=shard_sequence)
     seq = specs["layers"][0]["kv"]["k"][1]

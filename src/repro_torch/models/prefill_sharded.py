@@ -1,42 +1,51 @@
 """The prefill across ranks — what GSPMD makes of the JAX dry run's
 ``prefill_32k`` step (``repro.launch.specs.build_cell``: ``model.prefill``
 under ``param_specs`` with the residual stream constrained by
-``activation_constraint``), written out for ``torch.distributed``.
+``activation_constraint``), written out for ``torch.distributed``, for
+every stack of attention (NSA, dense or sliding-window) and MoE blocks.
 
 The layout is the JAX one: the tokens' rows over the data axes, the
 residual stream's sequence over ``model`` (``sharding.activation_spec``'s
 "sp"), the caches out under ``cache_specs(shard_sequence=False)`` (rows
 over the data axes, the sequence over ``model``) and the last position's
 logits vocab-split over ``model``. A rank of a data group holds the chunk
-``[i * S / m, (i + 1) * S / m)`` of the sequence of each of its rows (i its
-``model`` index, m the axis' size) and, per layer:
+``[i * S / m, (i + 1) * S / m)`` of the stream of each of its rows (i its
+``model`` index, m the axis' size; S counts a frontend's frames in front
+of the tokens, as ``model.embed_inputs`` puts them) and, per layer:
 
   1. gathers the layer's weights (``runtime.sharded.ServeWeights``);
   2. computes q, k and v of its own chunk;
   3. all-gathers k and v over ``model`` (collective 1);
-  4. builds its own slice of the compressed blocks with ``nsa.compress_kv``
-     from the gathered rows (a block may straddle two chunks) and
-     all-gathers the slices over ``model`` (collective 2), so every rank
-     holds every block;
-  5. runs NSA attention for its own queries (``nsa.attend_queries``, the
-     single device's 512-query chunks on their global boundaries) over the
-     whole K/V and compressed K/V;
-  6. keeps its slice of the K/V rows and of the compressed blocks in its
+  4. NSA only: builds its own slice of the compressed blocks with
+     ``nsa.compress_kv`` from the gathered rows (a block may straddle two
+     chunks) and all-gathers the slices over ``model`` (collective 2), so
+     every rank holds every block;
+  5. runs attention for its own queries over the whole K/V, on the single
+     device's 512-query chunks on their global boundaries: NSA's
+     ``nsa.attend_queries`` (and the compressed K/V), or dense / windowed
+     ``attention.attend_queries`` (a query's window may reach into the
+     previous ranks' chunks);
+  6. keeps its slice of the K/V rows (and of the compressed blocks) in its
      caches;
-  7. runs the FFN on its own chunk.
+  7. runs the FFN on its own chunk: a MoE layer cuts its dispatch groups
+     from the chunk, and they are the single device's groups because the
+     single device's group size must divide the chunk (else it raises).
 
 Before the layers each rank embeds the ids in its vocab rows and a
-reduce-scatter over ``model`` sums and cuts the chunks (collective 0);
-after them the last position's hidden state, which the last ``model`` rank
-holds, reaches the others in one all-reduce (the last), and each computes
-its vocab slice of the logits. So 2 per layer and 2 more activation
+reduce-scatter over ``model`` sums and cuts the chunks (collective 0; a
+frontend's frames are projected by the rank whose chunk holds them, from
+the ``frontend_proj`` every rank holds); after them the last position's
+hidden state, which the last ``model`` rank holds, reaches the others in
+one all-reduce (the last), and each computes its vocab slice of the
+logits. So 2 (NSA) or 1 (dense, windowed) per layer and 2 more activation
 collectives a prefill (``nsa_sharded.collectives``), besides the weights'
 gathers (``MeshLayout.counts``). No work repeats along ``model``. The
 per-row work (steps 2, 5, 7) runs one row at a time, to bound the
 attention's (chunk, S) score tensors; the collectives carry all rows.
 
 The per-rank compute is plain PyTorch: the JAX prefill runs
-``attend_train_nsa`` in plain ``jnp``, no TPU kernel lies on this path.
+``attend_train_nsa`` / ``attend_train`` in plain ``jnp``, no TPU kernel
+lies on this path.
 """
 from __future__ import annotations
 
@@ -44,7 +53,8 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.launch import mesh as mesh_lib
-from repro_torch.models import layers, model as model_lib, nsa as nsa_lib, nsa_sharded
+from repro_torch.models import attention, layers, model as model_lib, moe as moe_lib
+from repro_torch.models import nsa as nsa_lib, nsa_sharded
 from repro_torch.models.attention import qkv
 
 SEQ_AXES = ("model",)
@@ -52,42 +62,68 @@ SEQ_AXES = ("model",)
 
 def takes(cfg: ModelConfig) -> bool:
     """Whether the sharded prefill and the batched sharded decode take
-    ``cfg``: NSA attention stacks (the two NSA targets' native cells)."""
-    return cfg.attention == "nsa" and set(cfg.layer_kinds()) == {"attn"}
+    ``cfg``: stacks of ``"attn"`` / ``"moe"`` blocks over NSA, dense or
+    sliding-window attention (recurrent blocks would need their state
+    passed along the ``model`` ranks)."""
+    return cfg.attention in ("nsa", "dense", "swa") and \
+        set(cfg.layer_kinds()) <= {"attn", "moe"}
+
+
+def moe_group(cfg: ModelConfig, rows: int, S: int, m: int) -> int:
+    """The single device's MoE dispatch group for ``rows`` x ``S`` positions
+    (0 without MoE layers); raises, naming the arch, S and the group, when
+    it does not divide a rank's ``S / m`` positions of a row."""
+    if "moe" not in cfg.layer_kinds():
+        return 0
+    G = moe_lib.group_size(rows * S, cfg.moe)
+    if (S // m) % G:
+        raise ValueError(f"{cfg.name}: a {S}-position prompt cut over {m} model ranks gives "
+                         f"{S // m} positions a rank, which the MoE dispatch group of {G} "
+                         "does not divide")
+    return G
 
 
 @torch.no_grad()
-def prefill_sharded(view, cfg: ModelConfig, mesh, tokens, max_len: int, chunk: int = 512):
-    """The rank's part of ``model.prefill(params, cfg, tokens, max_len)``
-    followed by the logits of the last position (the JAX ``prefill_step``).
+def prefill_sharded(view, cfg: ModelConfig, mesh, tokens, max_len: int, chunk: int = 512,
+                    frontend=None):
+    """The rank's part of ``model.prefill(params, cfg, tokens, max_len,
+    frontend)`` followed by the logits of the last position (the JAX
+    ``prefill_step``).
 
     ``view``: the rank's ``ServeWeights``; ``tokens`` (B, S): the rank's
-    rows (the batch over the data axes), whole along the sequence. Returns
+    rows (the batch over the data axes), whole along the sequence;
+    ``frontend`` (B, F, frontend_dim) their frames, or None. Returns
     (logits (B, 1, V / model): the rank's vocab slice, caches): the rank's
     slices (``nsa_sharded.init_local_caches(shard_sequence=False)``, with
     ``"global_rows"``) holding what ``model.prefill``'s caches hold there,
-    lengths S."""
+    lengths F + S."""
     if not takes(cfg):
-        raise NotImplementedError(f"{cfg.name}: the sharded prefill takes NSA attention stacks")
+        raise NotImplementedError(f"{cfg.name}: the sharded prefill takes attn / moe stacks")
+    is_nsa = cfg.attention == "nsa"
     nsa = cfg.nsa
+    window = model_lib._attn_window(cfg)
     group, idx, m = nsa_sharded.shard_of(mesh, SEQ_AXES)
-    B, S = tokens.shape
+    B = tokens.shape[0]
+    F = frontend.shape[1] if frontend is not None else 0
+    S = F + tokens.shape[1]
     if S % m:
-        raise ValueError(f"a prompt of {S} tokens does not divide over {m} model ranks")
+        raise ValueError(f"a prompt of {S} positions ({F} frames) does not divide over {m} "
+                         "model ranks")
     if S > max_len:
-        raise ValueError(f"prompt of {S} tokens exceeds max_len={max_len}")
+        raise ValueError(f"prompt of {S} positions exceeds max_len={max_len}")
     Sl, q0 = S // m, idx * (S // m)
     dev = tokens.device
     n_dp = mesh_lib.axes_index(mesh, mesh_lib.dp_axes(mesh))[1]
+    G = moe_group(cfg, B * n_dp, S, m)
     caches = nsa_sharded.init_local_caches(cfg, B * n_dp, max_len, mesh, SEQ_AXES, dev,
                                            shard_sequence=False)
     r0, r1 = caches["global_rows"]["kv"]
     c0, c1 = caches["global_rows"]["cmp"]
     ncb = nsa_lib.num_cmp_blocks(S, nsa)
     c_hi = min(c1, ncb)
-    x = view.embed_chunk(tokens)                                          # (B, Sl, D)
+    x = view.embed_chunk(tokens, frontend)                                # (B, Sl, D)
     positions = (q0 + torch.arange(Sl, dtype=torch.int32, device=dev))[None]  # (1, Sl)
-    for i, cache in enumerate(caches["layers"]):
+    for i, (cache, kind) in enumerate(zip(caches["layers"], cfg.layer_kinds())):
         bp = view.layer_params(i)
         mix = bp["mix"]
         qs, ks, vs = [], [], []
@@ -105,25 +141,34 @@ def prefill_sharded(view, cfg: ModelConfig, mesh, tokens, max_len: int, chunk: i
         if S > r0:
             cache["kv"]["k"][:, :min(r1, S) - r0] = k[:, r0:min(r1, S)]
             cache["kv"]["v"][:, :min(r1, S) - r0] = v[:, r0:min(r1, S)]
-        cmp = cache["cmp"]
-        if c_hi > c0:
-            a, z = c0 * nsa.cmp_stride, (c_hi - 1) * nsa.cmp_stride + nsa.cmp_block
-            kc, vc = nsa_lib.compress_kv(mix, k[:, a:z], v[:, a:z], nsa)
-            cmp["k_cmp"][:, :c_hi - c0] = kc.to(cmp["k_cmp"].dtype)
-            cmp["v_cmp"][:, :c_hi - c0] = vc.to(cmp["v_cmp"].dtype)
-        every = nsa_sharded.all_gather(torch.stack([cmp["k_cmp"], cmp["v_cmp"]]), group, m)
-        every = every.permute(1, 2, 0, 3, 4, 5).reshape(2, B, -1, *every.shape[-2:])
-        k_cmp, v_cmp = every[0][:, :ncb], every[1][:, :ncb]
+        if is_nsa:
+            cmp = cache["cmp"]
+            if c_hi > c0:
+                a, z = c0 * nsa.cmp_stride, (c_hi - 1) * nsa.cmp_stride + nsa.cmp_block
+                kc, vc = nsa_lib.compress_kv(mix, k[:, a:z], v[:, a:z], nsa)
+                cmp["k_cmp"][:, :c_hi - c0] = kc.to(cmp["k_cmp"].dtype)
+                cmp["v_cmp"][:, :c_hi - c0] = vc.to(cmp["v_cmp"].dtype)
+            every = nsa_sharded.all_gather(torch.stack([cmp["k_cmp"], cmp["v_cmp"]]), group, m)
+            every = every.permute(1, 2, 0, 3, 4, 5).reshape(2, B, -1, *every.shape[-2:])
+            k_cmp, v_cmp = every[0][:, :ncb], every[1][:, :ncb]
+            del every
         for b in range(B):
             h = x[b:b + 1]
-            hn = layers.rmsnorm(bp["norm1"], h, cfg.norm_eps)
-            heads = nsa_lib.attend_queries(
-                cfg, q[b:b + 1], nsa_lib.gates(mix, hn, cfg.num_heads), positions,
-                k[b:b + 1], v[b:b + 1], k_cmp[b:b + 1], v_cmp[b:b + 1], q0=q0, chunk=chunk)
+            if is_nsa:
+                hn = layers.rmsnorm(bp["norm1"], h, cfg.norm_eps)
+                heads = nsa_lib.attend_queries(
+                    cfg, q[b:b + 1], nsa_lib.gates(mix, hn, cfg.num_heads), positions,
+                    k[b:b + 1], v[b:b + 1], k_cmp[b:b + 1], v_cmp[b:b + 1], q0=q0, chunk=chunk)
+            else:
+                heads = attention.attend_queries(cfg, q[b:b + 1], k[b:b + 1, :q0 + Sl],
+                                                 v[b:b + 1, :q0 + Sl], q0, window, chunk)
             h = h + heads @ mix["wo"]
             x[b:b + 1] = h + model_lib._apply_ffn(
-                bp, cfg, "attn", layers.rmsnorm(bp["norm2"], h, cfg.norm_eps))[0]
-        del bp, q, kv, k, v, every, k_cmp, v_cmp
+                bp, cfg, kind, layers.rmsnorm(bp["norm2"], h, cfg.norm_eps),
+                moe_by_expert=True, moe_group=G)[0]
+        del bp, q, kv, k, v
+        if is_nsa:
+            del k_cmp, v_cmp
     last = layers.rmsnorm(view.final_norm, x[:, -1:], cfg.norm_eps)
     if idx != m - 1:
         last = torch.zeros_like(last)

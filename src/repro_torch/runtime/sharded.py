@@ -325,9 +325,11 @@ def init_state(cfg: ModelConfig, tcfg: TrainConfig, seed: int, layout: MeshLayou
 # ---------------------------------------------------------------- the step
 def make_sharded_step(cfg: ModelConfig, tcfg: TrainConfig, mesh):
     """``runtime.trainer.make_train_step(cfg, tcfg, mesh)``: returns
-    step(params, opt, residual, tokens) -> (params, opt, residual, metrics)
-    on this rank's blocks (``sharding.state_specs``) and its rows of the
-    batch (``batch_spec``); metrics {"loss", "grad_norm"} are the global
+    step(params, opt, residual, tokens, frontend=None) -> (params, opt,
+    residual, metrics) on this rank's blocks (``sharding.state_specs``) and
+    its rows of the batch (``batch_spec``; a ``frontend``'s frames are cut
+    the same way, rows over the data axes, and ``frontend_proj`` stays
+    whole on every rank); metrics {"loss", "grad_norm"} are the global
     values, equal on every rank. The step carries ``layout`` (the
     ``MeshLayout``, with its collective counts) and ``specs``."""
     model.check_supported(cfg)
@@ -336,19 +338,20 @@ def make_sharded_step(cfg: ModelConfig, tcfg: TrainConfig, mesh):
     specs = sharding.state_specs(init_params(cfg, torch.Generator(), "meta"), mesh, use_comp)
     p_specs = specs["params"]
     bspec = sharding.batch_spec(mesh)
+    fspec = sharding.spec(*bspec, None)          # (rows, frames, frontend_dim)
 
     def gathered(tree, sp):
         return sharding.map_specs(lambda _, t, s: Gather.apply(t, layout, s), tree, sp)
 
-    def value_and_grad(params, leaves, batch):
+    def value_and_grad(params, leaves, batch, frontend):
         view = {k: (v if k == "layers" else gathered(v, p_specs[k])) for k, v in params.items()}
-        loss = model.loss_fn(view, cfg, batch, remat=tcfg.remat,
+        loss = model.loss_fn(view, cfg, batch, frontend=frontend, remat=tcfg.remat,
                              layer_params=lambda i, bp: gathered(bp, p_specs["layers"][i]),
                              moe_stats=lambda t: DataSum.apply(t, layout))
         grads = torch.autograd.grad(loss, leaves)
         return loss.detach(), tree_unflatten(params, list(grads))
 
-    def step_fn(params, opt, residual, tokens):
+    def step_fn(params, opt, residual, tokens, frontend=None):
         leaves = tree_leaves(params)
         # each leaf's spec in the order of the caller's tree
         leaf_specs = [sharding.leaf_at(p_specs, key) for key, _ in sharding.leaf_paths(params)]
@@ -358,20 +361,24 @@ def make_sharded_step(cfg: ModelConfig, tcfg: TrainConfig, mesh):
             if tcfg.micro_batches > 1:
                 # the single device's micro-batches are runs of the whole
                 # batch's rows: put the batch together, cut each by batch_spec
-                whole = layout.gather(tokens, bspec)
-                mb = whole.reshape((tcfg.micro_batches, whole.shape[0] // tcfg.micro_batches)
-                                   + whole.shape[1:])
+                def runs(t, sp):
+                    whole = layout.gather(t, sp)
+                    return whole.reshape((tcfg.micro_batches,
+                                          whole.shape[0] // tcfg.micro_batches) + whole.shape[1:])
+                mb = runs(tokens, bspec)
+                fmb = None if frontend is None else runs(frontend, fspec)
                 loss = torch.zeros((), device=tokens.device)
                 grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                                        device=p.device), params)
-                for batch in mb:
-                    l, g = value_and_grad(params, leaves, layout.block(batch, bspec))
+                for j, batch in enumerate(mb):
+                    fr = None if fmb is None else layout.block(fmb[j], fspec)
+                    l, g = value_and_grad(params, leaves, layout.block(batch, bspec), fr)
                     loss = loss + l
                     grads = tree_map(torch.add, grads, g)
                 loss = loss / tcfg.micro_batches
                 grads = tree_map(lambda g: g / tcfg.micro_batches, grads)
             else:
-                loss, grads = value_and_grad(params, leaves, tokens)
+                loss, grads = value_and_grad(params, leaves, tokens, frontend)
         finally:
             for p in leaves:
                 p.requires_grad_(False)
@@ -480,16 +487,28 @@ class ServeWeights:
         return nsa_sharded.all_reduce(self._partial_embed(tokens), dist.ReduceOp.SUM, group)
 
     @torch.no_grad()
-    def embed_chunk(self, tokens):
+    def embed_chunk(self, tokens, frontend=None):
         """tokens (B, S) -> this rank's sequence chunk of the embeddings
         (B, S / model, D): the partials of every position summed over
-        ``model`` and scattered along the sequence."""
+        ``model`` and scattered along the sequence. With a ``frontend``
+        (B, F, frontend_dim) the stream is [projected frames; embedded
+        tokens] (``model.embed_inputs``), cut over ``model`` on its F + S
+        positions: the token partials sit after F zero rows, and each rank
+        projects the frames of its own chunk through ``frontend_proj``,
+        which every rank holds whole."""
         from repro_torch.models import nsa_sharded
         group, idx, m = nsa_sharded.shard_of(self.layout.mesh, ("model",))
         part = self._partial_embed(tokens)
+        F = frontend.shape[1] if frontend is not None else 0
+        if F:
+            part = torch.cat([part.new_zeros(part.shape[0], F, part.shape[2]), part], dim=1)
         B, S, D = part.shape
         chunks = part.reshape(B, m, S // m, D).transpose(0, 1).contiguous()
-        return nsa_sharded.reduce_scatter(chunks, group)
+        x = nsa_sharded.reduce_scatter(chunks, group)
+        a, b = idx * (S // m), min(F, (idx + 1) * (S // m))
+        if b > a:
+            x[:, :b - a] = frontend[:, a:b].to(x.dtype) @ self.blocks["frontend_proj"]["w"]
+        return x
 
     def logits(self, hidden):
         """hidden (..., D) -> this rank's vocab slice of the logits (...,

@@ -205,7 +205,8 @@ def test_train_rank_bytes_split_the_state(world, model):
     for arch in configs.ARCH_IDS:
         r = dryrun.train_rank_bytes(arch, "train_4k", world, model)
         one = specs.cell_bytes(arch, "train_4k", 1)
-        assert r["split"] * world + r["partial_whole"] == one["total"], arch
+        assert r["split"] * world + r["partial_whole"] == \
+            one["weights"] + one["grads"] + one["adam_moments"], arch
         assert r["total"] == r["split"] + r["partial"] == \
             r["weights"] + r["grads"] + r["adam_moments"]
         assert r["mesh"] == [world // model, model]

@@ -1193,3 +1193,43 @@ def test_sharded_prefill_and_decode_equal_single_device_on_card(cuda, tmp_path):
     whole = serve_checks.assemble(tmp_path / "logits", "reduced-1b", 2)
     assert torch.equal(whole["prefill"].argmax(-1), ref["prefill_logits"].argmax(-1))
     assert torch.equal(whole["decode"].argmax(-1), ref["decode_logits"].argmax(-1))
+
+
+@pytest.mark.gpu
+def test_sharded_native_serve_with_frames_equals_single_device_on_card(cuda, tmp_path):
+    """Phase 14(c)'s check at a smaller size: four gloo ranks sharing the
+    card with CUDA tensors on a (2, 2) mesh, reduced pixtral-12b in float32
+    (dense attention behind a frontend), 2 rows of 16 frames + 112 tokens,
+    ``max_len`` 160: ``prefill_sharded`` and 12 batched
+    ``decode_step_sharded`` tokens (the split-KV dense decode) equal
+    ``model.prefill`` and 12 ``decode_step``s through the flash kernel on
+    the card: every rank's logits slice and K/V slices within rtol 2e-4 /
+    atol 2e-5, the assembled argmax equal; 1 activation collective a layer
+    and 2 more a prefill, 2 a layer and 1 more a decode token."""
+    from repro_torch.configs import reduced
+    from repro_torch.launch import serve_checks
+    from repro_torch.optim import tree_map
+    cfg = reduced("pixtral-12b")
+    case = serve_checks.load_case({"seed": 0, "batch": 2, "seq": 112, "decode": 12,
+                                   "frames": 16}, cfg, cuda)
+    ref = serve_checks.reference(case["params"], cfg, case["tokens"], case["decode"], 160,
+                                 frontend=case["frontend"])
+    torch.save(ref, tmp_path / "ref.pt")
+    torch.save({"params": tree_map(lambda t: t.cpu(), case["params"]),
+                **{k: case[k].cpu() for k in ("tokens", "decode", "frontend")}},
+               tmp_path / "case.pt")
+    job = dict(name="pixtral", cfg=cfg, mesh=((2, 2), ("data", "model")),
+               case=str(tmp_path / "case.pt"), max_len=160, ref=str(tmp_path / "ref.pt"),
+               tol=(2e-4, 2e-5), out=str(tmp_path / "logits"))
+    got = serve_checks.run_checks([job], 4, "gloo", tmp_path / "out", timeout=300)
+    L = cfg.num_layers
+    for r in got:
+        res = r["jobs"][0]
+        assert r["device"].startswith("cuda"), r["device"]
+        print("rank", r["rank"], res["max_abs_err"])
+        assert res["ok"], res
+        assert res["prefill"]["collectives"] == L + 2
+        assert res["decode"]["collectives_per_token"] == [2 * L + 1]
+    whole = serve_checks.assemble(tmp_path / "logits", "pixtral", 4)
+    assert torch.equal(whole["prefill"].argmax(-1), ref["prefill_logits"].argmax(-1))
+    assert torch.equal(whole["decode"].argmax(-1), ref["decode_logits"].argmax(-1))

@@ -19,7 +19,13 @@ against the JAX single-device ``make_train_step`` and the port's:
     block that does not divide raises, naming the leaf, dimension and axes;
   * checkpoints: saved from the (2, 2) world, restored onto (2, 1) and onto
     one device bitwise; one written by the JAX ``save`` restored onto (2, 2)
-    bitwise.
+    bitwise;
+  * a frontend's frames: reduced pixtral-12b on (2, 1), its 8 frames a row
+    cut over the data ranks with the tokens, equals a JAX step on
+    ``loss_fn(frontend=)`` (``jax.value_and_grad``, the clip and AdamW, as
+    the JAX dry run's ``train_4k`` step of an arch with a frontend runs it):
+    the loss, and through the first moment the gradient of every leaf,
+    ``frontend_proj`` too.
 
 Each world is one spawned run (``launch.ranks.spawn``, a ``FileStore`` in
 ``tmp_path``, one thread per rank, its own timeout) that runs every job
@@ -63,7 +69,8 @@ def _jobs(world, tmp):
                      **torch.load(tmp / "cfg_jax.pt", weights_only=False))]
     return [dict(kind="restore", name="(2, 2) checkpoint on (2, 1)", mesh=dm(2, 1),
                  dir=str(tmp / "ck22"), whole=str(tmp / "ck22" / "whole.pt"),
-                 **torch.load(tmp / "cfg_jax.pt", weights_only=False))]
+                 **torch.load(tmp / "cfg_jax.pt", weights_only=False)),
+            step("pixtral frames (2, 1)", "frames", dm(2, 1), ("jax",))]
 
 
 # ---------------------------------------------------------------- the ranks
@@ -125,10 +132,10 @@ def _rank(rank, world, dev, tmp, out_dir):
 
 
 # ---------------------------------------------------------------- the references
-def _save_case(tmp, name, cfg, tcfg, params, tokens, refs):
+def _save_case(tmp, name, cfg, tcfg, params, tokens, refs, frontend=None):
     """The case's whole inputs, its configs and one reference file per
     entry of ``refs`` ({name: reference dict})."""
-    torch.save({"params": params, "tokens": tokens}, tmp / f"{name}.pt")
+    torch.save({"params": params, "tokens": tokens, "frontend": frontend}, tmp / f"{name}.pt")
     torch.save({"cfg": cfg, "tcfg": tcfg}, tmp / f"cfg_{name}.pt")
     for r, ref in refs.items():
         torch.save(ref, tmp / f"ref_{name}_{r}.pt")
@@ -198,6 +205,28 @@ def runs(tmp_path_factory):
     # a checkpoint written by the JAX package, and its whole state in the port's layout
     jsave(str(tmp / "jaxck"), 1, {"params": p1, "opt": o1, "residual": jnp.zeros(())})
     torch.save(jstate, tmp / "jaxck_whole.pt")
+
+    # a frontend's frames: the JAX step on loss_fn(frontend=), as the JAX
+    # dry run's train_4k step of an arch with a frontend runs it
+    from repro import configs as jcfg
+    from repro.optim import adamw_update as jadamw_update, \
+        clip_by_global_norm as jclip_by_global_norm
+    jc, tc = jcfg.reduced("pixtral-12b"), reduced("pixtral-12b")
+    jp = jmodel.init(jax.random.PRNGKey(5), jc)
+    jtoks = jax.random.randint(jax.random.PRNGKey(6), (4, 64), 0, jc.vocab_size)
+    jfe = jax.random.normal(jax.random.PRNGKey(7), (4, 8, jc.frontend_dim))
+    loss, grads = jax.value_and_grad(
+        lambda p: jmodel.loss_fn(p, jc, jtoks, frontend=jfe, remat=True))(jp)
+    grads, gnorm = jclip_by_global_norm(grads, jt.grad_clip)
+    p1, o1 = jadamw_update(grads, jadamw_init(jp), jp, jt)
+    fref = train_checks.reference(
+        {"loss": loss, "grad_norm": gnorm}, from_jax(host(p1), tc, "cpu"),
+        AdamWState(mu=from_jax(host(o1.mu), tc, "cpu"), nu=from_jax(host(o1.nu), tc, "cpu"),
+                   count=torch.tensor(int(o1.count), dtype=torch.int32)), torch.zeros(()))
+    _save_case(tmp, "frames", tc, tt, from_jax(host(jp), tc, "cpu"),
+               torch.from_numpy(np.array(jtoks)).long(), {"jax": fref},
+               torch.from_numpy(np.array(jfe)))
+    out["frames_loss"] = float(loss)
 
     # the port-only cases
     g = lambda seed: torch.Generator().manual_seed(seed)
@@ -378,3 +407,16 @@ def test_jax_checkpoint_restores_sharded_bitwise(runs):
     for r in runs[4]:
         job = _job(r, "JAX checkpoint on (2, 2)")
         assert job["bitwise"] and job["step"] == 1
+
+
+def test_sharded_step_with_frontend_frames_equals_the_jax_step(runs):
+    """Reduced pixtral-12b on (2, 1), 4 rows of 8 frames + 64 tokens (each
+    data rank 2 rows of both): the loss is the JAX ``loss_fn(frontend=)``'s
+    (its prefix positions skipped), and the new params and both moments
+    equal the JAX step's on every block (rtol 2e-4 / atol 2e-5; loss rtol
+    1e-5), so every gradient leaf equals ``jax.value_and_grad``'s, the
+    replicated ``frontend_proj`` summed over the data ranks."""
+    for r in runs[2]:
+        job = _job(r, "pixtral frames (2, 1)")
+        assert job["refs"]["jax"]["ok"], job["refs"]["jax"]
+        assert abs(job["loss"] - runs["frames_loss"]) <= LOSS_RTOL * abs(runs["frames_loss"])
