@@ -176,7 +176,7 @@ Phases (every phase always runs; any failure exits non-zero):
      prompts, ``max_len`` 8208: the sharded prefill equals
      ``model.prefill`` on the card (the last position's logits, a vocab
      slice per model rank; every rank's K/V rows and compressed blocks),
-     then 20 decode tokens equal 20 ``decode_step``s through the kernels
+     then 16 decode tokens equal 16 ``decode_step``s through the kernels
      (each token's logits, the caches after the last; block 255 completes
      at position 4111 with rows on both sides of the model boundary at
      4104, and its owner writes it), rtol 2e-4 / atol 2e-5, argmax equal;
@@ -187,10 +187,10 @@ Phases (every phase always runs; any failure exits non-zero):
      ``decode_step`` with its NSA layers on the plain ``nsa_verify_ref``
      within 3e-2 (logits and caches) and give its argmax through the
      kernels (the differences from the kernels' route are printed, each
-     layer's too; (a) holds that decode in float32); (c) and (d) in (a)'s
-     world of four gloo ranks on (2, 2), after it and after (b) (the ranks
+     layer's too; (a) holds that decode in float32); (c), (d) and (e) in
+     (a)'s world of four gloo ranks on (2, 2), after it and after (b) (the ranks
      draw the whole params one at a time): (c) full-width
-     pixtral-12b cut to 2 layers in float32, 2 rows
+     pixtral-12b cut to 1 layer in float32, 2 rows
      of 256 seeded frontend frames + 4,096 tokens, ``max_len`` 4,864: the
      prefill (frames in front of the tokens, the dense attention's K/V
      all-gathered) and 12 decode tokens (the split-KV dense decode) equal
@@ -205,7 +205,16 @@ Phases (every phase always runs; any failure exits non-zero):
      ``decode_step`` on the flash kernel's plain version and with the
      argmax of its kernel route (or a token tied with it within 3e-2,
      each such margin printed); the assignments the whole batch's group
-     dropped printed beside those per-rank groups would have dropped;
+     dropped printed beside those per-rank groups would have dropped; (e)
+     the recurrent archs in float32, 2 x 4,096 tokens, 8 decode tokens,
+     their states passed along the model ranks across the prompt's cut at
+     2,048 (``models.recurrent_sharded``): full-width recurrentgemma-9b at 3
+     layers (one whole rglru, rglru, attn period; ``max_len`` 6,160, so
+     every decode token's 2,048-key window straddles the cache's model
+     boundary at row 3,080) and full-width xlstm-125m at 2 (mlstm, slstm):
+     the prefill and the decode equal ``model.prefill`` + 8
+     ``decode_step``s on the card (logits, every rank's states and K/V
+     slices), rtol 2e-4 / atol 2e-5, argmax equal, collectives exact;
      walls, collectives, gathered bytes and the peak per rank printed;
  15. the summary lines: each phase's seconds, a ``kernels`` JSON line
      (every kernel x head dim, and x query-head group for the zoo's, and x
@@ -2324,21 +2333,33 @@ def train_ranks_phase(ctx, out_dir, phase9=None):
 
 # Phase 14 (c) and (d): the native-attention archs across four gloo ranks
 # sharing the card on (data 2, model 2), each at full width with its depth
-# cut. (c): pixtral-12b, dense attention behind a frontend, in float32 (held
-# to the float32 tolerance against the flash kernel's route); (d): mixtral-
+# cut ((c) to 1 layer to make room for (e): at 2 its per-token weight
+# gathers through gloo took ~3.3 s). (c): pixtral-12b, dense attention
+# behind a frontend, in float32 (held to the float32 tolerance against the
+# flash kernel's route); (d): mixtral-
 # 8x22b, sliding-window attention and MoE, in bf16 (held within 3e-2 of the
 # single device's prefill and of its decode on the flash kernel's plain
 # version, argmax equal to the kernel's route). max_len 8208 puts (d)'s model
 # boundary at row 4104, inside every decode token's 4096-key window.
+# (e): the recurrent archs in float32, their states passed along the model
+# ranks (the prompt's cut at position 2048): recurrentgemma-9b at one whole
+# (rglru, rglru, attn) period, whose max_len 6160 puts the cache's model
+# boundary at row 3080, inside every decode token's 2048-key window
+# (positions 4096-4103; at 8208 the boundary at 4104 would lie past them);
+# xlstm-125m at one (mlstm, slstm) period.
 NATIVE_RANKS = {
-    "c": dict(arch="pixtral-12b", layers=2, dtype="float32", rows=2, frames=256, seq=4096,
+    "c": dict(arch="pixtral-12b", layers=1, dtype="float32", rows=2, frames=256, seq=4096,
               max_len=4864, decode=12),
     "d": dict(arch="mixtral-8x22b", layers=1, dtype="bfloat16", rows=4, frames=0, seq=6144,
-              max_len=8208, decode=8)}
+              max_len=8208, decode=8),
+    "e-rg": dict(arch="recurrentgemma-9b", layers=3, dtype="float32", rows=2, frames=0,
+                 seq=4096, max_len=6160, decode=8),
+    "e-xl": dict(arch="xlstm-125m", layers=2, dtype="float32", rows=2, frames=0, seq=4096,
+                 max_len=6160, decode=8)}
 BF16_SERVE_TOL = (3e-2, 3e-2)
 
 
-def serve_report(tag, got, whole, ref, tie_tol=None, job=0):
+def serve_report(tag, got, whole, ref, tie_tol=None, job=0, kv=True):
     """Prints each rank's errors, walls, collectives, gathers and peak for a
     ``serve_checks`` job; fails unless every rank held and the assembled
     prefill and decode argmax equal ``ref``'s (the kernels' route). With
@@ -2346,7 +2367,8 @@ def serve_report(tag, got, whole, ref, tie_tol=None, job=0):
     passes when ``ref``'s logit there is within that tolerance of its
     maximum (the two tokens tie at the precision the logits are held to);
     each such position and its margin is printed. ``job``: the job's index
-    in the ranks' records. Returns the argmax verdicts."""
+    in the ranks' records; ``kv``: whether the stack has K/V (its rows are
+    printed). Returns the argmax verdicts."""
     same = {}
     for k, w in (("prefill", "prefill_logits"), ("decode", "decode_logits")):
         got_top, want = whole[k].argmax(-1), ref[w].float().cpu()
@@ -2365,8 +2387,8 @@ def serve_report(tag, got, whole, ref, tie_tol=None, job=0):
         same[k] = ties
     for g in got:
         j = g["jobs"][job]
-        log(f"  {tag} rank {g['rank']} coords {j['coords']} rows {j['rows']} K/V rows "
-            f"{j['kv_rows']} vocab {j['vocab']}: max abs err " +
+        log(f"  {tag} rank {g['rank']} coords {j['coords']} rows {j['rows']} "
+            + (f"K/V rows {j['kv_rows']} " if kv else "") + f"vocab {j['vocab']}: max abs err " +
             ", ".join(f"{k} {v:.3e}" for k, v in j["max_abs_err"].items()) +
             f"; prefill {j['prefill']['wall_ms']:.1f} ms, {j['prefill']['collectives']} "
             f"activation collectives, {j['prefill']['gathers']} gathers "
@@ -2387,7 +2409,7 @@ def serve_report(tag, got, whole, ref, tie_tol=None, job=0):
 
 
 def native_job(out_dir, name):
-    """Phase 14 (c) or (d) (``NATIVE_RANKS[name]``) up to its ranks: the
+    """Phase 14 (c), (d) or (e) (``NATIVE_RANKS[name]``) up to its ranks: the
     single device's reference on the card, saved for them. Returns (the
     job, the reference, its seconds)."""
     from repro_torch import configs
@@ -2415,8 +2437,9 @@ def native_job(out_dir, name):
 
 
 def native_report(ctx, out_dir, name, got, job, ref, t_ref):
-    """Phase 14 (c) or (d) after its ranks: the report, the checks of the
-    cases it guards. Returns the record."""
+    """Phase 14 (c), (d) or (e) after its ranks: the report, the checks of
+    the cases it guards (a recurrent arch's collectives exact). Returns the
+    record."""
     from repro_torch.launch import serve_checks
     c = NATIVE_RANKS[name]
     i = list(NATIVE_RANKS).index(name) + 1        # (a) is the world's first job
@@ -2426,12 +2449,17 @@ def native_report(ctx, out_dir, name, got, job, ref, t_ref):
     tag = (f"[14{name} {cfg.name} {c['dtype']}, {c['rows']} x {frames}{c['seq']} tokens + "
            f"{c['decode']} decode, (2, 2) over 4 gloo ranks]")
     whole = serve_checks.assemble(out_dir / "logits", name, 4)
-    same = serve_report(tag, got, whole, ref, BF16_SERVE_TOL if bf16 else None, job=i)
+    kinds = cfg.layer_kinds()
+    recurrent = [k for k in kinds if k in ("rglru", "mlstm", "slstm")]
+    kv = len(recurrent) < len(kinds)
+    same = serve_report(tag, got, whole, ref, BF16_SERVE_TOL if bf16 else None, job=i, kv=kv)
+    route = " through the flash kernel" if kv else ""
+    slices = " and ".join(["K/V slices"] * kv + ["states"] * bool(recurrent))
     what = (f"the prefill within 3e-2 of the single device's, the {c['decode']} decode "
             "tokens within 3e-2 of its decode_step on the flash kernel's plain version "
             "(logits and caches)" if bf16 else
-            f"equal to model.prefill + {c['decode']} decode_steps through the flash kernel "
-            "within rtol 2e-4 / atol 2e-5")
+            f"equal to model.prefill + {c['decode']} decode_steps{route} within rtol 2e-4 / "
+            f"atol 2e-5 (logits and every rank's {slices})")
     rec = {"ranks": [g["jobs"][i] for g in got], "single_prefill_ms": ref["prefill_ms"],
            "single_decode_ms": ref["decode_ms"], "reference_s": t_ref}
     if cfg.attention == "swa":
@@ -2439,13 +2467,25 @@ def native_report(ctx, out_dir, name, got, job, ref, t_ref):
         if not all(p - cfg.window + 1 < b <= p for p in range(p0, p0 + c["decode"])):
             fail(f"{tag} a decode token's window does not straddle the model boundary at {b}")
         what += f"; every decode token's {cfg.window}-key window straddles row {b}"
+    if recurrent:
+        # one all-gather an RG-LRU / mLSTM / attention layer, two an sLSTM's relay
+        # on two model ranks, + 2 a prefill; 2 an attention layer a token + 1
+        want = (sum(2 if k == "slstm" else 1 for k in kinds) + 2, 2 * kinds.count("attn") + 1)
+        counts = {(g["jobs"][i]["prefill"]["collectives"],
+                   tuple(g["jobs"][i]["decode"]["collectives_per_token"])) for g in got}
+        if counts != {(want[0], (want[1],))}:
+            fail(f"{tag} collectives {counts}, not {want} (prefill, a decode token)")
+        what += (f"; the {'/'.join(dict.fromkeys(recurrent))} states carried across the "
+                 f"model cut at position {c['seq'] // 2}; collectives exact: {want[0]} a "
+                 f"prefill, {want[1]} a token")
     if cfg.moe is not None:
         drops = got[0]["jobs"][i]["decode"]["moe_drops"]
         rec["moe_drops"] = drops
         what += (f"; the whole batch's MoE group dropped {drops['whole']} expert assignments "
                  f"over the decode, per-rank groups would have dropped {drops['per_rank']} "
                  f"({drops['whole_only']} only the whole group drops)")
-    log(f"  {tag} {ctx['kind']} ({ctx['card']}): {what}; argmax equal to the kernels' route "
+    versus = "the kernels' route" if kv else "the single device"
+    log(f"  {tag} {ctx['kind']} ({ctx['card']}): {what}; argmax equal to {versus} "
         f"{same}; single device prefill {ref['prefill_ms']:.1f} ms, decode "
         f"{statistics.median(ref['decode_ms']):.1f} ms a token (median); {t_ref:.1f}s for the "
         "reference")
@@ -2456,12 +2496,12 @@ def native_report(ctx, out_dir, name, got, job, ref, t_ref):
 # float32, SERVE_RANKS_ROWS rows of SERVE_RANKS_PROMPT tokens, on four gloo
 # ranks sharing the card on (data 2, model 2), then SERVE_RANKS_DECODE
 # decode tokens. max_len 8208 puts the model boundary of the K/V rows at
-# 4104, inside the decode's positions 4096-4115: block 255 (rows 4080-4111)
+# 4104, inside the decode's positions 4096-4111: block 255 (rows 4080-4111)
 # completes at 4111 with rows on both model ranks, and model rank 0 (blocks
 # 0-255 of the 512 padded ones) writes it. (b): the whole model in bf16 on
 # one NCCL rank, prefill_32k at batch 1, then 2 decode tokens.
 SERVE_RANKS_LAYERS, SERVE_RANKS_ROWS, SERVE_RANKS_PROMPT = 2, 2, 4096
-SERVE_RANKS_MAX_LEN, SERVE_RANKS_DECODE = 8208, 20
+SERVE_RANKS_MAX_LEN, SERVE_RANKS_DECODE = 8208, 16
 
 
 def serve_ranks_phase(ctx, out_dir):
@@ -2479,8 +2519,8 @@ def serve_ranks_phase(ctx, out_dir):
     equal, then 2 decode tokens == the single device's ``decode_step`` on
     the plain ``nsa_verify_ref`` within 3e-2 and with the argmax of its
     ``decode_step`` through the kernels (the largest differences from it
-    printed, per layer too). (c) and (d) (``NATIVE_RANKS``) run in (a)'s
-    world after it, their references computed first, once (b) has
+    printed, per layer too). (c), (d) and (e) (``NATIVE_RANKS``) run in
+    (a)'s world after it, their references computed first, once (b) has
     ended. Returns the records."""
     from repro_torch import configs
     from repro_torch.launch import serve_checks, specs
@@ -2509,8 +2549,8 @@ def serve_ranks_phase(ctx, out_dir):
     with ThreadPoolExecutor(1) as pool:
         second = pool.submit(world_b)
 
-        # ---- (a), (c) and (d): the single device's references on the card,
-        # then one world of four gloo ranks that runs the three jobs in turn
+        # ---- (a), (c), (d) and (e): the single device's references on the card,
+        # then one world of four gloo ranks that runs the jobs in turn
         t0 = time.time()
         cfg = dataclasses.replace(base, num_layers=SERVE_RANKS_LAYERS, dtype="float32")
         case = {"seed": 0, "batch": SERVE_RANKS_ROWS, "seq": SERVE_RANKS_PROMPT,
@@ -2530,7 +2570,7 @@ def serve_ranks_phase(ctx, out_dir):
             t1 = time.time()
             native[name] = native_job(out_dir, name)
             log(f"  [14{name} reference] {time.time() - t1:.1f}s")
-        # (c) and (d) start only once (b) has handed its memory back: the card
+        # (c), (d) and (e) start only once (b) has handed its memory back: the card
         # holds (b)'s passes beside (a)'s alone
         b_done = out_dir / "b_done"
         second.add_done_callback(lambda _: b_done.touch())
@@ -2554,7 +2594,7 @@ def serve_ranks_phase(ctx, out_dir):
         f"card within rtol 2e-4 / atol 2e-5 (argmax equal {same}); blocks written across the "
         f"model boundary {across}; single device prefill {ref['prefill_ms']:.1f} ms, decode "
         f"{statistics.median(ref['decode_ms']):.1f} ms a token (median); {t_ref:.1f}s for the "
-        f"reference; the world's four ranks ran (a), (c) and (d) in {t_world:.1f}s (14(b) "
+        f"reference; the world's four ranks ran (a), (c), (d) and (e) in {t_world:.1f}s (14(b) "
         f"beside (a), (c) after waiting {got[0]['jobs'][1]['waited_s']:.1f}s for it)")
     out["a"] = {"ranks": [g["jobs"][0] for g in got], "world_s": t_world}
     del ref, whole

@@ -81,11 +81,18 @@ fit N cards but not one. ``--run --world N --model M`` takes them
 fills its slices of the cache and serves one ``decode_step_sharded`` token, three
 timed and one profiled. Records (walls, busy and NCCL time, collectives,
 gathered bytes, peak, rows) go to
-``<--out>/world/<arch>__<shape>__<N>x<M><backend>/``. Every stack of
-attention (NSA, dense or sliding-window) and MoE blocks runs, each over its
+``<--out>/world/<arch>__<shape>__<N>x<M><backend>/``. Every arch runs:
+attention (NSA, dense or sliding-window) and MoE blocks each over its
 native attention, an arch with a frontend with its frames in front of the
-tokens (``cell_frontend``, as in the one-card prefill and the train cells);
-the recurrent archs print ``[SKIP]`` with the reason.
+tokens (``cell_frontend``, as in the one-card prefill and the train
+cells), and the recurrent archs (recurrentgemma-9b, xlstm-125m) with their
+states passed along the ``model`` ranks in the prefill
+(``models.recurrent_sharded``) and stepped on each rank's rows in the
+decode. The batch-1 sequence-sharded decode (``--world N`` on a
+``long_500k`` cell) takes the NSA targets and the recurrent archs, which
+run natively: their windowed K/V split over every rank, the states whole
+on each. ``fill_caches`` fills K/V and compressed caches; recurrent states
+keep their initial values, in the records as on one card.
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun --run --world 4 --model 2 \
       --backend nccl --arch ssv-nsa-8b --shape prefill_32k  # four cards
@@ -117,7 +124,7 @@ from repro_torch.kernels import LaunchCounter
 from repro_torch.launch import sharding, specs
 from repro_torch.models import model
 from repro_torch.models import nsa as nsa_lib
-from repro_torch.models import prefill_sharded
+from repro_torch.models import prefill_sharded, recurrent
 
 ART_DIR = Path(__file__).resolve().parents[3] / "build" / "dryrun"
 MESH = "card"                 # one card, no mesh
@@ -441,7 +448,9 @@ def measure_prefill(arch_id: str, shape_name: str, batch: int = 0, seed: int = 0
     and the ``Roofline`` row at ``batch``. An arch with a frontend
     (``cell_frontend``) prefills its frames in front of the tokens, as the
     JAX cell does: its caches then hold ``frontend_len + seq_len``
-    positions, within ``CACHE_SLACK``."""
+    positions, within ``CACHE_SLACK``. An sLSTM layer replays its captured
+    chunks (``recurrent.SlstmGraphs``), as the serving engines' prefill
+    does."""
     dev = resolve_device(device)
     if dev.type != "cuda":
         raise RuntimeError("dryrun --run measures a cell on the card; it has no CPU mode")
@@ -463,6 +472,7 @@ def measure_prefill(arch_id: str, shape_name: str, batch: int = 0, seed: int = 0
     n_frames = 0 if frames is None else frames.shape[1]
     max_len = shape.seq_len + specs.CACHE_SLACK
     caches = model.init_caches(cfg, batch, max_len, dev)
+    graphs = recurrent.SlstmGraphs(dev) if "slstm" in cfg.layer_kinds() else None
     build_s = time.time() - t0
     out = []
 
@@ -470,7 +480,8 @@ def measure_prefill(arch_id: str, shape_name: str, batch: int = 0, seed: int = 0
         logits = []
         for b in rows:
             hidden, c = model.prefill(params, cfg, tokens[b:b + 1], max_len,
-                                      None if frames is None else frames[b:b + 1])
+                                      None if frames is None else frames[b:b + 1],
+                                      slstm_graphs=graphs)
             logits.append(model.logits_fn(params, cfg, hidden[:, -1:]).float())
             del hidden
             for dst, src in zip(caches["layers"], c["layers"]):
@@ -546,8 +557,15 @@ def world_mesh(world: int) -> MeshConfig:
 
 
 def sharded_decode_ok(cfg) -> bool:
-    """Whether ``nsa_sharded.decode_step_sharded`` takes ``cfg``."""
-    return cfg.attention == "nsa" and set(cfg.layer_kinds()) <= {"attn", "moe"}
+    """Whether ``nsa_sharded.decode_step_sharded`` takes ``cfg`` at batch 1
+    with the sequence over every axis: NSA stacks (the attention archs'
+    ``long_500k`` cells run their NSA variants) and the recurrent archs,
+    which run theirs natively (``long_500k``'s ``"native"``: the windowed
+    K/V split, the states whole on every rank)."""
+    kinds = set(cfg.layer_kinds())
+    if kinds & set(model.RECURRENT_KINDS):
+        return prefill_sharded.takes(cfg)
+    return cfg.attention == "nsa" and kinds <= {"attn", "moe"}
 
 
 def rank_bytes(arch_id: str, shape_name: str, world: int) -> Dict:
@@ -777,8 +795,8 @@ def sharded_rank(rank: int, world: int, dev, arch_id: str, shape_name: str, seed
     shape = specs.SHAPE_BY_NAME[shape_name]
     cfg = cfg or specs.cell_config(arch_id, shape_name)[0]
     if not sharded_decode_ok(cfg):
-        raise ValueError(f"{arch_id} x {shape_name}: the sharded decode takes NSA attn / moe "
-                         "stacks")
+        raise ValueError(f"{arch_id} x {shape_name}: the batch-1 sharded decode takes NSA "
+                         "stacks and the recurrent archs")
     mc = world_mesh(world)
     mesh = build_mesh(mc, dev.type)
     t0 = time.time()
@@ -809,7 +827,7 @@ def sharded_rank(rank: int, world: int, dev, arch_id: str, shape_name: str, seed
     owner = r0 <= shape.seq_len < r1
     written = [(c["kv"]["k"][0, shape.seq_len - r0].float().cpu(),
                 c["kv"]["v"][0, shape.seq_len - r0].float().cpu())
-               for c in caches["layers"]] if owner else None
+               for c in caches["layers"] if "kv" in c] if owner else None
     out = Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
     torch.save({"logits": logits.float().cpu(), "written": written}, out / f"rank{rank}.pt")
@@ -851,8 +869,35 @@ def run_sharded(arch_id: str, shape_name: str, world: int, backend: str, out_dir
 SERVE_TIMED = 3               # timed decode tokens of a serve cell across ranks
 
 
+def layer_tracer(rank: int, layout, dev) -> Callable[[int], None]:
+    """``--trace``: a callback for ``prefill_sharded(trace=)`` that prints,
+    flushed, one timestamped line per layer for this rank: the activation
+    collectives and weight gathers so far and, on a card, the caching
+    allocator's allocated, reserved and peak bytes, its allocation retries
+    (each one frees the cache and synchronises the device) and its
+    out-of-memory errors."""
+    from repro_torch.models import nsa_sharded
+    t0 = time.time()
+    gib = 2 ** 30
+
+    def trace(i: int) -> None:
+        mem = ""
+        if dev.type == "cuda":
+            st = torch.cuda.memory_stats(dev)
+            mem = (f"; allocated {st.get('allocated_bytes.all.current', 0) / gib:.2f} GiB, "
+                   f"reserved {st.get('reserved_bytes.all.current', 0) / gib:.2f} GiB, peak "
+                   f"{st.get('allocated_bytes.all.peak', 0) / gib:.2f} GiB, "
+                   f"{st.get('num_alloc_retries', 0)} allocation retries, "
+                   f"{st.get('num_ooms', 0)} out-of-memory errors")
+        print(f"[trace] {time.strftime('%H:%M:%S')} +{time.time() - t0:.1f}s rank {rank} "
+              f"{layout.coords} layer {i} done: {nsa_sharded.collectives()} activation "
+              f"collectives, {layout.counts['gathers']} gathers" + mem, flush=True)
+    return trace
+
+
 def serve_rank(rank: int, world: int, dev, arch_id: str, shape_name: str, model_axis: int,
-               seed: int, batch: int, out_dir: str, cfg: Optional[ModelConfig] = None) -> Dict:
+               seed: int, batch: int, out_dir: str, cfg: Optional[ModelConfig] = None,
+               trace: bool = False) -> Dict:
     """One rank of ``--run --world N --model M`` on a prefill or batched
     decode cell (the JAX dry run's ``prefill_32k`` / ``decode_32k`` steps on
     a (data, model) mesh): its ``ServeWeights`` blocks drawn from ``seed``
@@ -870,7 +915,8 @@ def serve_rank(rank: int, world: int, dev, arch_id: str, shape_name: str, model_
     walls, busy and NCCL time, the collectives, the weights' gathers and
     their bytes, the peak, its ``rows`` and, when the batch was cut,
     ``reduced``; the first pass's logits (the rank's vocab slice) go to
-    ``<out_dir>/rank<r>.pt``. ``cfg`` replaces the cell's config."""
+    ``<out_dir>/rank<r>.pt``. ``cfg`` replaces the cell's config; ``trace``
+    prints ``layer_tracer``'s lines during the timed prefill."""
     import torch.distributed as dist
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.models import nsa_sharded
@@ -910,7 +956,9 @@ def serve_rank(rank: int, world: int, dev, arch_id: str, shape_name: str, model_
         nsa_sharded.reset_collectives()
         layout.reset_counts()
         t0 = time.perf_counter()
-        logits, caches = ps.prefill_sharded(view, cfg, mesh, tokens, max_len, frontend=frames)
+        logits, caches = ps.prefill_sharded(
+            view, cfg, mesh, tokens, max_len, frontend=frames,
+            trace=layer_tracer(rank, layout, dev) if trace else None)
         sync()
         rec["wall_ms"] = [(time.perf_counter() - t0) * 1e3]
         rec["kv_rows"] = list(caches["global_rows"]["kv"])
@@ -978,11 +1026,12 @@ def serve_rank(rank: int, world: int, dev, arch_id: str, shape_name: str, model_
 def run_serve_sharded(arch_id: str, shape_name: str, world: int, backend: str, out_dir: Path,
                       model_axis: int = 1, seed: int = 0, batch: int = 0,
                       cfg: Optional[ModelConfig] = None, device_type: str = "cuda",
-                      timeout: float = 3000.0, threads: Optional[int] = None) -> List[Dict]:
+                      timeout: float = 3000.0, threads: Optional[int] = None,
+                      trace: bool = False) -> List[Dict]:
     """``serve_rank`` on ``world`` spawned ranks (``cfg`` in place of the
     cell's config when given); every rank's record."""
     from repro_torch.launch import ranks
-    args = (arch_id, shape_name, model_axis, seed, batch, str(out_dir), cfg)
+    args = (arch_id, shape_name, model_axis, seed, batch, str(out_dir), cfg, trace)
     ranks.spawn(serve_rank, world, backend, device_type, args=args, timeout=timeout,
                 threads=threads)
     return [json.loads((Path(out_dir) / f"rank{r}.json").read_text()) for r in range(world)]
@@ -1101,13 +1150,6 @@ def _run_world_train(a: str, s: str, args, capacity: float, per_card: int) -> No
 
 
 def _run_world_serve(a: str, s: str, args, capacity: float, per_card: int) -> None:
-    cfg = specs.cell_config(a, s)[0]
-    if not prefill_sharded.takes(cfg):
-        print(f"[SKIP] {a:22s} {s:12s} (the prefill and batched decode across ranks take "
-              f"attention and MoE stacks; {cfg.name}'s recurrent "
-              f"{'/'.join(sorted(set(cfg.layer_kinds())))} blocks need their state passed along "
-              "the model ranks, later work)")
-        return
     rb = serve_rank_bytes(a, s, args.world, args.model, args.batch)
     if not rb["divides"] or rb["total"] * per_card > capacity:
         print(f"[SKIP] {a:22s} {s:12s} (its blocks and slices do not divide or do not fit the "
@@ -1115,7 +1157,7 @@ def _run_world_serve(a: str, s: str, args, capacity: float, per_card: int) -> No
         return
     out = Path(args.out) / "world" / f"{a}__{s}__{args.world}x{args.model}{args.backend}"
     recs = run_serve_sharded(a, s, args.world, args.backend, out, args.model, args.seed,
-                             args.batch)
+                             args.batch, trace=args.trace)
     for r in recs:
         head = (f"[RUN]  {a:22s} {s:12s} rank {r['rank']}/{r['world']} mesh {r['mesh']} "
                 f"({r['backend']}, {r['device']}) rows {r['rows']} of {r['batch']}: ")
@@ -1158,7 +1200,7 @@ def run_world(archs: List[str], shapes: List[str], args) -> int:
             if not rb["sharded_decode"] or not rb["divides"] or \
                     rb["total"] * per_card > capacity:
                 print(f"[SKIP] {a:22s} {s:12s} (the batch-1 sequence-sharded decode takes NSA "
-                      f"decode cells whose ranks fit {cards} card(s))")
+                      f"and recurrent decode cells whose ranks fit {cards} card(s))")
                 continue
             out = Path(args.out) / "world" / f"{a}__{s}__{args.world}{args.backend}"
             recs = run_sharded(a, s, args.world, args.backend, out, args.seed)
@@ -1192,6 +1234,10 @@ def main(argv=None) -> int:
                          "(elastic.plan_mesh(world, prefer_model=M))")
     ap.add_argument("--backend", choices=("nccl", "gloo"), default="nccl",
                     help="collective backend of --run --world (gloo shares the cards)")
+    ap.add_argument("--trace", action="store_true",
+                    help="with --run --world on a prefill cell: a line per rank and layer "
+                         "(collectives, gathers, the allocator's bytes, retries and "
+                         "out-of-memory errors)")
     ap.add_argument("--batch", type=int, default=0,
                     help="rows of a prefill cell (--run on one card; 0: the most that fit) or "
                          "of a prefill or decode cell across ranks (--run --world; 0: the "

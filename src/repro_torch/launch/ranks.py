@@ -8,11 +8,18 @@ ranks that share the cards (rank r on card r mod count) when the caller
 names ``device_type="cuda"``. There is no fallback from one backend or
 device to another. A rank that raises makes ``spawn`` raise, so a caller's
 process exits non-zero; a world that outlives its ``timeout`` is killed.
+A rank that raises prints its traceback at once and leaves its process
+group to the process's exit: tearing the group down (``destroy_process_
+group``) waits for the ranks that are blocked in a collective with it,
+and a rank that ran out of memory mid-layer so hid its error behind a hung
+world until NCCL's 600 s watchdog ended it.
 """
 from __future__ import annotations
 
+import sys
 import tempfile
 import time
+import traceback
 from pathlib import Path
 from typing import Callable, Optional, Sequence
 
@@ -62,8 +69,12 @@ def _entry(rank: int, fn: Callable, world: int, backend: str, device_type: str,
     dev = init_rank(rank, world, backend, device_type, store_path)
     try:
         fn(rank, world, dev, *args)
-    finally:
-        dist.destroy_process_group()
+    except BaseException:
+        print(f"rank {rank} of {world} raised:", file=sys.stderr)
+        traceback.print_exc()
+        sys.stderr.flush()
+        raise
+    dist.destroy_process_group()
 
 
 def spawn(fn: Callable, world: int, backend: str, device_type: str, args: Sequence = (),

@@ -21,8 +21,8 @@ the sharded run; with ``plain_ref`` too, the decode once more on the plain
 
   * the prefill's logits (the rank's vocab slice of the last position's)
     and every leaf of its cache slices (``local_block`` of the whole caches
-    under ``cache_specs(shard_sequence=False)``: K/V rows and compressed
-    blocks);
+    under ``cache_specs(shard_sequence=False)``: K/V rows, compressed
+    blocks and recurrent states);
   * each decode token's logits slice, and the cache slices after the last
     token (the compressed blocks the tokens completed included; each
     layer's largest difference in ``layer_err``), against either decode;
@@ -203,12 +203,15 @@ def _sync(dev) -> None:
         torch.cuda.synchronize(dev)
 
 
-def _cache_err(local, whole, mesh, rtol: float, atol: float, per_layer=None):
+def _cache_err(local, whole, mesh, rtol: float, atol: float, per_layer=None,
+               shard_sequence: bool = False):
     """(ok, max abs error) of this rank's cache slices against the same
-    blocks of the whole caches, leaf by leaf; each layer's max abs error
-    appended to ``per_layer`` when given."""
+    blocks of the whole caches under ``cache_specs(shard_sequence=...)``,
+    leaf by leaf; each layer's max abs error appended to ``per_layer`` when
+    given."""
     shape, coords = mesh_lib.mesh_shape(mesh), mesh_lib.mesh_coords(mesh)
-    specs = sharding.cache_specs({"layers": whole["layers"]}, mesh, shard_sequence=False)
+    specs = sharding.cache_specs({"layers": whole["layers"]}, mesh,
+                                 shard_sequence=shard_sequence)
     ok, worst = True, 0.0
     for got_l, want_l, sp_l in zip(local["layers"], whole["layers"], specs["layers"]):
         layer = 0.0
@@ -282,9 +285,7 @@ def _serve_job(job: Dict, dev) -> Dict:
                        "collectives": nsa_sharded.collectives(), **layout.counts,
                        "gathered_bytes": layout.bytes}}
     prefill_logits, prefill_caches = logits, _clone_caches(caches)
-    is_nsa = cfg.attention == "nsa"
-    cmp0 = [{k: t.clone() for k, t in c["cmp"].items()} for c in caches["layers"]] \
-        if is_nsa else []
+    cmp0 = [{k: t.clone() for k, t in c["cmp"].items()} for c in caches["layers"] if "cmp" in c]
     drops = {"whole": 0, "per_rank": 0, "whole_only": 0}
     n_rows = layout.n_dp if cfg.moe is not None else 1
     counting = (lambda: counting_moe_drops(cfg, n_rows, drops)) if n_rows > 1 else \
@@ -314,13 +315,14 @@ def _serve_job(job: Dict, dev) -> Dict:
     # the compressed blocks this rank wrote, and those whose rows it does not all hold
     c0, (r0, r1) = caches["global_rows"]["cmp"][0], caches["global_rows"]["kv"]
     nsa = cfg.nsa
-    written = sorted({c0 + int(j) for before, c in zip(cmp0, caches["layers"])
-                      for j in (c["cmp"]["k_cmp"] != before["k_cmp"]).flatten(2).any(-1)
+    cmp1 = [c["cmp"] for c in caches["layers"] if "cmp" in c]
+    written = sorted({c0 + int(j) for before, c in zip(cmp0, cmp1)
+                      for j in (c["k_cmp"] != before["k_cmp"]).flatten(2).any(-1)
                       .any(0).nonzero()[:, 0].tolist()})
     res["written_blocks"] = written
     res["across_boundary"] = [j for j in written
                               if j * nsa.cmp_stride < r0 or j * nsa.cmp_stride + nsa.cmp_block > r1]
-    del cmp0
+    del cmp0, cmp1
     if job.get("out"):
         out = Path(job["out"])
         out.mkdir(parents=True, exist_ok=True)

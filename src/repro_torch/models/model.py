@@ -257,7 +257,7 @@ def prefill(params, cfg: ModelConfig, tokens, max_len: int, frontend=None,
     the caches. tokens (B, S) on the model's device; MoE experts run one
     by one over their kept tokens (a host sync per MoE layer: a prefill is
     never captured); an RG-LRU layer scans the prompt in log2(S) doubling
-    steps, an mLSTM runs its parallel form and an sLSTM steps once per
+    steps, an mLSTM runs chunkwise and an sLSTM steps once per
     position (replaying the caller's captured chunks with
     ``slstm_graphs``). Returns (hidden (B, S_total, d), caches)."""
     check_supported(cfg)

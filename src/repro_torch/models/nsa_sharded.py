@@ -41,7 +41,9 @@ False)``: the rows over the data axes, the sequence over ``model``, and
 logits a vocab slice per ``model`` rank), and there the dense and
 sliding-window archs too: ``decode_step_sharded`` sends their layers to
 ``attention_sharded.attend_decode_sharded`` and a MoE layer's expert ids
-across the data ranks (``ids_gather``).
+across the data ranks (``ids_gather``). A recurrent layer (recurrentgemma,
+xlstm) steps its state, which every rank of a row holds whole, with no
+collective.
 
 Where the reference differs from itself, the port takes the single-device
 side. ``repro.models.nsa_sharded`` sums ``exp(l - m)`` over the query heads
@@ -367,12 +369,17 @@ def decode_step_sharded(params, cfg: ModelConfig, mesh, caches, tokens,
                         seq_axes: Sequence[str]):
     """Full-model one-token decode with sequence-sharded attention: the
     semantics of ``model.decode_step`` for stacks of ``"attn"`` / ``"moe"``
-    blocks. Each layer's attention goes by ``cfg.attention``: NSA
-    (``nsa_attend_decode_sharded``, the compressed cache written by the
+    and recurrent blocks. Each layer's attention goes by ``cfg.attention``:
+    NSA (``nsa_attend_decode_sharded``, the compressed cache written by the
     owner of each block a token completes) or dense / ``"swa"``
     (``attention_sharded.attend_decode_sharded``). A MoE layer whose rows
     lie over more than one data rank counts its capacity over the whole
-    batch's group, as one device does (``ids_gather``).
+    batch's group, as one device does (``ids_gather``). A recurrent layer
+    steps its state on the rank's rows (``recurrent.STEPS``) with no
+    collective: the state lies whole on every rank of a row, replicated
+    over ``model`` (and at batch 1 over every axis), as ``cache_specs``
+    lays it out, so each rank along ``seq_axes`` repeats that small step,
+    as GSPMD's replicated layout does.
 
     ``params``: whole weights (the batch-1 long-context cells) or this
     rank's ``runtime.sharded.ServeWeights`` (the batched cells, each layer
@@ -385,13 +392,15 @@ def decode_step_sharded(params, cfg: ModelConfig, mesh, caches, tokens,
 
     Collectives a token (``collectives``): 1 for the embedding with
     ``ServeWeights``; per layer 5 for NSA (6 when a completed compressed
-    block's rows lie on another rank) or 2 for dense / ``swa``; 1 more for
-    a MoE layer under ``ids_gather``."""
-    from repro_torch.models import attention_sharded, model as model_lib
+    block's rows lie on another rank) or 2 for dense / ``swa``, 0 for a
+    recurrent layer; 1 more for a MoE layer under ``ids_gather``."""
+    from repro_torch.models import attention_sharded, model as model_lib, recurrent
     from repro_torch.runtime.sharded import WholeWeights
     kinds = cfg.layer_kinds()
-    if cfg.attention not in ("nsa", "dense", "swa") or set(kinds) - {"attn", "moe"}:
-        raise NotImplementedError(f"{cfg.name}: the sharded decode takes attn / moe stacks")
+    if cfg.attention not in ("nsa", "dense", "swa") or \
+            set(kinds) - {"attn", "moe", *model_lib.RECURRENT_KINDS}:
+        raise NotImplementedError(f"{cfg.name}: the sharded decode takes attention, MoE and "
+                                  "recurrent stacks")
     w = params if hasattr(params, "layer_params") else WholeWeights(params, cfg)
     prefix_len = caches["length"]
     nsa = cfg.attention == "nsa"
@@ -403,7 +412,11 @@ def decode_step_sharded(params, cfg: ModelConfig, mesh, caches, tokens,
     for i, (cache, kind) in enumerate(zip(caches["layers"], kinds)):
         bp = w.layer_params(i)
         hn = layers.rmsnorm(bp["norm1"], x, cfg.norm_eps)
-        if nsa:
+        if kind in model_lib.RECURRENT_KINDS:
+            mix, state = recurrent.STEPS[kind](bp["mix"], cfg, hn, cache["state"])
+            for name, t in cache["state"].items():
+                t.copy_(state[name])
+        elif nsa:
             mix, _, _ = nsa_attend_decode_sharded(bp["mix"], cfg, mesh, hn, cache["kv"],
                                                   cache["cmp"], prefix_len, seq_axes)
             commit_cmp_sharded(bp["mix"], cfg, mesh, cache["kv"], cache["cmp"], prefix_len,
@@ -425,26 +438,34 @@ def decode_step_sharded(params, cfg: ModelConfig, mesh, caches, tokens,
 
 def init_local_caches(cfg: ModelConfig, batch: int, max_len: int, mesh,
                       seq_axes: Sequence[str], device, shard_sequence: bool = True) -> Dict:
-    """This rank's zeroed slices of ``model.init_caches(cfg, batch,
-    max_len)`` under ``sharding.cache_specs(shard_sequence=...)``: with
-    True (the batch-1 long-context cells) the sequence over ``seq_axes``
-    (every axis), with False (the batched cells) the rows over the data
-    axes and the sequence over ``seq_axes`` = ("model",). ``"global_rows"``
-    gives the rows of the whole cache that it holds: "kv" and "cmp" along
-    the sequence, "batch" the batch rows. The (rows,) ``"length"`` is 0.
-    Raises when S, the batch or (an NSA stack's) NCB does not divide."""
+    """This rank's slices of ``model.init_caches(cfg, batch, max_len)``
+    under ``sharding.cache_specs(shard_sequence=...)``: with True (the
+    batch-1 long-context cells) the sequence over ``seq_axes`` (every
+    axis), with False (the batched cells) the rows over the data axes and
+    the sequence over ``seq_axes`` = ("model",). K/V and compressed slices
+    are zeros; a recurrent layer's state, whole along the sequence, holds
+    the initial state of the rank's rows (all of them at batch 1).
+    ``"global_rows"`` gives the rows of the whole cache that it holds: "kv"
+    and "cmp" along the sequence (a stack with no attention layer holds
+    none, but the ranges stay those its K/V would have), "batch" the batch
+    rows. The (rows,) ``"length"`` is 0. Raises when S, the batch or (a
+    stack with compressed caches) NCB does not divide."""
     from repro_torch.device import dtype_of
     from repro_torch.launch import sharding
-    from repro_torch.models import model as model_lib
+    from repro_torch.models import model as model_lib, recurrent
     from repro_torch.models.nsa import init_cmp_cache
     _, idx, n = shard_of(mesh, seq_axes)
-    NCB = init_cmp_cache(cfg, 1, max_len, torch.float32, "meta")["k_cmp"].shape[1]
-    check_shards(max_len, NCB if cfg.attention == "nsa" else 0, n)
     full = model_lib.init_caches(cfg, batch, max_len, "meta")
+    NCB = init_cmp_cache(cfg, 1, max_len, torch.float32, "meta")["k_cmp"].shape[1]
+    check_shards(max_len, NCB if any("cmp" in c for c in full["layers"]) else 0, n)
     specs = sharding.cache_specs(full, mesh, shard_sequence=shard_sequence)
-    seq = specs["layers"][0]["kv"]["k"][1]
-    if (seq if isinstance(seq, tuple) else (seq,)) != tuple(seq_axes):
-        raise ValueError(f"the cache splits its sequence over {seq}, not {tuple(seq_axes)}")
+    for lspec in specs["layers"]:
+        if "kv" in lspec:
+            seq = lspec["kv"]["k"][1]
+            if (seq if isinstance(seq, tuple) else (seq,)) != tuple(seq_axes):
+                raise ValueError(f"the cache splits its sequence over {seq}, not "
+                                 f"{tuple(seq_axes)}")
+            break
     shape = mesh_lib.mesh_shape(mesh)
     b0, nb = 0, 1
     if not shard_sequence:
@@ -454,7 +475,12 @@ def init_local_caches(cfg: ModelConfig, batch: int, max_len: int, mesh,
     rows = batch // nb
     dtype = dtype_of(cfg.dtype)
     out = []
-    for layer, lspec in zip(full["layers"], specs["layers"]):
+    for kind, layer, lspec in zip(cfg.layer_kinds(), full["layers"], specs["layers"]):
+        if "state" in layer:
+            local = sharding.local_shape(next(iter(layer["state"].values())).shape,
+                                         next(iter(lspec["state"].values())), shape)
+            out.append({"state": recurrent.STATE_INITS[kind](cfg, local[0], device)})
+            continue
         out.append({part: {name: torch.zeros(
             sharding.local_shape(t.shape, lspec[part][name], shape),
             dtype=dtype, device=device) for name, t in leaves.items()}

@@ -12,12 +12,15 @@ match the attention path. A layer's serving cache is its state, a dict of
 Over a prompt, and in training: RG-LRU's linear recurrence h_t = a_t
 h_{t-1} + b_t runs as an inclusive scan in log2(S) doubling steps
 (``_linear_scan``; JAX uses ``jax.lax.associative_scan``, a different
-tree, so the two agree to f32 rounding); the mLSTM in its parallel form
-(``mlstm_prefill``); the sLSTM, whose gates read the previous h, one time
-step after another, as the JAX ``lax.scan`` does (a serving prefill on
-the card replays them in captured chunks, ``SlstmGraphs``). The
+tree, so the two agree to f32 rounding); the mLSTM chunkwise, its parallel
+form inside chunks of ``MLSTM_CHUNK`` positions with the state carried from
+chunk to chunk (``mlstm_prefill``); the sLSTM, whose gates read the previous
+h, one time step after another, as the JAX ``lax.scan`` does (a serving
+prefill on the card replays them in captured chunks, ``SlstmGraphs``). The
 projections that do not depend on the state run for the whole sequence
-first.
+first. Each prefill starts from a given state (the initial one by
+default), so a chunk of a sequence continues where the one before it ended
+(``models.recurrent_sharded`` passes the state along the ranks).
 """
 from __future__ import annotations
 
@@ -53,12 +56,15 @@ def _log_sigmoid(x):
 
 
 # =================================================================== RG-LRU
-def _causal_conv(conv_w, x):
-    """Depthwise causal conv from a zero window. x (B, S, sd); conv_w (cw,
-    sd). Returns (out, the last cw - 1 inputs in x's dtype: the window a
+def _causal_conv(conv_w, x, window=None):
+    """Depthwise causal conv. x (B, S, sd); conv_w (cw, sd); ``window`` (B,
+    cw - 1, sd): the inputs before x (a state's ``"conv"``), zeros when
+    None. Returns (out, the last cw - 1 inputs in x's dtype: the window a
     step after the last position sees)."""
     cw = conv_w.shape[0]
-    xp = torch.cat([x.new_zeros((x.shape[0], cw - 1, x.shape[2])), x], dim=1)
+    pad = x.new_zeros((x.shape[0], cw - 1, x.shape[2])) if window is None else \
+        window.to(x.dtype)
+    xp = torch.cat([pad, x], dim=1)
     S = x.shape[1]
     out = sum(xp[:, i:i + S] * conv_w[i] for i in range(cw))
     return out, xp[:, xp.shape[1] - (cw - 1):]
@@ -79,23 +85,29 @@ def _linear_scan(a, b):
     """Inclusive scan along dim 1 of h_t = a_t h_{t-1} + b_t from h = 0:
     Hillis-Steele doubling over the combine (a1, b1) . (a2, b2) = (a1 a2,
     a2 b1 + b2), log2(S) steps of whole-sequence elementwise ops (no
-    in-place writes, so autograd runs through it). Returns h (B, S, ...)."""
+    in-place writes, so autograd runs through it). Returns (A, h), each (B,
+    S, ...): A_t = a_1 ... a_t, the factor by which h_t carries a state from
+    before the sequence, and h from h = 0."""
     S, off = a.shape[1], 1
     while off < S:
         b = torch.cat([b[:, :off], a[:, off:] * b[:, :-off] + b[:, off:]], dim=1)
         a = torch.cat([a[:, :off], a[:, off:] * a[:, :-off]], dim=1)
         off *= 2
-    return b
+    return a, b
 
 
-def rglru_prefill(params, cfg: ModelConfig, x):
+def rglru_prefill(params, cfg: ModelConfig, x, state=None):
     """x (B, S, d) -> (out (B, S, d), the state after the last position):
-    ``rglru_apply_train`` plus the JAX ``model._rglru_prefill`` state."""
+    ``rglru_apply_train`` plus the JAX ``model._rglru_prefill`` state, from
+    ``state`` ({"h", "conv"}: h_0 and the conv window; the initial state,
+    zeros, when None): h_t = A_t h_0 + the scan from 0."""
     u0 = x @ params["w_in"]
     gate = layers.gelu(x @ params["w_gate_branch"])
-    u, conv_state = _causal_conv(params["conv"], u0)
+    u, conv_state = _causal_conv(params["conv"], u0, None if state is None else state["conv"])
     a, b = _rglru_coeffs(params, u)
-    hh = _linear_scan(a, b)
+    A, hh = _linear_scan(a, b)
+    if state is not None:
+        hh = hh + A * state["h"].float()[:, None]
     out = (hh * gate.float()).to(x.dtype) @ params["w_out"]
     return out, {"h": hh[:, -1], "conv": conv_state}
 
@@ -158,36 +170,71 @@ def _mlstm_out(params, x, hs):
     return (hs * o).to(x.dtype) @ params["w_out"]
 
 
-def mlstm_prefill(params, cfg: ModelConfig, x):
+MLSTM_CHUNK = 256         # positions of the mLSTM's parallel form per chunk
+
+
+def _mlstm_chunk(q, k, v, it, logf, state):
+    """One chunk of the mLSTM from ``state`` in the parallel form: q, k, v
+    (B, L, H, dh), it and logf = log sigmoid(ft) (B, L, H) at its L
+    positions. The stabilized step recurrence unrolled: with F_t the
+    chunk's cumulative log forget gate (float64, so differences of sums
+    keep f32 accuracy), position s adds its k, v at log weight F_t - F_s +
+    i_s at t >= s and the incoming state (C, n) enters at F_t + m_in, and
+    m_t = max(F_t + m_in, max_{s <= t} (F_t - F_s + i_s)) is the step's
+    stabilizer. An initial m_in of -1e30 is finite, so exp(F_t + m_in -
+    m_t) underflows to 0 with no inf - inf. h_t = the weighted sum of (q_t .
+    k_s) v_s and of C_in q_t over max(|the same with n|, 1), all scaled by
+    exp(-m_t), as ``mlstm_step_state``'s. Returns (h (B, L, H, dh), the
+    state after the chunk: the last row's sums)."""
+    L = q.shape[1]
+    F = torch.cumsum(logf.double(), dim=1).transpose(1, 2)                 # (B, H, L)
+    logd = (F[..., :, None] - F[..., None, :]).float() + it.transpose(1, 2)[..., None, :]
+    causal = torch.ones((L, L), dtype=torch.bool, device=q.device).tril()
+    logd = logd.masked_fill(~causal, -math.inf)
+    inter = F.float() + state["m"][..., None]                              # (B, H, L)
+    m = torch.maximum(logd.amax(-1), inter)
+    dmat = torch.exp(logd - m[..., None])
+    w_in = torch.exp(inter - m)                                            # (B, H, L)
+    sc = dmat * torch.einsum("bthd,bshd->bhts", q, k)
+    num = torch.einsum("bhts,bshd->bthd", sc, v) + \
+        w_in.transpose(1, 2)[..., None] * torch.einsum("bhij,bthj->bthi", state["C"], q)
+    den = sc.sum(-1) + w_in * torch.einsum("bhj,bthj->bht", state["n"], q)
+    h = num / torch.clamp(torch.abs(den), min=1.0).transpose(1, 2)[..., None]
+    last, w_last = dmat[:, :, -1], w_in[..., -1]                           # (B, H, L), (B, H)
+    C = w_last[..., None, None] * state["C"] + torch.einsum("bhs,bshi,bshj->bhij", last, v, k)
+    n = w_last[..., None] * state["n"] + torch.einsum("bhs,bshj->bhj", last, k)
+    return h, {"C": C, "n": n, "m": m[..., -1]}
+
+
+def mlstm_scan(q, k, v, it, ft, state, chunk: int = MLSTM_CHUNK):
+    """The mLSTM cell over q, k, v (B, S, H, dh), it, ft (B, S, H) from
+    ``state``, chunk after chunk (the last may be shorter): (h (B, S, H,
+    dh), the state after the last position). O(chunk^2) memory a head."""
+    logf = _log_sigmoid(ft)
+    hs = []
+    for t0 in range(0, q.shape[1], chunk):
+        sl = slice(t0, t0 + chunk)
+        h, state = _mlstm_chunk(q[:, sl], k[:, sl], v[:, sl], it[:, sl], logf[:, sl], state)
+        hs.append(h)
+    return torch.cat(hs, dim=1), state
+
+
+def mlstm_prefill(params, cfg: ModelConfig, x, state=None, chunk: int = MLSTM_CHUNK):
     """x (B, S, d) -> (out (B, S, d), the state after the last position)
-    from the initial state, in the mLSTM's parallel form: the stabilized
-    recurrence unrolled, h_t = sum_s D_ts (q_t . k_s) v_s / max(|sum_s D_ts
-    (q_t . k_s)|, 1) with log D_ts = F_t - F_s + i_s - m_t (F the
-    cumulative log forget gate, taken in float64 so that differences of
-    long sums keep f32 accuracy) and m_t = max_{s <= t} of the same, which
-    is the recurrent stabilizer; the final C, n and m are the last row's
-    sums. Equal to stepping the cell to f32 rounding, with O(S^2) memory
-    per head and no per-position launches."""
+    from ``state`` (the initial state when None), chunkwise
+    (``mlstm_scan``): equal to stepping the cell (the JAX
+    ``model._xlstm_prefill``) to f32 rounding, with no per-position
+    launches."""
     B, S, d = x.shape
     q, k, v, it, ft = _mlstm_qkvif(params, cfg, x)
-    F = torch.cumsum(_log_sigmoid(ft).double(), dim=1).transpose(1, 2)    # (B, H, S)
-    ih = it.transpose(1, 2)
-    logd = (F[..., :, None] - F[..., None, :]).float() + ih[..., None, :]
-    causal = torch.ones((S, S), dtype=torch.bool, device=x.device).tril()
-    logd = logd.masked_fill(~causal, -math.inf)
-    m = logd.amax(-1)                                                       # (B, H, S)
-    dmat = torch.exp(logd - m[..., None])
-    sc = dmat * torch.einsum("bthd,bshd->bhts", q, k)
-    den = torch.clamp(torch.abs(sc.sum(-1)), min=1.0)                      # (B, H, S)
-    h = torch.einsum("bhts,bshd->bthd", sc, v) / den.transpose(1, 2)[..., None]
-    last = dmat[:, :, -1]                                                   # (B, H, S)
-    state = {"C": torch.einsum("bhs,bshi,bshj->bhij", last, v, k),
-             "n": torch.einsum("bhs,bshj->bhj", last, k), "m": m[..., -1]}
+    if state is None:
+        state = mlstm_init_state(cfg, B, x.device)
+    h, state = mlstm_scan(q, k, v, it, ft, state, chunk)
     return _mlstm_out(params, x, h.reshape(B, S, d)), state
 
 
 def mlstm_apply_train(params, cfg: ModelConfig, x):
-    """x (B, S, d) -> (B, S, d): the parallel form, differentiable."""
+    """x (B, S, d) -> (B, S, d): the chunkwise form, differentiable."""
     return mlstm_prefill(params, cfg, x)[0]
 
 
@@ -291,11 +338,15 @@ def _slstm_scan(params, pre_x, state, graphs: Optional[SlstmGraphs] = None):
     return torch.cat(hs, dim=1), state
 
 
-def slstm_prefill(params, cfg: ModelConfig, x, graphs: Optional[SlstmGraphs] = None):
-    """x (B, S, d) -> (out (B, S, d), the state after the last step);
-    ``graphs``: see ``_slstm_scan``."""
+def slstm_prefill(params, cfg: ModelConfig, x, graphs: Optional[SlstmGraphs] = None,
+                  state=None):
+    """x (B, S, d) -> (out (B, S, d), the state after the last step) from
+    ``state`` (the initial state when None); ``graphs``: see
+    ``_slstm_scan``."""
     pre_x = x.float() @ params["w_x"].float()                    # (B, S, 4d)
-    hs, state = _slstm_scan(params, pre_x, slstm_init_state(cfg, x.shape[0], x.device), graphs)
+    if state is None:
+        state = slstm_init_state(cfg, x.shape[0], x.device)
+    hs, state = _slstm_scan(params, pre_x, state, graphs)
     return hs.to(x.dtype) @ params["w_out"], state
 
 
@@ -424,3 +475,16 @@ def pick_state(state, buf, accepted, n_accepted) -> None:
         new = b[torch.clamp(last + 1, 0, b.shape[0] - 1), rows]
         keep = live.reshape((B,) + (1,) * (old.dim() - 1))
         old.copy_(torch.where(keep, new.to(old.dtype), old))
+
+
+def _one_step(kind: str):
+    def step(params, cfg: ModelConfig, x, state):
+        """x (B, 1, d) -> (out (B, 1, d), the state after it, float32): one
+        token, ``verify_states`` over a one-node tree (``model.decode_step``'s
+        verify and commit of a recurrent layer)."""
+        out, buf = verify_states(kind, params, cfg, x, [-1], state)
+        return out, {n: b[1] for n, b in buf.items()}
+    return step
+
+
+STEPS = {kind: _one_step(kind) for kind in TRAIN}

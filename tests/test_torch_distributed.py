@@ -377,3 +377,31 @@ def test_backend_and_device_are_the_callers(monkeypatch):
         ranks.rank_device(0, 4, "nccl", "cuda")
     assert ranks.rank_device(3, 4, "gloo", "cuda") == torch.device("cuda", 0)
     assert ranks.rank_device(0, 1, "nccl", "cuda") == torch.device("cuda", 0)
+
+
+def _raising_rank_beside_a_blocked_peer(rank, world, dev):
+    import torch.distributed as dist
+    if rank == 0:
+        raise RuntimeError("rank 0 fails mid-layer")
+    dist.all_reduce(torch.ones(4))            # waits for rank 0, which never comes
+
+
+def test_a_rank_that_raises_beside_a_blocked_peer_prints_and_fails_fast(tmp_path, capfd):
+    """Rank 0 raises while rank 1 waits in an all-reduce with it: the
+    raising rank prints its traceback at once and ``spawn`` raises long
+    before its timeout, rather than the raising rank's teardown of the
+    process group waiting behind its peer's collective (under gloo that
+    teardown instead reset the peer's connection, and ``spawn`` reported the
+    peer's reset, not rank 0's error). Which rank's error ``spawn`` raises
+    is a race; rank 0's traceback is on stderr either way."""
+    import time
+    from repro_torch.launch import ranks
+    t0 = time.time()
+    with pytest.raises(Exception):
+        ranks.spawn(_raising_rank_beside_a_blocked_peer, 2, "gloo", "cpu", timeout=120,
+                    threads=1, store_dir=str(tmp_path))
+    took = time.time() - t0
+    err = capfd.readouterr().err
+    assert "rank 0 of 2 raised:" in err, err
+    assert "Traceback (most recent call last)" in err and "rank 0 fails mid-layer" in err, err
+    assert took < 60, took

@@ -162,6 +162,7 @@ def test_list_world_splits_the_target_cache(world, capsys):
     """``--list --world N``: for every decode cell the per-rank split cache
     bytes x N plus the leaves each rank holds whole (the length, recurrent
     states) equal the single card's target cache, the weights stay whole,
+    the batch-1 sharded decode takes the NSA stacks and the recurrent archs,
     and the cells that fit N cards but not one are printed (at N = 4:
     qwen3-8b, musicgen-medium, pixtral-12b and ssv-nsa-8b at long_500k)."""
     assert dryrun.main(["--list", "--world", str(world)]) == 0
@@ -176,9 +177,10 @@ def test_list_world_splits_the_target_cache(world, capsys):
             assert r["cache_split"] * world + r["cache_replicated"] == single["target_cache"]
             assert r["weights"] == single["weights"]
             assert r["total"] == r["weights"] + r["target_cache"]
-            assert r["sharded_decode"] == (cfg.attention == "nsa" and
-                                           set(cfg.layer_kinds()) <= {"attn", "moe"})
-            if r["sharded_decode"] and not cfg.moe:
+            recurrent = bool(set(cfg.layer_kinds()) & {"rglru", "mlstm", "slstm"})
+            assert r["sharded_decode"] == (recurrent or (
+                cfg.attention == "nsa" and set(cfg.layer_kinds()) <= {"attn", "moe"}))
+            if r["sharded_decode"] and not cfg.moe and not recurrent:
                 assert r["cache_replicated"] == 4                    # the (1,) length
     lines = out.splitlines()
     head = next(i for i, ln in enumerate(lines) if ln.rstrip().endswith("sharded decode"))

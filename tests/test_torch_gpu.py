@@ -22,7 +22,9 @@ keeping or dropping the graphs; a target with RG-LRU, mLSTM and sLSTM
 blocks replaying its state over the tree inside the graphs), and training on the card (one train
 step's loss and gradients equal to the CPU's, AdamW's float32 moments
 under bf16 params, the ``AsyncCheckpointer`` round trip from device
-tensors). Whether a card is present is decided in a fixture, so every worker
+tensors), and the serve cells across gloo ranks sharing the card (reduced
+ssv-nsa-1b, reduced pixtral-12b, and the recurrent archs at full width
+with their states passed along the model ranks). Whether a card is present is decided in a fixture, so every worker
 collects the same tests; without a card they skip. Run them on
 the card with ``python -m pytest -m gpu tests/test_torch_gpu.py``."""
 import pytest
@@ -1233,3 +1235,48 @@ def test_sharded_native_serve_with_frames_equals_single_device_on_card(cuda, tmp
     whole = serve_checks.assemble(tmp_path / "logits", "pixtral", 4)
     assert torch.equal(whole["prefill"].argmax(-1), ref["prefill_logits"].argmax(-1))
     assert torch.equal(whole["decode"].argmax(-1), ref["decode_logits"].argmax(-1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,layers", [("recurrentgemma-9b", 3), ("xlstm-125m", 2)])
+def test_sharded_recurrent_serve_equals_single_device_on_card(cuda, tmp_path, arch, layers):
+    """Phase 14(e)'s job in bf16 at a shorter prompt: four gloo ranks
+    sharing the card with CUDA tensors on a (2, 2) mesh, the full-width
+    arch cut to one period (recurrentgemma-9b: rglru, rglru, attn;
+    xlstm-125m: mlstm, slstm), 2 rows x 1,024 tokens (the states passed
+    along the model ranks across position 512), ``max_len`` 1,552 (every
+    decode token's window straddles the cache's model boundary at row
+    776), 4 decode tokens: the sharded prefill (logits and every rank's
+    states and K/V slices) and decode (logits and caches) within 3e-2 of
+    the single device's ``model.prefill`` and ``decode_step`` (the flash
+    kernel's plain version on the decode), the assembled argmax equal to
+    the single device's through the kernels."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.launch import serve_checks
+    base = configs.get_config(arch)
+    cfg = dataclasses.replace(base, num_layers=layers, name=f"{base.name}-x{layers}")
+    assert cfg.dtype == "bfloat16"
+    case = {"seed": 0, "batch": 2, "seq": 1024, "decode": 4}
+    whole = serve_checks.load_case(case, cfg, cuda)
+    ref = serve_checks.reference(whole["params"], cfg, whole["tokens"], whole["decode"], 1552,
+                                 plain_decode=True)
+    del whole
+    torch.cuda.empty_cache()
+    torch.save(ref, tmp_path / "ref.pt")
+    job = dict(name="e", cfg=cfg, mesh=((2, 2), ("data", "model")), case=case, max_len=1552,
+               ref=str(tmp_path / "ref.pt"), tol=(3e-2, 3e-2), out=str(tmp_path / "logits"),
+               hold=("prefill_logits", "prefill_caches", "plain_decode_logits",
+                     "plain_caches"))
+    got = serve_checks.run_checks([job], 4, "gloo", tmp_path / "out", timeout=600)
+    kinds = cfg.layer_kinds()
+    for r in got:
+        res = r["jobs"][0]
+        assert r["device"].startswith("cuda"), r["device"]
+        print(arch, "rank", r["rank"], res["max_abs_err"])
+        assert res["ok"], res
+        assert res["prefill"]["collectives"] == sum(2 if k == "slstm" else 1 for k in kinds) + 2
+        assert res["decode"]["collectives_per_token"] == [2 * kinds.count("attn") + 1]
+    got_logits = serve_checks.assemble(tmp_path / "logits", "e", 4)
+    assert torch.equal(got_logits["prefill"].argmax(-1), ref["prefill_logits"].argmax(-1))
+    assert torch.equal(got_logits["decode"].argmax(-1), ref["decode_logits"].argmax(-1))

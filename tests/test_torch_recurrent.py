@@ -1,8 +1,10 @@
 """The recurrent blocks of the port (``models/recurrent.py``) held against
 ``repro.models.recurrent`` on the same weights: RG-LRU, mLSTM and sLSTM
 over a sequence, one step, their initial states, the state replay over a
-chain and a branching draft tree, the prefill state and the commit of the
-deepest accepted node (rtol 2e-4 / atol 2e-5); then the models that hold
+chain and a branching draft tree, the prefill state, a prefill that
+continues from a given state, the chunkwise mLSTM at a chunk that divides
+the sequence and one that does not, and the commit of the deepest accepted
+node (rtol 2e-4 / atol 2e-5); then the models that hold
 them (reduced recurrentgemma-9b, one (rglru, rglru, attn) period as its NSA
 variant, and reduced xlstm-125m): prefill, ``verify_step`` and ``commit``
 against the JAX model, and the engines' tokens and accepted counts against
@@ -78,6 +80,44 @@ def test_apply_train_and_prefill_state_match_jax(block):
     tout, tstate = recurrent.PREFILL[kind](tp, tc, torch.from_numpy(x))
     close(jout, tout)
     close_tree(jstate, tstate)
+
+
+@pytest.mark.parametrize("chunk", [16, 20])
+def test_chunkwise_mlstm_equals_the_jax_steps(chunk):
+    """The mLSTM prefill, chunkwise (``mlstm_scan``) at a chunk that divides
+    the 48 positions (16) and one that does not (20): from the initial state
+    (m = -1e30) its outputs and state equal the JAX ``_xlstm_prefill``'s
+    step by step; from the JAX state after 20 positions (non-zero C, n, m)
+    its outputs over the other 28 and its state equal the same scan's."""
+    jc, tc = jconfigs.reduced("xlstm-125m", layers=2), configs.reduced("xlstm-125m", layers=2)
+    jp = jrec.INITS["mlstm"](jax.random.PRNGKey(3), jc)
+    tp = torch_tree(jax.tree.map(np.asarray, jp))
+    x = np.random.default_rng(1).normal(size=(2, 48, tc.d_model)).astype(np.float32)
+    jout, jstate = jmodel._xlstm_prefill("mlstm", jp, jc, jnp.asarray(x))
+    out, state = recurrent.mlstm_prefill(tp, tc, torch.from_numpy(x), chunk=chunk)
+    close(jout, out)
+    close_tree(jstate, state)
+    _, j20 = jmodel._xlstm_prefill("mlstm", jp, jc, jnp.asarray(x[:, :20]))
+    assert float(jnp.abs(j20["C"]).max()) > 0 and float(j20["m"].min()) > -1e3
+    start = {n: torch.from_numpy(np.array(v, np.float32)) for n, v in j20.items()}
+    out, state = recurrent.mlstm_prefill(tp, tc, torch.from_numpy(x[:, 20:]), start, chunk)
+    close(jout[:, 20:], out)
+    close_tree(jstate, state)
+
+
+def test_prefill_continues_from_a_state(block):
+    """Each kind's prefill from the JAX state after 20 positions (the RG-LRU
+    with its h and conv window, the sLSTM and mLSTM with theirs) over the
+    next 12 equals the JAX prefill of all 32 there, and leaves its state."""
+    kind, jc, tc, jp, tp, x = block
+    pre = (lambda xx: jmodel._rglru_prefill(jp, jc, jnp.asarray(xx))) if kind == "rglru" \
+        else (lambda xx: jmodel._xlstm_prefill(kind, jp, jc, jnp.asarray(xx)))
+    jout, jstate = pre(x)
+    _, j20 = pre(x[:, :20])
+    start = {n: torch.from_numpy(np.array(v, np.float32)) for n, v in j20.items()}
+    out, state = recurrent.PREFILL[kind](tp, tc, torch.from_numpy(x[:, 20:]), state=start)
+    close(jout[:, 20:], out)
+    close_tree(jstate, state)
 
 
 def test_init_state_and_step_match_jax(block):
@@ -235,7 +275,7 @@ def loss_and_grads_match_jax(arch, seq=40):
 
 def test_xlstm_training_loss_and_grads_flow():
     """Reduced xlstm-125m (one (mlstm, slstm) period): the loss and every
-    gradient equal JAX's (the mLSTM's parallel form against the JAX
+    gradient equal JAX's (the mLSTM's chunkwise form against the JAX
     ``lax.scan`` of its cell, the sLSTM's steps against its scan), and
     every recurrent parameter's gradient is nonzero."""
     grads, tp = loss_and_grads_match_jax("xlstm-125m")

@@ -25,8 +25,9 @@ expert ids) on gloo ranks on the CPU, against the JAX package:
     more a decode token, and 1 more a MoE layer when the rows lie over two
     data ranks; the weights' gathers of every split leaf;
   * a MoE dispatch group that does not divide a rank's chunk raises;
-    ``--list --world 4 --model 2`` says "across ranks" for every attention
-    arch and not for the two recurrent ones, which ``--run`` skips;
+    ``--list --world 4 --model 2`` says "across ranks" for every arch, and
+    ``--run`` serves the recurrent ones too
+    (``test_torch_sharded_serve_recurrent.py`` holds them to JAX);
   * the two repairs: ``dryrun.cell_frontend`` draws each row from its own
     seed; ``model.prefill`` chunks the queries of a 1,088-position prompt
     (2 x 512 + 64) and equals the JAX ``prefill``, unchunked there.
@@ -36,6 +37,7 @@ Each world is one spawned run (``launch.ranks.spawn``, a ``FileStore`` in
 side) that runs its jobs of ``launch.serve_checks``; the JAX references are
 jitted in this process while the ranks run, so the ranks import only torch
 and the port."""
+import argparse
 import math
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -287,9 +289,10 @@ def test_a_moe_group_that_does_not_divide_a_chunk_raises():
 
 def test_list_world_says_which_archs_run_across_ranks(capsys):
     """``--list --world 4 --model 2``: "across ranks" yes for the
-    ``prefill_32k`` and ``decode_32k`` cells of the eight attention archs
-    and the two NSA targets, no for recurrentgemma-9b and xlstm-125m; the
-    five dense cells that fit four cards and not one are listed."""
+    ``prefill_32k`` and ``decode_32k`` cells of every arch (the eight
+    attention archs, the two NSA targets, recurrentgemma-9b and
+    xlstm-125m); the five dense cells that fit four cards and not one are
+    listed."""
     from repro_torch import configs
     from repro_torch.launch import dryrun
     assert dryrun.main(["--list", "--world", "4", "--model", "2",
@@ -298,8 +301,7 @@ def test_list_world_says_which_archs_run_across_ranks(capsys):
     for arch in configs.ARCH_IDS:
         for shape in ("prefill_32k", "decode_32k"):
             row = [ln for ln in out.splitlines() if ln.startswith(arch + " ") and shape in ln][-1]
-            want = "no" if arch in ("recurrentgemma-9b", "xlstm-125m") else "yes"
-            assert row.split()[-1] == want, row
+            assert row.split()[-1] == "yes", row
     gained = next(ln for ln in out.splitlines() if ln.startswith("prefill and batched decode"))
     for cell in ("smollm-360m x decode_32k", "granite-20b x decode_32k",
                  "qwen3-8b x prefill_32k", "musicgen-medium x prefill_32k",
@@ -308,15 +310,31 @@ def test_list_world_says_which_archs_run_across_ranks(capsys):
 
 
 @pytest.mark.parametrize("arch", ["recurrentgemma-9b", "xlstm-125m"])
-def test_run_world_skips_the_recurrent_archs(arch, capsys):
-    """``--run --world`` prints ``[SKIP]`` for a recurrent arch's serve
-    cells (its state would have to pass along the ``model`` ranks) before
-    it reckons or spawns anything."""
+def test_run_world_skips_the_recurrent_archs(arch, capsys, monkeypatch):
+    """Since the recurrent archs' serve cells run across ranks, ``--run
+    --world 4 --model 2`` no longer prints ``[SKIP]`` for them: it reckons
+    their bytes and spawns the ranks (here a stand-in that records the
+    call), and prints their ``[RUN]`` lines."""
     from repro_torch.launch import dryrun
+    calls = []
+
+    def fake(a, s, world, backend, out, model_axis, seed, batch, trace):
+        calls.append((a, s, world, model_axis))
+        kind = "prefill" if s == "prefill_32k" else "decode"
+        rec = dict(rank=0, world=world, mesh=[2, 2], backend=backend, device="cuda:0",
+                   rows=[0, 1], batch=1, kind=kind, wall_ms=[1.0], collectives=1, gathers=1,
+                   gathered_bytes=1, logits_finite=True, collectives_per_token=1,
+                   gathers_per_token=1, gathered_bytes_per_token=1, first_wall_ms=1.0)
+        return [rec]
+
+    monkeypatch.setattr(dryrun, "run_serve_sharded", fake)
+    args = argparse.Namespace(world=4, model=2, batch=0, backend="nccl", out="build/x", seed=0,
+                              trace=False)
     for shape in ("prefill_32k", "decode_32k"):
-        dryrun._run_world_serve(arch, shape, None, 0.0, 1)
+        dryrun._run_world_serve(arch, shape, args, 80 * 2 ** 30, 1)
         line = capsys.readouterr().out.strip()
-        assert line.startswith(f"[SKIP] {arch}") and "recurrent" in line, line
+        assert line.startswith(f"[RUN]  {arch}"), line
+    assert calls == [(arch, "prefill_32k", 4, 2), (arch, "decode_32k", 4, 2)]
 
 
 # ---------------------------------------------------------------- the repairs
