@@ -151,7 +151,10 @@ Phases (every phase always runs; any failure exits non-zero):
  13. training across ranks (``make_train_step(cfg, tcfg, mesh)``, checked in
      spawned ranks by ``launch.train_checks``): (a) four gloo ranks share
      the card with CUDA tensors on a (data 2, model 2) mesh, full-width
-     ssv-nsa-1b cut to 2 layers in float32, 4 x 2049 tokens: the sharded
+     ssv-nsa-1b cut to 2 layers in float32, 4 x 2049 tokens, each row's
+     2,049 positions split over the model ranks (1,025 and 1,024; the
+     positions and the activation collectives printed, and the phase fails
+     unless the ranks split them): the sharded
      step equals ``make_train_step`` on one device on the card (loss rtol
      1e-5; every block of params, both moments and the residual rtol 2e-4 /
      atol 2e-5; an int8 rounding flip held one step off, its count to
@@ -2239,6 +2242,10 @@ def train_ranks_phase(ctx, out_dir, phase9=None):
         tag = f"[13a {cfg.name} x{cfg.num_layers} f32, {job['name']}, (2, 2) over 4 gloo ranks]"
         if len({g["loss"] for g in got}) != 1 or len({g["grad_norm"] for g in got}) != 1:
             fail(f"{tag} the ranks' loss or grad norm differ: {[g['loss'] for g in got]}")
+        spans = [g["positions"] for g in got]
+        if any(p is None or p[1] - p[0] >= p[2] for p in spans) or not got[0]["activations"]:
+            fail(f"{tag} the ranks did not split the positions over model: {spans}, "
+                 f"{got[0]['activations']} activation collectives")
         bad = [g["refs"]["single device"] for g in got if not g["refs"]["single device"]["ok"]]
         if bad:
             fail(f"{tag} differs from the single-device step: {bad[0]}")
@@ -2256,9 +2263,12 @@ def train_ranks_phase(ctx, out_dir, phase9=None):
             f"{[g['refs']['single device']['moved'] for g in got]}, off the single device's "
             f"tolerance {[g['refs']['single device']['moved_off_reference'] for g in got]}, by up "
             f"to {max(g['refs']['single device']['moved_abs_err'] for g in got):.3e}"
-            f": equal within rtol 2e-4 / atol 2e-5 (loss 1e-5); {got[0]['gathers']} gathers and "
+            f": equal within rtol 2e-4 / atol 2e-5 (loss 1e-5); positions a rank "
+            f"{[f'{p[0]}-{p[1]} ({p[1] - p[0]} of {p[2]})' for p in spans]} a row; "
+            f"{got[0]['gathers']} gathers and "
             f"{got[0]['reductions']} reductions a step ({got[0]['bytes'] / 1e9:.3f} GB through "
-            f"them a rank); step wall {[round(g['wall_ms'], 1) for g in got]} ms; peak "
+            f"them a rank), {got[0]['activations']} activation collectives along model "
+            f"({got[0]['activation_bytes'] / 1e9:.3f} GB); step wall {[round(g['wall_ms'], 1) for g in got]} ms; peak "
             f"{[round(g.get('peak_gib', math.nan), 2) for g in got]} GiB; resident "
             f"{[round(g['resident_bytes'] / 2 ** 30, 3) for g in got]} GiB a rank")
     # the plain step's checkpoint onto (2, 1) and onto one device, side by

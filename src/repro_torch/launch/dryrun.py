@@ -60,8 +60,11 @@ cards but not one. ``--run --world N`` also takes train cells
 ``make_train_step(cfg, tcfg, mesh)`` once to warm up, three times timed
 and once profiled, on one 4,096-token sequence per data rank (the cell's
 global batch of 256 cut to the data ranks' count: ``reduced`` in the
-record). Each rank's record (loss, grad norm, step wall, busy time, NCCL
-time, peak, gathers and reductions per step, model-FLOPs share) goes to
+record). With ``--model M`` > 1 each rank computes its positions of its
+row (``sharding.seq_chunk``: 2,048 of 4,096 at M = 2). Each rank's record
+(the positions, loss, grad norm, step wall, busy time, NCCL time, peak,
+weight gathers and reductions and the activation collectives along
+``model`` per step with their bytes, model-FLOPs share) goes to
 ``<--out>/world/<arch>__train_4k__<N>x<M><backend>/``.
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun --list --world 4 --model 2
@@ -1040,15 +1043,75 @@ def run_serve_sharded(arch_id: str, shape_name: str, world: int, backend: str, o
 TRAIN_TIMED = 3               # timed steps of a train cell across ranks
 
 
+def live_at_peak(events, before: int = 0, top: int = 8) -> Dict:
+    """Replays the caching allocator's history (``_snapshot()``'s
+    ``device_traces`` of one device: "alloc" and "free_completed" events
+    with "addr", "size" and "frames") from ``before`` bytes allocated when
+    it began. Returns the peak of allocated bytes and what was live then,
+    grouped by the innermost frame of this package that allocated it
+    ("before the call" for blocks allocated earlier, "elsewhere" for none),
+    the ``top`` largest groups first."""
+    def owner(e) -> str:
+        for f in e.get("frames") or ():
+            if "repro_torch" in f["filename"]:
+                return f"{Path(f['filename']).name}:{f['name']}"
+        return "elsewhere"
+
+    def replay(stop: int):
+        live, old, cur, peak, at = {}, before, before, before, -1
+        for j, e in enumerate(events[:stop]):
+            if e["action"] == "alloc":
+                live[e["addr"]] = e
+                cur += e["size"]
+                if cur > peak:
+                    peak, at = cur, j + 1
+            elif e["action"] == "free_completed":
+                cur -= e["size"]
+                if live.pop(e["addr"], None) is None:
+                    old -= e["size"]
+        return live, old, peak, at
+
+    _, _, peak, at = replay(len(events))
+    live, old, _, _ = replay(at) if at > 0 else ({}, before, 0, 0)
+    groups: Dict[str, int] = {"before the call": old}
+    for e in live.values():
+        groups[owner(e)] = groups.get(owner(e), 0) + e["size"]
+    ranked = sorted(groups.items(), key=lambda kv: -kv[1])[:top]
+    return {"peak_bytes": peak, "before_bytes": before, "events": len(events),
+            "owners": [{"where": k, "bytes": v} for k, v in ranked]}
+
+
+TRACE_EVENTS = 4_000_000       # the allocator history's ring buffer under --trace
+
+
+def peak_owners(fn, dev) -> Dict:
+    """``--trace`` on a train cell: one call of ``fn`` with the caching
+    allocator recording its history (Python stacks), then ``live_at_peak``
+    of it. ``truncated``: the ring buffer filled, so early events are lost
+    and the replay is not the call's."""
+    torch.cuda.synchronize(dev)
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.memory._record_memory_history(max_entries=TRACE_EVENTS, stacks="python")
+    try:
+        fn()
+        torch.cuda.synchronize(dev)
+        snap = torch.cuda.memory._snapshot()
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+    events = snap["device_traces"][dev.index or 0]
+    return dict(live_at_peak(events, before), truncated=len(events) >= TRACE_EVENTS)
+
+
 def train_rank(rank: int, world: int, dev, arch_id: str, shape_name: str, model_axis: int,
-               seed: int, out_dir: str) -> Dict:
+               seed: int, out_dir: str, trace: bool = False) -> Dict:
     """One rank of ``--run --world N`` on a train cell: its blocks of the
     state from ``seed`` (``sharded.init_state``), its data rank's row of a
     batch of one ``seq_len`` sequence per data rank (``SyntheticCorpus``,
     seeded; an arch with a frontend also its rows' ``cell_frontend``
     frames, as the JAX cell feeds them), and ``make_train_step(cfg, tcfg,
     mesh)``: one step to warm up, ``TRAIN_TIMED`` steps on the host clock,
-    one under the profiler (on a card). Returns the rank's record (also
+    one under the profiler (on a card) and, with ``trace``, one more under
+    ``peak_owners``. Returns the rank's record (also
     ``<out_dir>/rank<r>.json``)."""
     import torch.distributed as dist
     from repro_torch.data.synthetic import SyntheticConfig, SyntheticCorpus
@@ -1085,7 +1148,8 @@ def train_rank(rank: int, world: int, dev, arch_id: str, shape_name: str, model_
         layout.reset_counts()
         *state[:], m = step(*state, batches[i], frames[i])
         steps.append({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
-                      **layout.counts, "bytes": layout.bytes})
+                      **layout.counts, "bytes": layout.bytes,
+                      "activation_bytes": layout.activation_bytes})
 
     walls = []
     for i in range(timed + 1):
@@ -1100,12 +1164,17 @@ def train_rank(rank: int, world: int, dev, arch_id: str, shape_name: str, model_
            "reduced": {"global_batch": n_dp, "of": shape.global_batch,
                        "why": "one sequence per data rank"},
            "frontend_frames": 0 if frames[0] is None else frames[0].shape[1],
-           "build_s": build_s, "first_wall_ms": walls[0], "wall_ms": walls[1:], "steps": steps}
+           "positions": layout.positions, "build_s": build_s, "first_wall_ms": walls[0],
+           "wall_ms": walls[1:], "steps": steps}
     if dev.type == "cuda":
         dist.barrier()
         rec.update(_profile(lambda: one(timed + 1)))
         rec["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
         rec["card"] = torch.cuda.get_device_name(dev)
+        if trace:
+            dist.barrier()
+            rec["peak_owners"] = peak_owners(
+                lambda: step(*state, batches[timed + 1], frames[timed + 1]), dev)
     flops = rl.model_flops(cfg, ShapeConfig(shape_name, shape.seq_len, n_dp, "train"))
     rec["model_flops"] = flops
     rec["model_flops_share"] = rl.flops_share(flops, sorted(walls[1:])[len(walls[1:]) // 2] / 1e3,
@@ -1117,11 +1186,11 @@ def train_rank(rank: int, world: int, dev, arch_id: str, shape_name: str, model_
 
 
 def run_train_sharded(arch_id: str, shape_name: str, world: int, backend: str, out_dir: Path,
-                      model_axis: int = 1, seed: int = 0) -> List[Dict]:
+                      model_axis: int = 1, seed: int = 0, trace: bool = False) -> List[Dict]:
     """``train_rank`` on ``world`` spawned ranks, one card each or sharing
     the cards (gloo); every rank's record."""
     from repro_torch.launch import ranks
-    args = (arch_id, shape_name, model_axis, seed, str(out_dir))
+    args = (arch_id, shape_name, model_axis, seed, str(out_dir), trace)
     ranks.spawn(train_rank, world, backend, "cuda", args=args, timeout=900.0)
     return [json.loads((Path(out_dir) / f"rank{r}.json").read_text()) for r in range(world)]
 
@@ -1132,11 +1201,15 @@ def _run_world_train(a: str, s: str, args, capacity: float, per_card: int) -> No
         print(f"[SKIP] {a:22s} {s:12s} (its blocks do not divide or do not fit the cards)")
         return
     out = Path(args.out) / "world" / f"{a}__{s}__{args.world}x{args.model}{args.backend}"
-    recs = run_train_sharded(a, s, args.world, args.backend, out, args.model, args.seed)
+    recs = run_train_sharded(a, s, args.world, args.backend, out, args.model, args.seed,
+                             args.trace)
     for r in recs:
         st = r["steps"]
+        p0, p1, S = r["positions"] or (0, r["seq_len"] + r["frontend_frames"],
+                                       r["seq_len"] + r["frontend_frames"])
         print(f"[RUN]  {a:22s} {s:12s} rank {r['rank']}/{r['world']} mesh {r['mesh']} "
-              f"({r['backend']}, {r['device']}): losses "
+              f"({r['backend']}, {r['device']}): positions {p0}-{p1} ({p1 - p0} of {S}) "
+              "a row; losses "
               + ", ".join(f"{x['loss']:.6f}" for x in st) + "; grad norms "
               + ", ".join(f"{x['grad_norm']:.4f}" for x in st) + "; step wall "
               + ", ".join(f"{w:.1f}" for w in r["wall_ms"]) +
@@ -1144,9 +1217,18 @@ def _run_world_train(a: str, s: str, args, capacity: float, per_card: int) -> No
               f"{r.get('device_busy_ms', float('nan')):.1f} ms (of it "
               f"{r.get('collective_ms', float('nan')):.1f} in NCCL kernels); "
               f"{st[-1]['gathers']} gathers and {st[-1]['reductions']} reductions a step "
-              f"({st[-1]['bytes'] / 1e9:.2f} GB through them); peak "
+              f"({st[-1]['bytes'] / 1e9:.2f} GB through them), {st[-1]['activations']} "
+              f"activation collectives ({st[-1]['activation_bytes'] / 1e9:.2f} GB); peak "
               f"{r.get('peak_bytes', 0) / 2 ** 30:.2f} GiB; model-FLOPs share "
               f"{100 * r['model_flops_share']:.3f}% of {r['world']} x 989 TFLOP/s", flush=True)
+        po = r.get("peak_owners")
+        if po:
+            print(f"[trace] {a} {s} rank {r['rank']}: one more step's peak "
+                  f"{po['peak_bytes'] / 2 ** 30:.2f} GiB ({po['before_bytes'] / 2 ** 30:.2f} "
+                  f"allocated before it; {po['events']} allocator events"
+                  f"{', truncated' if po['truncated'] else ''}); live at the peak: "
+                  + ", ".join(f"{o['where']} {o['bytes'] / 2 ** 30:.2f} GiB"
+                              for o in po["owners"]), flush=True)
 
 
 def _run_world_serve(a: str, s: str, args, capacity: float, per_card: int) -> None:
@@ -1237,7 +1319,8 @@ def main(argv=None) -> int:
     ap.add_argument("--trace", action="store_true",
                     help="with --run --world on a prefill cell: a line per rank and layer "
                          "(collectives, gathers, the allocator's bytes, retries and "
-                         "out-of-memory errors)")
+                         "out-of-memory errors); on a train cell: one more step under the "
+                         "allocator's history and what was live at its peak")
     ap.add_argument("--batch", type=int, default=0,
                     help="rows of a prefill cell (--run on one card; 0: the most that fit) or "
                          "of a prefill or decode cell across ranks (--run --world; 0: the "

@@ -28,9 +28,10 @@ AdamW moments and the error-feedback residual; the count and a 0-d residual
 replicated) and its batch rows under ``batch_spec``; ``shard_tree`` cuts the
 blocks from a whole tree (``runtime.sharded.gather_tree`` puts them back
 together).
-``activation_spec`` is the JAX residual-stream constraint, kept as data: the
-port's train step gathers each layer's weights whole and so never splits an
-activation. ``shardings_of`` maps a spec onto ``torch.distributed.tensor``
+``activation_spec`` is the JAX residual-stream constraint (layout ``"sp"``):
+the port's train step applies it, each rank of a data group computing the
+positions ``seq_chunk`` gives it of each of its rows (``runtime.sharded``).
+``shardings_of`` maps a spec onto ``torch.distributed.tensor``
 placements for a ``DeviceMesh``.
 """
 from __future__ import annotations
@@ -237,6 +238,15 @@ def activation_spec(mesh, layout: str = "sp") -> Spec:
     over model (the JAX ``activation_constraint``'s two layouts)."""
     dp = dp_axes(mesh)
     return spec(dp, "model", None) if layout == "sp" else spec(dp, None, "model")
+
+
+def seq_chunk(S: int, m: int, i: int) -> Tuple[int, int]:
+    """The positions ``[a, b)`` of an S-position stream that rank ``i`` of
+    ``m`` along ``model`` holds under ``activation_spec``'s "sp": chunks of
+    c = ceil(S / m), the last ones shorter (or empty) when m does not divide
+    S, as GSPMD pads an uneven shard."""
+    c = -(-S // m)
+    return min(S, i * c), min(S, (i + 1) * c)
 
 
 # ---------------------------------------------------------------- caches

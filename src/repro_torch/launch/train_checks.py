@@ -7,7 +7,8 @@ A check is a list of jobs (dicts); every rank of a world runs them in order
 ``<out_dir>/rank<r>.json``:
 
   * ``"step"``: one ``make_train_step(cfg, tcfg, mesh)`` from the whole
-    params and tokens of ``case`` (saved at a path, or drawn from a seed:
+    params and tokens (and frames) of ``case`` (saved at a path, or drawn
+    from a seed:
     ``load_case``; each rank cuts its blocks and its rows; fresh moments; a
     zero residual), then the rank's blocks of the
     new params, moments and residual held against the same blocks of each
@@ -17,7 +18,10 @@ A check is a list of jobs (dicts); every rank of a world runs them in order
     own device from the whole params, after the sharded step) within
     ``tol`` = (rtol, atol, loss rtol), compared on the rank's device; the
     rank's resident bytes, the
-    collectives of the step, its wall time and peak memory; ``timed`` more
+    collectives of the step (weight gathers, reductions, activation
+    collectives along ``model`` and their bytes), the positions (a, b, S)
+    the rank computed (None when ``model`` has one rank), its wall time
+    and peak memory; ``timed`` more
     steps on the host clock, once a file exists at ``timed_after`` when it
     is given (the caller's sign that the card is free); with ``save`` (a
     directory) the new state goes
@@ -93,9 +97,11 @@ def reference(metrics, params, opt, residual, scales=None, host: bool = True) ->
             "scales": None if scales is None else [float(s) for s in scales]}
 
 
-def single_device_reference(cfg, tcfg, params, tokens, host: bool = True) -> Dict:
+def single_device_reference(cfg, tcfg, params, tokens, host: bool = True,
+                            frontend=None) -> Dict:
     """``make_train_step(cfg, tcfg)`` on one device from ``params`` (fresh
-    moments, a zero residual) as a ``reference`` (on the host when
+    moments, a zero residual; ``frontend``: the rows' frames) as a
+    ``reference`` (on the host when
     ``host``), with the step's wall time (``"wall_ms"``, synchronised) and
     peak memory on a card (``"peak_gib"``); under int8 compression each
     leaf's scale is read as ``compress._quantize`` returns it."""
@@ -116,7 +122,8 @@ def single_device_reference(cfg, tcfg, params, tokens, host: bool = True) -> Dic
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
-        p, o, r, m = make_train_step(cfg, tcfg)(params, adamw_init(params), residual, tokens)
+        p, o, r, m = make_train_step(cfg, tcfg)(params, adamw_init(params), residual, tokens,
+                                                frontend)
         _sync(dev)
         wall = (time.perf_counter() - t0) * 1e3
     finally:
@@ -272,7 +279,8 @@ def _step_job(job: Dict, dev) -> Dict:
     wall = (time.perf_counter() - t0) * 1e3
     state = {"params": params, "opt": opt, "residual": residual}
     res = {"name": job["name"], "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
-           **layout.counts, "bytes": layout.bytes, "wall_ms": wall,
+           **layout.counts, "bytes": layout.bytes, "activation_bytes": layout.activation_bytes,
+           "positions": layout.positions, "wall_ms": wall,
            "resident_bytes": sum(t.numel() * t.element_size() for t in tree_leaves(state)),
            "refs": {}}
     if dev.type == "cuda":
@@ -284,7 +292,8 @@ def _step_job(job: Dict, dev) -> Dict:
         case = load_case(job["case"], cfg, dev)
         refs["single device"] = single_device_reference(
             cfg, tcfg, tree_map(lambda t: t.to(dev), case["params"]), case["tokens"].to(dev),
-            host=False)
+            host=False, frontend=None if case.get("frontend") is None else
+            case["frontend"].to(dev))
         res["single_wall_ms"] = refs["single device"]["wall_ms"]
         res["single_peak_gib"] = refs["single device"].get("peak_gib")
         del case

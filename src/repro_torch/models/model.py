@@ -48,7 +48,7 @@ from repro_torch.core import kvstore
 from repro_torch.device import dtype_of
 from repro_torch.kernels.nsa_verify import ops as nsa_ops
 from repro_torch.models import attention, layers, moe as moe_lib, nsa as nsa_lib
-from repro_torch.models import recurrent
+from repro_torch.models import recurrent, train_sharded
 
 RECURRENT_KINDS = ("rglru", "mlstm", "slstm")
 
@@ -108,16 +108,21 @@ def _apply_ffn(bp, cfg: ModelConfig, kind: str, x, moe_per_row: bool = False,
 
 # ------------------------------------------------------------------ train fwd
 def block_apply_train(bp, cfg: ModelConfig, kind: str, x, positions, chunk: int, i: int,
-                      layer_params, moe_stats):
-    """One block (layer ``i``) over the full sequence. Returns (y, aux): aux
-    is the MoE load-balancing loss of a ``"moe"`` block, else None. The
-    hooks are ``forward_train``'s; ``layer_params`` runs here, so under
-    ``remat`` it runs again in the recompute."""
+                      layer_params, moe_stats, split=None):
+    """One block (layer ``i``) over the full sequence, or over the rank's
+    positions with ``split``. Returns (y, aux): aux is the MoE
+    load-balancing loss of a ``"moe"`` block, else None. The hooks are
+    ``forward_train``'s; ``layer_params`` runs here, so under ``remat`` it
+    runs again in the recompute."""
     if layer_params is not None:
         bp = layer_params(i, bp)
     h = layers.rmsnorm(bp["norm1"], x, cfg.norm_eps)
     window = _attn_window(cfg)
-    if kind in RECURRENT_KINDS:
+    if split is not None:
+        mix = (train_sharded.recurrent_mix(bp["mix"], cfg, kind, h, split)
+               if kind in RECURRENT_KINDS else
+               train_sharded.attention_mix(bp["mix"], cfg, h, positions, split, chunk))
+    elif kind in RECURRENT_KINDS:
         mix = recurrent.TRAIN[kind](bp["mix"], cfg, h)
     elif cfg.attention == "nsa":
         mix, _ = nsa_lib.attend_train_nsa(bp["mix"], cfg, h, positions, chunk=chunk)
@@ -131,43 +136,57 @@ def block_apply_train(bp, cfg: ModelConfig, kind: str, x, positions, chunk: int,
             remat_chunks=(cfg.attention_impl == "chunked_remat"))
     x = x + mix
     y, aux = _apply_ffn(bp, cfg, kind, layers.rmsnorm(bp["norm2"], x, cfg.norm_eps),
-                        moe_stats=moe_stats)
+                        moe_stats=moe_stats,
+                        moe_gather_ids=None if split is None else split.moe_ids)
     return x + y, aux
 
 
-def embed_inputs(params, cfg: ModelConfig, tokens, frontend=None):
-    """Returns (x (B, S_total, d), positions (B, S_total) int32, n_prefix):
-    with a frontend (B, F, frontend_dim) and a ``frontend_proj``, its
-    projected frames come first and n_prefix = F."""
-    x = layers.embed(params["embed"], tokens)
-    n_prefix = 0
+def embed_inputs(params, cfg: ModelConfig, tokens, frontend=None, a: int = 0,
+                 b: Optional[int] = None):
+    """Returns (x (B, b - a, d), positions (B, b - a) int32, n_prefix): the
+    stream's positions ``[a, b)``, by default all of them. With a frontend
+    (B, F, frontend_dim) and a ``frontend_proj``, its projected frames come
+    first and n_prefix = F. Of the frames and tokens only those at
+    ``[a, b)`` are projected and embedded; either part may be empty and is
+    computed all the same, so that every training rank's graph
+    (``forward_train``'s ``split``) reaches ``frontend_proj`` and the
+    embedding table."""
+    parts, n_prefix = [], 0
     if frontend is not None and "frontend_proj" in params:
-        fx = frontend.to(x.dtype) @ params["frontend_proj"]["w"]
-        x = torch.cat([fx, x], dim=1)
         n_prefix = frontend.shape[1]
-    B, S, _ = x.shape
-    positions = torch.arange(S, dtype=torch.int32, device=tokens.device)[None].expand(B, S)
-    return x, positions, n_prefix
+    b = n_prefix + tokens.shape[1] if b is None else b
+    if n_prefix:
+        parts.append(frontend[:, min(a, n_prefix):min(b, n_prefix)].to(
+            params["embed"]["table"].dtype) @ params["frontend_proj"]["w"])
+    parts.append(layers.embed(params["embed"], tokens[:, max(a, n_prefix) - n_prefix:
+                                                      max(b, n_prefix) - n_prefix]))
+    x = torch.cat(parts, dim=1)
+    positions = torch.arange(a, b, dtype=torch.int32, device=tokens.device)
+    return x, positions[None].expand(x.shape[0], b - a), n_prefix
 
 
 def forward_train(params, cfg: ModelConfig, tokens, frontend=None, remat: bool = True,
-                  attn_chunk: int = 512, layer_params=None, moe_stats=None):
+                  attn_chunk: int = 512, layer_params=None, moe_stats=None, split=None):
     """tokens (B, S) int64 -> (hidden (B, S_total, d), aux 0-d f32 (the MoE
     layers' load-balancing losses summed), n_prefix (frontend frames)).
     ``remat`` recomputes each layer in the backward pass
     (``torch.utils.checkpoint``, as the JAX package wraps each segment
     body in ``jax.checkpoint``), so only the layers' inputs stay alive.
 
-    Training across ranks (``runtime.sharded``) passes two hooks, both None
-    on one device: ``layer_params(i, block)`` returns layer i's weights
-    whole from this rank's blocks, inside the layer's function (so a
-    recompute gathers again); ``moe_stats(t)`` sums the MoE load-balancing
-    statistics over the data ranks."""
+    Training across ranks (``runtime.sharded``) passes three hooks, all
+    None on one device: ``layer_params(i, block)`` returns layer i's
+    weights whole from this rank's blocks, inside the layer's function (so
+    a recompute gathers again); ``moe_stats(t)`` sums the MoE
+    load-balancing statistics over the ranks; ``split`` (a
+    ``runtime.sharded.SeqSplit``) makes this rank embed and run every layer
+    on its positions ``[split.a, split.b)`` only, and hidden is then
+    (B, split.b - split.a, d)."""
     check_supported(cfg)
-    x, positions, n_prefix = embed_inputs(params, cfg, tokens, frontend)
+    x, positions, n_prefix = embed_inputs(params, cfg, tokens, frontend,
+                                          *(() if split is None else (split.a, split.b)))
     aux_total = torch.zeros((), device=x.device)
     for i, (bp, kind) in enumerate(zip(params["layers"], cfg.layer_kinds())):
-        args = (bp, cfg, kind, x, positions, attn_chunk, i, layer_params, moe_stats)
+        args = (bp, cfg, kind, x, positions, attn_chunk, i, layer_params, moe_stats, split)
         if remat:
             x, aux = attention.remat(block_apply_train, *args)
         else:
@@ -180,28 +199,34 @@ def forward_train(params, cfg: ModelConfig, tokens, frontend=None, remat: bool =
 
 def loss_fn(params, cfg: ModelConfig, tokens, frontend=None, remat: bool = True,
             loss_chunk: int = 512, aux_weight: float = 0.01, attn_chunk: int = 512,
-            layer_params=None, moe_stats=None):
+            layer_params=None, moe_stats=None, split=None):
     """Next-token cross-entropy, chunked over the sequence so the (chunk, V)
     logits working set stays bounded. Logits come out in the parameter
     dtype and are cast to float32 before the log-sum-exp, as in JAX.
-    ``layer_params`` / ``moe_stats``: ``forward_train``'s hooks."""
+    ``layer_params`` / ``moe_stats`` / ``split``: ``forward_train``'s hooks.
+    With ``split`` the loss is this rank's part of its data rank's: the sum
+    over the predictions whose hidden position it holds, divided by the
+    data rank's B * (S_tok - 1), plus 1 / m of the load-balancing term,
+    which every one of the m ``model`` ranks computes whole."""
     hidden, aux, n_prefix = forward_train(params, cfg, tokens, frontend, remat, attn_chunk,
-                                          layer_params, moe_stats)
+                                          layer_params, moe_stats, split)
     B, S_tok = tokens.shape
-    h_pred = hidden[:, n_prefix:n_prefix + S_tok - 1]
-    labels = tokens[:, 1:].long()
-    S = h_pred.shape[1]
-    chunk = min(loss_chunk, S)
-    while S % chunk:
+    a, b, aux_share = (0, hidden.shape[1], 1) if split is None else (split.a, split.b, split.m)
+    lo = max(a, n_prefix)
+    hi = max(min(b, n_prefix + S_tok - 1), lo)           # lo == hi: no prediction here
+    chunk = min(loss_chunk, S_tok - 1)
+    while (S_tok - 1) % chunk:
         chunk -= 1
+    h_pred = hidden[:, lo - a:hi - a]
+    labels = tokens[:, lo - n_prefix + 1:hi - n_prefix + 1].long()
     total = torch.zeros((), device=hidden.device)
-    for i in range(S // chunk):
-        sl = slice(i * chunk, (i + 1) * chunk)
+    for c0 in range(0, max(hi - lo, 1), chunk):
+        sl = slice(c0, c0 + chunk)
         logits = logits_fn(params, cfg, h_pred[:, sl]).float()
         logz = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, labels[:, sl, None])[..., 0]
         total = total + (logz - gold).sum()
-    return total / (B * S) + aux_weight * aux
+    return total / (B * (S_tok - 1)) + aux_weight * aux / aux_share
 
 
 # ------------------------------------------------------------------ caches

@@ -41,8 +41,11 @@ groups. A direct model-level call keeps the reference's flattened B*S.
 """
 from __future__ import annotations
 
+import functools
 import math
+from typing import Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.config import ModelConfig, MoEConfig
@@ -60,10 +63,13 @@ def router_probs(params, x, moe: MoEConfig):
 def load_balance_loss(probs, topk_idx, num_experts: int, stats_sum=None):
     """Switch-style auxiliary loss: E * sum_e f_e * p_e.
 
-    ``stats_sum`` (training across ranks: a differentiable sum over the data
-    ranks) sums each expert's assignment count, its probability mass and
-    the token count over the ranks before the product, which is not linear
-    in the tokens: the loss is the single device's over the whole batch."""
+    ``stats_sum`` (training across ranks: ``runtime.sharded.MeshSum``, a
+    differentiable sum over every rank of the mesh, its data rows and
+    ``model`` positions) sums each expert's assignment count, its
+    probability mass and the token count over the ranks before the
+    product, which is not linear in the tokens: the loss is the single
+    device's over the whole batch, the same on every rank, and
+    ``model.loss_fn`` adds 1 / m of it on each of the m ``model`` ranks."""
     N = probs.shape[0]
     experts = torch.arange(num_experts, device=probs.device)
     counts = (topk_idx.reshape(-1, 1) == experts).sum(0).float()     # no host sync
@@ -113,18 +119,30 @@ def _expert_ffn(params, xe, activation: str, e=slice(None)):
     return torch.matmul(h, params["w_down"][e])
 
 
+@functools.lru_cache(maxsize=64)
+def _runs_index(runs: Tuple[Tuple[int, int], ...], G: int, device: str):
+    """(the tokens of ``runs`` (start, stop) as indices (N,), each one's
+    dispatch group among the groups they touch (N,), that count of groups),
+    on ``device``; made once per (runs, G)."""
+    idx = np.concatenate([np.arange(a, b) for a, b in runs])
+    touched, group = np.unique(idx // G, return_inverse=True)
+    return (torch.from_numpy(idx).to(device), torch.from_numpy(group.reshape(-1)).to(device),
+            len(touched))
+
+
 def _expert_outputs(params, cfg: ModelConfig, xf, topk_idx, pos, keep, G: int, C: int,
-                    t0: int = 0, n_all: int = 0):
+                    groups):
     """The expert output of every kept assignment, (N, K, d), all experts
-    at once; dropped ones are 0. ``xf`` holds tokens ``t0 .. t0 + N`` of
-    the ``n_all`` (default N) whose groups ``pos`` counts places in."""
+    at once; dropped ones are 0. ``groups``: (each token's dispatch group
+    (N,), the count of groups)."""
     N, d = xf.shape
     E, K = cfg.moe.num_experts, cfg.moe.top_k
     P = min(C, G)                                   # places per expert and group
-    slots = ((n_all or N) // G) * P                 # places per expert
     tok = torch.arange(N, device=xf.device)[:, None].expand(N, K)
+    group, n_groups = groups[0][:, None], groups[1]
+    slots = n_groups * P                            # places per expert
     # empty places read a zero row
-    slot = topk_idx * slots + torch.div(tok + t0, G, rounding_mode="floor") * P + pos
+    slot = topk_idx * slots + group * P + pos
     slot = torch.where(keep, slot, torch.full_like(slot, E * slots))
     src = torch.full((E * slots + 1,), N, dtype=torch.long, device=xf.device)
     src[slot.reshape(-1)] = tok.reshape(-1)
@@ -171,30 +189,33 @@ def moe_apply(params, cfg: ModelConfig, x, per_row: bool = False, by_expert: boo
         prefill across ranks passes the single device's, which must divide
         N (each rank then cuts the single device's groups from its chunk);
       * ``gather_ids`` (the batched decode across data ranks, whose single
-        group holds every row's token): topk_idx (N, K) -> (the whole
-        group's ids (N_all, K), this rank's first token t0). The places
-        are counted over all N_all tokens, as on one device, and the rank
-        keeps those of its own; only int ids travel."""
+        group holds every row's token; the train step across ``model``
+        ranks, whose groups hold other ranks' positions): topk_idx (N, K)
+        -> (the ids of every token of the groups (N_all, K), this rank's
+        tokens among them as (start, stop) runs, in the order of its N).
+        The places are counted over all N_all tokens, as on one device, and
+        the rank keeps those of its own and computes only the groups they
+        touch; only int ids travel."""
     moe = cfg.moe
     B, S, d = x.shape
     N = B * S
     xf = x.reshape(N, d)
     probs, topk_idx, topk_w = router_probs(params, xf, moe)
     aux = load_balance_loss(probs, topk_idx, moe.num_experts, stats_sum)
-    t0, n_all = 0, N
     if gather_ids is None:
         G = group or group_size(S if per_row else N, moe)
         C = capacity(G, moe)
         pos, keep = dispatch(topk_idx, G, C, moe.num_experts)
+        groups = (torch.div(torch.arange(N, device=x.device), G, rounding_mode="floor"), N // G)
     else:
-        every, t0 = gather_ids(topk_idx)
-        n_all = every.shape[0]
-        G = group_size(n_all, moe)
+        every, runs = gather_ids(topk_idx)
+        G = group_size(every.shape[0], moe)
         C = capacity(G, moe)
-        pos, keep = (t[t0:t0 + N] for t in dispatch(every, G, C, moe.num_experts))
+        idx, *groups = _runs_index(tuple(runs), G, str(x.device))
+        pos, keep = (t[idx] for t in dispatch(every, G, C, moe.num_experts))
     w = torch.where(keep, topk_w, torch.zeros((), device=x.device))
     y_k = (_expert_outputs_by_expert(params, cfg, xf, topk_idx, keep) if by_expert
-           else _expert_outputs(params, cfg, xf, topk_idx, pos, keep, G, C, t0, n_all))
+           else _expert_outputs(params, cfg, xf, topk_idx, pos, keep, G, C, groups))
     # the reference's combine weights are cast to the activations' dtype
     y = (w.to(x.dtype).float()[..., None] * y_k.float()).sum(dim=1).to(x.dtype)
     y = y.reshape(B, S, d)

@@ -352,15 +352,16 @@ def ids_gather(mesh, seq_axes: Sequence[str]):
     """The MoE decode's hook (``moe.moe_apply(gather_ids=)``) when the rows
     lie over data axes outside ``seq_axes`` and those hold more than one
     rank: topk_idx (N, K) -> (every data rank's ids in the order of their
-    rows, this rank's first token), one counted all-gather. None otherwise
-    (every rank holds the whole group)."""
+    rows, this rank's run of tokens among them), one counted all-gather.
+    None otherwise (every rank holds the whole group)."""
     axes = tuple(a for a in mesh_lib.dp_axes(mesh) if a not in seq_axes)
     if not axes or mesh_lib.axes_index(mesh, axes)[1] == 1:
         return None
     group, idx, n = shard_of(mesh, axes)
 
     def gather(ids):
-        return all_gather(ids, group, n).reshape(-1, ids.shape[-1]), idx * ids.shape[0]
+        t0 = idx * ids.shape[0]
+        return all_gather(ids, group, n).reshape(-1, ids.shape[-1]), ((t0, t0 + ids.shape[0]),)
     return gather
 
 

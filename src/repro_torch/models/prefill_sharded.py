@@ -62,7 +62,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.config import ModelConfig
-from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch import mesh as mesh_lib, sharding
 from repro_torch.models import attention, layers, model as model_lib, moe as moe_lib
 from repro_torch.models import nsa as nsa_lib, nsa_sharded, recurrent, recurrent_sharded
 from repro_torch.models.attention import qkv
@@ -120,7 +120,8 @@ def prefill_sharded(view, cfg: ModelConfig, mesh, tokens, max_len: int, chunk: i
                          "model ranks")
     if S > max_len:
         raise ValueError(f"prompt of {S} positions exceeds max_len={max_len}")
-    Sl, q0 = S // m, idx * (S // m)
+    q0, q1 = sharding.seq_chunk(S, m, idx)
+    Sl = q1 - q0
     dev = tokens.device
     n_dp = mesh_lib.axes_index(mesh, mesh_lib.dp_axes(mesh))[1]
     G = moe_group(cfg, B * n_dp, S, m)

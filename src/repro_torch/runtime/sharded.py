@@ -2,38 +2,55 @@
 ``make_train_step`` under ``with mesh``, written out for ``torch.distributed``.
 
 The JAX package runs the single-device step on parameters laid out by
-``param_specs`` (FSDP over the data axes, TP over ``model``) and lets XLA
-insert the collectives. Here the layout is the same and the collectives
-are explicit:
+``param_specs`` (FSDP over the data axes, TP over ``model``) with the
+residual stream constrained to ``activation_spec``'s "sp" layout (rows over
+the data axes, the sequence over ``model``) and lets XLA insert the
+collectives. Here the layouts are the same and the collectives are
+explicit:
 
   * **What a rank holds.** Between steps each rank holds only its block
     (``sharding.local_block``) of every parameter, both AdamW moments and
     the error-feedback residual, under ``sharding.state_specs``; the
     moments' count and a 0-d residual are replicated. The tokens are cut by
     ``batch_spec``: rows over the data axes, replicated over ``model``.
+  * **The positions a rank computes** (``SeqSplit``, when ``model`` has
+    m > 1 ranks). Rank i along ``model`` embeds, runs every layer on and
+    takes the loss of positions ``sharding.seq_chunk(S, m, i)`` of each of
+    its rows (S counts a frontend's frames in front of the tokens). An
+    attention layer all-gathers its K and V over ``model`` (``SeqGather``,
+    whose backward pass reduce-scatters the gradient in float32) and
+    attends for its own queries only (``models.train_sharded``); a MoE
+    layer counts its capacity places over the data rank's whole dispatch
+    groups from the top-k ids all-gathered over ``model``. With m = 1 the
+    step is the single device's computation on the data rank's rows.
   * **The weights, per layer, just in time** (ZeRO-3 over every axis).
     ``Gather`` puts a leaf's blocks together into the whole weight in its
-    forward pass; its backward pass sums the whole gradient over the data
-    axes, divides by their size and keeps this rank's block. Ranks along
-    ``model`` hold the same rows and compute the same gradient, which is
-    not summed over ``model``. ``model.forward_train`` gathers each layer
-    inside the layer's function, so under ``remat`` the gather runs again in
-    the recompute, as FSDP does; the top-level tables (embedding, head,
-    final norm) are gathered once per micro-batch.
-  * **The global reductions.** The loss is each data rank's mean averaged
-    over the data axes; the clip's norm sums each leaf's squares once (the
-    rank at coordinate 0 of every axis that replicates the leaf counts
-    it); the MoE load-balancing statistics are summed over the data axes
-    before their product (``DataSum``, whose backward pass is the same
-    sum); the int8 scale is the MAX over the ranks, and the rounding noise
-    this rank's block of the whole leaf's noise.
+    forward pass; its backward pass sums the whole gradient over every
+    rank of the mesh, for each rank's gradient covers only its rows and
+    positions, divides by the data ranks' count and keeps this rank's
+    block (``MeshLayout.reduce_grad``). ``model.forward_train`` gathers
+    each layer inside the layer's function, so under ``remat`` the gather
+    (and the layer's ``SeqGather``) runs again in the recompute, as FSDP
+    does; the top-level tables (embedding, head, final norm) are gathered
+    once per micro-batch.
+  * **The global reductions.** The loss is each rank's sum over its
+    predictions divided by its data rank's count, summed over the mesh and
+    divided by the data ranks' count; the clip's norm sums each leaf's
+    squares once (the rank at coordinate 0 of every axis that replicates
+    the leaf counts it); the MoE load-balancing statistics are summed over
+    the mesh before their product (``MeshSum``, whose backward pass is the
+    same sum), and each ``model`` rank adds 1 / m of the term; the int8
+    scale is the MAX over the ranks, and the rounding noise this rank's
+    block of the whole leaf's noise.
 
-The collectives are all-gather (weights, and the tokens of a micro-batch),
-reduce-scatter (gradients split over the data axes) and all-reduce (the
-rest, and the scalars). NCCL and gloo both run the three on CUDA tensors
-(torch 2.11 on the H100) and gloo on CPU tensors, so one program serves
-both backends. The matmuls are not split over ``model``: each rank
-computes its rows' whole layer (real TP compute is later work).
+The collectives are all-gather (weights, K/V and MoE ids along ``model``,
+and the tokens of a micro-batch), reduce-scatter (gradients of split
+leaves and of the gathered K/V) and all-reduce (the rest, and the
+scalars). NCCL and gloo both run the three on CUDA tensors (torch 2.11 on
+the H100) and gloo on CPU tensors, so one program serves both backends.
+The weights are gathered whole, so the matmuls are not split by head or
+hidden unit: the ranks along ``model`` split the positions instead
+(Megatron-style head-split compute is not ported).
 
 ``MeshLayout`` is one rank's view of a ``DeviceMesh``: axis sizes,
 coordinates, process groups and the counts of the collectives it issued.
@@ -68,9 +85,14 @@ class MeshLayout:
     ``coords`` ({axis: index}), the data axes, the process group of any run
     of axes with its members' coordinates, and ``counts`` of the
     collectives issued since ``reset_counts`` ("gathers": all-gathers of
-    weights and tokens; "reductions": every reduce-scatter and all-reduce)
-    with the ``bytes`` they carried (a gather's whole leaf, a reduction's
-    input)."""
+    weights and tokens; "reductions": the reduce-scatters and all-reduces
+    of gradients and scalars; "activations": the all-gathers along
+    ``model`` of a step's K/V, recurrent inputs and MoE ids, and the
+    reduce-scatters of their gradients) with the ``bytes`` the first two
+    carried (a gather's whole leaf, a reduction's input) and the
+    ``activation_bytes`` of the third (a gather's output, a
+    reduce-scatter's input). ``positions``: (a, b, S) of the last step's
+    ``SeqSplit``, else None."""
 
     def __init__(self, mesh):
         self.mesh = mesh
@@ -79,6 +101,7 @@ class MeshLayout:
         self.coords = mesh_lib.mesh_coords(mesh)
         self.dp = mesh_lib.dp_axes(mesh)
         self.n_dp = _prod(self.shape[a] for a in self.dp)
+        self.positions = None
         self._groups: Dict[Tuple[str, ...], object] = {}
         self._members: Dict[Tuple[str, ...], List[Dict[str, int]]] = {}
         # every run of axes a spec can split over, made now in one order on
@@ -89,8 +112,8 @@ class MeshLayout:
         self.reset_counts()
 
     def reset_counts(self) -> None:
-        self.counts = {"gathers": 0, "reductions": 0}
-        self.bytes = 0
+        self.counts = {"gathers": 0, "reductions": 0, "activations": 0}
+        self.bytes = self.activation_bytes = 0
 
     def size(self, axes: Sequence[str]) -> int:
         return _prod(self.shape[a] for a in axes)
@@ -124,7 +147,10 @@ class MeshLayout:
 
     def _count(self, kind: str, t: torch.Tensor) -> None:
         self.counts[kind] += 1
-        self.bytes += t.numel() * t.element_size()
+        if kind == "activations":
+            self.activation_bytes += t.numel() * t.element_size()
+        else:
+            self.bytes += t.numel() * t.element_size()
 
     def all_reduce(self, t: torch.Tensor, axes: Sequence[str], op=dist.ReduceOp.SUM
                    ) -> torch.Tensor:
@@ -160,30 +186,62 @@ class MeshLayout:
         return out
 
     def reduce_grad(self, g: torch.Tensor, sp, dtype: torch.dtype) -> torch.Tensor:
-        """This rank's block of the whole gradient ``g`` averaged over the
-        data axes, in ``dtype``: cut along the dimensions that only non-data
-        axes split, then summed in float32 over the data ranks, divided by
-        their count, and cut along the rest (a reduce-scatter of the data
-        ranks' blocks; an all-reduce when no data axis splits the leaf)."""
-        dp = set(self.dp)
-        axes = [set(sharding._axes_of(sp[d]) if d < len(sp) else ()) for d in range(g.ndim)]
-
-        def cut(coords, keep):
-            full = sharding.local_slices(g.shape, sp, self.shape, coords)
-            return tuple(s if keep(a) else slice(None) for s, a in zip(full, axes))
-        g = g[cut(self.coords, lambda a: a and not a & dp)]
-        if self.n_dp == 1:
-            return g.to(dtype).contiguous()
-        if not any(a & dp for a in axes):
-            g = self.all_reduce(g.to(torch.float32, copy=True), self.dp)
+        """This rank's block of the sum over the mesh of every rank's whole
+        gradient ``g`` (each covers only its rows and, along ``model``, its
+        positions), divided by the data ranks' count, in ``dtype``: a
+        reduce-scatter in float32 of the blocks over the axes that split
+        the leaf, then an all-reduce over the axes that replicate it (axes
+        of one rank take no part)."""
+        split = [a for a in sharding.split_axes(sp, self.names) if self.shape[a] > 1]
+        rest = [a for a in self.names if a not in split and self.shape[a] > 1]
+        if not split:
+            g = g[sharding.local_slices(g.shape, sp, self.shape, self.coords)]
+            if not rest:
+                return g.to(dtype).contiguous()
+            g = g.to(torch.float32, copy=True)
         else:
-            parts = torch.stack([g[cut(c, lambda a: a & dp)] for c in self.members(self.dp)])
-            parts = parts.to(torch.float32)
-            out = parts.new_empty(parts.shape[1:])
+            parts = torch.stack([g[sharding.local_slices(g.shape, sp, self.shape, c)]
+                                 for c in self.members(split)]).to(torch.float32)
+            g = parts.new_empty(parts.shape[1:])
             self._count("reductions", parts)
-            dist.reduce_scatter_tensor(out.view(-1), parts.view(-1), group=self.group(self.dp))
-            g = out
+            dist.reduce_scatter_tensor(g.view(-1), parts.view(-1), group=self.group(split))
+        if rest:
+            self.all_reduce(g, rest)
         return (g / self.n_dp).to(dtype).contiguous()
+
+    # ---------------------------------------------------------------- sequence
+    def gather_seq(self, chunk: torch.Tensor, S: int) -> torch.Tensor:
+        """(B, n, ...) this rank's positions ``seq_chunk`` of an S-position
+        stream -> (B, S, ...) the whole stream: every ``model`` rank's chunk,
+        padded to ceil(S / m), all-gathered (in group-rank order, which
+        ``SeqSplit`` checks is the ``model`` order) and trimmed."""
+        m = self.shape["model"]
+        c = sharding.seq_chunk(S, m, 0)[1]
+        B, n = chunk.shape[:2]
+        rest = tuple(chunk.shape[2:])
+        if n < c:
+            chunk = torch.cat([chunk, chunk.new_zeros((B, c - n) + rest)], dim=1)
+        buf = chunk.new_empty((m, B, c) + rest)
+        self._count("activations", buf)
+        dist.all_gather_into_tensor(buf.view(-1), chunk.contiguous().view(-1),
+                                    group=self.group(("model",)))
+        return buf.movedim(0, 1).reshape((B, m * c) + rest)[:, :S]
+
+    def scatter_seq(self, whole: torch.Tensor, S: int, n: int, dtype: torch.dtype
+                    ) -> torch.Tensor:
+        """``gather_seq``'s adjoint: (B, S, ...) -> this rank's (B, n, ...)
+        of the sum over the ``model`` ranks, reduce-scattered in float32."""
+        m = self.shape["model"]
+        c = sharding.seq_chunk(S, m, 0)[1]
+        B = whole.shape[0]
+        rest = tuple(whole.shape[2:])
+        parts = whole.new_zeros((B, m * c) + rest, dtype=torch.float32)
+        parts[:, :S] = whole
+        parts = parts.view((B, m, c) + rest).movedim(1, 0).contiguous()
+        out = parts.new_empty(parts.shape[1:])
+        self._count("activations", parts)
+        dist.reduce_scatter_tensor(out.view(-1), parts.view(-1), group=self.group(("model",)))
+        return out[:, :n].to(dtype)
 
     def owns(self, sp) -> bool:
         """Whether this rank counts a leaf of ``sp`` in a global sum: it sits
@@ -192,9 +250,11 @@ class MeshLayout:
         return all(self.coords[a] == 0 for a in self.names if a not in used)
 
     # ---------------------------------------------------------------- step reductions
-    def data_mean(self, t: torch.Tensor) -> torch.Tensor:
-        """A per-data-rank value averaged over the data axes (a copy)."""
-        out = self.all_reduce(t.detach().float().clone(), self.dp)
+    def global_mean(self, t: torch.Tensor) -> torch.Tensor:
+        """A per-rank part of a per-data-rank value (each ``model`` rank's
+        share of it) summed over the mesh and averaged over the data axes
+        (a copy)."""
+        out = self.all_reduce(t.detach().float().clone(), self.names)
         return out / self.n_dp
 
     def sum_of_squares(self, leaf_specs: List) -> Callable:
@@ -249,21 +309,71 @@ class Gather(torch.autograd.Function):
         return ctx.layout.reduce_grad(grad, ctx.sp, ctx.dtype), None, None
 
 
-class DataSum(torch.autograd.Function):
-    """A per-data-rank tensor summed over the data axes; the backward pass
-    sums the gradient the same way. With each data rank's loss carrying
-    the same global term and the weights' gradients averaged over the data
-    ranks, this gives the single device's gradient of a term that is not
-    linear in the tokens (the MoE load-balancing loss)."""
+class MeshSum(torch.autograd.Function):
+    """A per-rank tensor summed over every rank of the mesh (the data ranks'
+    rows and the ``model`` ranks' positions); the backward pass sums the
+    gradient the same way. With each rank's loss carrying 1 / m of the
+    same global term and the weights' gradients summed over the mesh and
+    divided by the data ranks' count, this gives the single device's
+    gradient of a term that is not linear in the tokens (the MoE
+    load-balancing loss)."""
 
     @staticmethod
     def forward(ctx, t, layout: MeshLayout):
         ctx.layout = layout
-        return layout.all_reduce(t.clone(), layout.dp)
+        return layout.all_reduce(t.clone(), layout.names)
 
     @staticmethod
     def backward(ctx, grad):
-        return ctx.layout.all_reduce(grad.clone(), ctx.layout.dp), None
+        return ctx.layout.all_reduce(grad.clone(), ctx.layout.names), None
+
+
+class SeqGather(torch.autograd.Function):
+    """Forward: the whole stream (B, S, ...) from this rank's chunk of its
+    positions (``MeshLayout.gather_seq``). Backward: this rank's chunk of the
+    gradient summed over the ``model`` ranks (``MeshLayout.scatter_seq``)."""
+
+    @staticmethod
+    def forward(ctx, chunk, split: "SeqSplit"):
+        ctx.split, ctx.n, ctx.dtype = split, chunk.shape[1], chunk.dtype
+        return split.layout.gather_seq(chunk, split.S)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.split.layout.scatter_seq(grad, ctx.split.S, ctx.n, ctx.dtype), None
+
+
+class SeqSplit:
+    """``model.forward_train``'s ``split`` hook when ``model`` has m > 1
+    ranks: this rank computes positions ``[a, b)`` (``sharding.seq_chunk``)
+    of each of its B rows' S-position stream. ``gather`` gives a layer the
+    whole stream of a (B, b - a, ...) tensor (``SeqGather``, counted under
+    "activations"); ``moe_ids`` is ``moe.moe_apply``'s ``gather_ids``."""
+
+    def __init__(self, layout: MeshLayout, B: int, S: int):
+        self.layout, self.B, self.S = layout, B, S
+        self.m = layout.shape["model"]
+        self.a, self.b = sharding.seq_chunk(S, self.m, layout.coords["model"])
+        if sharding.seq_chunk(S, self.m, self.m - 1)[0] == S:
+            raise ValueError(f"a stream of {S} positions leaves the last of {self.m} model "
+                             "ranks no position")
+        if [c["model"] for c in layout.members(("model",))] != list(range(self.m)):
+            raise RuntimeError("the model group does not order its ranks by their coordinate")
+        layout.positions = (self.a, self.b, S)
+
+    def gather(self, chunk: torch.Tensor) -> torch.Tensor:
+        return SeqGather.apply(chunk, self)
+
+    def moe_ids(self, topk_idx: torch.Tensor):
+        """topk_idx (B * (b - a), K) of this rank's tokens -> (the data
+        rank's ids (B * S, K) in (row, position) order, one all-gather of
+        int ids along ``model`` with no backward pass; this rank's runs of
+        tokens in it)."""
+        B, S, K = self.B, self.S, topk_idx.shape[-1]
+        with torch.no_grad():
+            every = self.layout.gather_seq(topk_idx.reshape(B, self.b - self.a, K), S)
+        return every.reshape(B * S, K), tuple((r * S + self.a, r * S + self.b)
+                                              for r in range(B))
 
 
 def gather_tree(blocks, specs, layout: MeshLayout):
@@ -329,11 +439,21 @@ def make_sharded_step(cfg: ModelConfig, tcfg: TrainConfig, mesh):
     residual, metrics) on this rank's blocks (``sharding.state_specs``) and
     its rows of the batch (``batch_spec``; a ``frontend``'s frames are cut
     the same way, rows over the data axes, and ``frontend_proj`` stays
-    whole on every rank); metrics {"loss", "grad_norm"} are the global
-    values, equal on every rank. The step carries ``layout`` (the
-    ``MeshLayout``, with its collective counts) and ``specs``."""
+    whole on every rank); with m > 1 ``model`` ranks each computes its
+    ``SeqSplit`` positions of its rows. Metrics {"loss", "grad_norm"} are
+    the global values, equal on every rank. The step carries ``layout``
+    (the ``MeshLayout``, with its collective counts and the last step's
+    positions) and ``specs``. Raises for a dense or windowed config on
+    ``attention_impl`` "flash" or "online" when m > 1."""
     model.check_supported(cfg)
     layout = MeshLayout(mesh)
+    m = layout.shape.get("model", 1)
+    if m > 1 and cfg.attention in ("dense", "swa") and cfg.attention_impl in ("flash", "online") \
+            and {"attn", "moe"} & set(cfg.layer_kinds()):
+        raise NotImplementedError(
+            f"{cfg.name}: attention_impl={cfg.attention_impl!r} does not split the positions "
+            f"over {m} model ranks (the split runs attention.attend_queries, the function of "
+            "'chunked' and 'chunked_remat')")
     use_comp = tcfg.grad_compression == "int8_ef"
     specs = sharding.state_specs(init_params(cfg, torch.Generator(), "meta"), mesh, use_comp)
     p_specs = specs["params"]
@@ -345,9 +465,11 @@ def make_sharded_step(cfg: ModelConfig, tcfg: TrainConfig, mesh):
 
     def value_and_grad(params, leaves, batch, frontend):
         view = {k: (v if k == "layers" else gathered(v, p_specs[k])) for k, v in params.items()}
+        F = frontend.shape[1] if frontend is not None and "frontend_proj" in params else 0
+        split = SeqSplit(layout, batch.shape[0], F + batch.shape[1]) if m > 1 else None
         loss = model.loss_fn(view, cfg, batch, frontend=frontend, remat=tcfg.remat,
                              layer_params=lambda i, bp: gathered(bp, p_specs["layers"][i]),
-                             moe_stats=lambda t: DataSum.apply(t, layout))
+                             moe_stats=lambda t: MeshSum.apply(t, layout), split=split)
         grads = torch.autograd.grad(loss, leaves)
         return loss.detach(), tree_unflatten(params, list(grads))
 
@@ -383,7 +505,7 @@ def make_sharded_step(cfg: ModelConfig, tcfg: TrainConfig, mesh):
             for p in leaves:
                 p.requires_grad_(False)
         with torch.no_grad():
-            loss = layout.data_mean(loss)
+            loss = layout.global_mean(loss)
             if use_comp:
                 quant, residual = compress.compress_pytree(grads, residual, int(opt.count),
                                                            LeafBlocks(layout, leaf_specs))
@@ -505,7 +627,8 @@ class ServeWeights:
         B, S, D = part.shape
         chunks = part.reshape(B, m, S // m, D).transpose(0, 1).contiguous()
         x = nsa_sharded.reduce_scatter(chunks, group)
-        a, b = idx * (S // m), min(F, (idx + 1) * (S // m))
+        a, b = sharding.seq_chunk(S, m, idx)
+        b = min(F, b)
         if b > a:
             x[:, :b - a] = frontend[:, a:b].to(x.dtype) @ self.blocks["frontend_proj"]["w"]
         return x

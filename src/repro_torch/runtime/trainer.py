@@ -46,10 +46,11 @@ class TrainState:
 
 
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None) -> Callable:
-    """Returns step(params, opt, residual, tokens) -> (params, opt,
-    residual, metrics) with metrics {"loss", "grad_norm"} as 0-d device
-    tensors. tokens (B, S) int64 on the params' device; the inputs are
-    left as they were.
+    """Returns step(params, opt, residual, tokens, frontend=None) ->
+    (params, opt, residual, metrics) with metrics {"loss", "grad_norm"} as
+    0-d device tensors. tokens (B, S) int64 on the params' device (an arch
+    with a frontend: its frames (B, F, frontend_dim) in front, as
+    ``model.loss_fn`` takes them); the inputs are left as they were.
 
     With ``mesh`` (a ``DeviceMesh`` over the initialised world) the step
     takes and returns this rank's blocks of the state and its rows of the
@@ -58,30 +59,32 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None) -> Callable:
         return sharded.make_sharded_step(cfg, tcfg, mesh)
     use_comp = tcfg.grad_compression == "int8_ef"
 
-    def value_and_grad(params, leaves, batch):
-        loss = model.loss_fn(params, cfg, batch, remat=tcfg.remat)
+    def value_and_grad(params, leaves, batch, frontend):
+        loss = model.loss_fn(params, cfg, batch, frontend=frontend, remat=tcfg.remat)
         grads = torch.autograd.grad(loss, leaves)
         return loss.detach(), tree_unflatten(params, list(grads))
 
-    def step_fn(params, opt, residual, tokens):
+    def step_fn(params, opt, residual, tokens, frontend=None):
         leaves = tree_leaves(params)
         for p in leaves:
             p.requires_grad_(True)
         try:
             if tcfg.micro_batches > 1:
-                mb = tokens.reshape((tcfg.micro_batches, tokens.shape[0] // tcfg.micro_batches)
-                                    + tokens.shape[1:])
+                runs = lambda t: t.reshape((tcfg.micro_batches, t.shape[0] // tcfg.micro_batches)
+                                           + t.shape[1:])
+                mb = runs(tokens)
+                fmb = [None] * tcfg.micro_batches if frontend is None else runs(frontend)
                 loss = torch.zeros((), device=tokens.device)
                 grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                                        device=p.device), params)
-                for batch in mb:
-                    l, g = value_and_grad(params, leaves, batch)
+                for batch, fr in zip(mb, fmb):
+                    l, g = value_and_grad(params, leaves, batch, fr)
                     loss = loss + l
                     grads = tree_map(torch.add, grads, g)
                 loss = loss / tcfg.micro_batches
                 grads = tree_map(lambda g: g / tcfg.micro_batches, grads)
             else:
-                loss, grads = value_and_grad(params, leaves, tokens)
+                loss, grads = value_and_grad(params, leaves, tokens, frontend)
         finally:
             for p in leaves:
                 p.requires_grad_(False)

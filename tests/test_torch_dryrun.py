@@ -254,3 +254,36 @@ def test_run_world_on_cpu_ranks_equals_decode_step(tmp_path):
     for (k, v), c in zip(got[1]["written"], cell.caches["layers"]):
         torch.testing.assert_close(k, c["kv"]["k"][0, 32768], rtol=2e-4, atol=2e-5)
         torch.testing.assert_close(v, c["kv"]["v"][0, 32768], rtol=2e-4, atol=2e-5)
+
+
+def test_live_at_peak_replays_the_allocator_history():
+    """``--trace``'s replay of a train step's allocator history: the peak
+    counts the bytes allocated before the call, frees of those blocks come
+    off them, "free_requested" is not a free, and each live block goes to
+    the innermost frame of the package that allocated it."""
+    pkg = "/src/repro_torch/"
+    fr = lambda *fs: [{"filename": f, "name": n, "line": 1} for f, n in fs]
+    torch_frame = ("/site-packages/torch/nn/functional.py", "linear")
+    events = [
+        {"action": "alloc", "addr": 1, "size": 100,
+         "frames": fr(torch_frame, (pkg + "optim/adamw.py", "adamw_update"))},
+        {"action": "alloc", "addr": 2, "size": 50, "frames": fr(torch_frame)},
+        {"action": "free_requested", "addr": 2, "size": 50},
+        {"action": "free_completed", "addr": 2, "size": 50},
+        {"action": "free_completed", "addr": 9, "size": 30},      # allocated before the call
+        {"action": "alloc", "addr": 3, "size": 200,
+         "frames": fr(torch_frame, (pkg + "models/model.py", "logits_fn"),
+                      (pkg + "models/model.py", "loss_fn"))},
+        {"action": "alloc", "addr": 4, "size": 5, "frames": []},
+        {"action": "free_requested", "addr": 1, "size": 100},
+        {"action": "free_completed", "addr": 1, "size": 100},
+        {"action": "alloc", "addr": 5, "size": 60, "frames": fr(torch_frame)},
+    ]
+    out = dryrun.live_at_peak(events, before=1000)
+    assert out["peak_bytes"] == 1000 + 100 - 30 + 200 + 5
+    assert out["before_bytes"] == 1000 and out["events"] == len(events)
+    assert out["owners"] == [{"where": "before the call", "bytes": 970},
+                             {"where": "model.py:logits_fn", "bytes": 200},
+                             {"where": "adamw.py:adamw_update", "bytes": 100},
+                             {"where": "elsewhere", "bytes": 5}]
+    assert dryrun.live_at_peak([], before=7)["peak_bytes"] == 7

@@ -1130,9 +1130,13 @@ def test_sharded_decode_equals_decode_step_on_card(cuda, tmp_path, world, backen
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("compression,micro", [("none", 1), ("int8_ef", 2)])
-def test_sharded_train_step_equals_single_device_on_card(cuda, tmp_path, compression, micro):
-    """Two gloo ranks sharing the card with CUDA tensors on a (2, 1) mesh:
+@pytest.mark.parametrize("compression,micro,mesh", [("none", 1, (2, 1)), ("int8_ef", 2, (2, 1)),
+                                                   ("none", 1, (1, 2))],
+                         ids=["none-1", "int8_ef-2", "none-1-model2"])
+def test_sharded_train_step_equals_single_device_on_card(cuda, tmp_path, compression, micro,
+                                                         mesh):
+    """Two gloo ranks sharing the card with CUDA tensors on a (2, 1) mesh,
+    or on (1, 2), where they split each row's 128 positions (64 each):
     ``make_train_step(cfg, tcfg, mesh)`` on reduced ssv-nsa-1b in float32
     equals the single-device step on the card (loss rtol 1e-5; params, both
     moments and the residual rtol 2e-4 / atol 2e-5, an int8 rounding flip
@@ -1154,15 +1158,17 @@ def test_sharded_train_step_equals_single_device_on_card(cuda, tmp_path, compres
     torch.save({"params": tree_map(lambda t: t.cpu(), params), "tokens": tokens.cpu()},
                tmp_path / "case.pt")
     job = dict(kind="step", name="reduced 1b", cfg=cfg, tcfg=tcfg,
-               mesh=((2, 1), ("data", "model")), case=str(tmp_path / "case.pt"),
+               mesh=(mesh, ("data", "model")), case=str(tmp_path / "case.pt"),
                refs={"card": str(tmp_path / "ref.pt")}, tol=(2e-4, 2e-5, 1e-5))
     got = train_checks.run_checks([job], 2, "gloo", tmp_path / "out", timeout=300)
-    for r in got:
+    for i, r in enumerate(got):
         res = r["jobs"][0]
         assert r["device"].startswith("cuda"), r["device"]
-        print(compression, "rank", r["rank"], res["refs"]["card"])
+        print(compression, mesh, "rank", r["rank"], res["positions"], res["refs"]["card"])
         assert res["refs"]["card"]["ok"], res["refs"]["card"]
         assert res["gathers"] > 0 and res["reductions"] > 0
+        if mesh[1] > 1:
+            assert res["positions"] == [64 * i, 64 * (i + 1), 128] and res["activations"] > 0
 
 
 @pytest.mark.gpu

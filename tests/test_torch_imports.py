@@ -94,7 +94,8 @@ def test_scan_covers_the_sharded_training_modules():
     """Training across ranks and its checks in spawned ranks are scanned."""
     scanned = {str(p.relative_to(ROOT)) for p in _port_files()}
     for rel in ("runtime/sharded.py", "launch/train_checks.py", "runtime/trainer.py",
-                "ckpt/checkpoint.py", "optim/compress.py", "models/moe.py"):
+                "ckpt/checkpoint.py", "optim/compress.py", "models/moe.py",
+                "models/train_sharded.py"):
         assert f"src/repro_torch/{rel}" in scanned
 
 

@@ -27,6 +27,20 @@ against the JAX single-device ``make_train_step`` and the port's:
     the loss, and through the first moment the gradient of every leaf,
     ``frontend_proj`` too.
 
+  * the positions split over ``model`` (``runtime.sharded.SeqSplit``): the
+    (2, 4) and (2, 2) jobs above run it, and five jobs on a (1, 2) mesh in
+    the world of 2 hold it to the JAX step or the port's single-device step
+    at the same tolerances: the JAX case; reduced ssv-nsa-1b on an uneven
+    stream of 65 tokens (chunks of 33 and 32: a compressed block and a
+    selected block straddle the cut); reduced qwen3-moe whose dispatch
+    groups of one row straddle the cut, its capacity drops equal to the
+    single device's; reduced mixtral (``swa`` window 64, MoE) on 96
+    positions, rank 1's windows reaching into rank 0's chunk; reduced
+    pixtral with 44 frames in front of 36 tokens, frames on both sides of
+    the cut and none of rank 0's positions a token. A spy shows every
+    layer's input on each rank holds the rank's positions, not the
+    stream's.
+
 Each world is one spawned run (``launch.ranks.spawn``, a ``FileStore`` in
 ``tmp_path``, one thread per rank, its own timeout) that runs every job
 (``launch.train_checks``) and the extra checks; the references are
@@ -70,7 +84,39 @@ def _jobs(world, tmp):
     return [dict(kind="restore", name="(2, 2) checkpoint on (2, 1)", mesh=dm(2, 1),
                  dir=str(tmp / "ck22"), whole=str(tmp / "ck22" / "whole.pt"),
                  **torch.load(tmp / "cfg_jax.pt", weights_only=False)),
-            step("pixtral frames (2, 1)", "frames", dm(2, 1), ("jax",))]
+            step("pixtral frames (2, 1)", "frames", dm(2, 1), ("jax",)),
+            step("jax (1, 2)", "jax", dm(1, 2), ("jax", "port")),
+            *(step(name, case, dm(1, 2), ("port",)) for name, case in SPLIT_CASES.items())]
+
+
+# the (1, 2) jobs against the port's single-device step: {job name: case}
+SPLIT_CASES = {"ssv-nsa-1b uneven (1, 2)": "nsa65", "qwen3-moe (1, 2)": "moe",
+               "mixtral swa (1, 2)": "swa", "pixtral frames across the cut (1, 2)": "frames12"}
+
+
+def _spied(job, dev):
+    """``job`` run with two spies: each ``block_apply_train`` call's input
+    positions, and the capacity drops among the rank's own tokens of every
+    MoE call (forward and recompute)."""
+    from repro_torch.launch import train_checks
+    from repro_torch.models import model, moe
+    positions, drops = [], []
+    block, outputs = model.block_apply_train, moe._expert_outputs
+
+    def spy_block(bp, cfg, kind, x, *a, **kw):
+        positions.append(x.shape[1])
+        return block(bp, cfg, kind, x, *a, **kw)
+
+    def spy_outputs(params, cfg, xf, topk_idx, pos, keep, *a):
+        drops.append(int((~keep).sum()))
+        return outputs(params, cfg, xf, topk_idx, pos, keep, *a)
+
+    model.block_apply_train, moe._expert_outputs = spy_block, spy_outputs
+    try:
+        out = train_checks.run_jobs([job], dev)[0]
+    finally:
+        model.block_apply_train, moe._expert_outputs = block, outputs
+    return dict(out, layer_positions=positions, own_drops=sum(drops))
 
 
 # ---------------------------------------------------------------- the ranks
@@ -82,7 +128,12 @@ def _rank(rank, world, dev, tmp, out_dir):
     from repro_torch.optim import compress, tree_leaves
     from repro_torch.runtime.sharded import LeafBlocks, MeshLayout
     tmp = Path(tmp)
-    res = {"jobs": train_checks.run_jobs(_jobs(world, tmp), dev)}
+    jobs = _jobs(world, tmp)
+    if world == 2:
+        res = {"jobs": [_spied(j, dev) if j["mesh"][0] == (1, 2) else
+                        train_checks.run_jobs([j], dev)[0] for j in jobs]}
+    else:
+        res = {"jobs": train_checks.run_jobs(jobs, dev)}
     if world in (8, 4):
         # DTensor placements against the blocks that shard_tree cuts
         d, m = (2, world // 2)
@@ -141,10 +192,10 @@ def _save_case(tmp, name, cfg, tcfg, params, tokens, refs, frontend=None):
         torch.save(ref, tmp / f"ref_{name}_{r}.pt")
 
 
-def _port_reference(cfg, tcfg, params, tokens):
+def _port_reference(cfg, tcfg, params, tokens, frontend=None):
     """The port's single-device step as a reference
     (``train_checks.single_device_reference``) and its MoE capacity drops
-    (read from ``moe.dispatch``)."""
+    (read from ``moe.dispatch``, forward and recompute)."""
     from repro_torch.launch import train_checks
     from repro_torch.models import moe
     dropped = []
@@ -157,7 +208,8 @@ def _port_reference(cfg, tcfg, params, tokens):
 
     moe.dispatch = spy_dispatch
     try:
-        ref = train_checks.single_device_reference(cfg, tcfg, params, tokens)
+        ref = train_checks.single_device_reference(cfg, tcfg, params, tokens,
+                                                   frontend=frontend)
     finally:
         moe.dispatch = dispatch
     return ref, sum(dropped)
@@ -240,11 +292,18 @@ def runs(tmp_path_factory):
         "rec": (reduced("recurrentgemma-9b", layers=3), TrainConfig(steps=1, learning_rate=1e-3)),
         "int8": (reduced("ssv-nsa-1b"), TrainConfig(steps=1, learning_rate=1e-3,
                                                     grad_compression="int8_ef"))}
+    plain = TrainConfig(steps=1, learning_rate=1e-3)
+    cases.update({"nsa65": (reduced("ssv-nsa-1b"), plain),
+                  "swa": (reduced("mixtral-8x22b"), plain),
+                  "frames12": (reduced("pixtral-12b"), plain)})
+    shapes = {"nsa65": (2, 65), "swa": (2, 96), "frames12": (2, 36)}
     for i, (name, (cfg, tcfg)) in enumerate(cases.items()):
         params = init_params(cfg, g(10 + i), "cpu")
-        tokens = torch.randint(0, cfg.vocab_size, (4, 64), generator=g(20 + i))
-        ref, out["drops"][name] = _port_reference(cfg, tcfg, params, tokens)
-        _save_case(tmp, name, cfg, tcfg, params, tokens, {"port": ref})
+        tokens = torch.randint(0, cfg.vocab_size, shapes.get(name, (4, 64)), generator=g(20 + i))
+        frontend = torch.randn((2, 44, cfg.frontend_dim), generator=g(40)) \
+            if name == "frames12" else None
+        ref, out["drops"][name] = _port_reference(cfg, tcfg, params, tokens, frontend)
+        _save_case(tmp, name, cfg, tcfg, params, tokens, {"port": ref}, frontend)
     # whole gradients and residual for the int8-on-blocks check
     grads = init_params(cases["int8"][0], g(30), "cpu")
     torch.save({"grads": grads, "residual": init_params(cases["int8"][0], g(31), "cpu")},
@@ -265,11 +324,13 @@ def _job(r, name):
 
 
 # ---------------------------------------------------------------- the step
-@pytest.mark.parametrize("world,name", [(8, "jax (2, 4)"), (4, "jax (2, 2)")])
+@pytest.mark.parametrize("world,name", [(8, "jax (2, 4)"), (4, "jax (2, 2)"),
+                                        (2, "jax (1, 2)")])
 def test_sharded_step_equals_the_jax_step(runs, world, name):
-    """The JAX test's case: every rank's loss and grad norm are the JAX
-    step's and the port's, every block of the new params and moments the
-    same block of theirs (rtol 2e-4 / atol 2e-5; loss rtol 1e-5)."""
+    """The JAX test's case, its 64 positions split over the ``model`` ranks:
+    every rank's loss and grad norm are the JAX step's and the port's,
+    every block of the new params and moments the same block of theirs
+    (rtol 2e-4 / atol 2e-5; loss rtol 1e-5)."""
     for r in runs[world]:
         job = _job(r, name)
         for ref in ("jax", "port"):
@@ -303,6 +364,42 @@ def test_sharded_step_equals_the_single_device_step(runs, name):
     print(name, "params held to a moved update per rank, off the reference's tolerance:",
           [(_job(r, name)["refs"]["port"]["moved"],
             _job(r, name)["refs"]["port"]["moved_off_reference"]) for r in runs[4]])
+
+
+@pytest.mark.parametrize("name", list(SPLIT_CASES))
+def test_split_step_equals_the_single_device_step(runs, name):
+    """On (1, 2) the two ranks split each row's positions: an uneven NSA
+    stream, MoE dispatch groups across the cut (the drops of the ranks'
+    own tokens add up to the single device's, and there are some), a
+    sliding window across it, frames on both sides of it. Every rank's
+    loss equals the single device's (rtol 1e-5) and every block of its
+    params and moments (rtol 2e-4 / atol 2e-5)."""
+    drops = 0
+    for r in runs[2]:
+        job = _job(r, name)
+        assert job["refs"]["port"]["ok"], job["refs"]["port"]
+        drops += job["own_drops"]
+    if "moe" in name:
+        assert drops == runs["drops"]["moe"] > 0
+    if "swa" in name:
+        assert drops == runs["drops"]["swa"]
+
+
+@pytest.mark.parametrize("name", ["jax (1, 2)", *SPLIT_CASES])
+def test_each_rank_computes_only_its_positions(runs, name):
+    """Every layer's input (forward and recompute) on rank i of the (1, 2)
+    jobs holds positions ``seq_chunk(S, 2, i)`` of the stream, never all
+    S of them: 32 of 64 (the JAX case, qwen3-moe), 33 and 32 of 65, 48 of
+    96, 40 of 80 (44 frames and 36 tokens)."""
+    from repro_torch.launch.sharding import seq_chunk
+    S = {"jax (1, 2)": 64, "ssv-nsa-1b uneven (1, 2)": 65, "qwen3-moe (1, 2)": 64,
+         "mixtral swa (1, 2)": 96, "pixtral frames across the cut (1, 2)": 80}[name]
+    for i, r in enumerate(runs[2]):
+        job = _job(r, name)
+        a, b = seq_chunk(S, 2, i)
+        assert tuple(job["positions"]) == (a, b, S)
+        layers = len(job["layer_positions"])
+        assert layers > 0 and job["layer_positions"] == [b - a] * layers, job["layer_positions"]
 
 
 def test_int8_check_fails_a_step_with_the_wrong_noise(runs):
@@ -365,7 +462,7 @@ def test_int8_on_blocks_equals_the_whole_leaves_bitwise(runs):
     leaf's scale."""
     for r in runs[4]:
         assert r["compress"]
-        assert r["collectives"] == {"gathers": 0, "reductions": 1}
+        assert r["collectives"] == {"gathers": 0, "reductions": 1, "activations": 0}
 
 
 def test_a_block_that_does_not_divide_raises(runs):
@@ -375,13 +472,26 @@ def test_a_block_that_does_not_divide_raises(runs):
 
 
 def test_collectives_of_a_step(runs):
-    """The JAX case on (2, 2) (2 dense layers of 9 leaves, 7 of them split;
-    3 top-level leaves, 2 split; remat on): a layer's split leaves are
-    gathered twice (the forward and the recompute), the top-level ones
-    once; every leaf's gradient is reduced over the data axes once; one
-    all-reduce each for the loss and the norm."""
+    """The JAX case on (2, 2) (2 dense layers of 9 leaves, 7 of them split
+    over (data, model); 3 top-level leaves, 2 split over ``model`` only;
+    remat on), each row's 64 positions split over ``model``: a layer's
+    split leaves are gathered twice (the forward and the recompute), the
+    top-level ones once; every gradient is summed over the mesh: one
+    reduce-scatter for a leaf split over both axes, one all-reduce for a
+    replicated one, a reduce-scatter over ``model`` and an all-reduce over
+    ``data`` for a top-level table; one all-reduce each for the loss and
+    the norm. A layer's K/V are all-gathered along ``model`` in the forward
+    and the recompute and their gradient reduce-scattered once (3
+    activation collectives a layer), each carrying the 2 ranks' chunks of
+    4 rows x 32 positions x 2 kv heads x (K and V) x head dim 16 in
+    float32. On (1, 2) the tables' all-reduce over one data rank goes."""
     job = _job(runs[4][0], "jax (2, 2)")
-    assert (job["gathers"], job["reductions"]) == (2 * 2 * 7 + 2, 2 * 9 + 3 + 2)
+    assert (job["gathers"], job["reductions"], job["activations"]) == \
+        (2 * 2 * 7 + 2, 2 * 9 + 5 + 2, 2 * 3)
+    assert job["activation_bytes"] == 2 * 3 * (2 * 4 * 32 * 2 * 2 * 16 * 4)
+    job = _job(runs[2][0], "jax (1, 2)")
+    assert (job["gathers"], job["reductions"], job["activations"]) == \
+        (2 * 2 * 7 + 2, 2 * 9 + 3 + 2, 2 * 3)
 
 
 # ---------------------------------------------------------------- checkpoints

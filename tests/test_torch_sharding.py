@@ -125,6 +125,18 @@ def test_batch_and_activation_specs_equal_jax(axes):
     assert mesh_lib.dp_axes(axes) == jmesh.dp_axes(_Axes(axes))
 
 
+@pytest.mark.parametrize("S,m", [(64, 2), (65, 2), (2049, 2), (10, 4), (4096, 4)])
+def test_seq_chunk_tiles_the_stream_as_gspmd_pads_it(S, m):
+    """The "sp" layout's positions per ``model`` rank: chunks of ceil(S /
+    m) in rank order, tiling [0, S) once; only the last one is shorter."""
+    c = -(-S // m)
+    chunks = [sharding.seq_chunk(S, m, i) for i in range(m)]
+    assert chunks[0][0] == 0 and chunks[-1][1] == S
+    assert all(a[1] == b[0] for a, b in zip(chunks, chunks[1:]))
+    sizes = [b - a for a, b in chunks]
+    assert sizes[:-1] == [c] * (m - 1) and 0 < sizes[-1] <= c
+
+
 def test_mesh_config_equals_jax():
     for multi in (False, True):
         got, want = mesh_lib.mesh_config(multi_pod=multi), jmesh.mesh_config(multi_pod=multi)
