@@ -94,9 +94,10 @@ Phases (every phase always runs; any failure exits non-zero):
      (``configs.nsa_variant``) with its ``draft_config`` draft, at full
      width (cut to 2 layers each), bf16, random weights from
      a seed, one at a time: a 4097-token prompt, max_context 8192, D4/k2,
-     16 new tokens, Strict and Approx+Reuse through ``SSVEngine`` with
-     exact launch counts, a 3-step profile (one device-to-host copy per
-     step), tok/s and peak memory; ``generate_batch`` at 2 slots on the
+     8 steps (16 until phase 13(c) joined), Strict and Approx+Reuse
+     through ``SSVEngine`` with exact launch counts, a 3-step profile (one
+     device-to-host copy per step), tok/s and peak memory;
+     ``generate_batch`` at 2 slots on the
      dense and the paged store for qwen3-8b and qwen3-moe (paged ==
      dense); qwen3-moe served bucketed at 4 slots (D6/k10/budget 128, T =
      129, and D4/k2) with every group step a captured CUDA graph, launch
@@ -170,7 +171,19 @@ Phases (every phase always runs; any failure exits non-zero):
      same card (loss and every leaf within 3e-2, the largest differences
      printed), one more step timed once the restores are done, alone on
      the card, its ms and the peak printed beside phase 9's; collectives,
-     resident bytes, wall and peak per rank printed;
+     resident bytes, wall and peak per rank printed; (c) two gloo ranks
+     share the card on a (data 1, model 2) mesh, 1 x 1,025 tokens (513 and
+     512 positions a rank), float32, one period of each recurrent arch at
+     full width, xlstm-125m (mlstm, slstm) and recurrentgemma-9b (rglru,
+     rglru, attn; vocabulary cut to 32,768): each recurrent layer runs on
+     its rank's positions with its state carried along the model ranks
+     and back in the backward pass (``models.train_sharded``); the split
+     step equals the single-device step on the card at the CPU tests'
+     tolerances (loss rtol 1e-5; blocks rtol 2e-4 / atol 2e-5), the
+     recurrent activation collectives equal
+     ``train_sharded.carry_collectives`` on both ranks; the positions,
+     the activation collectives and bytes by layer kind and the sLSTM
+     relay's idle share printed;
  14. the dry run's serve cells across ranks (``models.prefill_sharded`` and
      the batched ``decode_step_sharded`` on weights under ``param_specs``,
      checked in spawned ranks by ``launch.serve_checks``): (a) four gloo
@@ -196,26 +209,26 @@ Phases (every phase always runs; any failure exits non-zero):
      pixtral-12b cut to 1 layer in float32, 2 rows
      of 256 seeded frontend frames + 4,096 tokens, ``max_len`` 4,864: the
      prefill (frames in front of the tokens, the dense attention's K/V
-     all-gathered) and 12 decode tokens (the split-KV dense decode) equal
-     ``model.prefill`` + 12 ``decode_step``s through the flash kernel on
+     all-gathered) and 4 decode tokens (the split-KV dense decode) equal
+     ``model.prefill`` + 4 ``decode_step``s through the flash kernel on
      the card, rtol 2e-4 / atol 2e-5, argmax equal; (d) full-width
      mixtral-8x22b cut to 1 layer in bf16, 4 x 6,144
      tokens (1,024-token MoE groups divide each rank's 3,072), ``max_len``
      8,208, so every decode token's 4,096-key window straddles the model
      boundary at row 4,104: the prefill within 3e-2 of the single
-     device's, 8 decode tokens (the expert ids all-gathered over the data
+     device's, 4 decode tokens (the expert ids all-gathered over the data
      ranks, the capacity counted over the whole batch) within 3e-2 of its
      ``decode_step`` on the flash kernel's plain version and with the
      argmax of its kernel route (or a token tied with it within 3e-2,
      each such margin printed); the assignments the whole batch's group
      dropped printed beside those per-rank groups would have dropped; (e)
-     the recurrent archs in float32, 2 x 4,096 tokens, 8 decode tokens,
+     the recurrent archs in float32, 2 x 4,096 tokens, 4 decode tokens,
      their states passed along the model ranks across the prompt's cut at
      2,048 (``models.recurrent_sharded``): full-width recurrentgemma-9b at 3
      layers (one whole rglru, rglru, attn period; ``max_len`` 6,160, so
      every decode token's 2,048-key window straddles the cache's model
      boundary at row 3,080) and full-width xlstm-125m at 2 (mlstm, slstm):
-     the prefill and the decode equal ``model.prefill`` + 8
+     the prefill and the decode equal ``model.prefill`` + 4
      ``decode_step``s on the card (logits, every rank's states and K/V
      slices), rtol 2e-4 / atol 2e-5, argmax equal, collectives exact;
      walls, collectives, gathered bytes and the peak per rank printed;
@@ -1772,7 +1785,7 @@ def zoo_config(arch, layers=None):
     return dataclasses.replace(cfg, num_layers=layers) if layers else cfg
 
 
-def serve_zoo(arch, ctx, n_tok=16):
+def serve_zoo(arch, ctx, n_tok=8):
     """Phase 10, one arch: one 4097-token prompt prefilled once into one
     ``SSVEngine`` (bf16, random weights from a seed, max_context 8192),
     then per precision class (Strict, then Approx+Reuse, each step under
@@ -2338,6 +2351,97 @@ def train_ranks_phase(ctx, out_dir, phase9=None):
     for f in out_dir.glob("ref_a*.pt"):
         f.unlink()
     free()
+    out["c"] = train_ranks_recurrent(ctx, out_dir)
+    return out
+
+
+# Phase 13 (c): the recurrent mixers' state carries in the split step. Two
+# gloo ranks share the card on (data 1, model 2), one row of 1,025 tokens
+# (513 and 512 positions a rank), float32, one period of each recurrent
+# arch at full width: xlstm-125m (mlstm, slstm) and recurrentgemma-9b
+# (rglru, rglru, attn) with its vocabulary cut to 32,768 (its float32
+# period with the whole 256,000-row embedding and head and their moments
+# does not fit beside its single-device reference).
+TRAIN_RECURRENT = {"xlstm-125m": dict(layers=2),
+                   "recurrentgemma-9b": dict(layers=3, vocab_size=32768)}
+TRAIN_RECURRENT_TOKENS = (1, 1025)
+
+
+def train_ranks_recurrent(ctx, out_dir):
+    """Phase 13 (c) (see the module docstring): each arch's single-device
+    step on the card first (its file on the host), then both split steps in
+    one world of two gloo ranks. Returns the records."""
+    from repro_torch import configs
+    from repro_torch.config import TrainConfig
+    from repro_torch.launch import train_checks
+    from repro_torch.models import train_sharded
+    note = f"{ctx['kind']} ({ctx['card']})"
+    tcfg = TrainConfig(steps=1, learning_rate=1e-3)
+    B, S = TRAIN_RECURRENT_TOKENS
+    jobs, cfgs, t0 = [], [], time.time()
+    for i, (arch, cut) in enumerate(TRAIN_RECURRENT.items()):
+        cfg = dataclasses.replace(configs.get_config(arch), name=f"{arch}-x{cut['layers']}",
+                                  num_layers=cut["layers"], dtype="float32",
+                                  **{k: v for k, v in cut.items() if k != "layers"})
+        case = {"seed": 30 + i, "batch": B, "seq": S}
+        whole = train_checks.load_case(case, cfg, torch.device(DEV))
+        ref = train_checks.single_device_reference(cfg, tcfg, whole["params"], whole["tokens"])
+        torch.save(ref, out_dir / f"ref_c{i}.pt")
+        log(f"  [13c single device {cfg.name} f32, vocab {cfg.vocab_size}] {note}: loss "
+            f"{ref['loss']:.6f}, grad norm {ref['grad_norm']:.5f}, step {ref['wall_ms']:.1f} ms, "
+            f"peak {ref.get('peak_gib', math.nan):.2f} GiB")
+        del whole, ref
+        free()
+        cfgs.append(cfg)
+        jobs.append(dict(kind="step", name=cfg.name, cfg=cfg, tcfg=tcfg,
+                         mesh=((1, 2), ("data", "model")), case=case,
+                         refs={"single device": str(out_dir / f"ref_c{i}.pt")},
+                         tol=(2e-4, 2e-5, 1e-5)))
+    t1 = time.time()
+    ranks_c = train_checks.run_checks(jobs, 2, "gloo", out_dir / "c", timeout=400)
+    out = {"ranks": ranks_c, "seconds": time.time() - t0, "ranks_seconds": time.time() - t1}
+    for j, (job, cfg) in enumerate(zip(jobs, cfgs)):
+        got = [r["jobs"][j] for r in ranks_c]
+        tag = f"[13c {cfg.name} f32, (1, 2) over 2 gloo ranks]"
+        if len({g["loss"] for g in got}) != 1:
+            fail(f"{tag} the ranks' losses differ: {[g['loss'] for g in got]}")
+        spans = [tuple(g["positions"]) for g in got]
+        if spans != [(0, 513, S), (513, S, S)]:
+            fail(f"{tag} the ranks did not split the positions over model: {spans}")
+        want = train_sharded.carry_collectives(cfg, 2, B)
+        have = [(g["activation_kinds"]["recurrent"]["count"],
+                 g["activation_kinds"]["recurrent"]["bytes"]) for g in got]
+        if any(h != want for h in have):
+            fail(f"{tag} the recurrent layers' activation collectives {have} are not {want}")
+        bad = [g["refs"]["single device"] for g in got if not g["refs"]["single device"]["ok"]]
+        if bad:
+            fail(f"{tag} differs from the single-device step: {bad[0]}")
+        ref = got[0]["refs"]["single device"]
+        relay = got[0]["relay_steps"]
+        idle = (f"; sLSTM relay idle in {relay['idle']} of {relay['busy'] + relay['idle']} "
+                f"lockstep steps a rank ({relay['idle'] / (relay['busy'] + relay['idle']):.3f})"
+                if relay["busy"] else "")
+        log(f"  {tag} {note}: loss {got[0]['loss']:.6f} (rel err {ref['loss_rel_err']:.2e}), "
+            f"grad norm rel err {ref['grad_norm_rel_err']:.2e}; max abs err over the ranks "
+            + ", ".join(f"{k} {max(g['refs']['single device']['max_abs_err'][k] for g in got):.3e}"
+                        for k in ref["max_abs_err"]) +
+            f"; params held to an ill-conditioned AdamW update "
+            f"{[g['refs']['single device']['moved'] for g in got]}, off the single device's "
+            f"tolerance {[g['refs']['single device']['moved_off_reference'] for g in got]}"
+            f": equal within rtol 2e-4 / atol 2e-5 (loss 1e-5); positions a rank "
+            f"{[f'{p[0]}-{p[1]} ({p[1] - p[0]} of {p[2]})' for p in spans]}; activation "
+            f"collectives along model a rank " + "; ".join(
+                ", ".join(f"{k} {v['count']} ({v['bytes'] / 1e6:.3f} MB)"
+                          for k, v in sorted(g["activation_kinds"].items())) for g in got)
+            + f" (recurrent exactly {want[0]}, {want[1] / 1e6:.3f} MB; the stream's gather "
+            f"moved {B * -(-S // 2) * 2 * cfg.d_model * 4 / 1e6:.3f} MB a recurrent layer and "
+            f"pass){idle}; {got[0]['gathers']} weight gathers, {got[0]['reductions']} "
+            f"reductions; step wall {[round(g['wall_ms'], 1) for g in got]} ms; peak "
+            f"{[round(g.get('peak_gib', math.nan), 2) for g in got]} GiB a rank")
+    for f in out_dir.glob("ref_c*.pt"):
+        f.unlink()
+    log(f"  [13c] {out['seconds']:.1f}s, the ranks {out['ranks_seconds']:.1f}s with their start")
+    free()
     return out
 
 
@@ -2355,17 +2459,19 @@ def train_ranks_phase(ctx, out_dir, phase9=None):
 # ranks (the prompt's cut at position 2048): recurrentgemma-9b at one whole
 # (rglru, rglru, attn) period, whose max_len 6160 puts the cache's model
 # boundary at row 3080, inside every decode token's 2048-key window
-# (positions 4096-4103; at 8208 the boundary at 4104 would lie past them);
-# xlstm-125m at one (mlstm, slstm) period.
+# (positions 4096-4099; at 8208 the boundary at 4104 would lie past them);
+# xlstm-125m at one (mlstm, slstm) period. Each serves 4 decode tokens (12,
+# 8 and 8 until phase 13(c) joined; a gloo token costs 2.4-6.6 s of weight
+# gathers through the host, and every check holds at 4).
 NATIVE_RANKS = {
     "c": dict(arch="pixtral-12b", layers=1, dtype="float32", rows=2, frames=256, seq=4096,
-              max_len=4864, decode=12),
+              max_len=4864, decode=4),
     "d": dict(arch="mixtral-8x22b", layers=1, dtype="bfloat16", rows=4, frames=0, seq=6144,
-              max_len=8208, decode=8),
+              max_len=8208, decode=4),
     "e-rg": dict(arch="recurrentgemma-9b", layers=3, dtype="float32", rows=2, frames=0,
-                 seq=4096, max_len=6160, decode=8),
+                 seq=4096, max_len=6160, decode=4),
     "e-xl": dict(arch="xlstm-125m", layers=2, dtype="float32", rows=2, frames=0, seq=4096,
-                 max_len=6160, decode=8)}
+                 max_len=6160, decode=4)}
 BF16_SERVE_TOL = (3e-2, 3e-2)
 
 

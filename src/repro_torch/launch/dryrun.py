@@ -58,13 +58,15 @@ cards but not one. ``--run --world N`` also takes train cells
 (``run_train_sharded``): each rank builds its blocks of the state from
 ``--seed`` one layer at a time (``runtime.sharded.init_state``) and runs
 ``make_train_step(cfg, tcfg, mesh)`` once to warm up, three times timed
-and once profiled, on one 4,096-token sequence per data rank (the cell's
+(``--steps``) and once profiled, on one 4,096-token sequence per data rank (the cell's
 global batch of 256 cut to the data ranks' count: ``reduced`` in the
 record). With ``--model M`` > 1 each rank computes its positions of its
 row (``sharding.seq_chunk``: 2,048 of 4,096 at M = 2). Each rank's record
 (the positions, loss, grad norm, step wall, busy time, NCCL time, peak,
 weight gathers and reductions and the activation collectives along
-``model`` per step with their bytes, model-FLOPs share) goes to
+``model`` per step with their bytes, split into the attention layers'
+K/V, the recurrent layers' state carries and the MoE ids, the sLSTM
+relays' idle steps, model-FLOPs share) goes to
 ``<--out>/world/<arch>__train_4k__<N>x<M><backend>/``.
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun --list --world 4 --model 2
@@ -1103,13 +1105,13 @@ def peak_owners(fn, dev) -> Dict:
 
 
 def train_rank(rank: int, world: int, dev, arch_id: str, shape_name: str, model_axis: int,
-               seed: int, out_dir: str, trace: bool = False) -> Dict:
+               seed: int, out_dir: str, trace: bool = False, timed: int = TRAIN_TIMED) -> Dict:
     """One rank of ``--run --world N`` on a train cell: its blocks of the
     state from ``seed`` (``sharded.init_state``), its data rank's row of a
     batch of one ``seq_len`` sequence per data rank (``SyntheticCorpus``,
     seeded; an arch with a frontend also its rows' ``cell_frontend``
     frames, as the JAX cell feeds them), and ``make_train_step(cfg, tcfg,
-    mesh)``: one step to warm up, ``TRAIN_TIMED`` steps on the host clock,
+    mesh)``: one step to warm up, ``timed`` steps on the host clock,
     one under the profiler (on a card) and, with ``trace``, one more under
     ``peak_owners``. Returns the rank's record (also
     ``<out_dir>/rank<r>.json``)."""
@@ -1121,7 +1123,6 @@ def train_rank(rank: int, world: int, dev, arch_id: str, shape_name: str, model_
     from repro_torch.runtime.trainer import make_train_step
     shape = specs.SHAPE_BY_NAME[shape_name]
     cfg = specs.cell_config(arch_id, shape_name)[0]
-    timed = TRAIN_TIMED
     mc = plan_mesh(world, prefer_model=model_axis)
     mesh = build_mesh(mc, dev.type)
     tcfg = TrainConfig(steps=timed + 2, learning_rate=3e-4, warmup_steps=1, seed=seed)
@@ -1149,7 +1150,9 @@ def train_rank(rank: int, world: int, dev, arch_id: str, shape_name: str, model_
         *state[:], m = step(*state, batches[i], frames[i])
         steps.append({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
                       **layout.counts, "bytes": layout.bytes,
-                      "activation_bytes": layout.activation_bytes})
+                      "activation_bytes": layout.activation_bytes,
+                      "activation_kinds": layout.activation_kinds,
+                      "relay_steps": layout.relay_steps})
 
     walls = []
     for i in range(timed + 1):
@@ -1186,13 +1189,20 @@ def train_rank(rank: int, world: int, dev, arch_id: str, shape_name: str, model_
 
 
 def run_train_sharded(arch_id: str, shape_name: str, world: int, backend: str, out_dir: Path,
-                      model_axis: int = 1, seed: int = 0, trace: bool = False) -> List[Dict]:
+                      model_axis: int = 1, seed: int = 0, trace: bool = False,
+                      timed: int = TRAIN_TIMED) -> List[Dict]:
     """``train_rank`` on ``world`` spawned ranks, one card each or sharing
     the cards (gloo); every rank's record."""
     from repro_torch.launch import ranks
-    args = (arch_id, shape_name, model_axis, seed, str(out_dir), trace)
+    args = (arch_id, shape_name, model_axis, seed, str(out_dir), trace, timed)
     ranks.spawn(train_rank, world, backend, "cuda", args=args, timeout=900.0)
     return [json.loads((Path(out_dir) / f"rank{r}.json").read_text()) for r in range(world)]
+
+
+def _relay_text(steps: Dict[str, int]) -> str:
+    """The sLSTM relays' idle share of a step's lockstep steps, if any ran."""
+    n = steps["busy"] + steps["idle"]
+    return f"; sLSTM relay idle {steps['idle']} of {n} steps" if n else ""
 
 
 def _run_world_train(a: str, s: str, args, capacity: float, per_card: int) -> None:
@@ -1202,7 +1212,7 @@ def _run_world_train(a: str, s: str, args, capacity: float, per_card: int) -> No
         return
     out = Path(args.out) / "world" / f"{a}__{s}__{args.world}x{args.model}{args.backend}"
     recs = run_train_sharded(a, s, args.world, args.backend, out, args.model, args.seed,
-                             args.trace)
+                             args.trace, args.steps)
     for r in recs:
         st = r["steps"]
         p0, p1, S = r["positions"] or (0, r["seq_len"] + r["frontend_frames"],
@@ -1218,7 +1228,10 @@ def _run_world_train(a: str, s: str, args, capacity: float, per_card: int) -> No
               f"{r.get('collective_ms', float('nan')):.1f} in NCCL kernels); "
               f"{st[-1]['gathers']} gathers and {st[-1]['reductions']} reductions a step "
               f"({st[-1]['bytes'] / 1e9:.2f} GB through them), {st[-1]['activations']} "
-              f"activation collectives ({st[-1]['activation_bytes'] / 1e9:.2f} GB); peak "
+              f"activation collectives ({st[-1]['activation_bytes'] / 1e9:.2f} GB: "
+              + (", ".join(f"{k} {v['count']} ({v['bytes'] / 1e9:.4f} GB)"
+                           for k, v in sorted(st[-1]["activation_kinds"].items())) or "none")
+              + _relay_text(st[-1]["relay_steps"]) + "); peak "
               f"{r.get('peak_bytes', 0) / 2 ** 30:.2f} GiB; model-FLOPs share "
               f"{100 * r['model_flops_share']:.3f}% of {r['world']} x 989 TFLOP/s", flush=True)
         po = r.get("peak_owners")
@@ -1321,6 +1334,9 @@ def main(argv=None) -> int:
                          "(collectives, gathers, the allocator's bytes, retries and "
                          "out-of-memory errors); on a train cell: one more step under the "
                          "allocator's history and what was live at its peak")
+    ap.add_argument("--steps", type=int, default=TRAIN_TIMED,
+                    help="timed steps of a train cell across ranks (after one to warm up "
+                         "and before one profiled)")
     ap.add_argument("--batch", type=int, default=0,
                     help="rows of a prefill cell (--run on one card; 0: the most that fit) or "
                          "of a prefill or decode cell across ranks (--run --world; 0: the "

@@ -19,7 +19,8 @@ A check is a list of jobs (dicts); every rank of a world runs them in order
     ``tol`` = (rtol, atol, loss rtol), compared on the rank's device; the
     rank's resident bytes, the
     collectives of the step (weight gathers, reductions, activation
-    collectives along ``model`` and their bytes), the positions (a, b, S)
+    collectives along ``model`` and their bytes, by layer kind, and the
+    sLSTM relays' busy and idle steps), the positions (a, b, S)
     the rank computed (None when ``model`` has one rank), its wall time
     and peak memory; ``timed`` more
     steps on the host clock, once a file exists at ``timed_after`` when it
@@ -256,7 +257,7 @@ def load_case(case, cfg, dev) -> Dict:
 def _step_job(job: Dict, dev) -> Dict:
     cfg, tcfg = job["cfg"], job["tcfg"]
     mesh = mesh_lib.make_mesh(*job["mesh"], dev.type)
-    step = make_train_step(cfg, tcfg, mesh)
+    step = make_train_step(cfg, tcfg, mesh, job.get("row_groups", 1))
     layout, specs = step.layout, step.specs
     case = load_case(job["case"], cfg, dev)
     params = tree_map(lambda t: t.to(dev), sharding.shard_tree(case["params"], specs["params"],
@@ -280,6 +281,7 @@ def _step_job(job: Dict, dev) -> Dict:
     state = {"params": params, "opt": opt, "residual": residual}
     res = {"name": job["name"], "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
            **layout.counts, "bytes": layout.bytes, "activation_bytes": layout.activation_bytes,
+           "activation_kinds": layout.activation_kinds, "relay_steps": layout.relay_steps,
            "positions": layout.positions, "wall_ms": wall,
            "resident_bytes": sum(t.numel() * t.element_size() for t in tree_leaves(state)),
            "refs": {}}

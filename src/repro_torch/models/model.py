@@ -119,7 +119,7 @@ def block_apply_train(bp, cfg: ModelConfig, kind: str, x, positions, chunk: int,
     h = layers.rmsnorm(bp["norm1"], x, cfg.norm_eps)
     window = _attn_window(cfg)
     if split is not None:
-        mix = (train_sharded.recurrent_mix(bp["mix"], cfg, kind, h, split)
+        mix = (train_sharded.RECURRENT[kind](bp["mix"], cfg, h, split)
                if kind in RECURRENT_KINDS else
                train_sharded.attention_mix(bp["mix"], cfg, h, positions, split, chunk))
     elif kind in RECURRENT_KINDS:

@@ -187,3 +187,151 @@ def slstm_prefill_sharded(params, cfg: ModelConfig, x, state, group, idx: int, m
 
 PREFILL = {"rglru": rglru_prefill_sharded, "mlstm": mlstm_prefill_sharded,
            "slstm": slstm_prefill_sharded}
+
+
+# =================================================================== training
+# The split train step's carries (``models.train_sharded``): the same folds
+# and relay with a backward pass. A fold is ``runtime.sharded.ModelCarry``'s
+# ``fold(every, idx)``: every rank's summary (m, ...) in float32 -> this
+# rank's incoming state, from the initial state of training.
+def previous_window(every, idx: int):
+    """The RG-LRU conv window: the last cw - 1 rows of ``u0`` of rank idx -
+    1 (every (m, B, cw - 1, sd)), zeros (the initial window) on rank 0."""
+    return every[idx - 1] if idx > 0 else torch.zeros_like(every[0])
+
+
+def rglru_fold(every, idx: int):
+    """every (m, B, 2, sd): each chunk's (A, h) at its last position (the
+    product of its a, its scan from h = 0) -> the incoming h (B, sd): h =
+    A_j h + h_j over the predecessors in order, from h = 0."""
+    h = torch.zeros_like(every[0, :, 0])
+    for j in range(idx):
+        h = every[j, :, 0] * h + every[j, :, 1]
+    return h
+
+
+def mlstm_summary(k, v, it, ft):
+    """The chunk's state from the initial one, packed (B, H, dh^2 + dh +
+    2): C, n, m and F (its total log forget gate). The last row of
+    ``recurrent._mlstm_chunk`` over the whole chunk, in closed form: with
+    F_t the cumulative log forget gate, position s enters at log weight
+    F_L - F_s + i_s, m is their max (the initial m of -1e30 enters at F_L -
+    1e30 and never wins), and C, n are the weighted sums. O(L dh^2) a
+    head, no (L, L) matrix; the chunk's own outputs are not computed."""
+    B, L, H, dh = k.shape
+    F = torch.cumsum(recurrent._log_sigmoid(ft).double(), dim=1)          # (B, L, H)
+    total = F[:, -1]
+    logw = (total[:, None] - F).float() + it
+    m = logw.amax(1)                                                      # (B, H)
+    w = torch.exp(logw - m[:, None])
+    C = torch.einsum("bsh,bshi,bshj->bhij", w, v, k)
+    n = torch.einsum("bsh,bshj->bhj", w, k)
+    return torch.cat([C.reshape(B, H, dh * dh), n, m[..., None], total.float()[..., None]],
+                     dim=-1)
+
+
+def mlstm_unpack(st, dh: int):
+    """(B, H, dh^2 + dh + 1 [+ 1]) -> {"C", "n", "m"} (and "F" when there)."""
+    B, H = st.shape[:2]
+    out = {"C": st[..., :dh * dh].reshape(B, H, dh, dh), "n": st[..., dh * dh:dh * dh + dh],
+           "m": st[..., dh * dh + dh]}
+    if st.shape[-1] == dh * dh + dh + 2:
+        out["F"] = st[..., -1]
+    return out
+
+
+def mlstm_fold(every, idx: int, dh: int):
+    """every (m, B, H, dh^2 + dh + 2): each chunk's ``mlstm_summary`` ->
+    the incoming state packed (B, H, dh^2 + dh + 1): ``mlstm_combine`` over
+    the predecessors in order, from the initial state."""
+    B, H = every.shape[1:3]
+    st = {"C": every.new_zeros((B, H, dh, dh)), "n": every.new_zeros((B, H, dh)),
+          "m": every.new_full((B, H), -1e30)}
+    for j in range(idx):
+        st = mlstm_combine(st, mlstm_unpack(every[j], dh))
+    return torch.cat([st["C"].reshape(B, H, dh * dh), st["n"], st["m"][..., None]], dim=-1)
+
+
+_SLSTM_STATE = ("c", "n", "h", "m")
+
+
+class SlstmRelay(torch.autograd.Function):
+    """The sLSTM scan over a rank's chunk, its state relayed along
+    ``model`` (``slstm_prefill_sharded``'s lockstep relay: g + m - 1 steps
+    over ``split.row_groups`` groups g of the rows, one all-gather of every
+    rank's new state a step). Backward: the reverse relay, g + m - 1
+    lockstep steps in which rank i takes the gradient of its outgoing state
+    from rank i + 1 (the last rank's is zero: training reads no final
+    state), reruns its group's scan from the incoming state it kept and
+    differentiates it (``torch.autograd.grad``), and hands the gradient of
+    its incoming state to rank i - 1 in one all-gather. Every rank issues
+    every step's collective, idle or not."""
+
+    @staticmethod
+    def forward(ctx, pre_x, w_h, b, split, cfg):
+        layout, idx, m, g = split.layout, split.idx, split.m, split.row_groups
+        B, _, d4 = pre_x.shape
+        d = d4 // 4
+        if B % g:
+            raise ValueError(f"{B} rows do not divide into {g} row groups")
+        r = B // g
+        params = {"w_h": w_h, "b": b}
+        init = recurrent.slstm_init_state(cfg, r, pre_x.device)
+        outs, ins, take = [None] * g, [None] * g, None
+        for s in range(g + m - 1):
+            j = s - idx
+            if 0 <= j < g:
+                st0 = init if idx == 0 else dict(zip(_SLSTM_STATE, take.unbind()))
+                outs[j], st = recurrent._slstm_scan(params, pre_x[j * r:(j + 1) * r], st0)
+                ins[j] = torch.stack([st0[n] for n in _SLSTM_STATE])
+                mine = torch.stack([st[n] for n in _SLSTM_STATE])
+                layout.relay_steps["busy"] += 1
+            else:
+                mine = pre_x.new_zeros((len(_SLSTM_STATE), r, d))
+                layout.relay_steps["idle"] += 1
+            every = layout.gather_model(mine, "recurrent")                 # (m, 4, r, d)
+            take = every[idx - 1] if idx > 0 else None
+        ctx.split = split
+        ctx.save_for_backward(pre_x, w_h, b, torch.stack(ins))
+        return torch.cat(outs)
+
+    @staticmethod
+    def backward(ctx, g_hs):
+        pre_x, w_h, b, ins = ctx.saved_tensors
+        split = ctx.split
+        layout, idx, m, g = split.layout, split.idx, split.m, split.row_groups
+        r = pre_x.shape[0] // g
+        g_pre = torch.zeros_like(pre_x)
+        g_wh, g_b = torch.zeros_like(w_h), torch.zeros_like(b)
+        g_out = None                          # the gradient of this rank's outgoing state
+        for s in range(g + m - 1):
+            j = s - (m - 1 - idx)
+            if 0 <= j < g:
+                rows = slice(j * r, (j + 1) * r)
+                with torch.enable_grad():
+                    px = pre_x[rows].detach().requires_grad_(True)
+                    wh, bb = w_h.detach().requires_grad_(True), b.detach().requires_grad_(True)
+                    st0 = ins[j].detach().requires_grad_(True)
+                    hs, st = recurrent._slstm_scan({"w_h": wh, "b": bb}, px,
+                                                   dict(zip(_SLSTM_STATE, st0.unbind())))
+                    outs, grads = [hs], [g_hs[rows]]
+                    if g_out is not None:
+                        outs += [st[n] for n in _SLSTM_STATE]
+                        grads += list(g_out.unbind())
+                    d_px, d_wh, d_b, d_st0 = torch.autograd.grad(
+                        outs, (px, wh, bb, st0), grads, allow_unused=True)
+                g_pre[rows] = d_px
+                g_wh += d_wh
+                g_b += d_b
+                mine = torch.zeros_like(st0) if d_st0 is None else d_st0
+            else:
+                mine = ins.new_zeros(ins.shape[1:])
+            every = layout.gather_model(mine, "recurrent")                 # (m, 4, r, d)
+            g_out = every[idx + 1] if idx < m - 1 else None
+        return g_pre, g_wh, g_b, None, None
+
+
+def slstm_relay(params, cfg: ModelConfig, pre_x, split):
+    """pre_x (B, n, 4d) float32, the chunk's input projections -> its h
+    (B, n, d) float32 (``SlstmRelay``)."""
+    return SlstmRelay.apply(pre_x, params["w_h"], params["b"], split, cfg)

@@ -87,11 +87,15 @@ class MeshLayout:
     collectives issued since ``reset_counts`` ("gathers": all-gathers of
     weights and tokens; "reductions": the reduce-scatters and all-reduces
     of gradients and scalars; "activations": the all-gathers along
-    ``model`` of a step's K/V, recurrent inputs and MoE ids, and the
-    reduce-scatters of their gradients) with the ``bytes`` the first two
-    carried (a gather's whole leaf, a reduction's input) and the
+    ``model`` of a step's K/V, recurrent state carries and MoE ids, and
+    the reduce-scatters of their gradients) with the ``bytes`` the first
+    two carried (a gather's whole leaf, a reduction's input) and the
     ``activation_bytes`` of the third (a gather's output, a
-    reduce-scatter's input). ``positions``: (a, b, S) of the last step's
+    reduce-scatter's input); ``activation_kinds`` splits the third by the
+    layer kind that issued it ({"attention" | "recurrent" | "moe":
+    {"count", "bytes"}}), and ``relay_steps`` counts the sLSTM relays'
+    lockstep steps ({"busy", "idle"}: this rank scanned a row group in
+    that step, or waited). ``positions``: (a, b, S) of the last step's
     ``SeqSplit``, else None."""
 
     def __init__(self, mesh):
@@ -114,6 +118,8 @@ class MeshLayout:
     def reset_counts(self) -> None:
         self.counts = {"gathers": 0, "reductions": 0, "activations": 0}
         self.bytes = self.activation_bytes = 0
+        self.activation_kinds: Dict[str, Dict[str, int]] = {}
+        self.relay_steps = {"busy": 0, "idle": 0}
 
     def size(self, axes: Sequence[str]) -> int:
         return _prod(self.shape[a] for a in axes)
@@ -145,12 +151,16 @@ class MeshLayout:
             self._members[axes] = out
         return self._members[axes]
 
-    def _count(self, kind: str, t: torch.Tensor) -> None:
+    def _count(self, kind: str, t: torch.Tensor, layer: Optional[str] = None) -> None:
         self.counts[kind] += 1
+        n = t.numel() * t.element_size()
         if kind == "activations":
-            self.activation_bytes += t.numel() * t.element_size()
+            self.activation_bytes += n
+            by = self.activation_kinds.setdefault(layer, {"count": 0, "bytes": 0})
+            by["count"] += 1
+            by["bytes"] += n
         else:
-            self.bytes += t.numel() * t.element_size()
+            self.bytes += n
 
     def all_reduce(self, t: torch.Tensor, axes: Sequence[str], op=dist.ReduceOp.SUM
                    ) -> torch.Tensor:
@@ -210,7 +220,27 @@ class MeshLayout:
         return (g / self.n_dp).to(dtype).contiguous()
 
     # ---------------------------------------------------------------- sequence
-    def gather_seq(self, chunk: torch.Tensor, S: int) -> torch.Tensor:
+    def gather_model(self, t: torch.Tensor, layer: str) -> torch.Tensor:
+        """(m, ...): every ``model`` rank's ``t`` (of one shape on every
+        rank), all-gathered in coordinate order; counted under
+        "activations" as ``layer``'s."""
+        out = t.new_empty((self.shape["model"],) + tuple(t.shape))
+        self._count("activations", out, layer)
+        dist.all_gather_into_tensor(out.view(-1), t.contiguous().view(-1),
+                                    group=self.group(("model",)))
+        return out
+
+    def scatter_model(self, t: torch.Tensor, layer: str) -> torch.Tensor:
+        """``gather_model``'s adjoint: t (m, ...) -> the sum over the
+        ``model`` ranks of every rank's ``t[i]``, on rank i; counted."""
+        out = t.new_empty(tuple(t.shape[1:]))
+        self._count("activations", t, layer)
+        dist.reduce_scatter_tensor(out.view(-1), t.contiguous().view(-1),
+                                   group=self.group(("model",)))
+        return out
+
+    def gather_seq(self, chunk: torch.Tensor, S: int, layer: str = "attention"
+                   ) -> torch.Tensor:
         """(B, n, ...) this rank's positions ``seq_chunk`` of an S-position
         stream -> (B, S, ...) the whole stream: every ``model`` rank's chunk,
         padded to ceil(S / m), all-gathered (in group-rank order, which
@@ -222,7 +252,7 @@ class MeshLayout:
         if n < c:
             chunk = torch.cat([chunk, chunk.new_zeros((B, c - n) + rest)], dim=1)
         buf = chunk.new_empty((m, B, c) + rest)
-        self._count("activations", buf)
+        self._count("activations", buf, layer)
         dist.all_gather_into_tensor(buf.view(-1), chunk.contiguous().view(-1),
                                     group=self.group(("model",)))
         return buf.movedim(0, 1).reshape((B, m * c) + rest)[:, :S]
@@ -239,7 +269,7 @@ class MeshLayout:
         parts[:, :S] = whole
         parts = parts.view((B, m, c) + rest).movedim(1, 0).contiguous()
         out = parts.new_empty(parts.shape[1:])
-        self._count("activations", parts)
+        self._count("activations", parts, "attention")
         dist.reduce_scatter_tensor(out.view(-1), parts.view(-1), group=self.group(("model",)))
         return out[:, :n].to(dtype)
 
@@ -343,17 +373,53 @@ class SeqGather(torch.autograd.Function):
         return ctx.split.layout.scatter_seq(grad, ctx.split.S, ctx.n, ctx.dtype), None
 
 
+class ModelCarry(torch.autograd.Function):
+    """A recurrent layer's state carry along ``model``. Forward: every
+    rank's ``local`` (its chunk's summary, of one shape on every rank)
+    all-gathered, then ``fold(every, idx)``: this rank's incoming state
+    from the predecessors' slots (rank 0's from none). Backward: the fold's
+    gradient with respect to every slot (autograd through a rerun of the
+    fold), reduce-scattered, so each rank gets the sum of what every rank's
+    fold sends its slot. Both collectives run on every rank whatever its
+    index: rank 0's output is the initial state, yet it is an output of
+    this node, which its consumers reach, so its backward joins the
+    reduce-scatter of its peers."""
+
+    @staticmethod
+    def forward(ctx, local, split: "SeqSplit", fold):
+        every = split.layout.gather_model(local.float(), "recurrent")
+        ctx.split, ctx.fold, ctx.dtype = split, fold, local.dtype
+        ctx.save_for_backward(every)
+        return fold(every, split.idx)
+
+    @staticmethod
+    def backward(ctx, grad):
+        every, = ctx.saved_tensors
+        every = every.detach().requires_grad_(True)
+        with torch.enable_grad():
+            out = ctx.fold(every, ctx.split.idx)
+        g = None
+        if out.requires_grad:
+            g, = torch.autograd.grad(out, every, grad, allow_unused=True)
+        if g is None:
+            g = torch.zeros_like(every)
+        return ctx.split.layout.scatter_model(g, "recurrent").to(ctx.dtype), None, None
+
+
 class SeqSplit:
     """``model.forward_train``'s ``split`` hook when ``model`` has m > 1
-    ranks: this rank computes positions ``[a, b)`` (``sharding.seq_chunk``)
-    of each of its B rows' S-position stream. ``gather`` gives a layer the
-    whole stream of a (B, b - a, ...) tensor (``SeqGather``, counted under
-    "activations"); ``moe_ids`` is ``moe.moe_apply``'s ``gather_ids``."""
+    ranks: this rank (index ``idx`` along ``model``) computes positions
+    ``[a, b)`` (``sharding.seq_chunk``) of each of its B rows' S-position
+    stream. ``gather`` gives an attention layer the whole stream of a (B,
+    b - a, ...) tensor (``SeqGather``, counted under "activations");
+    ``carry`` a recurrent layer its incoming state (``ModelCarry``);
+    ``moe_ids`` is ``moe.moe_apply``'s ``gather_ids``. ``row_groups``: the
+    sLSTM relay's row groups (``recurrent_sharded.slstm_relay``)."""
 
-    def __init__(self, layout: MeshLayout, B: int, S: int):
-        self.layout, self.B, self.S = layout, B, S
-        self.m = layout.shape["model"]
-        self.a, self.b = sharding.seq_chunk(S, self.m, layout.coords["model"])
+    def __init__(self, layout: MeshLayout, B: int, S: int, row_groups: int = 1):
+        self.layout, self.B, self.S, self.row_groups = layout, B, S, row_groups
+        self.m, self.idx = layout.shape["model"], layout.coords["model"]
+        self.a, self.b = sharding.seq_chunk(S, self.m, self.idx)
         if sharding.seq_chunk(S, self.m, self.m - 1)[0] == S:
             raise ValueError(f"a stream of {S} positions leaves the last of {self.m} model "
                              "ranks no position")
@@ -364,6 +430,9 @@ class SeqSplit:
     def gather(self, chunk: torch.Tensor) -> torch.Tensor:
         return SeqGather.apply(chunk, self)
 
+    def carry(self, local: torch.Tensor, fold) -> torch.Tensor:
+        return ModelCarry.apply(local, self, fold)
+
     def moe_ids(self, topk_idx: torch.Tensor):
         """topk_idx (B * (b - a), K) of this rank's tokens -> (the data
         rank's ids (B * S, K) in (row, position) order, one all-gather of
@@ -371,7 +440,7 @@ class SeqSplit:
         tokens in it)."""
         B, S, K = self.B, self.S, topk_idx.shape[-1]
         with torch.no_grad():
-            every = self.layout.gather_seq(topk_idx.reshape(B, self.b - self.a, K), S)
+            every = self.layout.gather_seq(topk_idx.reshape(B, self.b - self.a, K), S, "moe")
         return every.reshape(B * S, K), tuple((r * S + self.a, r * S + self.b)
                                               for r in range(B))
 
@@ -433,18 +502,19 @@ def init_state(cfg: ModelConfig, tcfg: TrainConfig, seed: int, layout: MeshLayou
 
 
 # ---------------------------------------------------------------- the step
-def make_sharded_step(cfg: ModelConfig, tcfg: TrainConfig, mesh):
+def make_sharded_step(cfg: ModelConfig, tcfg: TrainConfig, mesh, row_groups: int = 1):
     """``runtime.trainer.make_train_step(cfg, tcfg, mesh)``: returns
     step(params, opt, residual, tokens, frontend=None) -> (params, opt,
     residual, metrics) on this rank's blocks (``sharding.state_specs``) and
     its rows of the batch (``batch_spec``; a ``frontend``'s frames are cut
     the same way, rows over the data axes, and ``frontend_proj`` stays
     whole on every rank); with m > 1 ``model`` ranks each computes its
-    ``SeqSplit`` positions of its rows. Metrics {"loss", "grad_norm"} are
-    the global values, equal on every rank. The step carries ``layout``
-    (the ``MeshLayout``, with its collective counts and the last step's
-    positions) and ``specs``. Raises for a dense or windowed config on
-    ``attention_impl`` "flash" or "online" when m > 1."""
+    ``SeqSplit`` positions of its rows (an sLSTM layer relays its state
+    over ``row_groups`` groups of a micro-batch's rows). Metrics {"loss",
+    "grad_norm"} are the global values, equal on every rank. The step
+    carries ``layout`` (the ``MeshLayout``, with its collective counts and
+    the last step's positions) and ``specs``. Raises for a dense or
+    windowed config on ``attention_impl`` "flash" or "online" when m > 1."""
     model.check_supported(cfg)
     layout = MeshLayout(mesh)
     m = layout.shape.get("model", 1)
@@ -466,11 +536,14 @@ def make_sharded_step(cfg: ModelConfig, tcfg: TrainConfig, mesh):
     def value_and_grad(params, leaves, batch, frontend):
         view = {k: (v if k == "layers" else gathered(v, p_specs[k])) for k, v in params.items()}
         F = frontend.shape[1] if frontend is not None and "frontend_proj" in params else 0
-        split = SeqSplit(layout, batch.shape[0], F + batch.shape[1]) if m > 1 else None
+        split = SeqSplit(layout, batch.shape[0], F + batch.shape[1], row_groups) \
+            if m > 1 else None
         loss = model.loss_fn(view, cfg, batch, frontend=frontend, remat=tcfg.remat,
                              layer_params=lambda i, bp: gathered(bp, p_specs["layers"][i]),
                              moe_stats=lambda t: MeshSum.apply(t, layout), split=split)
-        grads = torch.autograd.grad(loss, leaves)
+        # a leaf the loss never reads (the norm before an xLSTM block's
+        # absent FFN) gets zeros, as jax.grad gives it
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
         return loss.detach(), tree_unflatten(params, list(grads))
 
     def step_fn(params, opt, residual, tokens, frontend=None):

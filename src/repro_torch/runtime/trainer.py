@@ -45,7 +45,8 @@ class TrainState:
     step: int = 0
 
 
-def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None) -> Callable:
+def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None,
+                    row_groups: int = 1) -> Callable:
     """Returns step(params, opt, residual, tokens, frontend=None) ->
     (params, opt, residual, metrics) with metrics {"loss", "grad_norm"} as
     0-d device tensors. tokens (B, S) int64 on the params' device (an arch
@@ -54,14 +55,17 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None) -> Callable:
 
     With ``mesh`` (a ``DeviceMesh`` over the initialised world) the step
     takes and returns this rank's blocks of the state and its rows of the
-    batch, and equals this single-device step (``runtime.sharded``)."""
+    batch, and equals this single-device step (``runtime.sharded``;
+    ``row_groups``: its sLSTM relay's)."""
     if mesh is not None:
-        return sharded.make_sharded_step(cfg, tcfg, mesh)
+        return sharded.make_sharded_step(cfg, tcfg, mesh, row_groups)
     use_comp = tcfg.grad_compression == "int8_ef"
 
     def value_and_grad(params, leaves, batch, frontend):
         loss = model.loss_fn(params, cfg, batch, frontend=frontend, remat=tcfg.remat)
-        grads = torch.autograd.grad(loss, leaves)
+        # a leaf the loss never reads (the norm before an xLSTM block's
+        # absent FFN) gets zeros, as jax.grad gives it
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
         return loss.detach(), tree_unflatten(params, list(grads))
 
     def step_fn(params, opt, residual, tokens, frontend=None):
